@@ -1,0 +1,536 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases (any failure exits non-zero; nothing is caught and continued):
+
+1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+2. build the four kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, started together);
+3. hold every kernel against its plain PyTorch version on the card at the
+   main path's shapes (llama3-8b: C = 128 rows x 2 prefill spans, 8 decode
+   slots, 32/8 heads, head_dim 128, page size 4) and time kernel, plain
+   version and a library yardstick with CUDA events; then check a prefill,
+   a mixed and an all-decode step on the card against the same steps on
+   the CPU at a small size;
+4. serve llama3-8b at full width through the port's serve entry point
+   (seeded init, PTQ on the card, paged unified fused engine with the paged
+   attention kernel): 4 requests x 96 prompt tokens x 8 new tokens, with
+   every kernel's launch count read around that run;
+5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
+   ``{"ok": true, "device": {...}}``.
+
+Needs one CUDA card; exits non-zero without one or outside a checkout.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
+BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+
+# main-path shapes (configs/llama3_8b.py; PTQ picks num_hi = 4 on 128-token
+# calibration, so the serve path pages at block size 4)
+D, D_FF, HEADS, KV_HEADS, HD = 4096, 14336, 32, 8, 128
+C, SPANS, SLOTS, NUM_HI, BLOCK = 128, 2, 8, 4, 4
+STAMP = dict(transform="dwt", levels=3, skip_first=True, num_hi=NUM_HI,
+             hi_bits=8, lo_bits=4)
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed(torch, fn, iters: int = 10) -> float:
+    """Mean ms per call over ``iters`` calls after two warm-up calls."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def bound(nbytes: float, ops: float, rate: float) -> tuple:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def close_bf16(torch, got, ref) -> float:
+    """Max |got - ref| after checking every element within one bf16 step
+    (2^-7 relative) of the plain version's result, both written in bf16:
+    the f32 values agree to rounding, so a bf16 rounding boundary between
+    them moves one element by at most one step."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    check(bool(torch.isfinite(g).all()), "kernel output not finite")
+    check(bool((err <= 2 ** -7 * r.abs() + 1e-6).all()),
+          f"kernel disagrees with its plain version: max err "
+          f"{float(err.max())}")
+    return float(err.max())
+
+
+# --------------------------------------------------------------- phase 3 --
+
+
+def check_stamp(torch, sm, ops_mod, prepare_linear):
+    """K1 (codes exact) and K2 (one bf16 step) at the three prefill linear
+    sites of a layer, and their times."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = SPANS * C
+    sites = [("qkv", D, D + 2 * KV_HEADS * HD, False),
+             ("gate_up", D, D_FF, True), ("down", D_FF, D, False)]
+    k1, k2 = [], []
+    for name, k, n, dual in sites:
+        x = torch.randn((SPANS, C, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        w = [prepare_linear(torch.randn((k, n), generator=gen,
+                                        device="cuda") / math.sqrt(k))
+             for _ in range(2 if dual else 1)]
+        # K1: codes, scales and zero points exactly the plain version's
+        qx, sx, zx = sm.stamp_transform_quantize(x, **STAMP)
+        pq, ps, pz = sm.transform_quantize_plain(x, **STAMP)
+        check(torch.equal(qx, pq) and torch.equal(sx, ps) and
+              torch.equal(zx, pz), f"K1 codes differ at {name}")
+        ms1 = timed(torch, lambda: sm.stamp_transform_quantize(x, **STAMP))
+        pms1 = timed(torch, lambda: sm.transform_quantize_plain(x, **STAMP))
+        b1 = bound(rows * k * 2 + rows * k + rows * 8, 0, INT8_OPS_PER_S)
+        k1.append(dict(site=name, max_abs_err=0.0, ms=ms1, plain_ms=pms1,
+                       bound_ms=b1[0], bound_by=b1[1], library_ms=None))
+
+        wargs = [w[0].qw, w[0].sw, w[0].zw, w[0].qw_sum, None]
+        if dual:
+            wargs += [w[1].qw, w[1].sw, w[1].zw, w[1].qw_sum, None]
+        kw = dict(transform="dwt", levels=3, skip_first=True,
+                  out_dtype=torch.bfloat16)
+        y = sm.stamp_int_gemm(qx, sx, zx, C, *wargs, **kw)
+        yp = sm.int_gemm_plain(qx, sx, zx, C, *wargs, **kw)
+        err = close_bf16(torch, y, yp)
+        kw32 = dict(kw, out_dtype=torch.float32)
+        y32 = sm.stamp_int_gemm(qx, sx, zx, C, *wargs, **kw32)
+        yp32 = sm.int_gemm_plain(qx, sx, zx, C, *wargs, **kw32)
+        rel = float((y32 - yp32).abs().max() / yp32.abs().max())
+        check(rel <= 1e-5, f"K2 f32 output off by {rel} (relative) at {name}")
+        ms2 = timed(torch, lambda: sm.stamp_int_gemm(qx, sx, zx, C, *wargs,
+                                                     **kw))
+        pms2 = timed(torch, lambda: sm.int_gemm_plain(qx, sx, zx, C, *wargs,
+                                                      **kw), iters=3)
+        mats = [wi.qw for wi in w]
+        lib2 = timed(torch, lambda: [torch._int_mm(qx, m) for m in mats])
+        nw = len(w)
+        b2 = bound(rows * k + rows * 8 + nw * (k * n + 12 * n) + rows * n * 2,
+                   2 * rows * k * n * nw, INT8_OPS_PER_S)
+        k2.append(dict(site=name, max_abs_err=err, ms=ms2, plain_ms=pms2,
+                       bound_ms=b2[0], bound_by=b2[1], library_ms=lib2))
+        # the composed op the model calls is the same chain
+        yo = (ops_mod.stamp_quant_dual_matmul(x, *wargs[:4], *wargs[5:9],
+                                              **STAMP)
+              if dual else ops_mod.stamp_quant_matmul(x, *wargs[:4],
+                                                      **STAMP))
+        check(torch.equal(yo, y), f"ops chain differs from K1→K2 at {name}")
+    return k1, k2
+
+
+def check_decode(torch, dm, prepare_linear):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = []
+    for name, k, n in [("qkv", D, D + 2 * KV_HEADS * HD), ("gate", D, D_FF),
+                       ("down", D_FF, D)]:
+        x = torch.randn((SLOTS, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        p = prepare_linear(torch.randn((k, n), generator=gen, device="cuda")
+                           / math.sqrt(k))
+        w = (p.qw, p.sw, p.zw, p.qw_sum)
+        y = dm.stamp_decode_matmul(x, *w, out_dtype=torch.bfloat16)
+        yp = dm.decode_matmul_plain(x, *w, out_dtype=torch.bfloat16)
+        err = close_bf16(torch, y, yp)
+        y32 = dm.stamp_decode_matmul(x, *w)
+        yp32 = dm.decode_matmul_plain(x, *w)
+        rel = float((y32 - yp32).abs().max() / yp32.abs().max())
+        check(rel <= 1e-5, f"K3 f32 output off by {rel} at {name}")
+        ms = timed(torch, lambda: dm.stamp_decode_matmul(
+            x, *w, out_dtype=torch.bfloat16), iters=20)
+        pms = timed(torch, lambda: dm.decode_matmul_plain(
+            x, *w, out_dtype=torch.bfloat16), iters=5)
+        # torch._int_mm needs more than 16 rows: the 8 slots padded to 32
+        qx = torch.zeros((32, k), dtype=torch.int8, device="cuda")
+        lib = timed(torch, lambda: torch._int_mm(qx, p.qw), iters=20)
+        b = bound(SLOTS * k * 2 + k * n + 12 * n + SLOTS * n * 2,
+                  2 * SLOTS * k * n, INT8_OPS_PER_S)
+        out.append(dict(site=name, max_abs_err=err, ms=ms, plain_ms=pms,
+                        bound_ms=b[0], bound_by=b[1], library_ms=lib))
+    return out
+
+
+def _attention_case(torch, PKV, KV, n_pf: int, dtype):
+    """Pools holding random K/V for ``n_pf`` prefill spans (start 0, chunk
+    C, lengths 96..) and SLOTS decode spans (lengths 97..104), written
+    through ``write_ragged`` at page size 4."""
+    gen = torch.Generator(device="cuda").manual_seed(2 + n_pf)
+    quant = KV.KVCacheConfig(quantized=True, num_hi=NUM_HI)
+    lo_per_seq = -(-(C + 8 - NUM_HI) // BLOCK)
+    spans = n_pf + SLOTS
+    pcfg = PKV.PagedCacheConfig(block_size=BLOCK,
+                                num_lo_blocks=spans * lo_per_seq + 1,
+                                num_hi_blocks=spans + 1,
+                                max_blocks_per_seq=lo_per_seq, quant=quant)
+    entry = PKV.init_pools(KV_HEADS, HD, pcfg, device="cuda")
+    lengths = [96 + 4 * i for i in range(n_pf)] + \
+        [97 + j for j in range(SLOTS)]
+    ht = torch.zeros((spans, 1), dtype=torch.int32)
+    lt = torch.zeros((spans, lo_per_seq), dtype=torch.int32)
+    pages, offs, ishi, ks, vs = [], [], [], [], []
+    next_lo = 1
+    for i, length in enumerate(lengths):
+        ht[i, 0] = i + 1
+        n_lo = -(-(length - NUM_HI) // BLOCK)
+        lt[i, :n_lo] = torch.arange(next_lo, next_lo + n_lo)
+        next_lo += n_lo
+        for pos in range(length):
+            is_hi, idx, off = PKV.token_page_index(pos, pcfg)
+            pages.append(int(ht[i, 0]) if is_hi else int(lt[i, idx]))
+            offs.append(off)
+            ishi.append(is_hi)
+    t = len(pages)
+    k = torch.randn((t, KV_HEADS, HD), generator=gen, device="cuda")
+    v = torch.randn((t, KV_HEADS, HD), generator=gen, device="cuda")
+    PKV.write_ragged(entry, k.to(dtype), v.to(dtype),
+                     torch.tensor(pages, device="cuda"),
+                     torch.tensor(offs, device="cuda"),
+                     torch.tensor(ishi, device="cuda"), pcfg)
+    q_pf = torch.randn((n_pf, C, HEADS, HD), generator=gen, device="cuda",
+                       dtype=dtype)
+    q_dec = torch.randn((SLOTS, 1, HEADS, HD), generator=gen, device="cuda",
+                        dtype=dtype)
+    starts = torch.tensor([0] * n_pf + [l - 1 for l in lengths[n_pf:]],
+                          dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return entry, q_pf, q_dec, starts, lens, ht.cuda(), lt.cuda(), lengths
+
+
+def _attention_work(lengths, n_pf: int) -> tuple:
+    """Bytes the spans' pages hold up to each length (K and V codes plus f16
+    scale/zp), queries and outputs; and the flops the mask admits."""
+    nbytes, flops = 0, 0
+    per_tok_hi = KV_HEADS * (2 * HD + 8)          # k, v codes + 4 f16 params
+    per_tok_lo = KV_HEADS * (HD + 8)
+    for i, length in enumerate(lengths):
+        pages_tok = -(-length // BLOCK) * BLOCK
+        hi = min(pages_tok, NUM_HI)
+        nbytes += hi * per_tok_hi + (pages_tok - hi) * per_tok_lo
+        rows = C if i < n_pf else 1
+        nbytes += 2 * 2 * rows * HEADS * HD       # q in, out (bf16)
+        visible = sum(min(c + 1, length) for c in range(rows)) \
+            if i < n_pf else length
+        flops += 4 * HD * HEADS * visible
+    return nbytes, flops
+
+
+def check_attention(torch, pa, PKV, KV):
+    out = []
+    for name, n_pf in (("mixed", SPANS), ("all_decode", 0)):
+        entry, q_pf, q_dec, starts, lens, ht, lt, lengths = \
+            _attention_case(torch, PKV, KV, n_pf, torch.bfloat16)
+        args = (entry, q_pf, q_dec, starts, lens, ht, lt)
+        o_pf, o_dec = pa.paged_ragged_attention(*args, BLOCK)
+        p_pf, p_dec = pa.paged_attention_plain(*args, BLOCK)
+        err = close_bf16(torch, torch.cat([o_pf.flatten(), o_dec.flatten()]),
+                         torch.cat([p_pf.flatten(), p_dec.flatten()]))
+        f32 = (entry, q_pf.float(), q_dec.float(), starts, lens, ht, lt)
+        k32 = torch.cat([t.flatten() for t in
+                         pa.paged_ragged_attention(*f32, BLOCK)])
+        p32 = torch.cat([t.flatten() for t in
+                         pa.paged_attention_plain(*f32, BLOCK)])
+        abs32 = float((k32 - p32).abs().max())
+        check(abs32 <= 1e-4, f"K4 f32 output off by {abs32} ({name})")
+        ms = timed(torch, lambda: pa.paged_ragged_attention(*args, BLOCK),
+                   iters=20)
+        pms = timed(torch, lambda: pa.paged_attention_plain(*args, BLOCK),
+                    iters=3)
+        lib = timed(torch, _sdpa_yardstick(torch, args, n_pf), iters=20)
+        nbytes, flops = _attention_work(lengths, n_pf)
+        b = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        out.append(dict(site=name, max_abs_err=err, ms=ms, plain_ms=pms,
+                        bound_ms=b[0], bound_by=b[1], library_ms=lib))
+    return out
+
+
+def _sdpa_yardstick(torch, args, n_pf: int):
+    """One ``scaled_dot_product_attention`` call over the same spans with
+    K/V dequantized up front (bf16, padded to the longest span)."""
+    from repro_torch.kernels.ref import span_kv
+    entry, q_pf, q_dec, starts, lens, ht, lt = args
+    spans = lens.shape[0]
+    kvs = [span_kv(entry, ht[i], lt[i]) for i in range(spans)]
+    kv_len = max(k.shape[0] for k, _ in kvs)
+    rows = C if n_pf else 1
+    q = torch.zeros((spans, HEADS, rows, HD), dtype=torch.bfloat16,
+                    device="cuda")
+    k = torch.zeros((spans, KV_HEADS, kv_len, HD), dtype=torch.bfloat16,
+                    device="cuda")
+    v = torch.zeros_like(k)
+    mask = torch.zeros((spans, 1, rows, kv_len), dtype=torch.bool,
+                       device="cuda")
+    pos = torch.arange(kv_len, device="cuda")
+    for i, (kd, vd) in enumerate(kvs):
+        k[i, :, :kd.shape[0]] = kd.transpose(0, 1).to(torch.bfloat16)
+        v[i, :, :vd.shape[0]] = vd.transpose(0, 1).to(torch.bfloat16)
+        length = int(lens[i])
+        if i < n_pf:
+            q[i] = q_pf[i].transpose(0, 1)
+            qpos = int(starts[i]) + torch.arange(rows, device="cuda")
+        else:
+            q[i, :, :1] = q_dec[i - n_pf].transpose(0, 1)
+            qpos = torch.full((rows,), length - 1, device="cuda")
+        mask[i, 0] = (pos[None, :] <= qpos[:, None]) & (pos[None, :] < length)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline):
+    """The serve path's steps on the card (kernels) against the same steps
+    on the CPU (plain versions) at the reduced llama3-8b size.  Each device
+    fills its own pools over three steps, as the engine would: prefills of
+    requests 0 and 1; prefills of 2 and 3 beside decodes of 0 and 1 (a
+    mixed step); and decodes of all four (``n_pf = 0``, which runs
+    ``paged_decode_step``).  Prefill logits and the live decode slots'
+    logits agree within a bf16 tolerance of 5e-2."""
+    import dataclasses
+    from repro_torch.serving import paged_kvcache as PKV
+    cfg = cfg_mod.get_reduced("llama3-8b")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    calib = pipeline.calibration_batches(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=128, global_batch=4), 2)
+    sparams, serve, _ = ptq.calibrate_and_quantize(params, calib, cfg,
+                                                   device="cpu")
+    serve = dataclasses.replace(
+        serve, stamp=dataclasses.replace(serve.stamp, execution="fused"),
+        fused_cache_attention=True, fused_decode_matmul=True)
+    prepared = lm.prepare_fused_weights(sparams, serve.stamp)
+    bs, c_len, slots, per_seq = serve.kv.num_hi, 32, 4, 16
+    pcfg = PKV.PagedCacheConfig(block_size=bs,
+                                num_lo_blocks=1 + slots * per_seq,
+                                num_hi_blocks=1 + slots,
+                                max_blocks_per_seq=per_seq, quant=serve.kv)
+    serve = dataclasses.replace(serve, paged=pcfg)
+    prompt = [29, 32, 25, 31]
+    rng = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (slots, c_len + 2),
+                           generator=rng, dtype=torch.int32)
+    # request r sits in slot r and owns hi page r + 1 and lo pages
+    # 1 + 16 r .. 16 r + 16 (page 0 is the null page)
+    ht = torch.arange(1, slots + 1, dtype=torch.int32)[:, None]
+    lt = (1 + per_seq * torch.arange(slots, dtype=torch.int32)[:, None]
+          + torch.arange(per_seq, dtype=torch.int32))
+
+    def target(r, pos):
+        is_hi, idx, off = PKV.token_page_index(pos, pcfg)
+        return int(ht[r, idx]) if is_hi else int(lt[r, idx]), off, is_hi
+
+    def step(pf: list, dec: dict) -> dict:
+        """Prefill requests ``pf`` from position 0; decode slot ``s`` at
+        position ``dec[s]``; other slots are null-page dummies."""
+        writes = [target(r, pos) if pos < prompt[r] else (0, 0, False)
+                  for r in pf for pos in range(c_len)]
+        writes += [target(s, dec[s]) if s in dec else (0, 0, False)
+                   for s in range(slots)]
+        pf_tokens = torch.zeros((len(pf), c_len), dtype=torch.int32)
+        for i, r in enumerate(pf):
+            pf_tokens[i, :prompt[r]] = tokens[r, :prompt[r]]
+        live = torch.tensor([s in dec for s in range(slots)])
+        return dict(
+            pf_tokens=pf_tokens,
+            pf_start=torch.zeros(len(pf), dtype=torch.int32),
+            pf_length=torch.tensor([prompt[r] for r in pf],
+                                   dtype=torch.int32),
+            pf_last_index=torch.tensor([prompt[r] - 1 for r in pf],
+                                       dtype=torch.int32),
+            dec_tokens=torch.stack([tokens[s, dec.get(s, 0)]
+                                    for s in range(slots)]) * live,
+            dec_positions=torch.tensor([dec.get(s, 0) for s in range(slots)],
+                                       dtype=torch.int32),
+            hi_table=torch.cat([ht[pf], ht * live[:, None]]),
+            lo_table=torch.cat([lt[pf], lt * live[:, None]]),
+            pages=torch.tensor([w[0] for w in writes], dtype=torch.int32),
+            offsets=torch.tensor([w[1] for w in writes], dtype=torch.int32),
+            is_hi=torch.tensor([w[2] for w in writes]))
+
+    plan = [step([0, 1], {}),
+            step([2, 3], {0: prompt[0], 1: prompt[1]}),
+            step([], {s: prompt[s] + (s < 2) for s in range(slots)})]
+
+    def run(device):
+        def mv(x):
+            if isinstance(x, dict):
+                return {k: mv(v) for k, v in x.items()}
+            if isinstance(x, list):
+                return [mv(v) for v in x]
+            return x.to(device)
+        params, pools, out = mv(prepared), lm.init_paged_cache(
+            cfg, pcfg, device=device), []
+        for inputs in plan:
+            pf, dec, pools = lm.paged_unified_step(
+                params, pools, **mv(inputs), cfg=cfg, serve=serve)
+            live = inputs["hi_table"][len(inputs["pf_tokens"]):, 0] > 0
+            out.append(torch.cat([pf.cpu(), dec.cpu()[live]]))
+        return out
+
+    errs = []
+    for n, (ref, got) in enumerate(zip(run("cpu"), run("cuda"))):
+        check(got.shape == ref.shape and got.shape[0] == (2, 4, 4)[n],
+              f"step {n}: {tuple(got.shape)} logit rows")
+        check(bool(torch.isfinite(got).all()),
+              f"step {n}: logits on the card not finite")
+        errs.append(float((got - ref).abs().max()))
+        check(errs[-1] <= 5e-2, f"step {n} on the card is {errs[-1]} away "
+                                f"from the same step on the CPU")
+    return errs
+
+
+# --------------------------------------------------------------- main -----
+
+
+def main() -> None:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail("run from the root of a checkout: src/repro_torch is missing")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    smi = nvidia_smi()
+    print(smi)
+    print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    logs = kcuda.build(verbose=True)
+    print(f"[chip_smoke] built {sorted(logs) or 'nothing (cached)'} in "
+          f"{time.perf_counter() - t0:.1f}s")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas:{name}] {line.strip()}")
+
+    from repro_torch.core.stamp import prepare_linear
+    from repro_torch.kernels import decode_matmul as dm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import stamp_matmul as sm
+    from repro_torch.serving import kvcache as KV
+    from repro_torch.serving import paged_kvcache as PKV
+    with torch.inference_mode():
+        k1, k2 = check_stamp(torch, sm, ops, prepare_linear)
+        k3 = check_decode(torch, dm, prepare_linear)
+        k4 = check_attention(torch, pa, PKV, KV)
+    for rows in (k1, k2, k3, k4):
+        for r in rows:
+            print(f"[kernel] {json.dumps(r)}")
+
+    from repro_torch import configs
+    from repro_torch.core import ptq
+    from repro_torch.data import pipeline
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    with torch.inference_mode():
+        step_errs = check_step_against_cpu(torch, lm, configs, ptq, pipeline)
+    print(f"[chip_smoke] steps card vs CPU (prefill, mixed, all-decode): "
+          f"max |logit diff| {step_errs} (bound 5e-2)")
+
+    argv = ["--arch", "llama3-8b", "--engine", "paged", "--step-mode",
+            "unified", "--execution", "fused", "--fused-cache-attention",
+            "--device", "cuda", "--requests", "4", "--prompt-len", "96",
+            "--max-new", "8"]
+    sargs = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, cfg, report = serve.build(sargs)
+    setup_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    res = serve.serve_requests(engine, cfg, sargs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[serve] llama3-8b layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"num_hi={report.num_hi} setup={setup_s:.1f}s "
+          f"requests={res['requests']} tokens={res['tokens']} "
+          f"seconds={res['seconds']:.3f} tok/s={res['tokens_per_s']:.2f} "
+          f"ttft_p50={res['ttft_p50_s']:.3f}s steps={res['steps']} "
+          f"peak_mem={peak_gb:.2f}GiB launches={json.dumps(counts)}")
+    print(f"[serve] stats {json.dumps(res['stats'])}")
+    check(res["requests"] == 4 and all(len(t) == 8 for t in
+                                       res["outputs"].values()),
+          "serve phase did not finish 4 requests x 8 tokens")
+    check(all(0 <= t < cfg.vocab_size for toks in res["outputs"].values()
+              for t in toks), "token ids outside the vocabulary")
+    check(res["stats"]["nonfinite_logit_rows"] == 0,
+          "non-finite logits in the serve phase")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched by the main path")
+
+    def entry(name, source, replaces, rows):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": rows[0]["bound_by"],
+                "library_ms": (None if rows[0]["library_ms"] is None
+                               else sum(r["library_ms"] for r in rows)),
+                "per_shape": rows}
+
+    src = "src/repro_torch/csrc/"
+    # K1 and K2 each do one half of both Pallas kernels: K1 the transform
+    # and quantize of the single and the dual matmul, K2 both GEMM modes
+    stamp_rows = ("src/repro/kernels/stamp_matmul.py:222, "
+                  "src/repro/kernels/stamp_matmul.py:276")
+    kernels = [
+        entry("stamp_transform_quantize", src + "stamp_matmul.cu",
+              stamp_rows, k1),
+        entry("stamp_int_gemm", src + "stamp_matmul.cu", stamp_rows, k2),
+        entry("stamp_decode_matmul", src + "decode_matmul.cu",
+              "src/repro/kernels/decode_matmul.py:72", k3),
+        entry("paged_ragged_attention", src + "paged_attention.cu",
+              "src/repro/kernels/paged_attention.py:311", k4[:1]),
+    ]
+    kernels[-1]["per_shape"] = k4
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,28 @@
+"""Architecture registry of the port: ``get_config(arch)`` and
+``get_reduced(arch)``.  Only the dense llama3-8b is ported so far."""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ("llama3_8b",)
+
+_ALIASES = {"llama3-8b": "llama3_8b"}
+
+
+def canonical(arch: str) -> str:
+    name = _ALIASES.get(arch, arch)
+    if name not in ARCHS:
+        raise ValueError(f"unknown or unported architecture {arch!r} "
+                         f"(ported: {', '.join(ARCHS)})")
+    return name
+
+
+def get_config(arch: str):
+    return importlib.import_module(f"repro_torch.configs.{canonical(arch)}"
+                                   ).CONFIG
+
+
+def get_reduced(arch: str):
+    return importlib.import_module(f"repro_torch.configs.{canonical(arch)}"
+                                   ).reduced()

@@ -1,0 +1,70 @@
+"""Public entry points of the port's kernels (the twin of
+``repro.kernels.ops``).  The fused STaMP linears are the K1 → K2 chain;
+every wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
+PyTorch version for a CPU tensor."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_matmul import stamp_decode_matmul
+from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.kernels.stamp_matmul import (stamp_int_gemm,
+                                              stamp_transform_quantize)
+
+#: every kernel wrapper of the main path; each carries a ``launches`` count
+KERNELS = (stamp_transform_quantize, stamp_int_gemm, stamp_decode_matmul,
+           paged_ragged_attention)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def _quantize(x, transform, levels, skip_first, num_hi, hi_bits, lo_bits):
+    return stamp_transform_quantize(
+        x.contiguous(), transform=transform, levels=levels,
+        skip_first=skip_first, num_hi=num_hi, hi_bits=hi_bits,
+        lo_bits=lo_bits)
+
+
+def stamp_quant_matmul(x: torch.Tensor, qw, sw, zw, qw_sum,
+                       bias: Optional[torch.Tensor] = None, *,
+                       transform: str = "dwt", levels: int = 3,
+                       skip_first: bool = True, num_hi: int = 64,
+                       hi_bits: int = 8, lo_bits: int = 4,
+                       out_dtype=None) -> torch.Tensor:
+    """Fused STaMP linear ``L⁻¹(Q(L·x)·W) + bias``: x (b, s, K) → (b, s,
+    N); ``qw`` (K, N) int8, ``sw/zw`` (1, N) f32, ``qw_sum`` (1, N) int32
+    (``PreparedLinear``'s buffers)."""
+    qx, sx, zx = _quantize(x, transform, levels, skip_first, num_hi,
+                           hi_bits, lo_bits)
+    return stamp_int_gemm(qx, sx, zx, x.shape[1], qw, sw, zw, qw_sum, bias,
+                          transform=transform, levels=levels,
+                          skip_first=skip_first,
+                          out_dtype=out_dtype or x.dtype)
+
+
+def stamp_quant_dual_matmul(x: torch.Tensor, qw_g, sw_g, zw_g, qw_sum_g,
+                            qw_u, sw_u, zw_u, qw_sum_u, bias_g=None,
+                            bias_u=None, *, transform: str = "dwt",
+                            levels: int = 3, skip_first: bool = True,
+                            num_hi: int = 64, hi_bits: int = 8,
+                            lo_bits: int = 4,
+                            out_dtype=None) -> torch.Tensor:
+    """Fused gate/up pair: ONE quantize of ``x`` feeds both GEMMs and the
+    epilogue returns ``silu(g)·u``."""
+    qx, sx, zx = _quantize(x, transform, levels, skip_first, num_hi,
+                           hi_bits, lo_bits)
+    return stamp_int_gemm(qx, sx, zx, x.shape[1], qw_g, sw_g, zw_g, qw_sum_g,
+                          bias_g, qw_u, sw_u, zw_u, qw_sum_u, bias_u,
+                          transform=transform, levels=levels,
+                          skip_first=skip_first,
+                          out_dtype=out_dtype or x.dtype)

@@ -1,0 +1,159 @@
+"""Paged mixed-precision attention: K4 ``paged_ragged_attention`` (CUDA
+source: ``csrc/paged_attention.cu``).
+
+Replaces ``paged_ragged_attention`` and ``paged_decode_attention``
+(``src/repro/kernels/paged_attention.py``): one launch walks the block
+tables of ``n_pf`` prefill-chunk spans followed by ``S`` decode spans,
+dequantizes the int8 hi pages and int4-nibble lo pages (f16 scale / zero
+point), and applies the unified mask ``kv_pos <= q_pos AND kv_pos <
+length``.  An all-decode step is the ``n_pf = 0`` case of the same kernel,
+as the reference runs it.  Prefill spans attend to their own chunk through
+the pages the step has just written (``write_ragged`` runs first).
+
+Bound on the H100: bytes of the pages each span's length needs; this first
+version walks pages in a loop per block and is latency-bound at small page
+sizes (see the source note).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import cuda
+from repro_torch.serving import kvcache as KV
+
+_POOL_KEYS = ("k_hi", "v_hi", "k_hi_scale", "k_hi_zp", "v_hi_scale",
+              "v_hi_zp", "k_lo", "v_lo", "k_lo_scale", "k_lo_zp",
+              "v_lo_scale", "v_lo_zp")
+_HEAD_DIMS = (16, 32, 64, 128)
+
+_SIGNATURES = {"paged_attention": [
+    cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
+    cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
+    *([cuda.VP] * 12), cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.FLT,
+    cuda.VP, cuda.VP, cuda.VP]}
+
+
+def _page(entry: dict, name: str, region: str, pages: torch.Tensor):
+    """Dequantized f32 ``(spans, g, bs, hd)`` K or V of one page per span."""
+    codes = entry[f"{name}_{region}"][pages]
+    vals = codes.float() if region == "hi" else KV.unpack_nibbles(codes)
+    out = KV.dequant_tokens(vals, entry[f"{name}_{region}_scale"][pages],
+                            entry[f"{name}_{region}_zp"][pages],
+                            torch.float32)
+    return out.transpose(1, 2)
+
+
+def _walk(entry, q, qpos, lengths, hi_table, lo_table, bs: int):
+    """Online softmax over every logical block of each span's tables, one
+    page at a time, in the Pallas kernel's order: block scores, block max,
+    ``exp``, block sums, then the merge ``l·c_prev + l_blk·c_blk``.
+    ``q``: (spans, g, rows, hd) f32, pre-scaled; ``qpos``: (spans, rows)."""
+    nh, nl = hi_table.shape[1], lo_table.shape[1]
+    spans, g, rows, hd = q.shape
+    m = q.new_full((spans, g, rows), -1e30)
+    l = q.new_zeros((spans, g, rows))
+    o = q.new_zeros((spans, g, rows, hd))
+    ar = torch.arange(bs, device=q.device)
+    for blk in range(nh + nl):
+        hi = blk < nh
+        region = "hi" if hi else "lo"
+        pages = (hi_table[:, blk] if hi else lo_table[:, blk - nh]).long()
+        pos = (blk * bs if hi else nh * bs + (blk - nh) * bs) + ar
+        k_pg, v_pg = (_page(entry, n, region, pages) for n in ("k", "v"))
+        mask = (pos[None, None, :] <= qpos[:, :, None]) & \
+            (pos[None, None, :] < lengths[:, None, None])      # (spans,r,bs)
+        sc = torch.where(mask[:, None], q @ k_pg.transpose(-1, -2), -1e30)
+        m_blk = sc.amax(dim=-1)
+        p = torch.exp(sc - m_blk[..., None])
+        l_blk = p.sum(dim=-1)
+        o_blk = p @ v_pg
+        m_new = torch.maximum(m, m_blk)
+        c_prev = torch.exp(m - m_new)
+        c_blk = torch.exp(m_blk - m_new)
+        l = l * c_prev + l_blk * c_blk
+        o = o * c_prev[..., None] + o_blk * c_blk[..., None]
+        m = m_new
+    return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def paged_attention_plain(entry, q_pf, q_dec, q_starts, lengths, hi_table,
+                          lo_table, block_size: int) -> tuple:
+    """Plain version of K4: the page walk of the Pallas kernel (every
+    logical block of the tables, masked, merged by online softmax), with
+    the prefill spans' ``C·rep`` query rows and the decode spans' ``rep``
+    rows batched per kv head.  ``n_pf`` may be 0.  Outputs keep ``q``'s
+    dtype."""
+    n_pf, c_len, h, hd = q_pf.shape
+    s_slots = q_dec.shape[0]
+    g = entry["k_lo"].shape[2]
+    rep = h // g
+    scale = 1.0 / math.sqrt(hd)
+    lengths = lengths.to(q_dec.device)
+    q_starts = q_starts.to(q_dec.device)
+    out_pf = q_pf
+    if n_pf:
+        qg = (q_pf.float() * scale).reshape(n_pf, c_len, g, rep, hd) \
+            .transpose(1, 2).reshape(n_pf, g, c_len * rep, hd)
+        row = torch.arange(c_len * rep, device=q_pf.device) // rep
+        o = _walk(entry, qg, q_starts[:n_pf, None] + row[None, :],
+                  lengths[:n_pf], hi_table[:n_pf], lo_table[:n_pf],
+                  block_size)
+        out_pf = o.reshape(n_pf, g, c_len, rep, hd).transpose(1, 2) \
+            .reshape(n_pf, c_len, h, hd).to(q_pf.dtype)
+    qd = (q_dec.float() * scale).reshape(s_slots, g, rep, hd)
+    dec_len = lengths[n_pf:]
+    o = _walk(entry, qd, (dec_len - 1)[:, None].expand(s_slots, rep),
+              dec_len, hi_table[n_pf:], lo_table[n_pf:], block_size)
+    return out_pf, o.reshape(s_slots, 1, h, hd).to(q_dec.dtype)
+
+
+def paged_ragged_attention(entry: dict, q_pf: torch.Tensor,
+                           q_dec: torch.Tensor, q_starts: torch.Tensor,
+                           lengths: torch.Tensor, hi_table: torch.Tensor,
+                           lo_table: torch.Tensor, block_size: int) -> tuple:
+    """K4.  ``entry``: one layer's pools (k_hi (NH, bs, g, hd) int8, k_lo
+    (NL, bs, g, hd/2) uint8, ``*_scale``/``*_zp`` (N, bs, g) f16);
+    ``q_pf``: (n_pf, C, h, hd); ``q_dec``: (S, 1, h, hd); ``q_starts`` /
+    ``lengths``: (n_pf+S,) int32; ``hi_table`` (n_pf+S, nh) and
+    ``lo_table`` (n_pf+S, nl) int32, unmapped blocks 0 (the null page).
+    Returns ``(out_pf, out_dec)`` in ``q``'s dtype."""
+    if q_dec.shape[0] < 1:
+        raise ValueError("the unified step always carries the decode slots")
+    if q_dec.device.type == "cpu":
+        return paged_attention_plain(entry, q_pf, q_dec, q_starts, lengths,
+                                     hi_table, lo_table, block_size)
+    q_pf, q_dec = q_pf.contiguous(), q_dec.contiguous()
+    n_pf, c_len, h, hd = q_pf.shape
+    s_slots = q_dec.shape[0]
+    g = entry["k_lo"].shape[2]
+    bs = block_size
+    nh, nl = hi_table.shape[1], lo_table.shape[1]
+    if hd not in _HEAD_DIMS or h % g or 2 * bs * hd * 4 > 48 * 1024:
+        raise ValueError(f"K4 takes head_dim in {_HEAD_DIMS}, whole GQA "
+                         f"groups and 2·bs·hd·4 <= 48 KiB; got hd={hd}, "
+                         f"h={h}, g={g}, bs={bs}")
+    if q_pf.dtype not in (torch.bfloat16, torch.float32) or \
+            q_dec.dtype != q_pf.dtype:
+        raise ValueError("K4 takes bf16 or f32 queries of one dtype")
+    ints = [t.to(torch.int32).contiguous()
+            for t in (hi_table, lo_table, lengths, q_starts)]
+    pools = [entry[k] for k in _POOL_KEYS]
+    cuda.require_cuda(q_pf, q_dec, *pools, *ints)
+    out_pf = torch.empty_like(q_pf)
+    out_dec = torch.empty_like(q_dec)
+    lib = cuda.library("paged_attention", _SIGNATURES)
+    err = lib.paged_attention(
+        q_pf.data_ptr(), q_dec.data_ptr(), int(q_pf.dtype == torch.bfloat16),
+        n_pf, s_slots, c_len, h, g, hd, bs, nh, nl,
+        *(t.data_ptr() for t in pools), *(t.data_ptr() for t in ints),
+        1.0 / math.sqrt(hd), out_pf.data_ptr(), out_dec.data_ptr(),
+        cuda.stream_ptr(q_dec))
+    cuda.check(err, "paged_attention")
+    paged_ragged_attention.launches += 1
+    return out_pf, out_dec
+
+
+paged_ragged_attention.launches = 0

@@ -1,0 +1,143 @@
+"""Unfused oracles of the main path's kernels — the counterparts of
+``repro.kernels.ref``: each runs the reference execution path as separate
+PyTorch ops (float fake-quant and dequantized weights for the linears, a
+dense direct softmax for attention).  The kernels' plain versions, beside
+them in their modules, repeat the kernels' own arithmetic instead."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core import quant as Q
+from repro_torch.core import transforms as T
+from repro_torch.kernels.decode_matmul import row_quantize8
+from repro_torch.kernels.stamp_matmul import silu
+from repro_torch.serving import kvcache as KV
+
+
+def _fake_quant_transformed(x, transform, levels, skip_first, num_hi,
+                            hi_bits, lo_bits):
+    if x.ndim == 4:
+        x = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    tx = T.sequence_transform(x.float(), transform, axis=-2, levels=levels,
+                              skip_first=skip_first)
+    bits = Q.mixed_precision_bits(tx.shape[-2], num_hi, hi_bits, lo_bits,
+                                  device=x.device)
+    return Q.fake_quant(tx, bits, axis=-1)
+
+
+def _dequant_w(qw, sw, zw):
+    return (qw.float() - zw) * sw
+
+
+def stamp_quant_matmul_ref(x, qw, sw, zw, bias=None, *, transform="dwt",
+                           levels=3, skip_first=True, num_hi=64, hi_bits=8,
+                           lo_bits=4, out_dtype=torch.float32):
+    """transform → mixed-precision fake quant → dequantized matmul →
+    inverse transform → bias."""
+    tq = _fake_quant_transformed(x, transform, levels, skip_first, num_hi,
+                                 hi_bits, lo_bits)
+    y = T.inverse_sequence_transform(tq @ _dequant_w(qw, sw, zw), transform,
+                                     axis=-2, levels=levels,
+                                     skip_first=skip_first)
+    if bias is not None:
+        y = y + bias.reshape(1, -1).float()
+    return y.to(out_dtype)
+
+
+def stamp_quant_dual_matmul_ref(x, qw_g, sw_g, zw_g, qw_u, sw_u, zw_u,
+                                bias_g=None, bias_u=None, *, transform="dwt",
+                                levels=3, skip_first=True, num_hi=64,
+                                hi_bits=8, lo_bits=4,
+                                out_dtype=torch.float32):
+    """ONE shared fake quant, two dequantized matmuls, per-output inverse
+    transforms, then ``silu(g)·u`` in the token domain."""
+    tq = _fake_quant_transformed(x, transform, levels, skip_first, num_hi,
+                                 hi_bits, lo_bits)
+
+    def one(qw, sw, zw, bias):
+        y = T.inverse_sequence_transform(tq @ _dequant_w(qw, sw, zw),
+                                         transform, axis=-2, levels=levels,
+                                         skip_first=skip_first)
+        return y if bias is None else y + bias.reshape(1, -1).float()
+
+    g = one(qw_g, sw_g, zw_g, bias_g)
+    u = one(qw_u, sw_u, zw_u, bias_u)
+    return (silu(g) * u).to(out_dtype)
+
+
+def stamp_decode_matmul_ref(x, qw, sw, zw, bias=None,
+                            out_dtype=torch.float32):
+    """Per-row 8-bit fake quant, then a dequantized-weight matmul."""
+    q, sx, zx = row_quantize8(x)
+    xq = (q.float() - zx[:, None]) * sx[:, None]
+    y = xq @ _dequant_w(qw, sw, zw)
+    if bias is not None:
+        y = y + bias.reshape(1, -1).float()
+    return y.to(out_dtype)
+
+
+def span_kv(entry: dict, row_hi: torch.Tensor, row_lo: torch.Tensor):
+    """Dequantized (n_tok, g, hd) f32 K and V of one span's mapped pages,
+    hi region then lo region."""
+    pair = []
+    for name in ("k", "v"):
+        parts = []
+        for region, row in (("hi", row_hi), ("lo", row_lo)):
+            if row.shape[0] == 0:
+                continue
+            codes = entry[f"{name}_{region}"][row.long()].flatten(0, 1)
+            sc = entry[f"{name}_{region}_scale"][row.long()].flatten(0, 1)
+            zp = entry[f"{name}_{region}_zp"][row.long()].flatten(0, 1)
+            vals = codes.float() if region == "hi" \
+                else KV.unpack_nibbles(codes)
+            parts.append(KV.dequant_tokens(vals, sc, zp, torch.float32))
+        pair.append(torch.cat(parts, dim=0))
+    return pair
+
+
+def _attend(q_rows, qpos, kd, vd, length):
+    """Direct masked softmax of (r, h, hd) query rows at positions ``qpos``
+    against (n_tok, g, hd) keys/values."""
+    r, h, hd = q_rows.shape
+    g = kd.shape[1]
+    kv_pos = torch.arange(kd.shape[0], device=kd.device)
+    qg = q_rows.reshape(r, g, h // g, hd).float() * (1.0 / math.sqrt(hd))
+    sc = torch.einsum("rgpd,sgd->rgps", qg, kd)
+    mask = (kv_pos[None, :] <= qpos[:, None]) & (kv_pos[None, :] < length)
+    sc = torch.where(mask[:, None, None], sc, -1e30)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    o = torch.einsum("rgps,sgd->rgpd", p, vd)
+    l = p.sum(dim=-1, keepdim=True)
+    return (o / torch.clamp_min(l, 1e-30)).reshape(r, h, hd)
+
+
+def paged_ragged_attention_ref(entry, q_pf, q_dec, q_starts, lengths,
+                               hi_table, lo_table) -> tuple:
+    """Dense oracle of the unified step's attention: densify each span's
+    pages and take one direct masked softmax per query row (``kv_pos <=
+    q_pos AND kv_pos < length``).  ``n_pf`` may be 0."""
+    n_pf, c_len = q_pf.shape[:2]
+    starts, lens = q_starts.tolist(), lengths.tolist()
+    outs_pf = []
+    for i in range(n_pf):
+        kd, vd = span_kv(entry, hi_table[i], lo_table[i])
+        qpos = starts[i] + torch.arange(c_len, device=q_pf.device)
+        outs_pf.append(_attend(q_pf[i], qpos, kd, vd, lens[i]))
+    outs_dec = []
+    for j in range(q_dec.shape[0]):
+        i = n_pf + j
+        kd, vd = span_kv(entry, hi_table[i], lo_table[i])
+        qpos = torch.tensor([lens[i] - 1], device=q_dec.device)
+        outs_dec.append(_attend(q_dec[j], qpos, kd, vd, lens[i]))
+    out_pf = torch.stack(outs_pf).to(q_pf.dtype) if outs_pf else q_pf
+    return out_pf, torch.stack(outs_dec).to(q_dec.dtype)
+
+
+def paged_attention_ref(entry, q, lengths, hi_table, lo_table):
+    """Decode-only oracle: the ragged oracle with no prefill spans."""
+    q_pf = q.new_empty((0, 1, *q.shape[2:]))
+    return paged_ragged_attention_ref(entry, q_pf, q, lengths - 1, lengths,
+                                      hi_table, lo_table)[1]

@@ -1,0 +1,253 @@
+"""Fused STaMP prefill linears: K1 ``stamp_transform_quantize`` then K2
+``stamp_int_gemm`` (CUDA source: ``csrc/stamp_matmul.cu``).
+
+Replaces ``stamp_quant_matmul_pallas`` and ``stamp_quant_dual_matmul_pallas``
+(``src/repro/kernels/stamp_matmul.py``).  The TPU kernel holds the whole
+``(s, K)`` activation tile in VMEM; shared memory cannot (the down-proj's
+int8 codes alone are 1.8 MB at s = 128), so the chain is two launches: K1
+writes the int8 codes and per-token scale / zero point of every span, K2
+reads them with the int8 weights and keeps the int32 product, the epilogue,
+the inverse transform and the bias on chip for one whole span per block.
+
+Bound on the H100: K1 by bytes (it reads the activation twice: the min/max
+pass and the quantize pass recompute the transform instead of spilling f32),
+K2 by integer operations (dp4a on CUDA cores in this first version).  See the
+source note for the design.
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
+plain PyTorch version for a CPU tensor; ``launches`` counts kernel launches.
+The plain versions repeat the Pallas kernel's arithmetic: int32-exact
+integer product, f32 epilogue in the same order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core import quant as Q
+from repro_torch.core import transforms as T
+from repro_torch.kernels import cuda
+
+_KINDS = {"none": 0, "dwt": 1, "wht": 2}
+MAX_SPAN = 128        # rows K2 keeps on chip: one whole span per block
+
+_SIGNATURES = {
+    "stamp_transform_quantize": [
+        cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
+        cuda.INT, cuda.FLT, cuda.FLT, cuda.INT, cuda.FLT, cuda.FLT, cuda.VP,
+        cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP],
+    "stamp_int_gemm": [
+        cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
+        cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
+        cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.FLT,
+        cuda.FLT, cuda.VP, cuda.INT, cuda.VP],
+}
+
+
+def _lib():
+    return cuda.library("stamp_matmul", _SIGNATURES)
+
+
+def _transform_args(transform: str, levels: int, skip_first: bool,
+                    s: int) -> tuple:
+    if transform not in _KINDS:
+        raise ValueError(f"transform {transform!r} is not fusable "
+                         f"(expected one of {tuple(_KINDS)})")
+    p = T.largest_pow2(max(s - int(skip_first), 0))
+    return (_KINDS[transform], int(levels), int(skip_first),
+            Q.recip32(T.SQRT2), Q.recip32(math.sqrt(p)) if p else 1.0)
+
+
+def _n_levels(hi_bits: int, lo_bits: int) -> tuple[float, float]:
+    return 2.0 ** hi_bits - 1.0, 2.0 ** lo_bits - 1.0
+
+
+# --------------------------------------------------------------------- K1 --
+
+
+def transform_quantize_plain(x: torch.Tensor, *, transform: str,
+                             levels: int, skip_first: bool, num_hi: int,
+                             hi_bits: int, lo_bits: int) -> tuple:
+    """Plain version of K1 (the Pallas ``_transform_quantize``): per-span
+    sequence transform, then per-token min-max quantize with the first
+    ``num_hi`` rows at ``hi_bits``.  ``x``: (b, s, K).  Returns signed int8
+    codes (b·s, K) and f32 scale / shifted zero point (b·s,)."""
+    b, s, k = x.shape
+    tx = T.sequence_transform(x.float(), transform, axis=-2, levels=levels,
+                              skip_first=skip_first)
+    n_hi, n_lo = _n_levels(hi_bits, lo_bits)
+    row = torch.arange(s, device=x.device)[:, None]
+    n_lev = torch.where(row < num_hi, n_hi, n_lo).float()
+    mn = tx.amin(dim=-1, keepdim=True)
+    mx = tx.amax(dim=-1, keepdim=True)
+    sx = torch.clamp_min((mx - mn) / n_lev, Q.EPS)
+    zx = torch.round(-mn / sx)
+    q = torch.minimum(torch.clamp_min(torch.round(tx / sx) + zx, 0.0), n_lev)
+    qx = (q - 128.0).to(torch.int8)
+    return qx.reshape(b * s, k), sx.reshape(b * s), (zx - 128.0).reshape(b * s)
+
+
+def stamp_transform_quantize(x: torch.Tensor, *, transform: str = "dwt",
+                             levels: int = 3, skip_first: bool = True,
+                             num_hi: int = 64, hi_bits: int = 8,
+                             lo_bits: int = 4) -> tuple:
+    """K1.  ``x``: (b, s, K) bf16 or f32 (a head-split out-proj input is
+    passed as its contiguous (b, s, nh·hd) view)."""
+    kw = dict(transform=transform, levels=levels, skip_first=skip_first,
+              num_hi=num_hi, hi_bits=hi_bits, lo_bits=lo_bits)
+    if x.device.type == "cpu":
+        return transform_quantize_plain(x, **kw)
+    cuda.require_cuda(x)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K1 takes bf16 or f32 activations, got {x.dtype}")
+    b, s, k = x.shape
+    nslab = -(-k // 32)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    pmin = torch.empty(b * s * nslab, **f32)
+    pmax = torch.empty(b * s * nslab, **f32)
+    qx = torch.empty((b * s, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty(b * s, **f32)
+    zx = torch.empty(b * s, **f32)
+    n_hi, n_lo = _n_levels(hi_bits, lo_bits)
+    err = _lib().stamp_transform_quantize(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), b, s, k,
+        *_transform_args(transform, levels, skip_first, s), num_hi, n_hi,
+        n_lo, pmin.data_ptr(), pmax.data_ptr(), qx.data_ptr(), sx.data_ptr(),
+        zx.data_ptr(), cuda.stream_ptr(x))
+    cuda.check(err, "stamp_transform_quantize")
+    stamp_transform_quantize.launches += 1
+    return qx, sx, zx
+
+
+stamp_transform_quantize.launches = 0
+
+
+# --------------------------------------------------------------------- K2 --
+
+
+def int_matmul(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 product with int32 results.  Computed in float64,
+    which holds every partial sum exactly (|Σ| <= 128²·K < 2^53), so it
+    equals int32 accumulation for any K < 2^17 (no int32 overflow either)
+    on every device — PyTorch has no integer matmul on CUDA."""
+    if qx.shape[-1] >= 1 << 17:
+        raise ValueError("K must stay below 2^17 for exact int32 results")
+    return (qx.double() @ qw.double()).to(torch.int32)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x · 1/(1 + exp(−x))`` in ``x``'s dtype, each step rounded to it:
+    ``jax.nn.silu`` as the reference compiles it (bit for bit in bf16)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def _epilogue(acc, sx, zx, sw, zw, qx_sum, qw_sum, k: int) -> torch.Tensor:
+    """``((acc - zx·Σqw) - zw·Σqx + (K·zx)·zw) · sx · sw`` in f32, the
+    Pallas kernels' order (the f32 cast of the int32 accumulator first)."""
+    zx, sx = zx[:, None], sx[:, None]
+    corr = acc.float() - zx * qw_sum.float() - zw * qx_sum[:, None].float() \
+        + float(k) * zx * zw
+    return corr * sx * sw
+
+
+def _gemm_one(qx, sx, zx, qw, sw, zw, qw_sum, bias, b: int, s: int,
+              inverse):
+    acc = int_matmul(qx, qw)
+    y = _epilogue(acc, sx, zx, sw.reshape(1, -1).float(),
+                  zw.reshape(1, -1).float(),
+                  qx.sum(dim=1, dtype=torch.int32), qw_sum.reshape(-1),
+                  qx.shape[1])
+    y = inverse(y.reshape(b, s, -1))
+    if bias is not None:
+        y = y + bias.reshape(1, -1).float()
+    return y
+
+
+def int_gemm_plain(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
+                   qw_up=None, sw_up=None, zw_up=None, qw_sum_up=None,
+                   bias_up=None, *, transform: str, levels: int,
+                   skip_first: bool,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K2: int32 product, zero-point epilogue, inverse
+    transform per span, bias; with ``qw_up`` the dual (gate, up) form
+    returns ``silu(g)·u``.  Returns (spans, span_len, N)."""
+    rows = qx.shape[0]
+    b, s = rows // span_len, span_len
+
+    def inverse(y):
+        return T.inverse_sequence_transform(y, transform, axis=-2,
+                                            levels=levels,
+                                            skip_first=skip_first)
+
+    y = _gemm_one(qx, sx, zx, qw, sw, zw, qw_sum, bias, b, s, inverse)
+    if qw_up is not None:
+        u = _gemm_one(qx, sx, zx, qw_up, sw_up, zw_up, qw_sum_up, bias_up, b,
+                      s, inverse)
+        y = silu(y) * u
+    return y.to(out_dtype)
+
+
+def _f32_vec(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.reshape(-1).float().contiguous()
+
+
+def _i32_vec(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    if t is not None and t.dtype != torch.int32:
+        raise ValueError(f"column sums must be int32, got {t.dtype}")
+    return None if t is None else t.reshape(-1).contiguous()
+
+
+def stamp_int_gemm(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
+                   qw_up=None, sw_up=None, zw_up=None, qw_sum_up=None,
+                   bias_up=None, *, transform: str = "dwt", levels: int = 3,
+                   skip_first: bool = True,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """K2 over K1's outputs.  ``qx``: (spans·span_len, K) int8 codes;
+    ``qw``: (K, N) int8; ``sw/zw``: (1, N) f32; ``qw_sum``: (1, N) int32
+    column sums of ``qw`` (``PreparedLinear.qw_sum``); with ``qw_up`` the
+    dual gate/up kernel returning ``silu(g)·u``.  Returns (spans, span_len,
+    N)."""
+    kw = dict(transform=transform, levels=levels, skip_first=skip_first,
+              out_dtype=out_dtype)
+    if qx.device.type == "cpu":
+        return int_gemm_plain(qx, sx, zx, span_len, qw, sw, zw, qw_sum, bias,
+                              qw_up, sw_up, zw_up, qw_sum_up, bias_up, **kw)
+    rows, k = qx.shape
+    n = qw.shape[1]
+    if span_len > MAX_SPAN:
+        raise ValueError(f"K2 keeps one span on chip: span_len {span_len} > "
+                         f"{MAX_SPAN}")
+    if k % 4 or n % 4 or qw.shape[0] != k:
+        raise ValueError(f"K2 needs K and N multiples of 4 and a (K, N) "
+                         f"weight; got qx {tuple(qx.shape)}, qw "
+                         f"{tuple(qw.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K2 writes bf16 or f32, not {out_dtype}")
+    dual = qw_up is not None
+    sw, zw, bias = _f32_vec(sw), _f32_vec(zw), _f32_vec(bias)
+    sw_up, zw_up, bias_up = _f32_vec(sw_up), _f32_vec(zw_up), \
+        _f32_vec(bias_up)
+    qw_sum, qw_sum_up = _i32_vec(qw_sum), _i32_vec(qw_sum_up)
+    cuda.require_cuda(qx, sx, zx, qw, sw, zw, qw_sum, bias, qw_up, sw_up,
+                      zw_up, qw_sum_up, bias_up)
+    if dual and (qw_up.shape != qw.shape or qw_sum_up is None):
+        raise ValueError("the dual GEMM needs an up weight of the gate's "
+                         "shape with its column sums")
+    b = rows // span_len
+    out = torch.empty((b, span_len, n), dtype=out_dtype, device=qx.device)
+    err = _lib().stamp_int_gemm(
+        qx.data_ptr(), sx.data_ptr(), zx.data_ptr(), b, span_len, k, n,
+        qw.data_ptr(), sw.data_ptr(), zw.data_ptr(), qw_sum.data_ptr(),
+        cuda.ptr(bias), cuda.ptr(qw_up), cuda.ptr(sw_up), cuda.ptr(zw_up),
+        cuda.ptr(qw_sum_up), cuda.ptr(bias_up),
+        *_transform_args(transform, levels, skip_first, span_len),
+        out.data_ptr(), int(out_dtype == torch.bfloat16), cuda.stream_ptr(qx))
+    cuda.check(err, "stamp_int_gemm")
+    stamp_int_gemm.launches += 1
+    return out
+
+
+stamp_int_gemm.launches = 0

@@ -1,0 +1,167 @@
+"""Model building blocks (the port of the dense-path pieces of
+``repro.models.layers``): RMSNorm, RoPE, the plain attention variants and
+the fused STaMP linear sites."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.stamp import (PreparedLinear, stamp_dual_linear,
+                                    stamp_linear)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """f32 statistics, scaling in ``x``'s dtype (as the reference)."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * gamma
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                            / head_dim)).astype(np.float32)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., s, h, hd); positions broadcastable to (..., s)."""
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(hd, theta)).to(x.device)
+    angles = positions[..., None].float() * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused STaMP linear sites (integer deployment path)
+# ---------------------------------------------------------------------------
+
+
+def _prepared(w: dict, b=None) -> PreparedLinear:
+    return PreparedLinear(qw=w["iq"], sw=w["isw"], zw=w["izw"],
+                          qw_sum=w["iqsum"], bias=b)
+
+
+def stamp_fused_linear(x: torch.Tensor, w: dict, b: Optional[torch.Tensor],
+                       stamp_cfg, merge_heads: bool = False) -> torch.Tensor:
+    """One STaMP linear over prepared int8 buffers ``{"iq", "isw",
+    "izw", "iqsum"}``; ``merge_heads`` marks the raw head-split out-proj
+    input."""
+    return stamp_linear(x, None, None, stamp_cfg, prepared=_prepared(w, b),
+                        merge_heads=merge_heads)
+
+
+def stamp_fused_dual_linear(x: torch.Tensor, w_gate: dict, w_up: dict,
+                            stamp_cfg) -> torch.Tensor:
+    """SwiGLU front half through one shared quantize and the dual GEMM."""
+    return stamp_dual_linear(x, None, None, stamp_cfg,
+                             prepared_gate=_prepared(w_gate),
+                             prepared_up=_prepared(w_up))
+
+
+# ---------------------------------------------------------------------------
+# attention (plain PyTorch, as the reference's are plain jnp)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal GQA attention in f32 (calibration's forward).  q: (b, sq, h,
+    hd); k/v: (b, skv, g, hd).  One masked softmax per row — what the
+    reference's chunked online softmax computes when a sequence fits one
+    2048-token chunk."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, g, h // g, hd).float() * (1.0 / np.sqrt(hd))
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float())
+    if causal:
+        mask = torch.arange(sq, device=q.device)[:, None] >= \
+            torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(mask, s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bgrqk,bkgd->bgrqd", p, v.float())
+    o = o / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _merge_parts(parts: list) -> tuple:
+    m_tot = parts[0][0]
+    for m, _, _ in parts[1:]:
+        m_tot = torch.maximum(m_tot, m)
+    l_tot = torch.zeros_like(m_tot)
+    o_tot = torch.zeros_like(parts[0][2])
+    for m, l, o in parts:
+        corr = torch.exp(m - m_tot)
+        l_tot = l_tot + l * corr
+        o_tot = o_tot + o * corr[..., None]
+    return o_tot, l_tot
+
+
+def decode_attention_segments(q: torch.Tensor, segments: list,
+                              length: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Decode attention over disjoint cache segments ``[(k, v, offset)]``
+    merged at the score level; bf16 operands with f32 products and sums (the
+    reference's ``preferred_element_type=f32``)."""
+    b, _, h, hd = q.shape
+    g = segments[0][0].shape[2]
+    rep = h // g
+    dt = segments[0][0].dtype
+    qg = (q.reshape(b, g, rep, hd) * (1.0 / math.sqrt(hd))).to(dt).float()
+    parts = []
+    for k_seg, v_seg, offset in segments:
+        sc = torch.einsum("bgrd,bsgd->bgrs", qg, k_seg.float())
+        if length is not None:
+            pos = offset + torch.arange(k_seg.shape[1], device=q.device)
+            sc = torch.where(pos[None, None, None, :] <
+                             length[:, None, None, None], sc, -1e30)
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m[..., None])
+        o = torch.einsum("bgrs,bsgd->bgrd", p.to(dt).float(), v_seg.float())
+        parts.append((m, p.sum(dim=-1), o))
+    o_tot, l_tot = _merge_parts(parts)
+    out = o_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def chunked_prefill_attention(q: torch.Tensor, segments: list,
+                              k_self: torch.Tensor, v_self: torch.Tensor,
+                              start: torch.Tensor) -> torch.Tensor:
+    """A prefill chunk at positions ``start + i`` attends to the cached
+    prefix (dequantized segments, ``kpos < start``) and causally to its own
+    raw K/V, merged by online softmax; ``start`` is (b,) per chunk row."""
+    b, c, h, hd = q.shape
+    g = k_self.shape[2]
+    rep = h // g
+    qg = q.reshape(b, c, g, rep, hd).float() * (1.0 / math.sqrt(hd))
+    start = start.to(torch.int32).reshape(-1).expand(b)
+    ar = torch.arange(c, device=q.device)
+    qpos = start[:, None] + ar[None, :]
+    parts = []
+
+    def score_part(k_seg, v_seg, mask):        # mask: (b, c, s_seg)
+        sc = torch.einsum("bcgrd,bsgd->bgrcs", qg, k_seg.float())
+        sc = torch.where(mask[:, None, None], sc, -1e30)
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m[..., None])
+        o = torch.einsum("bgrcs,bsgd->bgrcd", p, v_seg.float())
+        parts.append((m, p.sum(dim=-1), o))
+
+    for k_seg, v_seg, offset in segments:
+        kpos = offset + torch.arange(k_seg.shape[1], device=q.device)
+        score_part(k_seg, v_seg, (kpos[None, None, :] <
+                                  start[:, None, None]).expand(
+                                      b, c, k_seg.shape[1]))
+    kpos_self = start[:, None] + torch.arange(k_self.shape[1],
+                                              device=q.device)
+    score_part(k_self, v_self, kpos_self[:, None, :] <= qpos[:, :, None])
+    o_tot, l_tot = _merge_parts(parts)
+    out = o_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, c, h, hd).to(q.dtype)

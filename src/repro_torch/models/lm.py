@@ -1,0 +1,477 @@
+"""Dense GQA decoder: calibration forward, and the paged serving steps of
+the unified engine (the port of the dense path of ``repro.models.lm``).
+
+Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
+``head`` (absent when tied) and ``layers`` — one dict per layer (the
+reference's scanned ``period`` stack unrolled).  Stored f32 and cast to
+bf16 at use; serving params hold packed-int4 or prepared-int8 dicts for the
+large matmuls.
+
+Kernel routing is explicit: the serve config carries
+``fused_cache_attention`` and ``fused_decode_matmul`` into every step, and
+a linear takes the decode kernel only for decode-shaped ``(S, 1, d)`` input
+over prepared weights — chunk rows never do, so prefill always runs the
+STaMP transform.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.stamp import (StampConfig, fused_eligible,
+                                    prepare_linear, stamp_fake_quant)
+from repro_torch.core.quant import EPS, fdiv
+from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_matmul import stamp_decode_matmul
+from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.kernels.stamp_matmul import silu
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving import kvcache as KV
+from repro_torch.serving import paged_kvcache as PKV
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Inference-time quantization (the paper's W4A4KV4) and the kernel
+    routing of the serving steps."""
+
+    stamp: Optional[StampConfig] = None          # activation STaMP (prefill)
+    kv: KV.KVCacheConfig = KV.KVCacheConfig()
+    weight_bits: Optional[int] = None            # 4 => packed-int4 weights
+    fused_cache_attention: bool = False          # paged attention kernel
+    fused_decode_matmul: bool = False            # single-token int8 kernel
+    paged: Optional[PKV.PagedCacheConfig] = None
+
+
+# ---------------------------------------------------------------------------
+# init and weight conversion
+# ---------------------------------------------------------------------------
+
+
+def _dense(gen, din, dout, device, std=None):
+    std = std if std is not None else 1.0 / np.sqrt(din)
+    return torch.randn((din, dout), generator=gen, device=device) * std
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random f32 parameters from ``seed`` (a ``torch.Generator`` on the
+    target device), with the reference's shapes and scales.  Runs on
+    ``cuda`` unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    cfg.layer_plan()                 # dense stacks only
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d = cfg.d_model
+    params = {
+        "embed": torch.randn((cfg.padded_vocab, d), generator=gen,
+                             device=dev) * 0.02,
+        "final_norm": torch.ones(d, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = _dense(gen, d, cfg.padded_vocab, dev)
+    layers = []
+    for _ in range(cfg.num_layers):
+        p = {"ln1": torch.ones(d, device=dev),
+             "wq": _dense(gen, d, cfg.q_dim, dev),
+             "wk": _dense(gen, d, cfg.kv_dim, dev),
+             "wv": _dense(gen, d, cfg.kv_dim, dev),
+             "wo": _dense(gen, cfg.q_dim, d, dev)}
+        if cfg.qkv_bias:
+            p["bq"] = torch.zeros(cfg.q_dim, device=dev)
+            p["bk"] = torch.zeros(cfg.kv_dim, device=dev)
+            p["bv"] = torch.zeros(cfg.kv_dim, device=dev)
+        p["ln2"] = torch.ones(d, device=dev)
+        p["wi_gate"] = _dense(gen, d, cfg.d_ff, dev)
+        p["wi_up"] = _dense(gen, d, cfg.d_ff, dev)
+        p["wo_mlp"] = _dense(gen, cfg.d_ff, d, dev)
+        layers.append(p)
+    params["layers"] = layers
+    return params
+
+
+def from_jax_params(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
+    """The reference's ``init_params`` pytree, given as numpy arrays, as
+    the port's params: the stacked ``period`` axis unrolls into
+    ``layers``; ``head`` is kept when present (tied models read
+    ``embed.T`` at use, as the reference's ``_head_weight`` does)."""
+    _, period, nper = cfg.layer_plan()
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    params = {k: t(tree[k]) for k in ("embed", "final_norm", "head")
+              if k in tree}
+    params["layers"] = [
+        {k: t(np.asarray(v)[i]) for k, v in tree["period"][j].items()}
+        for i in range(nper) for j in range(len(period))]
+    return params
+
+
+def _head_weight(params: dict) -> torch.Tensor:
+    return params["head"] if "head" in params else params["embed"].T
+
+
+# ---------------------------------------------------------------------------
+# (possibly quantized) linears and weight preparation
+# ---------------------------------------------------------------------------
+
+
+def _dequant_packed(w: dict, dtype) -> torch.Tensor:
+    q = KV.unpack_nibbles(w["q"].transpose(-1, -2)).to(dtype)
+    q = q.transpose(-1, -2)                                  # (din, dout)
+    return (q - w["zp"].to(dtype)) * w["scale"].to(dtype)
+
+
+def _linear(x: torch.Tensor, w, b=None,
+            decode_matmul: bool = False) -> torch.Tensor:
+    """Matmul over a plain tensor, a packed-int4 dict ``{"q", "scale",
+    "zp"}`` or a prepared int8 dict ``{"iq", "isw", "izw", "iqsum"}``.  With
+    ``decode_matmul``, decode-shaped input (one token per slot) over
+    prepared weights runs the decode kernel on the int8 codes."""
+    if isinstance(w, dict) and "iq" in w:
+        if decode_matmul and x.ndim >= 2 and x.shape[-2] == 1:
+            lead = x.shape[:-1]
+            y = stamp_decode_matmul(x.reshape(-1, x.shape[-1]), w["iq"],
+                                    w["isw"], w["izw"], w["iqsum"], b,
+                                    out_dtype=x.dtype)
+            return y.reshape(*lead, y.shape[-1])
+        # codes and zero points are small integers: exact in bf16
+        wd = (w["iq"].to(x.dtype) - w["izw"].to(x.dtype)) * \
+            w["isw"].to(x.dtype)
+    elif isinstance(w, dict):
+        wd = _dequant_packed(w, x.dtype)
+    else:
+        wd = w.to(x.dtype)
+    y = x @ wd
+    return y + b.to(x.dtype) if b is not None else y
+
+
+def _use_fused(stamp: Optional[StampConfig], w) -> bool:
+    return (stamp is not None and stamp.enabled
+            and stamp.execution == "fused"
+            and isinstance(w, dict) and "iq" in w)
+
+
+def pack_weight(w: torch.Tensor, bits: int = 4) -> dict:
+    """(din, dout) → packed int4 dict; per-output-channel min-max scales,
+    two codes per byte along din."""
+    n = float(2 ** bits - 1)
+    wf = w.float()
+    mn = wf.amin(dim=-2, keepdim=True)
+    mx = wf.amax(dim=-2, keepdim=True)
+    scale = torch.clamp_min(fdiv(mx - mn, n), EPS)
+    zp = torch.round(-mn / scale)
+    q = torch.clamp(torch.round(wf / scale) + zp, 0.0, n)
+    packed = KV.pack_nibbles(q.transpose(-1, -2))
+    return {"q": packed.transpose(-1, -2).contiguous(), "scale": scale,
+            "zp": zp}
+
+
+_BIG = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_mlp")
+
+
+def quantize_weights_for_serving(layer: dict, bits: int = 4) -> dict:
+    """Pack one layer's large matmul weights to int4; norms and biases
+    stay as they are."""
+    return {k: pack_weight(v, bits) if k in _BIG else v
+            for k, v in layer.items()}
+
+
+def _prep(w, bits: int) -> dict:
+    raw = _dequant_packed(w, torch.float32) if isinstance(w, dict) \
+        else w.float()
+    p = prepare_linear(raw, bits=bits)
+    return {"iq": p.qw, "isw": p.sw, "izw": p.zw, "iqsum": p.qw_sum}
+
+
+def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
+    """Hoist every fused site's weights into int8 buffers ``{"iq", "isw",
+    "izw", "iqsum"}``, one layer at a time: wq/wk/wv merge into ``wqkv``
+    (biases into ``bqkv``), gate/up and the out-projections prepare per site.
+    Packed int4 weights are dequantized and re-coded at
+    ``stamp.fused_weight_bits``.  No-op when the config cannot run the
+    fused kernels."""
+    if not fused_eligible(stamp):
+        return params
+    bits = stamp.fused_weight_bits
+    layers = []
+    for p in params["layers"]:
+        out = {k: v for k, v in p.items()
+               if k not in _BIG and k not in ("bq", "bk", "bv")}
+        raws = [_dequant_packed(p[k], torch.float32)
+                if isinstance(p[k], dict) else p[k].float()
+                for k in ("wq", "wk", "wv")]
+        out["wqkv"] = _prep(torch.cat(raws, dim=-1), bits)
+        del raws
+        if all(k in p for k in ("bq", "bk", "bv")):
+            out["bqkv"] = torch.cat([p["bq"], p["bk"], p["bv"]], dim=-1)
+        for k in ("wo", "wi_gate", "wi_up", "wo_mlp"):
+            out[k] = _prep(p[k], bits)
+        layers.append(out)
+    return {**{k: v for k, v in params.items() if k != "layers"},
+            "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _maybe_stamp(x: torch.Tensor, stamp: Optional[StampConfig]):
+    if stamp is None or not stamp.enabled:
+        return x
+    return stamp_fake_quant(x, stamp)
+
+
+def _split_heads(x: torch.Tensor, nh: int, hd: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], nh, hd)
+
+
+def _rope(flat, positions, cfg: ModelConfig, nh: int, hd: int):
+    return L.apply_rope(_split_heads(flat, nh, hd), positions,
+                        cfg.rope_theta)
+
+
+def _attn_qkv(p: dict, h: torch.Tensor, cfg: ModelConfig,
+              stamp: Optional[StampConfig], dm: bool) -> tuple:
+    """QKV projections (shared by every path)."""
+    if "wqkv" in p:
+        bqkv = p.get("bqkv")
+        if _use_fused(stamp, p["wqkv"]):
+            qkv = L.stamp_fused_linear(h, p["wqkv"], bqkv, stamp)
+        else:
+            qkv = _linear(_maybe_stamp(h, stamp), p["wqkv"], bqkv, dm)
+        return torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+    h = _maybe_stamp(h, stamp)
+    return (_linear(h, p["wq"], p.get("bq"), dm),
+            _linear(h, p["wk"], p.get("bk"), dm),
+            _linear(h, p["wv"], p.get("bv"), dm))
+
+
+def _attn_out(p: dict, attn: torch.Tensor, x: torch.Tensor,
+              stamp: Optional[StampConfig], dm: bool) -> torch.Tensor:
+    """Out-projection of the head-split attention output + residual."""
+    if _use_fused(stamp, p["wo"]):
+        return x + L.stamp_fused_linear(attn, p["wo"], None, stamp,
+                                        merge_heads=True)
+    out = _maybe_stamp(attn.reshape(*attn.shape[:-2], -1), stamp)
+    return x + _linear(out, p["wo"], None, dm)
+
+
+def ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              stamp: Optional[StampConfig], dm: bool) -> torch.Tensor:
+    """SwiGLU MLP + residual; the fused path is one dual call for gate/up
+    and one call for the down-projection."""
+    h = L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
+    wg, wu = p["wi_gate"], p["wi_up"]
+    if _use_fused(stamp, wg) and _use_fused(stamp, wu):
+        g = L.stamp_fused_dual_linear(h, wg, wu, stamp)
+    else:
+        hq = _maybe_stamp(h, stamp)
+        g = silu(_linear(hq, wg, None, dm)) * \
+            _linear(hq, wu, None, dm)
+    if _use_fused(stamp, p["wo_mlp"]):
+        return x + L.stamp_fused_linear(g, p["wo_mlp"], None, stamp)
+    return x + _linear(_maybe_stamp(g, stamp), p["wo_mlp"], None, dm)
+
+
+def attn_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over whole sequences (calibration)."""
+    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+    q, k, v = _attn_qkv(p, h, cfg, None, False)
+    q = _rope(q, positions, cfg, nh, hd)
+    k = _rope(k, positions, cfg, kvh, hd)
+    attn = L.flash_attention(q, k, _split_heads(v, kvh, hd), causal=True)
+    return _attn_out(p, attn, x, None, False)
+
+
+def _decode_attention(entry: dict, q_dec, paged: dict, serve: ServeConfig,
+                      dtype) -> torch.Tensor:
+    pcfg = serve.paged
+    if serve.fused_cache_attention:
+        q_pf = q_dec.new_empty((0, 1, *q_dec.shape[2:]))
+        return paged_ragged_attention(
+            entry, q_pf, q_dec, paged["dec_positions"],
+            paged["dec_lengths"], paged["dec_ht"], paged["dec_lt"],
+            pcfg.block_size)[1]
+    segs = PKV.gather_segments(entry, paged["dec_ht"], paged["dec_lt"],
+                               pcfg, dtype)
+    return L.decode_attention_segments(q_dec, segs,
+                                       length=paged["dec_lengths"])
+
+
+def attn_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      serve: ServeConfig, entry: dict, paged: dict,
+                      dm: bool) -> torch.Tensor:
+    """One token per slot: write through the block tables, attend over the
+    mapped pages."""
+    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    pos = paged["dec_positions"][:, None]
+    h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+    q, k, v = _attn_qkv(p, h, cfg, None, dm)
+    q = _rope(q, pos, cfg, nh, hd)
+    k = _rope(k, pos, cfg, kvh, hd)
+    PKV.write_tokens(entry, k, _split_heads(v, kvh, hd), paged["pages"],
+                     paged["offsets"], paged["is_hi"], serve.paged)
+    attn = _decode_attention(entry, q, paged, serve, x.dtype)
+    return _attn_out(p, attn, x, None, dm)
+
+
+def attn_block_unified(p: dict, x: tuple, cfg: ModelConfig,
+                       serve: ServeConfig, entry: dict, paged: dict,
+                       dm: bool) -> tuple:
+    """One attention block of the unified ragged step: prefill chunk rows
+    ``(n_pf, C, d)`` under STaMP and decode slots ``(S, 1, d)`` transform
+    free, ONE K/V scatter over the flattened token stream, then attention
+    per span — through the paged attention kernel, or the plain segment
+    attention (chunks attending to their raw K/V) when it is off."""
+    x_pf, x_dec = x
+    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    n_pf, c_len = x_pf.shape[:2]
+    s_slots = x_dec.shape[0]
+    stamp = serve.stamp
+    h_pf = L.rms_norm(x_pf, p["ln1"].to(x_pf.dtype), cfg.norm_eps)
+    h_dec = L.rms_norm(x_dec, p["ln1"].to(x_dec.dtype), cfg.norm_eps)
+    q_pf, k_pf, v_pf = _attn_qkv(p, h_pf, cfg, stamp, dm)
+    q_dec, k_dec, v_dec = _attn_qkv(p, h_dec, cfg, None, dm)
+    pos_pf = paged["pf_positions"]
+    pos_dec = paged["dec_positions"][:, None]
+    q_pf = _rope(q_pf, pos_pf, cfg, nh, hd)
+    k_pf = _rope(k_pf, pos_pf, cfg, kvh, hd)
+    v_pf = _split_heads(v_pf, kvh, hd)
+    q_dec = _rope(q_dec, pos_dec, cfg, nh, hd)
+    k_dec = _rope(k_dec, pos_dec, cfg, kvh, hd)
+    v_dec = _split_heads(v_dec, kvh, hd)
+    k_flat = torch.cat([k_pf.reshape(n_pf * c_len, kvh, hd),
+                        k_dec.reshape(s_slots, kvh, hd)])
+    v_flat = torch.cat([v_pf.reshape(n_pf * c_len, kvh, hd),
+                        v_dec.reshape(s_slots, kvh, hd)])
+    PKV.write_ragged(entry, k_flat, v_flat, paged["pages"], paged["offsets"],
+                     paged["is_hi"], serve.paged)
+    if serve.fused_cache_attention:
+        attn_pf, attn_dec = paged_ragged_attention(
+            entry, q_pf, q_dec, paged["span_starts"], paged["span_lengths"],
+            paged["span_ht"], paged["span_lt"], serve.paged.block_size)
+    else:
+        attn_dec = _decode_attention(entry, q_dec, paged, serve,
+                                     x_dec.dtype)
+        segs_pf = PKV.gather_segments(entry, paged["pf_ht"], paged["pf_lt"],
+                                      serve.paged, x_pf.dtype)
+        attn_pf = L.chunked_prefill_attention(q_pf, segs_pf, k_pf, v_pf,
+                                              paged["pf_start"])
+    return (_attn_out(p, attn_pf, x_pf, stamp, dm),
+            _attn_out(p, attn_dec, x_dec, None, dm))
+
+
+# ---------------------------------------------------------------------------
+# forward entry points
+# ---------------------------------------------------------------------------
+
+
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(COMPUTE_DTYPE)
+
+
+def model_hidden(params: dict, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence forward without STaMP (the calibration pass): final
+    normed hidden states ``(b, s, d)`` in bf16."""
+    x = _embed(params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for p in params["layers"]:
+        x = attn_block_train(p, x, cfg, positions)
+        x = ffn_block(p, x, cfg, None, False)
+    return L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+
+
+def init_paged_cache(cfg: ModelConfig, pcfg: PKV.PagedCacheConfig,
+                     device=None) -> list:
+    """Zero page pools, one dict per attention layer (block ids are shared
+    across layers: one allocation covers the whole stack)."""
+    dev = resolve_device(device)
+    return [PKV.init_pools(cfg.num_kv_heads, cfg.resolved_head_dim, pcfg,
+                           device=dev) for _ in range(cfg.num_layers)]
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    return _linear(x, _head_weight(params)).float()
+
+
+def paged_decode_step(params: dict, pools: list, tokens: torch.Tensor,
+                      positions: torch.Tensor, hi_table: torch.Tensor,
+                      lo_table: torch.Tensor, pages: torch.Tensor,
+                      offsets: torch.Tensor, is_hi: torch.Tensor,
+                      cfg: ModelConfig, serve: ServeConfig) -> tuple:
+    """One decode step for the whole slot array (also the unified step's
+    all-decode case).  ``tokens`` / ``positions``: (S,); ``pages /
+    offsets / is_hi``: (S,) write targets (inactive slots → null page).
+    The pools update in place.  Returns ``(logits (S, V), pools)``."""
+    dm = serve.fused_decode_matmul
+    x = _embed(params, tokens[:, None])
+    paged = {"dec_ht": hi_table, "dec_lt": lo_table,
+             "dec_positions": positions, "dec_lengths": positions + 1,
+             "pages": pages, "offsets": offsets, "is_hi": is_hi}
+    for p, entry in zip(params["layers"], pools):
+        x = attn_block_decode(p, x, cfg, serve, entry, paged, dm)
+        x = ffn_block(p, x, cfg, None, dm)
+    return _logits(params, x[:, 0], cfg), pools
+
+
+def paged_unified_step(params: dict, pools: list, pf_tokens: torch.Tensor,
+                       pf_start: torch.Tensor, pf_length: torch.Tensor,
+                       pf_last_index: torch.Tensor, dec_tokens: torch.Tensor,
+                       dec_positions: torch.Tensor, hi_table: torch.Tensor,
+                       lo_table: torch.Tensor, pages: torch.Tensor,
+                       offsets: torch.Tensor, is_hi: torch.Tensor,
+                       cfg: ModelConfig, serve: ServeConfig) -> tuple:
+    """ONE forward per engine step: ``n_pf`` prefill chunk spans (rows of
+    ``pf_tokens`` (n_pf, C), right-padded) and the decode slot array.
+
+    ``pf_start`` / ``pf_length``: (n_pf,) tokens cached before / after the
+    chunk; ``pf_last_index``: (n_pf,) chunk-local row whose logits are the
+    next-token distribution; ``dec_tokens / dec_positions``: (S,);
+    ``hi_table / lo_table``: (n_pf + S, ·) span-ordered block tables;
+    ``pages / offsets / is_hi``: (n_pf·C + S,) write targets.  ``n_pf =
+    0`` runs :func:`paged_decode_step`.  The pools update in place.
+    Returns ``(pf_logits (n_pf, V), dec_logits (S, V), pools)``."""
+    n_pf, c_len = pf_tokens.shape
+    if n_pf == 0:
+        dec_logits, pools = paged_decode_step(
+            params, pools, dec_tokens, dec_positions, hi_table, lo_table,
+            pages, offsets, is_hi, cfg, serve)
+        return dec_logits.new_zeros((0, dec_logits.shape[-1])), dec_logits, \
+            pools
+    # chunk rows of width 1 would alias decode shapes: keep them on the
+    # transform path
+    dm = serve.fused_decode_matmul and c_len > 1
+    x_pf = _embed(params, pf_tokens)
+    x_dec = _embed(params, dec_tokens[:, None])
+    ar = torch.arange(c_len, device=pf_tokens.device)
+    paged = {"span_ht": hi_table, "span_lt": lo_table,
+             "span_starts": torch.cat([pf_start, dec_positions]),
+             "span_lengths": torch.cat([pf_length, dec_positions + 1]),
+             "pf_ht": hi_table[:n_pf], "pf_lt": lo_table[:n_pf],
+             "dec_ht": hi_table[n_pf:], "dec_lt": lo_table[n_pf:],
+             "pf_positions": pf_start[:, None] + ar[None, :],
+             "pf_start": pf_start, "dec_positions": dec_positions,
+             "dec_lengths": dec_positions + 1,
+             "pages": pages, "offsets": offsets, "is_hi": is_hi}
+    x = (x_pf, x_dec)
+    for p, entry in zip(params["layers"], pools):
+        x = attn_block_unified(p, x, cfg, serve, entry, paged, dm)
+        x = (ffn_block(p, x[0], cfg, serve.stamp, dm),
+             ffn_block(p, x[1], cfg, None, dm))
+    x_pf, x_dec = x
+    rows = torch.arange(n_pf, device=x_pf.device)
+    pf_logits = _logits(params, x_pf[rows, pf_last_index.long()], cfg)
+    return pf_logits, _logits(params, x_dec[:, 0], cfg), pools

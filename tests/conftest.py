@@ -9,6 +9,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "chaos: deterministic fault-injection suite (own CI "
                    "step; tier-1 runs with -m 'not chaos')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc (the port's kernels); "
+                   "skips elsewhere")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda``: it needs a CUDA card and ``nvcc``, and
+skips elsewhere.  The file imports neither JAX nor the reference, so it
+runs on a machine that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+``chip_smoke.py`` repeats these comparisons at the main path's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import stamp as TS
+from repro_torch.kernels import cuda as kcuda
+from repro_torch.kernels import decode_matmul as TDM
+from repro_torch.kernels import paged_attention as TPA
+from repro_torch.kernels import stamp_matmul as TSM
+from repro_torch.serving import kvcache as TKV
+from repro_torch.serving import paged_kvcache as TPKV
+
+SPANS = [(16, 27), (0, 9), (29, 30), (8, 9)]   # two chunks, two decodes
+
+
+def paged_pools(block_size, num_hi, spans, g=2, hd=16, seed=0):
+    """CPU pools holding random K/V for ``spans`` = [(start, length)],
+    written through the port's ``write_ragged``: each span owns its own hi
+    and lo pages (page 0 stays the null page).  Returns ``(entry,
+    hi_table, lo_table)`` with numpy int32 tables."""
+    nh = num_hi // block_size
+    max_len = max(length for _, length in spans)
+    nl = max(-(-(max_len - num_hi) // block_size), 1)
+    pcfg = TPKV.PagedCacheConfig(
+        block_size=block_size, num_lo_blocks=len(spans) * nl + 1,
+        num_hi_blocks=len(spans) * nh + 1, max_blocks_per_seq=nl,
+        quant=TKV.KVCacheConfig(quantized=True, num_hi=num_hi))
+    entry = TPKV.init_pools(g, hd, pcfg, device="cpu")
+    ht = np.zeros((len(spans), nh), np.int32)
+    lt = np.zeros((len(spans), nl), np.int32)
+    pages, offs, ishi = [], [], []
+    for i, (_, length) in enumerate(spans):
+        ht[i] = 1 + i * nh + np.arange(nh)
+        n_lo = max(-(-(length - num_hi) // block_size), 0)
+        lt[i, :n_lo] = 1 + i * nl + np.arange(n_lo)
+        for pos in range(length):
+            is_hi, idx, off = TPKV.token_page_index(pos, pcfg)
+            pages.append(ht[i, idx] if is_hi else lt[i, idx])
+            offs.append(off)
+            ishi.append(is_hi)
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((len(pages), g, hd)).astype(np.float32)
+    v = rng.standard_normal((len(pages), g, hd)).astype(np.float32)
+    TPKV.write_ragged(entry, torch.from_numpy(k), torch.from_numpy(v),
+                      torch.tensor(pages, dtype=torch.int32),
+                      torch.tensor(offs, dtype=torch.int32),
+                      torch.tensor(ishi), pcfg)
+    return entry, ht, lt
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA + nvcc")
+    try:
+        kcuda.nvcc()
+    except RuntimeError:
+        pytest.skip("needs CUDA + nvcc")
+    return torch.device("cuda")
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transform", ["dwt", "wht", "none"])
+def test_cuda_stamp_chain_matches_plain(card, transform):
+    """K1 codes / scales / zero points exact; K2 in f32 within 1e-5
+    relative (the same f32 epilogue order; exp and the transform's
+    divisions are correctly rounded on both sides)."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((2, 33, 256), generator=gen, device=card)
+    kw = dict(transform=transform, levels=3, skip_first=True, num_hi=4,
+              hi_bits=8, lo_bits=4)
+    got = TSM.stamp_transform_quantize(x, **kw)
+    want = TSM.transform_quantize_plain(x, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    p = TS.prepare_linear(torch.randn((256, 96), generator=gen, device=card))
+    u = TS.prepare_linear(torch.randn((256, 96), generator=gen, device=card))
+    gkw = dict(transform=transform, levels=3, skip_first=True)
+    w = (p.qw, p.sw, p.zw, p.qw_sum, None)
+    for up in ((), (u.qw, u.sw, u.zw, u.qw_sum, None)):
+        y = TSM.stamp_int_gemm(*got, 33, *w, *up, **gkw)
+        yp = TSM.int_gemm_plain(*got, 33, *w, *up, **gkw)
+        assert _rel(y, yp) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_decode_matmul_matches_plain(card):
+    """K3 in f32 within 1e-5 relative: exact int32 sums, same epilogue."""
+    gen = torch.Generator(device=card).manual_seed(1)
+    x = torch.randn((8, 512), generator=gen, device=card)
+    p = TS.prepare_linear(torch.randn((512, 384), generator=gen, device=card))
+    y = TDM.stamp_decode_matmul(x, p.qw, p.sw, p.zw, p.qw_sum)
+    yp = TDM.decode_matmul_plain(x, p.qw, p.sw, p.zw, p.qw_sum)
+    assert _rel(y, yp) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [4, 16])
+def test_cuda_paged_attention_matches_plain(card, block_size):
+    """K4 with f32 queries: the online softmax against the direct one
+    within 1e-4 absolute (exp and summation order)."""
+    entry, ht, lt = paged_pools(block_size, 16, SPANS, seed=5)
+    entry = {k: v.to(card) for k, v in entry.items()}
+    rng = np.random.default_rng(6)
+    q_pf = rng.standard_normal((2, 12, 4, 16)).astype(np.float32)
+    q_dec = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    args = (entry, torch.from_numpy(q_pf).to(card),
+            torch.from_numpy(q_dec).to(card),
+            torch.tensor([s for s, _ in SPANS], dtype=torch.int32,
+                         device=card),
+            torch.tensor([l for _, l in SPANS], dtype=torch.int32,
+                         device=card),
+            torch.from_numpy(ht).to(card), torch.from_numpy(lt).to(card))
+    got = TPA.paged_ragged_attention(*args, block_size)
+    want = TPA.paged_attention_plain(*args, block_size)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_cpu_operands(card):
+    """A CUDA activation with a weight left on the CPU raises; the wrapper
+    never falls back to the plain version."""
+    p = TS.prepare_linear(torch.randn((64, 32)))
+    with pytest.raises(ValueError):
+        TDM.stamp_decode_matmul(torch.randn((2, 64), device=card), p.qw,
+                                p.sw, p.zw, p.qw_sum)
