@@ -6,18 +6,25 @@
 Phases (any failure exits non-zero; nothing is caught and continued):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the four kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+2. build the five kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
-   main path's shapes (llama3-8b: C = 128 rows x 2 prefill spans, 8 decode
-   slots, 32/8 heads, head_dim 128, page size 4) and time kernel, plain
-   version and a library yardstick with CUDA events; then check a prefill,
-   a mixed and an all-decode step on the card against the same steps on
-   the CPU at a small size;
+   serve paths' shapes and time kernel, plain version and a library
+   yardstick with CUDA events: llama3-8b (C = 128 rows x 2 prefill spans,
+   8 decode slots, 32/8 heads, head_dim 128, page size 4), and Arctic-480B
+   (K1/K2 and K3 at every linear site of its layer: QKV 7168 -> 9216, wo
+   7168 -> 7168, the dense residual's gate/up 7168 -> 4864 and down
+   4864 -> 7168; K4 at 56/8 heads; K5 over 128 experts with the counts of
+   a real routing of 2 x 128 random tokens); then check a
+   prefill, a mixed and an all-decode step on the card against the same
+   steps on the CPU at the reduced size of each model;
 4. serve llama3-8b at full width through the port's serve entry point
    (seeded init, PTQ on the card, paged unified fused engine with the paged
    attention kernel): 4 requests x 96 prompt tokens x 8 new tokens, with
-   every kernel's launch count read around that run;
+   every kernel's launch count set to 0 before that run and read after;
+   then Arctic-480B at full width, cut to ``ARCTIC_LAYERS`` layers (its
+   widths, 128 experts, top-2 and the vocabulary as published), the same
+   requests, counts read around its own run;
 5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -26,6 +33,8 @@ Needs one CUDA card; exits non-zero without one or outside a checkout.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -42,6 +51,11 @@ BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 # calibration, so the serve path pages at block size 4)
 D, D_FF, HEADS, KV_HEADS, HD = 4096, 14336, 32, 8, 128
 C, SPANS, SLOTS, NUM_HI, BLOCK = 128, 2, 8, 4, 4
+# Arctic-480B (configs/arctic_480b.py); one H100 holds 4 of its 35 layers
+# (13.4 GB of int8 expert codes each), so the serve phase cuts depth only
+A_D, A_FF, A_HEADS, A_QKV = 7168, 4864, 56, 7168 + 2 * 8 * 128
+A_EXPERTS, A_TOPK, A_CF = 128, 2, 1.25
+ARCTIC_LAYERS = 4
 STAMP = dict(transform="dwt", levels=3, skip_first=True, num_hi=NUM_HI,
              hi_bits=8, lo_bits=4)
 
@@ -101,13 +115,25 @@ def close_bf16(torch, got, ref) -> float:
 # --------------------------------------------------------------- phase 3 --
 
 
-def check_stamp(torch, sm, ops_mod, prepare_linear):
-    """K1 (codes exact) and K2 (one bf16 step) at the three prefill linear
-    sites of a layer, and their times."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+LLAMA_SITES = [("qkv", D, D + 2 * KV_HEADS * HD, False),
+               ("gate_up", D, D_FF, True), ("down", D_FF, D, False)]
+# every K1/K2 and K3 site of Arctic's layer: attention in and out, and the
+# dense residual MLP (its gate and up share one shape in the decode region)
+ARCTIC_SITES = [("arctic_qkv", A_D, A_QKV, False),
+                ("arctic_wo", A_D, A_D, False),
+                ("arctic_gate_up", A_D, A_FF, True),
+                ("arctic_down", A_FF, A_D, False)]
+LLAMA_DECODE_SITES = [("qkv", D, D + 2 * KV_HEADS * HD), ("gate", D, D_FF),
+                      ("down", D_FF, D)]
+ARCTIC_DECODE_SITES = [("arctic_qkv", A_D, A_QKV), ("arctic_wo", A_D, A_D),
+                       ("arctic_gate", A_D, A_FF), ("arctic_down", A_FF, A_D)]
+
+
+def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0):
+    """K1 (codes exact) and K2 (one bf16 step) at prefill linear sites
+    ``[(name, K, N, dual)]``, and their times."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = SPANS * C
-    sites = [("qkv", D, D + 2 * KV_HEADS * HD, False),
-             ("gate_up", D, D_FF, True), ("down", D_FF, D, False)]
     k1, k2 = [], []
     for name, k, n, dual in sites:
         x = torch.randn((SPANS, C, k), generator=gen, device="cuda",
@@ -159,11 +185,12 @@ def check_stamp(torch, sm, ops_mod, prepare_linear):
     return k1, k2
 
 
-def check_decode(torch, dm, prepare_linear):
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def check_decode(torch, dm, prepare_linear, sites, seed=1):
+    """K3 (one bf16 step, f32 within 1e-5 relative) over SLOTS decode rows
+    at the linear sites ``[(name, K, N)]``, and its times."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     out = []
-    for name, k, n in [("qkv", D, D + 2 * KV_HEADS * HD), ("gate", D, D_FF),
-                       ("down", D_FF, D)]:
+    for name, k, n in sites:
         x = torch.randn((SLOTS, k), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         p = prepare_linear(torch.randn((k, n), generator=gen, device="cuda")
@@ -190,11 +217,12 @@ def check_decode(torch, dm, prepare_linear):
     return out
 
 
-def _attention_case(torch, PKV, KV, n_pf: int, dtype):
+def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int):
     """Pools holding random K/V for ``n_pf`` prefill spans (start 0, chunk
     C, lengths 96..) and SLOTS decode spans (lengths 97..104), written
-    through ``write_ragged`` at page size 4."""
-    gen = torch.Generator(device="cuda").manual_seed(2 + n_pf)
+    through ``write_ragged`` at page size 4; ``heads`` query heads over
+    KV_HEADS."""
+    gen = torch.Generator(device="cuda").manual_seed(2 + n_pf + heads)
     quant = KV.KVCacheConfig(quantized=True, num_hi=NUM_HI)
     lo_per_seq = -(-(C + 8 - NUM_HI) // BLOCK)
     spans = n_pf + SLOTS
@@ -226,9 +254,9 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype):
                      torch.tensor(pages, device="cuda"),
                      torch.tensor(offs, device="cuda"),
                      torch.tensor(ishi, device="cuda"), pcfg)
-    q_pf = torch.randn((n_pf, C, HEADS, HD), generator=gen, device="cuda",
+    q_pf = torch.randn((n_pf, C, heads, HD), generator=gen, device="cuda",
                        dtype=dtype)
-    q_dec = torch.randn((SLOTS, 1, HEADS, HD), generator=gen, device="cuda",
+    q_dec = torch.randn((SLOTS, 1, heads, HD), generator=gen, device="cuda",
                         dtype=dtype)
     starts = torch.tensor([0] * n_pf + [l - 1 for l in lengths[n_pf:]],
                           dtype=torch.int32, device="cuda")
@@ -236,7 +264,7 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype):
     return entry, q_pf, q_dec, starts, lens, ht.cuda(), lt.cuda(), lengths
 
 
-def _attention_work(lengths, n_pf: int) -> tuple:
+def _attention_work(lengths, n_pf: int, heads: int) -> tuple:
     """Bytes the spans' pages hold up to each length (K and V codes plus f16
     scale/zp), queries and outputs; and the flops the mask admits."""
     nbytes, flops = 0, 0
@@ -247,18 +275,18 @@ def _attention_work(lengths, n_pf: int) -> tuple:
         hi = min(pages_tok, NUM_HI)
         nbytes += hi * per_tok_hi + (pages_tok - hi) * per_tok_lo
         rows = C if i < n_pf else 1
-        nbytes += 2 * 2 * rows * HEADS * HD       # q in, out (bf16)
+        nbytes += 2 * 2 * rows * heads * HD       # q in, out (bf16)
         visible = sum(min(c + 1, length) for c in range(rows)) \
             if i < n_pf else length
-        flops += 4 * HD * HEADS * visible
+        flops += 4 * HD * heads * visible
     return nbytes, flops
 
 
-def check_attention(torch, pa, PKV, KV):
+def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix=""):
     out = []
     for name, n_pf in (("mixed", SPANS), ("all_decode", 0)):
         entry, q_pf, q_dec, starts, lens, ht, lt, lengths = \
-            _attention_case(torch, PKV, KV, n_pf, torch.bfloat16)
+            _attention_case(torch, PKV, KV, n_pf, torch.bfloat16, heads)
         args = (entry, q_pf, q_dec, starts, lens, ht, lt)
         o_pf, o_dec = pa.paged_ragged_attention(*args, BLOCK)
         p_pf, p_dec = pa.paged_attention_plain(*args, BLOCK)
@@ -275,15 +303,17 @@ def check_attention(torch, pa, PKV, KV):
                    iters=20)
         pms = timed(torch, lambda: pa.paged_attention_plain(*args, BLOCK),
                     iters=3)
-        lib = timed(torch, _sdpa_yardstick(torch, args, n_pf), iters=20)
-        nbytes, flops = _attention_work(lengths, n_pf)
+        lib = timed(torch, _sdpa_yardstick(torch, args, n_pf, heads),
+                    iters=20)
+        nbytes, flops = _attention_work(lengths, n_pf, heads)
         b = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        out.append(dict(site=name, max_abs_err=err, ms=ms, plain_ms=pms,
+        out.append(dict(site=prefix + name, max_abs_err=err, ms=ms,
+                        plain_ms=pms,
                         bound_ms=b[0], bound_by=b[1], library_ms=lib))
     return out
 
 
-def _sdpa_yardstick(torch, args, n_pf: int):
+def _sdpa_yardstick(torch, args, n_pf: int, heads: int):
     """One ``scaled_dot_product_attention`` call over the same spans with
     K/V dequantized up front (bf16, padded to the longest span)."""
     from repro_torch.kernels.ref import span_kv
@@ -292,7 +322,7 @@ def _sdpa_yardstick(torch, args, n_pf: int):
     kvs = [span_kv(entry, ht[i], lt[i]) for i in range(spans)]
     kv_len = max(k.shape[0] for k, _ in kvs)
     rows = C if n_pf else 1
-    q = torch.zeros((spans, HEADS, rows, HD), dtype=torch.bfloat16,
+    q = torch.zeros((spans, heads, rows, HD), dtype=torch.bfloat16,
                     device="cuda")
     k = torch.zeros((spans, KV_HEADS, kv_len, HD), dtype=torch.bfloat16,
                     device="cuda")
@@ -315,9 +345,82 @@ def _sdpa_yardstick(torch, args, n_pf: int):
     return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline):
+def check_grouped(torch, sm, L, token_quantize):
+    """K5 at Arctic's prefill shapes: 2 spans x 128 random tokens routed by
+    ``moe_route`` (group 128, top-2 of 128 experts, capacity 3), their
+    codes gathered into the (2, 128, 3, 7168) dispatch buffer as
+    ``moe_ffn_fused`` does, against random int8 expert stacks with the
+    prepared buffers' layout.  Output exact against the plain version
+    (f32 checked within 1e-5 relative: the same int32 sums and f32
+    epilogue order); times beside the byte bound and a library yardstick:
+    ``torch._int_mm`` for the gate, up and down GEMMs of every occupied
+    expert (rows zero-padded to 32), summed."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((SPANS, C, A_D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    gate_w = torch.randn((A_D, A_EXPERTS), generator=gen, device="cuda") \
+        / math.sqrt(A_D)
+    xg, valid, _ = L._moe_fold(x, 1024)
+    combine, dispatch, counts = L.moe_route(xg, gate_w, A_TOPK, A_CF, valid)
+    b, _, e, cap = combine.shape
+    qd, sd, zd = token_quantize(xg)
+    idx = dispatch.argmax(dim=1).reshape(b, e * cap, 1)
+
+    def gather(t):
+        return torch.gather(t, 1, idx.expand(-1, -1, t.shape[-1])
+                            ).reshape(b, e, cap, -1)
+
+    def stack(din, dout):
+        q = torch.randint(-128, 128, (e, din, dout), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        sc = torch.rand((e, 1, dout), generator=gen, device="cuda") * 2e-3
+        zp = torch.randint(-8, 9, (e, 1, dout), generator=gen,
+                           device="cuda").float()
+        return q, sc + 1e-4, zp
+
+    wg, wu, wd = stack(A_D, A_FF), stack(A_D, A_FF), stack(A_FF, A_D)
+    args = (gather(qd), gather(sd), gather(zd), counts,
+            *wg, wg[0].sum(dim=1, keepdim=True, dtype=torch.int32),
+            *wu, wu[0].sum(dim=1, keepdim=True, dtype=torch.int32),
+            *wd, sm.down_slab_sums(wd[0]))
+    y = sm.stamp_quant_grouped_matmul(*args)
+    yp = sm.grouped_matmul_plain(*args)
+    check(bool(torch.isfinite(y).all()), "K5 output not finite")
+    err = float((y - yp).abs().max())
+    rel = err / float(yp.abs().max())
+    check(rel <= 1e-5, f"K5 f32 output off by {rel} (relative)")
+    ms = timed(torch, lambda: sm.stamp_quant_grouped_matmul(*args))
+    pms = timed(torch, lambda: sm.grouped_matmul_plain(*args), iters=1)
+    occupied = torch.nonzero(counts.sum(dim=0) > 0).flatten().tolist()
+    pad = torch.zeros((32, A_D), dtype=torch.int8, device="cuda")
+    pad_f = torch.zeros((32, A_FF), dtype=torch.int8, device="cuda")
+
+    def library():
+        for ei in occupied:
+            torch._int_mm(pad, wg[0][ei])
+            torch._int_mm(pad, wu[0][ei])
+            torch._int_mm(pad_f, wd[0][ei])
+
+    lib = timed(torch, library, iters=5)
+    rows = int(counts.sum())
+    nf = A_FF // sm.grouped_block_f(512, A_FF)
+    # per occupied expert: its codes, gate/up scale, zero point and column
+    # sums, down scale and zero point and slab sums; per kept row: its codes
+    # with scale and zero point; the whole f32 output
+    nbytes = (len(occupied) * (3 * A_D * A_FF + 4 * (6 * A_FF + 2 * A_D
+                                                      + nf * A_D))
+              + rows * (A_D + 8) + b * e * cap * A_D * 4 + counts.numel() * 4)
+    b5 = bound(nbytes, 2 * rows * 3 * A_D * A_FF, INT8_OPS_PER_S)
+    print(f"[chip_smoke] K5 routing: {rows} kept rows of {b * C * A_TOPK} "
+          f"choices, {len(occupied)} of {e} experts occupied "
+          f"(per span {(counts > 0).sum(dim=1).tolist()}), capacity {cap}")
+    return [dict(site="arctic_experts", max_abs_err=err, ms=ms, plain_ms=pms,
+                 bound_ms=b5[0], bound_by=b5[1], library_ms=lib)]
+
+
+def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
     """The serve path's steps on the card (kernels) against the same steps
-    on the CPU (plain versions) at the reduced llama3-8b size.  Each device
+    on the CPU (plain versions) at the reduced size of ``arch``.  Each device
     fills its own pools over three steps, as the engine would: prefills of
     requests 0 and 1; prefills of 2 and 3 beside decodes of 0 and 1 (a
     mixed step); and decodes of all four (``n_pf = 0``, which runs
@@ -325,7 +428,7 @@ def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline):
     logits agree within a bf16 tolerance of 5e-2."""
     import dataclasses
     from repro_torch.serving import paged_kvcache as PKV
-    cfg = cfg_mod.get_reduced("llama3-8b")
+    cfg = cfg_mod.get_reduced(arch)
     params = lm.init_params(cfg, seed=0, device="cpu")
     calib = pipeline.calibration_batches(pipeline.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=128, global_batch=4), 2)
@@ -443,17 +546,26 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas:{name}] {line.strip()}")
 
-    from repro_torch.core.stamp import prepare_linear
+    from repro_torch.core.stamp import prepare_linear, token_quantize
     from repro_torch.kernels import decode_matmul as dm
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import stamp_matmul as sm
+    from repro_torch.models import layers as L
     from repro_torch.serving import kvcache as KV
     from repro_torch.serving import paged_kvcache as PKV
     with torch.inference_mode():
-        k1, k2 = check_stamp(torch, sm, ops, prepare_linear)
-        k3 = check_decode(torch, dm, prepare_linear)
+        k1, k2 = check_stamp(torch, sm, ops, prepare_linear, LLAMA_SITES)
+        a1, a2 = check_stamp(torch, sm, ops, prepare_linear, ARCTIC_SITES,
+                             seed=5)
+        k1, k2 = k1 + a1, k2 + a2
+        k3 = check_decode(torch, dm, prepare_linear, LLAMA_DECODE_SITES)
+        k3 += check_decode(torch, dm, prepare_linear, ARCTIC_DECODE_SITES,
+                           seed=6)
         k4 = check_attention(torch, pa, PKV, KV)
-    for rows in (k1, k2, k3, k4):
+        k4 += check_attention(torch, pa, PKV, KV, heads=A_HEADS,
+                              prefix="arctic_")
+        k5 = check_grouped(torch, sm, L, token_quantize)
+    for rows in (k1, k2, k3, k4, k5):
         for r in rows:
             print(f"[kernel] {json.dumps(r)}")
 
@@ -462,45 +574,33 @@ def main() -> None:
     from repro_torch.data import pipeline
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    with torch.inference_mode():
-        step_errs = check_step_against_cpu(torch, lm, configs, ptq, pipeline)
-    print(f"[chip_smoke] steps card vs CPU (prefill, mixed, all-decode): "
-          f"max |logit diff| {step_errs} (bound 5e-2)")
+    for arch in ("llama3-8b", "arctic-480b"):
+        with torch.inference_mode():
+            step_errs = check_step_against_cpu(torch, lm, configs, ptq,
+                                               pipeline, arch)
+        print(f"[chip_smoke] {arch} (reduced) steps card vs CPU (prefill, "
+              f"mixed, all-decode): max |logit diff| {step_errs} (bound "
+              f"5e-2)")
 
-    argv = ["--arch", "llama3-8b", "--engine", "paged", "--step-mode",
-            "unified", "--execution", "fused", "--fused-cache-attention",
-            "--device", "cuda", "--requests", "4", "--prompt-len", "96",
-            "--max-new", "8"]
-    sargs = serve.parse_args(argv)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine, cfg, report = serve.build(sargs)
-    setup_s = time.perf_counter() - t0
-    ops.reset_launch_counts()
-    res = serve.serve_requests(engine, cfg, sargs)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[serve] llama3-8b layers={cfg.num_layers} d_model={cfg.d_model} "
-          f"num_hi={report.num_hi} setup={setup_s:.1f}s "
-          f"requests={res['requests']} tokens={res['tokens']} "
-          f"seconds={res['seconds']:.3f} tok/s={res['tokens_per_s']:.2f} "
-          f"ttft_p50={res['ttft_p50_s']:.3f}s steps={res['steps']} "
-          f"peak_mem={peak_gb:.2f}GiB launches={json.dumps(counts)}")
-    print(f"[serve] stats {json.dumps(res['stats'])}")
-    check(res["requests"] == 4 and all(len(t) == 8 for t in
-                                       res["outputs"].values()),
-          "serve phase did not finish 4 requests x 8 tokens")
-    check(all(0 <= t < cfg.vocab_size for toks in res["outputs"].values()
-              for t in toks), "token ids outside the vocabulary")
-    check(res["stats"]["nonfinite_logit_rows"] == 0,
-          "non-finite logits in the serve phase")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+    llama = serve_phase(torch, serve, ops, "llama3-8b", None)
+    check(llama["stamp_quant_grouped_matmul"] == 0,
+          "the dense model launched the grouped MoE kernel")
+    arctic_cfg = dataclasses.replace(configs.get_config("arctic-480b"),
+                                     num_layers=ARCTIC_LAYERS)
+    arctic = serve_phase(torch, serve, ops, "arctic-480b", arctic_cfg)
+    for name in llama:
+        if name != "stamp_quant_grouped_matmul":
+            check(llama[name] > 0, f"kernel {name} was not launched by the "
+                                   f"llama3-8b serve path")
+        check(arctic[name] > 0, f"kernel {name} was not launched by the "
+                                f"arctic-480b serve path")
 
     def entry(name, source, replaces, rows):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces,
+                "launches": llama[name] + arctic[name],
+                "launches_by_path": {"llama3-8b": llama[name],
+                                     "arctic-480b": arctic[name]},
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -515,6 +615,8 @@ def main() -> None:
     # and quantize of the single and the dual matmul, K2 both GEMM modes
     stamp_rows = ("src/repro/kernels/stamp_matmul.py:222, "
                   "src/repro/kernels/stamp_matmul.py:276")
+    # K4's summary is its prefill-carrying (mixed) step at both head counts
+    mixed = [r for r in k4 if r["site"].endswith("mixed")]
     kernels = [
         entry("stamp_transform_quantize", src + "stamp_matmul.cu",
               stamp_rows, k1),
@@ -522,14 +624,57 @@ def main() -> None:
         entry("stamp_decode_matmul", src + "decode_matmul.cu",
               "src/repro/kernels/decode_matmul.py:72", k3),
         entry("paged_ragged_attention", src + "paged_attention.cu",
-              "src/repro/kernels/paged_attention.py:311", k4[:1]),
+              "src/repro/kernels/paged_attention.py:311", mixed),
+        entry("stamp_quant_grouped_matmul", src + "grouped_matmul.cu",
+              "src/repro/kernels/stamp_matmul.py:438", k5),
     ]
-    kernels[-1]["per_shape"] = k4
+    kernels[3]["per_shape"] = k4
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def serve_phase(torch, serve, ops, arch: str, cfg) -> dict:
+    """Serve ``arch`` (``cfg`` overrides its config) through the serve
+    entry point: 4 requests x 96 prompt tokens x 8 new tokens.  Every
+    kernel's launch count is set to 0 just before the run and read just
+    after; returns those counts."""
+    argv = ["--arch", arch, "--engine", "paged", "--step-mode", "unified",
+            "--execution", "fused", "--fused-cache-attention", "--device",
+            "cuda", "--requests", "4", "--prompt-len", "96", "--max-new",
+            "8"]
+    sargs = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, cfg, report = serve.build(sargs, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    res = serve.serve_requests(engine, cfg, sargs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[serve] {arch} layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"experts={cfg.num_experts} num_hi={report.num_hi} "
+          f"setup={setup_s:.1f}s requests={res['requests']} "
+          f"tokens={res['tokens']} seconds={res['seconds']:.3f} "
+          f"tok/s={res['tokens_per_s']:.2f} "
+          f"ttft_p50={res['ttft_p50_s']:.3f}s steps={res['steps']} "
+          f"peak_mem={peak_gb:.2f}GiB launches={json.dumps(counts)}")
+    print(f"[serve] {arch} stats {json.dumps(res['stats'])}")
+    check(res["requests"] == 4 and all(len(t) == 8 for t in
+                                       res["outputs"].values()),
+          f"{arch} serve phase did not finish 4 requests x 8 tokens")
+    check(all(0 <= t < cfg.vocab_size for toks in res["outputs"].values()
+              for t in toks), f"{arch}: token ids outside the vocabulary")
+    check(res["stats"]["nonfinite_logit_rows"] == 0,
+          f"{arch}: non-finite logits in the serve phase")
+    del engine
+    gc.collect()       # the engine and its scheduler's callbacks form a cycle
+    torch.cuda.empty_cache()
+    return counts
 
 
 if __name__ == "__main__":

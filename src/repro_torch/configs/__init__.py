@@ -1,13 +1,14 @@
 """Architecture registry of the port: ``get_config(arch)`` and
-``get_reduced(arch)``.  Only the dense llama3-8b is ported so far."""
+``get_reduced(arch)``.  Ported so far: the dense llama3-8b and the MoE
+arctic-480b."""
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("llama3_8b",)
+ARCHS = ("llama3_8b", "arctic_480b")
 
-_ALIASES = {"llama3-8b": "llama3_8b"}
+_ALIASES = {"llama3-8b": "llama3_8b", "arctic-480b": "arctic_480b"}
 
 
 def canonical(arch: str) -> str:

@@ -40,22 +40,40 @@ def calibrate_and_quantize(params: dict, calib_batches: list,
                            ) -> tuple[dict, lm.ServeConfig, PTQReport]:
     """Tap the embedding output and the final hidden states of each
     calibration batch, pick ``num_hi`` for the bit budget, and return
-    serving params (bf16, large matmuls packed to int4 one layer at a time)
-    with the matching ``ServeConfig``.  ``params`` must lie on ``device``
-    (``cuda`` unless given)."""
+    serving params (bf16, large matmuls packed to int4) with the matching
+    ``ServeConfig``.
+
+    Calibration runs layer-major: every batch through layer ``l``, then
+    layer ``l`` is packed and released, so ``params["layers"]`` may be an
+    iterator that draws each layer when it is reached
+    (``lm.init_params(lazy=True)``) and no more than one unpacked layer is
+    ever held.  The taps, and so every number, are those of the
+    batch-major forward.  ``params`` must lie on ``device`` (``cuda``
+    unless given)."""
     dev = resolve_device(device)
+    tokens = [torch.as_tensor(b["tokens"], device=dev) for b in calib_batches]
+    if not tokens:
+        raise ValueError("no calibration data")
+    xs = [lm._embed(params, t) for t in tokens]
+    emb_taps = [x.float().cpu().numpy() for x in xs]
+    packed = []
+    # next() by hand: a zip over the layers would keep the previous layer
+    # in its result tuple while the iterator draws the next one
+    layers = iter(params["layers"])
+    for spec in cfg.layer_specs():
+        layer = next(layers)
+        xs = [lm.hidden_layer(layer, spec, x, cfg) for x in xs]
+        layer = {k: _bf16(v) for k, v in layer.items()}
+        packed.append(lm.quantize_weights_for_serving(layer, weight_bits)
+                      if weight_bits else layer)
+        del layer           # before the iterator draws the next one
     stats: Optional[SiteStats] = None
-    for batch in calib_batches:
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        taps = (lm._embed(params, tokens),
-                lm.model_hidden(params, tokens, cfg))
-        for tap in taps:
-            tap = tap.float().cpu().numpy()
+    for emb, x in zip(emb_taps, xs):
+        for tap in (emb, lm.final_hidden(params, x, cfg).float().cpu()
+                    .numpy()):
             if stats is None:
                 stats = SiteStats.empty(tap.shape[-2], tap.shape[-1])
             stats.update(tap)
-    if stats is None:
-        raise ValueError("no calibration data")
 
     tf = toeplitz_fraction(stats.autocorr)
     order = np.sort(stats.energy_profile(transform, levels=levels))[::-1]
@@ -73,12 +91,7 @@ def calibrate_and_quantize(params: dict, calib_batches: list,
                          lo_bits=lo_bits),
         weight_bits=weight_bits)
     sparams = {k: _bf16(v) for k, v in params.items() if k != "layers"}
-    sparams["layers"] = []
-    for layer in params["layers"]:
-        layer = {k: _bf16(v) for k, v in layer.items()}
-        sparams["layers"].append(
-            lm.quantize_weights_for_serving(layer, weight_bits)
-            if weight_bits else layer)
+    sparams["layers"] = packed
     seq = stats.autocorr.shape[0]
     report = PTQReport(
         num_hi=num_hi,

@@ -153,6 +153,25 @@ def prepare_linear(w: torch.Tensor, b: Optional[torch.Tensor] = None,
                                         dtype=torch.int32), bias=b)
 
 
+def token_quantize(x: torch.Tensor, bits: int = 8) -> tuple:
+    """Per-token asymmetric min-max quantize in the token domain — the
+    grouped MoE path's dispatch-buffer format: each token is coded once,
+    before dispatch, however many expert buckets it lands in.  Returns
+    signed int8 codes plus ``(..., 1)`` f32 scale and identically shifted
+    zero point.  The range divides by the constant ``2^bits - 1`` as the
+    compiled reference does (:func:`~repro_torch.core.quant.div_const`);
+    ``-mn / s`` and ``x / s`` stay true divisions."""
+    n = float(2 ** bits - 1)
+    shift = float(1 << (bits - 1))
+    xf = x.float()
+    mn = xf.amin(dim=-1, keepdim=True)
+    mx = xf.amax(dim=-1, keepdim=True)
+    s = torch.clamp_min(Q.div_const(mx - mn, n), Q.EPS)
+    z = torch.round(-mn / s)
+    q = (torch.clamp(torch.round(xf / s) + z, 0.0, n) - shift).to(torch.int8)
+    return q, s, z - shift
+
+
 def fused_ineligibility(cfg: StampConfig) -> tuple:
     """Why ``cfg`` cannot run the fused kernels (empty = eligible)."""
     reasons = []

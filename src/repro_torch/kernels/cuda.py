@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("stamp_matmul", "decode_matmul", "paged_attention")
+SOURCES = ("stamp_matmul", "decode_matmul", "paged_attention",
+           "grouped_matmul")
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -29,7 +30,7 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # the GEMM epilogues evaluate in the plain versions' order: no FMA
 # contraction (the quantizer codes need none — they use no multiply-add)
 _FLAGS = {"stamp_matmul": ["-fmad=false"], "decode_matmul": ["-fmad=false"],
-          "paged_attention": []}
+          "paged_attention": [], "grouped_matmul": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import quant as Q
+from repro_torch.core.stamp import token_quantize
 from repro_torch.kernels import cuda
 from repro_torch.kernels.stamp_matmul import _epilogue, int_matmul
 
@@ -30,15 +30,11 @@ _SIGNATURES = {"stamp_decode_matmul": [
 
 
 def row_quantize8(x: torch.Tensor) -> tuple:
-    """Per-row 8-bit asymmetric min-max quantize: signed int8 codes plus
-    f32 scale and shifted zero point (the Pallas decode kernel's)."""
-    xf = x.float()
-    mn = xf.amin(dim=-1, keepdim=True)
-    mx = xf.amax(dim=-1, keepdim=True)
-    sx = torch.clamp_min(Q.div_const(mx - mn, 255.0), Q.EPS)
-    zx = torch.round(-mn / sx)
-    q = torch.clamp(torch.round(xf / sx) + zx, 0.0, 255.0)
-    return (q - 128.0).to(torch.int8), sx[:, 0], (zx - 128.0)[:, 0]
+    """Per-row 8-bit asymmetric min-max quantize of ``(M, K)`` rows: signed
+    int8 codes plus ``(M,)`` f32 scale and shifted zero point (the Pallas
+    decode kernel's quantizer, which is :func:`token_quantize`'s)."""
+    q, s, z = token_quantize(x)
+    return q, s[:, 0], z[:, 0]
 
 
 def decode_matmul_plain(x, qw, sw, zw, qw_sum, bias=None,

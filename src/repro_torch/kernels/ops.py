@@ -1,7 +1,7 @@
 """Public entry points of the port's kernels (the twin of
-``repro.kernels.ops``).  The fused STaMP linears are the K1 → K2 chain;
-every wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
-PyTorch version for a CPU tensor."""
+``repro.kernels.ops``).  The fused STaMP linears are the K1 → K2 chain, the
+grouped MoE expert FFN is K5; every wrapper launches its CUDA kernel for a
+CUDA tensor and runs its plain PyTorch version for a CPU tensor."""
 
 from __future__ import annotations
 
@@ -11,12 +11,14 @@ import torch
 
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
 from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.kernels import stamp_matmul as SM
 from repro_torch.kernels.stamp_matmul import (stamp_int_gemm,
                                               stamp_transform_quantize)
 
-#: every kernel wrapper of the main path; each carries a ``launches`` count
+#: every kernel wrapper of the serve paths; each carries a ``launches``
+#: count
 KERNELS = (stamp_transform_quantize, stamp_int_gemm, stamp_decode_matmul,
-           paged_ragged_attention)
+           paged_ragged_attention, SM.stamp_quant_grouped_matmul)
 
 
 def reset_launch_counts() -> None:
@@ -68,3 +70,22 @@ def stamp_quant_dual_matmul(x: torch.Tensor, qw_g, sw_g, zw_g, qw_sum_g,
                           transform=transform, levels=levels,
                           skip_first=skip_first,
                           out_dtype=out_dtype or x.dtype)
+
+
+def stamp_quant_grouped_matmul(qx, sx, zx, counts, qw_gate, sw_gate,
+                               zw_gate, qs_gate, qw_up, sw_up, zw_up, qs_up,
+                               qw_down, sw_down, zw_down, qs_down, *,
+                               block_c: int = 128, block_f: int = 512,
+                               out_dtype=torch.float32) -> torch.Tensor:
+    """Grouped MoE expert FFN over the quantized dispatch buffer (K5):
+    ``qx/sx/zx`` (b, E, C, d) codes with per-token scale / shifted zero
+    point, ``counts`` (b, E) occupancy, the stacked prepared expert buffers
+    with their column sums (``qs_down``: per ``block_f`` slab).  Returns
+    the (b, E, C, d) expert outputs for the combine.  ``block_c`` is kept
+    only to mirror the reference's signature: it is the Pallas kernel's
+    capacity tile, rows are independent, so it changes no number, and K5
+    reads it nowhere (it tiles the rows its own way)."""
+    return SM.stamp_quant_grouped_matmul(
+        qx, sx, zx, counts, qw_gate, sw_gate, zw_gate, qs_gate, qw_up,
+        sw_up, zw_up, qs_up, qw_down, sw_down, zw_down, qs_down,
+        block_f=block_f, out_dtype=out_dtype)

@@ -13,7 +13,7 @@ import torch
 from repro_torch.core import quant as Q
 from repro_torch.core import transforms as T
 from repro_torch.kernels.decode_matmul import row_quantize8
-from repro_torch.kernels.stamp_matmul import silu
+from repro_torch.kernels.stamp_matmul import grouped_block_f, silu
 from repro_torch.serving import kvcache as KV
 
 
@@ -77,6 +77,39 @@ def stamp_decode_matmul_ref(x, qw, sw, zw, bias=None,
     if bias is not None:
         y = y + bias.reshape(1, -1).float()
     return y.to(out_dtype)
+
+
+def stamp_quant_grouped_matmul_ref(qx, sx, zx, counts, qw_gate, sw_gate,
+                                   zw_gate, qw_up, sw_up, zw_up, qw_down,
+                                   sw_down, zw_down, *, block_f=512,
+                                   out_dtype=torch.float32):
+    """Dense oracle of the grouped MoE FFN: dequantize the dispatch buffer
+    and the stacked expert weights, gate/up einsums + ``silu·mul``, then the
+    down-projection per ``block_f`` slab with the same per-row 8-bit
+    requantize (one row scale per slab); slots at or past each bucket's
+    count are zeroed."""
+    b, e, cap, d = qx.shape
+    f = qw_gate.shape[-1]
+    x = (qx.float() - zx) * sx                                # (b, E, C, d)
+    g = torch.einsum("becd,edf->becf", x, _dequant_w(qw_gate, sw_gate,
+                                                      zw_gate))
+    u = torch.einsum("becd,edf->becf", x, _dequant_w(qw_up, sw_up, zw_up))
+    a = silu(g) * u
+    wd = _dequant_w(qw_down, sw_down, zw_down)                # (E, f, d)
+    bf = grouped_block_f(block_f, f)
+    out = torch.zeros((b, e, cap, d), dtype=torch.float32, device=qx.device)
+    for j in range(f // bf):
+        blk = a[..., j * bf:(j + 1) * bf]
+        mn = blk.amin(dim=-1, keepdim=True)
+        mx = blk.amax(dim=-1, keepdim=True)
+        sa = torch.clamp_min(Q.div_const(mx - mn, 255.0), Q.EPS)
+        za = torch.round(-mn / sa)
+        qa = torch.clamp(torch.round(blk / sa) + za, 0.0, 255.0) - za
+        out = out + torch.einsum("becf,efd->becd", qa * sa,
+                                 wd[:, j * bf:(j + 1) * bf])
+    slot = torch.arange(cap, device=qx.device)[None, None, :, None]
+    out = torch.where(slot < counts[:, :, None, None], out, 0.0)
+    return out.to(out_dtype)
 
 
 def span_kv(entry: dict, row_hi: torch.Tensor, row_lo: torch.Tensor):

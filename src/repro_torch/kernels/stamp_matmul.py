@@ -1,5 +1,7 @@
 """Fused STaMP prefill linears: K1 ``stamp_transform_quantize`` then K2
-``stamp_int_gemm`` (CUDA source: ``csrc/stamp_matmul.cu``).
+``stamp_int_gemm`` (CUDA source: ``csrc/stamp_matmul.cu``); and the grouped
+MoE expert FFN, K5 ``stamp_quant_grouped_matmul`` (``csrc/
+grouped_matmul.cu``, see its section below).
 
 Replaces ``stamp_quant_matmul_pallas`` and ``stamp_quant_dual_matmul_pallas``
 (``src/repro/kernels/stamp_matmul.py``).  The TPU kernel holds the whole
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.core import quant as Q
 from repro_torch.core import transforms as T
+from repro_torch.core.stamp import token_quantize
 from repro_torch.kernels import cuda
 
 _KINDS = {"none": 0, "dwt": 1, "wht": 2}
@@ -251,3 +254,153 @@ def stamp_int_gemm(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
 
 
 stamp_int_gemm.launches = 0
+
+
+# --------------------------------------------------------------------- K5 --
+#
+# Replaces ``stamp_quant_grouped_matmul_pallas`` (``src/repro/kernels/
+# stamp_matmul.py``): per expert bucket, gate and up int8 GEMMs off the one
+# quantized dispatch tile, ``silu(g)·u``, an 8-bit per-row requantize of each
+# ``block_f`` slab, and the down-projection's partial products summed in f32
+# over the slabs in order; rows at or past the bucket's count are exact
+# zeros.  Bound on the H100: bytes — a prefill step's few rows per expert
+# stream every occupied expert's int8 weights once (see the source note).
+
+_GROUPED_SIGNATURE = {"stamp_grouped_moe": [
+    cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT,
+    cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
+    cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
+    cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.VP]}
+MAX_BLOCK_F = 512     # f-slab columns one K5 block requantizes on chip
+
+
+def grouped_block_f(block_f: int, f: int) -> int:
+    """The requantize slab width: ``block_f`` halved until it divides
+    ``f`` (the Pallas kernel's ``_pick_block_n``).  It is part of the
+    numerics: each slab of a row gets its own 8-bit scale."""
+    bf = min(block_f, f)
+    while f % bf:
+        bf //= 2
+    return bf
+
+
+def down_slab_sums(qw_down: torch.Tensor, block_f: int = 512
+                   ) -> torch.Tensor:
+    """Column sums of each ``block_f`` slab of the stacked ``(E, f, d)``
+    down-projection codes: ``(E, f / bf, d)`` int32, fixed with the weight
+    (the slab epilogues' Σqw)."""
+    e, f, d = qw_down.shape
+    bf = grouped_block_f(block_f, f)
+    return qw_down.reshape(e, f // bf, bf, d).sum(dim=2, dtype=torch.int32)
+
+
+def grouped_matmul_plain(qx, sx, zx, counts, qw_gate, sw_gate, zw_gate,
+                         qs_gate, qw_up, sw_up, zw_up, qs_up, qw_down,
+                         sw_down, zw_down, qs_down, *, block_f: int = 512,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K5, the Pallas kernel's integer form: int32 sums,
+    the ``_int_gemm`` epilogue (gate/up over ``K = d``, each down slab over
+    ``K = bf``), ``_rowwise_quantize`` per slab and the f32 sum of the
+    slabs in order ``j = 0 .. nf - 1``.  Experts with no kept token are
+    skipped (their rows are all zeros, as every row past its count is).
+    Returns ``(b, E, C, d)``."""
+    b, e, cap, d = qx.shape
+    f = qw_gate.shape[-1]
+    dm = qw_down.shape[-1]
+    bf = grouped_block_f(block_f, f)
+    out = torch.zeros((b, e, cap, dm), dtype=torch.float32, device=qx.device)
+    slot = torch.arange(cap, device=qx.device)
+    for ei in torch.nonzero(counts.sum(dim=0) > 0).flatten().tolist():
+        x = qx[:, ei].reshape(b * cap, d)
+        s, z = sx[:, ei].reshape(-1), zx[:, ei].reshape(-1)
+        xs = x.sum(dim=1, dtype=torch.int32)
+
+        def up_proj(qw, sw, zw, qs):
+            return _epilogue(int_matmul(x, qw[ei]), s, z,
+                             sw[ei].reshape(1, -1).float(),
+                             zw[ei].reshape(1, -1).float(), xs,
+                             qs[ei].reshape(-1), d)
+
+        a = silu(up_proj(qw_gate, sw_gate, zw_gate, qs_gate)) * \
+            up_proj(qw_up, sw_up, zw_up, qs_up)
+        acc = torch.zeros((b * cap, dm), dtype=torch.float32,
+                          device=qx.device)
+        for j in range(f // bf):
+            qa, sa, za = token_quantize(a[:, j * bf:(j + 1) * bf])
+            acc = acc + _epilogue(
+                int_matmul(qa, qw_down[ei, j * bf:(j + 1) * bf]), sa[:, 0],
+                za[:, 0], sw_down[ei].reshape(1, -1).float(),
+                zw_down[ei].reshape(1, -1).float(),
+                qa.sum(dim=1, dtype=torch.int32), qs_down[ei, j], bf)
+        keep = slot[None, :] < counts[:, ei, None]
+        out[:, ei] = torch.where(keep[..., None], acc.reshape(b, cap, dm),
+                                 0.0)
+    return out.to(out_dtype)
+
+
+def stamp_quant_grouped_matmul(qx, sx, zx, counts, qw_gate, sw_gate,
+                               zw_gate, qs_gate, qw_up, sw_up, zw_up, qs_up,
+                               qw_down, sw_down, zw_down, qs_down, *,
+                               block_f: int = 512,
+                               out_dtype=torch.float32) -> torch.Tensor:
+    """K5 over the gathered dispatch buffer.  ``qx``: (b, E, C, d) int8
+    codes with ``sx/zx`` (b, E, C, 1) f32; ``counts``: (b, E) int32 kept
+    tokens per bucket (a prefix of ``[0, C)``); ``qw_gate/qw_up``: (E, d, f)
+    int8 with ``sw/zw`` (E, 1, f) f32 and ``qs`` (E, 1, f) int32 column
+    sums; ``qw_down``: (E, f, d) with ``sw/zw`` (E, 1, d) and ``qs_down``
+    (E, f / bf, d) slab sums (:func:`down_slab_sums`).  Returns (b, E, C,
+    d)."""
+    args = (qx, sx, zx, counts, qw_gate, sw_gate, zw_gate, qs_gate, qw_up,
+            sw_up, zw_up, qs_up, qw_down, sw_down, zw_down, qs_down)
+    if qx.device.type == "cpu":
+        return grouped_matmul_plain(*args, block_f=block_f,
+                                    out_dtype=out_dtype)
+    b, e, cap, d = qx.shape
+    f = qw_gate.shape[-1]
+    bf = grouped_block_f(block_f, f)
+    nf = f // bf
+    want = {"qw_gate": (e, d, f), "qw_up": (e, d, f), "qw_down": (e, f, d),
+            "counts": (b, e), "qs_down": (e, nf, d)}
+    got = {"qw_gate": qw_gate.shape, "qw_up": qw_up.shape,
+           "qw_down": qw_down.shape, "counts": counts.shape,
+           "qs_down": qs_down.shape}
+    for name, shape in want.items():
+        if tuple(got[name]) != shape:
+            raise ValueError(f"K5: {name} has shape {tuple(got[name])}, "
+                             f"expected {shape}")
+    if d % 4 or bf % 4 or bf > MAX_BLOCK_F:
+        raise ValueError(f"K5 needs d and the slab width multiples of 4 "
+                         f"and a slab of at most {MAX_BLOCK_F}; got d={d}, "
+                         f"bf={bf}")
+    if qx.dtype != torch.int8 or counts.dtype != torch.int32 or \
+            qs_gate.dtype != torch.int32 or qs_down.dtype != torch.int32:
+        raise ValueError("K5 takes int8 codes with int32 counts and sums")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K5 writes bf16 or f32, not {out_dtype}")
+    sx, zx = sx.float().contiguous(), zx.float().contiguous()
+    vecs = [t.float().contiguous() for t in (sw_gate, zw_gate, sw_up, zw_up,
+                                             sw_down, zw_down)]
+    cuda.require_cuda(qx, sx, zx, counts, qw_gate, qs_gate, qw_up, qs_up,
+                      qw_down, qs_down, *vecs)
+    dev = qx.device
+    rows = b * e * cap
+    qa = torch.empty((rows, f), dtype=torch.int8, device=dev)
+    sa = torch.empty((rows, nf), dtype=torch.float32, device=dev)
+    za = torch.empty((rows, nf), dtype=torch.float32, device=dev)
+    qas = torch.empty((rows, nf), dtype=torch.int32, device=dev)
+    out = torch.empty((b, e, cap, d), dtype=out_dtype, device=dev)
+    swg, zwg, swu, zwu, swd, zwd = vecs
+    err = cuda.library("grouped_matmul", _GROUPED_SIGNATURE).stamp_grouped_moe(
+        qx.data_ptr(), sx.data_ptr(), zx.data_ptr(), counts.data_ptr(), b, e,
+        cap, d, f, bf, qw_gate.data_ptr(), swg.data_ptr(), zwg.data_ptr(),
+        qs_gate.data_ptr(), qw_up.data_ptr(), swu.data_ptr(), zwu.data_ptr(),
+        qs_up.data_ptr(), qw_down.data_ptr(), swd.data_ptr(), zwd.data_ptr(),
+        qs_down.data_ptr(), qa.data_ptr(), sa.data_ptr(), za.data_ptr(),
+        qas.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        cuda.stream_ptr(qx))
+    cuda.check(err, "stamp_quant_grouped_matmul")
+    stamp_quant_grouped_matmul.launches += 1
+    return out
+
+
+stamp_quant_grouped_matmul.launches = 0

@@ -6,6 +6,10 @@ batched requests through the paged unified engine.
         --fused-cache-attention --device cuda \\
         --requests 4 --prompt-len 96 --max-new 8
 
+``--arch arctic-480b`` serves the MoE path (128 experts, top-2, dense
+residual); at full width one H100 holds a few of its 35 layers, which a
+caller cuts by passing a config to :func:`build`.
+
 The flags are the reference CLI's (``repro.launch.serve``) for this path;
 ``--device`` (default ``cuda``) picks where it runs.
 """
@@ -53,12 +57,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build(args: argparse.Namespace) -> tuple:
-    """Seeded init → PTQ → engine.  Returns ``(engine, cfg, report)``; the
-    f32 and packed weights are dropped once the engine holds its own."""
+def _hand_over(layers: list):
+    """Yield each layer and drop the list's reference to it, so the
+    consumer holds the only one."""
+    while layers:
+        yield layers.pop(0)
+
+
+def build(args: argparse.Namespace, cfg=None) -> tuple:
+    """Seeded init → PTQ → engine, streamed one layer at a time: each layer
+    is drawn in bf16 when calibration reaches it, packed to int4 and
+    released, and the engine prepares and releases each packed layer in
+    turn.  ``cfg`` overrides the ``--arch`` / ``--reduced`` config (for
+    example a depth cut).  Returns ``(engine, cfg, report)``."""
     dev = resolve_device(args.device)
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    params = lm.init_params(cfg, seed=args.seed, device=dev)
+    if cfg is None:
+        cfg = get_reduced(args.arch) if args.reduced \
+            else get_config(args.arch)
+    params = lm.init_params(cfg, seed=args.seed, device=dev,
+                            dtype=torch.bfloat16, lazy=True)
     calib = calibration_batches(DataConfig(vocab_size=cfg.vocab_size,
                                            seq_len=128, global_batch=4,
                                            seed=args.seed), num_batches=2)
@@ -76,6 +93,7 @@ def build(args: argparse.Namespace) -> tuple:
     bs = args.block_size
     if serve.kv.num_hi % bs:
         bs = serve.kv.num_hi     # pages are single-precision
+    sparams["layers"] = _hand_over(sparams["layers"])
     engine = PagedServingEngine(
         sparams, cfg, serve,
         PagedEngineConfig(max_slots=8, prefill_chunk=args.prefill_chunk,

@@ -1,5 +1,6 @@
-"""Model configuration for the dense GQA decoders the port serves (a copy of
-the dense subset of ``repro.models.config``)."""
+"""Model configuration for the decoders the port serves: dense GQA and
+capacity-routed MoE stacks (a copy of that subset of
+``repro.models.config``)."""
 
 from __future__ import annotations
 
@@ -10,13 +11,13 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str = "attn"        # attn (the port's only mixer so far)
-    ffn: str = "mlp"           # mlp (the port's only ffn so far)
+    ffn: str = "mlp"           # mlp | moe | moe_dense (Arctic residual)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (the port's only family so far)
+    family: str                 # dense | moe (the port's families so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -25,6 +26,16 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None        # default d_model // num_heads
     qkv_bias: bool = False
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0                     # expert hidden size (if != d_ff)
+    dense_residual: bool = False          # Arctic: FFN = dense MLP + MoE
+    moe_period: int = 1                   # MoE every k-th layer (hybrid)
+    first_layer_dense: bool = False       # Kimi-K2: layer 0 is dense MLP
+    capacity_factor: float = 1.25
+    moe_group_size: int = 1024            # routing group (GShard-style)
+    # --- misc ---
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -49,12 +60,31 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.resolved_head_dim
 
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
     def layer_plan(self) -> tuple[Tuple[LayerSpec, ...],
                                   Tuple[LayerSpec, ...], int]:
-        """Returns (prologue, period_pattern, num_periods).  Only dense
-        stacks are ported: one attention + MLP layer per period."""
+        """Returns (prologue, period_pattern, num_periods).  Dense stacks
+        are one attention + MLP layer per period; MoE stacks one attention
+        + MoE layer (``moe_dense`` with the dense residual), after a dense
+        first layer when ``first_layer_dense``."""
+        n = self.num_layers
+        if self.family == "moe":
+            spec = LayerSpec("attn",
+                             "moe_dense" if self.dense_residual else "moe")
+            if self.first_layer_dense:
+                return (LayerSpec("attn", "mlp"),), (spec,), n - 1
+            return (), (spec,), n
         if self.family != "dense":
             raise NotImplementedError(
-                f"{self.name}: the port serves dense stacks only "
+                f"{self.name}: the port serves dense and MoE stacks only "
                 f"(family={self.family!r})")
-        return (), (LayerSpec("attn", "mlp"),), self.num_layers
+        return (), (LayerSpec("attn", "mlp"),), n
+
+    def layer_specs(self) -> Tuple[LayerSpec, ...]:
+        """Every layer's spec in stack order: the prologue, then the
+        period pattern repeated (the port keeps layers unrolled)."""
+        pro, period, nper = self.layer_plan()
+        return pro + period * nper

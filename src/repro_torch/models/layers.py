@@ -1,6 +1,7 @@
-"""Model building blocks (the port of the dense-path pieces of
-``repro.models.layers``): RMSNorm, RoPE, the plain attention variants and
-the fused STaMP linear sites."""
+"""Model building blocks (the port of the dense and MoE pieces of
+``repro.models.layers``): RMSNorm, RoPE, the plain attention variants, the
+fused STaMP linear sites and capacity-routed MoE (routing, the reference
+expert FFN and the grouped-kernel one)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.stamp import (PreparedLinear, stamp_dual_linear,
-                                    stamp_linear)
+                                    stamp_linear, token_quantize)
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.stamp_matmul import silu
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -64,6 +67,114 @@ def stamp_fused_dual_linear(x: torch.Tensor, w_gate: dict, w_up: dict,
     return stamp_dual_linear(x, None, None, stamp_cfg,
                              prepared_gate=_prepared(w_gate),
                              prepared_up=_prepared(w_up))
+
+
+# ---------------------------------------------------------------------------
+# MoE (routing is plain PyTorch, as it is XLA in the reference)
+# ---------------------------------------------------------------------------
+
+
+def _moe_fold(x: torch.Tensor, group_size: int) -> tuple:
+    """Fold ``(bsz, seq, d)`` into routing groups ``(b, gs, d)`` with the
+    pad-tail validity mask (pad tokens must not take expert slots)."""
+    bsz, seq, d = x.shape
+    gs = min(group_size, seq)
+    pad = -seq % gs
+    if pad:
+        x = torch.cat([x, x.new_zeros((bsz, pad, d))], dim=1)
+    seq_p = seq + pad
+    x = x.reshape(bsz * (seq_p // gs), gs, d)
+    valid = (torch.arange(seq_p, device=x.device) < seq).float()
+    valid = valid[None].expand(bsz, seq_p).reshape(x.shape[0], gs)
+    return x, valid, seq_p
+
+
+def moe_route(x: torch.Tensor, gate_w: torch.Tensor, experts_per_token: int,
+              capacity_factor: float, valid: torch.Tensor) -> tuple:
+    """GShard capacity routing, shared by the reference and fused MoE
+    paths: f32 logits and softmax, top-k (lower index first on ties),
+    renormalised gates, f32 cumsum capacity positions (top-1 choices
+    first).  Returns ``(combine (b, s, E, C) in x.dtype, dispatch, counts
+    (b, E) int32)``; each bucket's kept slots are a prefix of ``[0, C)``."""
+    b, s, _ = x.shape
+    e = gate_w.shape[-1]
+    k = experts_per_token
+    cap = max(int(np.ceil(s * k / e * capacity_factor)), 1)
+    probs = torch.softmax(x.float() @ gate_w.float(), dim=-1)   # (b, s, E)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = order.values[..., :k], order.indices[..., :k]
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    onehot = torch.nn.functional.one_hot(gate_idx, e).float()  # (b,s,k,E)
+    onehot = onehot * valid[:, :, None, None]
+    flat = onehot.transpose(1, 2).reshape(b, k * s, e)
+    pos = torch.cumsum(flat, dim=1) - flat
+    pos = pos.reshape(b, k, s, e).transpose(1, 2)              # (b,s,k,E)
+    keep = (pos < cap).float() * onehot
+    pos_cap = torch.einsum("bske,bske->bsk", pos, keep)
+    cap_onehot = torch.nn.functional.one_hot(pos_cap.long(), cap).float()
+    combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, keep,
+                           cap_onehot).to(x.dtype)
+    dispatch = (combine > 0).to(x.dtype)
+    counts = keep.sum(dim=(1, 2)).to(torch.int32)
+    return combine, dispatch, counts
+
+
+def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
+            experts_per_token: int, capacity_factor: float,
+            group_size: int = 1024) -> torch.Tensor:
+    """Capacity-based top-k MoE, reference path.  ``w_gate / w_up``
+    index to expert ``e``'s ``(d, f)`` weight by ``w[e]`` and ``w_down``
+    to its ``(f, d)`` one (stacked tensors, or a view that dequantizes one
+    expert at a time).  Only experts that keep a token are computed: an
+    expert without tokens sees all-zero dispatch rows and adds exact zeros
+    in the reference's dense einsums, so the sum is unchanged."""
+    bsz, seq, d = x.shape
+    xg, valid, seq_p = _moe_fold(x, group_size)
+    combine, dispatch, counts = moe_route(xg, gate_w, experts_per_token,
+                                          capacity_factor, valid)
+    xin = torch.einsum("bsec,bsd->becd", dispatch, xg)        # (b, E, C, d)
+    out = torch.zeros_like(xin)
+    for ei in torch.nonzero(counts.sum(dim=0) > 0).flatten().tolist():
+        xe = xin[:, ei]
+        h = silu(xe @ w_gate[ei].to(x.dtype)) * (xe @ w_up[ei].to(x.dtype))
+        out[:, ei] = h @ w_down[ei].to(x.dtype)
+    y = torch.einsum("bsec,becd->bsd", combine, out)
+    return y.reshape(bsz, seq_p, d)[:, :seq]
+
+
+def moe_ffn_fused(x: torch.Tensor, gate_w: torch.Tensor, w_gate: dict,
+                  w_up: dict, w_down: dict, experts_per_token: int,
+                  capacity_factor: float,
+                  group_size: int = 1024) -> torch.Tensor:
+    """Capacity MoE through the grouped kernel K5: route on the same
+    (stamped) activation as the reference path, quantize each token ONCE
+    (:func:`token_quantize`), gather the int8 codes into the capacity
+    buckets and run the gate/up/down expert stack over the prepared
+    buffers ``{"iq", "isw", "izw", "iqsum"}`` (``we_down`` also carries
+    its per-slab sums ``"iqslab"``)."""
+    bsz, seq, d = x.shape
+    xg, valid, seq_p = _moe_fold(x, group_size)
+    combine, dispatch, counts = moe_route(xg, gate_w, experts_per_token,
+                                          capacity_factor, valid)
+    b, _, e, cap = combine.shape
+    qd, sd, zd = token_quantize(xg)
+    # slot c of expert e holds the c-th kept token in sequence order, so
+    # the argmax over the one-hot sequence axis is the gather index; empty
+    # slots gather token 0 and the kernel writes them as zeros
+    idx = dispatch.argmax(dim=1).reshape(b, e * cap, 1)
+
+    def gather(t):
+        return torch.gather(t, 1, idx.expand(-1, -1, t.shape[-1])
+                            ).reshape(b, e, cap, -1)
+
+    ye = kops.stamp_quant_grouped_matmul(
+        gather(qd), gather(sd), gather(zd), counts,
+        w_gate["iq"], w_gate["isw"], w_gate["izw"], w_gate["iqsum"],
+        w_up["iq"], w_up["isw"], w_up["izw"], w_up["iqsum"],
+        w_down["iq"], w_down["isw"], w_down["izw"], w_down["iqslab"])
+    y = torch.einsum("bsec,becd->bsd", combine, ye.to(x.dtype))
+    return y.reshape(bsz, seq_p, d)[:, :seq]
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,17 @@
-"""Dense GQA decoder: calibration forward, and the paged serving steps of
-the unified engine (the port of the dense path of ``repro.models.lm``).
+"""Dense GQA and MoE decoders: calibration forward, and the paged serving
+steps of the unified engine (the port of those paths of
+``repro.models.lm``).
 
 Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
 ``head`` (absent when tied) and ``layers`` — one dict per layer (the
-reference's scanned ``period`` stack unrolled).  Stored f32 and cast to
-bf16 at use; serving params hold packed-int4 or prepared-int8 dicts for the
-large matmuls.
+reference's prologue and scanned ``period`` stack unrolled; each layer's
+``LayerSpec`` comes from ``cfg.layer_specs()``).  Stored f32 or bf16 and
+cast to bf16 at use; serving params hold packed-int4 or prepared-int8 dicts
+for the large matmuls.  MoE layers hold the router ``gate_w`` and the
+stacked ``(E, ·, ·)`` expert weights ``we_gate / we_up / we_down``; Arctic's
+dense residual MLP is ``dwi_gate / dwi_up / dwo_mlp``.  Setup at full width
+streams: expert stacks are drawn, packed and prepared one expert at a time,
+and ``init_params(lazy=True)`` draws each layer only when it is reached.
 
 Kernel routing is explicit: the serve config carries
 ``fused_cache_attention`` and ``fused_decode_matmul`` into every step, and
@@ -28,9 +34,9 @@ from repro_torch.core.quant import EPS, fdiv
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
 from repro_torch.kernels.paged_attention import paged_ragged_attention
-from repro_torch.kernels.stamp_matmul import silu
+from repro_torch.kernels.stamp_matmul import down_slab_sums, silu
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.serving import kvcache as KV
 from repro_torch.serving import paged_kvcache as PKV
 
@@ -55,60 +61,96 @@ class ServeConfig:
 # ---------------------------------------------------------------------------
 
 
-def _dense(gen, din, dout, device, std=None):
+def _dense(gen, din, dout, device, dtype, std=None):
     std = std if std is not None else 1.0 / np.sqrt(din)
-    return torch.randn((din, dout), generator=gen, device=device) * std
+    return (torch.randn((din, dout), generator=gen, device=device)
+            * std).to(dtype)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random f32 parameters from ``seed`` (a ``torch.Generator`` on the
-    target device), with the reference's shapes and scales.  Runs on
-    ``cuda`` unless ``device`` says otherwise."""
+def _expert_stack(gen, e, din, dout, device, dtype):
+    """(E, din, dout) drawn one expert at a time in f32 and stored in
+    ``dtype``: no f32 stack is ever held (one Arctic stack is 17.8 GB in
+    f32), and a bf16 stack equals the f32 one cast."""
+    out = torch.empty((e, din, dout), dtype=dtype, device=device)
+    for i in range(e):
+        out[i] = _dense(gen, din, dout, device, dtype)
+    return out
+
+
+def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen, dev, dtype) -> dict:
+    d = cfg.d_model
+
+    def ones(n):
+        return torch.ones(n, device=dev, dtype=dtype)
+
+    p = {"ln1": ones(d),
+         "wq": _dense(gen, d, cfg.q_dim, dev, dtype),
+         "wk": _dense(gen, d, cfg.kv_dim, dev, dtype),
+         "wv": _dense(gen, d, cfg.kv_dim, dev, dtype),
+         "wo": _dense(gen, cfg.q_dim, d, dev, dtype)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(cfg.q_dim, device=dev, dtype=dtype)
+        p["bk"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
+        p["bv"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
+    p["ln2"] = ones(d)
+    if spec.ffn in ("mlp", "moe_dense"):
+        pre = "d" if spec.ffn == "moe_dense" else ""
+        p[f"{pre}wi_gate"] = _dense(gen, d, cfg.d_ff, dev, dtype)
+        p[f"{pre}wi_up"] = _dense(gen, d, cfg.d_ff, dev, dtype)
+        p[f"{pre}wo_mlp"] = _dense(gen, cfg.d_ff, d, dev, dtype)
+    if spec.ffn in ("moe", "moe_dense"):
+        e, f = cfg.num_experts, cfg.expert_d_ff
+        # the router stays in f32 whatever ``dtype`` is (d x E, small): it
+        # routes on f32 weights, as the reference's does
+        p["gate_w"] = _dense(gen, d, e, dev, torch.float32)
+        p["we_gate"] = _expert_stack(gen, e, d, f, dev, dtype)
+        p["we_up"] = _expert_stack(gen, e, d, f, dev, dtype)
+        p["we_down"] = _expert_stack(gen, e, f, d, dev, dtype)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype=torch.float32, lazy: bool = False) -> dict:
+    """Random parameters from ``seed`` (a ``torch.Generator`` on the
+    target device), with the reference's shapes and scales, drawn in f32
+    and stored in ``dtype`` (a bf16 model equals the f32 one cast; MoE
+    routers stay f32).  With
+    ``lazy``, ``layers`` is an iterator that draws each layer when it is
+    reached, with the same numbers: a full-width MoE stack is set up one
+    layer at a time.  Runs on ``cuda`` unless ``device`` says otherwise."""
     dev = resolve_device(device)
-    cfg.layer_plan()                 # dense stacks only
+    specs = cfg.layer_specs()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     d = cfg.d_model
     params = {
-        "embed": torch.randn((cfg.padded_vocab, d), generator=gen,
-                             device=dev) * 0.02,
-        "final_norm": torch.ones(d, device=dev),
+        "embed": (torch.randn((cfg.padded_vocab, d), generator=gen,
+                              device=dev) * 0.02).to(dtype),
+        "final_norm": torch.ones(d, device=dev, dtype=dtype),
     }
     if not cfg.tie_embeddings:
-        params["head"] = _dense(gen, d, cfg.padded_vocab, dev)
-    layers = []
-    for _ in range(cfg.num_layers):
-        p = {"ln1": torch.ones(d, device=dev),
-             "wq": _dense(gen, d, cfg.q_dim, dev),
-             "wk": _dense(gen, d, cfg.kv_dim, dev),
-             "wv": _dense(gen, d, cfg.kv_dim, dev),
-             "wo": _dense(gen, cfg.q_dim, d, dev)}
-        if cfg.qkv_bias:
-            p["bq"] = torch.zeros(cfg.q_dim, device=dev)
-            p["bk"] = torch.zeros(cfg.kv_dim, device=dev)
-            p["bv"] = torch.zeros(cfg.kv_dim, device=dev)
-        p["ln2"] = torch.ones(d, device=dev)
-        p["wi_gate"] = _dense(gen, d, cfg.d_ff, dev)
-        p["wi_up"] = _dense(gen, d, cfg.d_ff, dev)
-        p["wo_mlp"] = _dense(gen, cfg.d_ff, d, dev)
-        layers.append(p)
-    params["layers"] = layers
+        params["head"] = _dense(gen, d, cfg.padded_vocab, dev, dtype)
+    layers = (_init_layer(cfg, spec, gen, dev, dtype) for spec in specs)
+    params["layers"] = layers if lazy else list(layers)
     return params
 
 
 def from_jax_params(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
     """The reference's ``init_params`` pytree, given as numpy arrays, as
-    the port's params: the stacked ``period`` axis unrolls into
-    ``layers``; ``head`` is kept when present (tied models read
-    ``embed.T`` at use, as the reference's ``_head_weight`` does)."""
-    _, period, nper = cfg.layer_plan()
+    the port's params: the prologue layers, then the stacked ``period``
+    axis unrolled into ``layers`` (expert leaves keep their ``(E, ·, ·)``
+    stack); ``head`` is kept when present (tied models read ``embed.T`` at
+    use, as the reference's ``_head_weight`` does)."""
+    pro, period, nper = cfg.layer_plan()
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(device)
 
     params = {k: t(tree[k]) for k in ("embed", "final_norm", "head")
               if k in tree}
-    params["layers"] = [
+    params["layers"] = [{k: t(v) for k, v in tree["prologue"][i].items()}
+                        for i in range(len(pro))]
+    params["layers"] += [
         {k: t(np.asarray(v)[i]) for k, v in tree["period"][j].items()}
         for i in range(nper) for j in range(len(period))]
     return params
@@ -174,14 +216,35 @@ def pack_weight(w: torch.Tensor, bits: int = 4) -> dict:
             "zp": zp}
 
 
-_BIG = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_mlp")
+_BIG = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_mlp", "dwi_gate",
+        "dwi_up", "dwo_mlp", "we_gate", "we_up", "we_down")
+_EXPERTS = ("we_gate", "we_up", "we_down")
+
+
+def _one_expert(w, e: int):
+    return {k: v[e] for k, v in w.items()} if isinstance(w, dict) else w[e]
+
+
+def _per_expert(fn, w) -> dict:
+    """``fn`` (a ``(din, dout)`` weight or packed dict → dict of tensors)
+    over a stacked ``(E, ·, ·)`` weight one expert at a time, stacked into
+    preallocated outputs: its f32 temporaries stay one expert's size."""
+    first = fn(_one_expert(w, 0))
+    n = (next(iter(w.values())) if isinstance(w, dict) else w).shape[0]
+    out = {k: v.new_empty((n, *v.shape)) for k, v in first.items()}
+    for e in range(n):
+        part = first if e == 0 else fn(_one_expert(w, e))
+        for k, v in part.items():
+            out[k][e] = v
+    return out
 
 
 def quantize_weights_for_serving(layer: dict, bits: int = 4) -> dict:
-    """Pack one layer's large matmul weights to int4; norms and biases
-    stay as they are."""
-    return {k: pack_weight(v, bits) if k in _BIG else v
-            for k, v in layer.items()}
+    """Pack one layer's large matmul weights to int4 (expert stacks one
+    expert at a time); norms, biases and the router stay as they are."""
+    return {k: (_per_expert(lambda w: pack_weight(w, bits), v)
+                if k in _EXPERTS else pack_weight(v, bits))
+            if k in _BIG else v for k, v in layer.items()}
 
 
 def _prep(w, bits: int) -> dict:
@@ -191,13 +254,23 @@ def _prep(w, bits: int) -> dict:
     return {"iq": p.qw, "isw": p.sw, "izw": p.zw, "iqsum": p.qw_sum}
 
 
+def _prep_down_expert(w, bits: int) -> dict:
+    """One expert's down-projection, with the per-slab column sums the
+    grouped kernel's slab epilogues read."""
+    p = _prep(w, bits)
+    p["iqslab"] = down_slab_sums(p["iq"][None])[0]
+    return p
+
+
 def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
     """Hoist every fused site's weights into int8 buffers ``{"iq", "isw",
     "izw", "iqsum"}``, one layer at a time: wq/wk/wv merge into ``wqkv``
-    (biases into ``bqkv``), gate/up and the out-projections prepare per site.
-    Packed int4 weights are dequantized and re-coded at
-    ``stamp.fused_weight_bits``.  No-op when the config cannot run the
-    fused kernels."""
+    (biases into ``bqkv``), gate/up and the out-projections prepare per
+    site, expert stacks one expert at a time (``we_down`` also keeps its
+    per-slab sums ``iqslab``).  Packed int4 weights are dequantized and
+    re-coded at ``stamp.fused_weight_bits``.  ``params["layers"]`` may be
+    an iterator: a layer handed over that way is dropped as soon as it is
+    prepared.  No-op when the config cannot run the fused kernels."""
     if not fused_eligible(stamp):
         return params
     bits = stamp.fused_weight_bits
@@ -212,8 +285,14 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
         del raws
         if all(k in p for k in ("bq", "bk", "bv")):
             out["bqkv"] = torch.cat([p["bq"], p["bk"], p["bv"]], dim=-1)
-        for k in ("wo", "wi_gate", "wi_up", "wo_mlp"):
-            out[k] = _prep(p[k], bits)
+        for k in ("wo", "wi_gate", "wi_up", "wo_mlp", "dwi_gate", "dwi_up",
+                  "dwo_mlp"):
+            if k in p:
+                out[k] = _prep(p[k], bits)
+        for k in _EXPERTS:
+            if k in p:
+                fn = _prep_down_expert if k == "we_down" else _prep
+                out[k] = _per_expert(lambda w: fn(w, bits), p[k])
         layers.append(out)
     return {**{k: v for k, v in params.items() if k != "layers"},
             "layers": layers}
@@ -265,21 +344,60 @@ def _attn_out(p: dict, attn: torch.Tensor, x: torch.Tensor,
     return x + _linear(out, p["wo"], None, dm)
 
 
-def ffn_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+class _ExpertStack:
+    """Expert ``e``'s ``(din, dout)`` weight of a stacked prepared-int8 or
+    packed-int4 expert dict, dequantized in ``dtype`` when indexed — the
+    reference's ``_expert_w`` one expert at a time (a whole Arctic stack in
+    bf16 is 8.9 GB)."""
+
+    def __init__(self, w, dtype):
+        self.w, self.dtype = w, dtype
+
+    def __getitem__(self, e: int) -> torch.Tensor:
+        w, dt = _one_expert(self.w, e), self.dtype
+        if isinstance(w, dict) and "iq" in w:
+            # codes and zero points are integers in [-128, 127]: exact in
+            # bf16
+            return (w["iq"].to(dt) - w["izw"].to(dt)) * w["isw"].to(dt)
+        if isinstance(w, dict):
+            return _dequant_packed(w, dt)
+        return w.to(dt)
+
+
+def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
               stamp: Optional[StampConfig], dm: bool) -> torch.Tensor:
-    """SwiGLU MLP + residual; the fused path is one dual call for gate/up
-    and one call for the down-projection."""
+    """SwiGLU MLP and/or MoE + residual, summed as the reference does: ``x
+    + ((0 + moe) + mlp)``.  The fused MLP is one dual call for gate/up and
+    one call for the down-projection; the fused MoE routes on the stamped
+    round trip and runs the expert stack through the grouped kernel.
+    Without fused weights or STaMP (the decode region, calibration) the
+    MoE runs the reference FFN over the routed experts only."""
     h = L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
-    wg, wu = p["wi_gate"], p["wi_up"]
-    if _use_fused(stamp, wg) and _use_fused(stamp, wu):
-        g = L.stamp_fused_dual_linear(h, wg, wu, stamp)
-    else:
+    hq = None
+    out = torch.zeros_like(x)
+    if spec.ffn in ("moe", "moe_dense"):
         hq = _maybe_stamp(h, stamp)
-        g = silu(_linear(hq, wg, None, dm)) * \
-            _linear(hq, wu, None, dm)
-    if _use_fused(stamp, p["wo_mlp"]):
-        return x + L.stamp_fused_linear(g, p["wo_mlp"], None, stamp)
-    return x + _linear(_maybe_stamp(g, stamp), p["wo_mlp"], None, dm)
+        route = (cfg.experts_per_token, cfg.capacity_factor,
+                 cfg.moe_group_size)
+        if all(_use_fused(stamp, p[k]) for k in _EXPERTS):
+            out = out + L.moe_ffn_fused(hq, p["gate_w"], p["we_gate"],
+                                        p["we_up"], p["we_down"], *route)
+        else:
+            out = out + L.moe_ffn(hq, p["gate_w"], *(
+                _ExpertStack(p[k], x.dtype) for k in _EXPERTS), *route)
+    if spec.ffn in ("mlp", "moe_dense"):
+        pre = "d" if spec.ffn == "moe_dense" else ""
+        wg, wu, wo = p[f"{pre}wi_gate"], p[f"{pre}wi_up"], p[f"{pre}wo_mlp"]
+        if _use_fused(stamp, wg) and _use_fused(stamp, wu):
+            g = L.stamp_fused_dual_linear(h, wg, wu, stamp)
+        else:
+            hq = _maybe_stamp(h, stamp) if hq is None else hq
+            g = silu(_linear(hq, wg, None, dm)) * _linear(hq, wu, None, dm)
+        if _use_fused(stamp, wo):
+            out = out + L.stamp_fused_linear(g, wo, None, stamp)
+        else:
+            out = out + _linear(_maybe_stamp(g, stamp), wo, None, dm)
+    return x + out
 
 
 def attn_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -381,16 +499,27 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()].to(COMPUTE_DTYPE)
 
 
+def hidden_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """One layer of the full-sequence forward without STaMP."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = attn_block_train(p, x, cfg, positions)
+    return ffn_block(p, x, spec, cfg, None, False)
+
+
+def final_hidden(params: dict, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    return L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+
+
 def model_hidden(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence forward without STaMP (the calibration pass): final
     normed hidden states ``(b, s, d)`` in bf16."""
     x = _embed(params, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for p in params["layers"]:
-        x = attn_block_train(p, x, cfg, positions)
-        x = ffn_block(p, x, cfg, None, False)
-    return L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
+    for spec, p in zip(cfg.layer_specs(), params["layers"]):
+        x = hidden_layer(p, spec, x, cfg)
+    return final_hidden(params, x, cfg)
 
 
 def init_paged_cache(cfg: ModelConfig, pcfg: PKV.PagedCacheConfig,
@@ -403,8 +532,7 @@ def init_paged_cache(cfg: ModelConfig, pcfg: PKV.PagedCacheConfig,
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    x = L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
-    return _linear(x, _head_weight(params)).float()
+    return _linear(final_hidden(params, x, cfg), _head_weight(params)).float()
 
 
 def paged_decode_step(params: dict, pools: list, tokens: torch.Tensor,
@@ -421,9 +549,9 @@ def paged_decode_step(params: dict, pools: list, tokens: torch.Tensor,
     paged = {"dec_ht": hi_table, "dec_lt": lo_table,
              "dec_positions": positions, "dec_lengths": positions + 1,
              "pages": pages, "offsets": offsets, "is_hi": is_hi}
-    for p, entry in zip(params["layers"], pools):
+    for spec, p, entry in zip(cfg.layer_specs(), params["layers"], pools):
         x = attn_block_decode(p, x, cfg, serve, entry, paged, dm)
-        x = ffn_block(p, x, cfg, None, dm)
+        x = ffn_block(p, x, spec, cfg, None, dm)
     return _logits(params, x[:, 0], cfg), pools
 
 
@@ -467,10 +595,10 @@ def paged_unified_step(params: dict, pools: list, pf_tokens: torch.Tensor,
              "dec_lengths": dec_positions + 1,
              "pages": pages, "offsets": offsets, "is_hi": is_hi}
     x = (x_pf, x_dec)
-    for p, entry in zip(params["layers"], pools):
+    for spec, p, entry in zip(cfg.layer_specs(), params["layers"], pools):
         x = attn_block_unified(p, x, cfg, serve, entry, paged, dm)
-        x = (ffn_block(p, x[0], cfg, serve.stamp, dm),
-             ffn_block(p, x[1], cfg, None, dm))
+        x = (ffn_block(p, x[0], spec, cfg, serve.stamp, dm),
+             ffn_block(p, x[1], spec, cfg, None, dm))
     x_pf, x_dec = x
     rows = torch.arange(n_pf, device=x_pf.device)
     pf_logits = _logits(params, x_pf[rows, pf_last_index.long()], cfg)

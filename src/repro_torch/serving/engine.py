@@ -74,8 +74,11 @@ STAT_KEYS = ("steps", "decode_tokens", "prefill_chunks", "preemptions",
 class PagedServingEngine:
     """Continuous batching with one forward per step (see the module
     docstring).  A fused STaMP config prepares every fused site's weights
-    to int8 once here (the packed input weights are not kept) and turns on
-    the decode kernel for decode-shaped linears.  Runs on ``cuda`` unless
+    to int8 once here, layer by layer (the packed input weights are not
+    kept), and turns on the decode kernel for decode-shaped linears.
+    ``params["layers"]`` may be an iterator: a layer handed over that way
+    is released as soon as it is prepared, so a full-width model never
+    holds its packed and prepared forms at once.  Runs on ``cuda`` unless
     ``device`` says otherwise; ``params`` must lie there."""
 
     def __init__(self, params: dict, cfg: ModelConfig,
@@ -87,7 +90,8 @@ class PagedServingEngine:
                 serve.stamp.execution == "fused":
             params = lm.prepare_fused_weights(params, serve.stamp)
             serve = dataclasses.replace(serve, fused_decode_matmul=True)
-        self.params, self.cfg = params, cfg
+        self.params = dict(params, layers=list(params["layers"]))
+        self.cfg = cfg
         quant = serve.kv
         if not quant.quantized:
             raise NotImplementedError("the port serves the quantized cache")

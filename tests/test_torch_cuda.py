@@ -132,6 +132,46 @@ def test_cuda_paged_attention_matches_plain(card, block_size):
         assert float((a - b).abs().max()) <= 1e-4
 
 
+def grouped_case(b, e, cap, d, f, counts, device, seed=0):
+    """K5's inputs: token-quantized dispatch rows with the first
+    ``counts[i][e]`` slots of each bucket kept, and stacked prepared
+    expert weights with their column and slab sums."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, e * cap, d), generator=gen, device=device)
+    qx, sx, zx = TS.token_quantize(x)
+    ws = []
+    for shape in ((e, d, f), (e, d, f), (e, f, d)):
+        p = TS.prepare_linear(torch.randn(shape, generator=gen,
+                                          device=device) * 0.05)
+        ws.append(p)
+    pg, pu, pd = ws
+    return (qx.reshape(b, e, cap, d), sx.reshape(b, e, cap, 1),
+            zx.reshape(b, e, cap, 1),
+            torch.tensor(counts, dtype=torch.int32, device=device),
+            pg.qw, pg.sw, pg.zw, pg.qw_sum, pu.qw, pu.sw, pu.zw, pu.qw_sum,
+            pd.qw, pd.sw, pd.zw, TSM.down_slab_sums(pd.qw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [768, 96, 1024])
+def test_cuda_grouped_moe_matches_plain(card, f):
+    """K5 in f32 within 1e-5 relative of its plain version: exact int32
+    sums, the same f32 epilogues and slab order; buckets with more kept
+    rows than one row chunk, empty buckets, rows past each count exactly
+    zero; slabs of 256 (f = 768), 96 and 512 columns."""
+    counts = [[10, 7, 1, 0], [0, 3, 10, 2]]
+    args = grouped_case(2, 4, 10, 64, f, counts, card)
+    got = TSM.stamp_quant_grouped_matmul(*args)
+    want = TSM.grouped_matmul_plain(*args)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    for i, row in enumerate(counts):
+        for e, n in enumerate(row):
+            assert bool((got[i, e, n:] == 0).all())
+    bf = TSM.stamp_quant_grouped_matmul(*args, out_dtype=torch.bfloat16)
+    assert _rel(bf.float(), want) <= 2 ** -8
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_cpu_operands(card):
     """A CUDA activation with a weight left on the CPU raises; the wrapper
@@ -140,3 +180,13 @@ def test_cuda_wrappers_refuse_cpu_operands(card):
     with pytest.raises(ValueError):
         TDM.stamp_decode_matmul(torch.randn((2, 64), device=card), p.qw,
                                 p.sw, p.zw, p.qw_sum)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_moe_refuses_cpu_operands(card):
+    """K5 with the dispatch codes on the card and the expert weights left
+    on the CPU raises instead of running the plain version."""
+    args = list(grouped_case(1, 2, 4, 32, 64, [[4, 1]], "cpu"))
+    args[:4] = [t.to(card) for t in args[:4]]
+    with pytest.raises(ValueError):
+        TSM.stamp_quant_grouped_matmul(*args)

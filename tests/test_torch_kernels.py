@@ -340,6 +340,10 @@ def test_plain_versions_do_not_count_launches():
     x = torch.from_numpy(rng.standard_normal((1, 8, 16)).astype(np.float32))
     TO.stamp_quant_matmul(x, tp.qw, tp.sw, tp.zw, tp.qw_sum, num_hi=4)
     TDM.stamp_decode_matmul(x[0], tp.qw, tp.sw, tp.zw, tp.qw_sum)
+    from test_torch_cuda import grouped_case
+    TO.stamp_quant_grouped_matmul(*grouped_case(1, 2, 4, 16, 32, [[4, 1]],
+                                                "cpu"))
     assert TO.launch_counts() == {
         "stamp_transform_quantize": 0, "stamp_int_gemm": 0,
-        "stamp_decode_matmul": 0, "paged_ragged_attention": 0}
+        "stamp_decode_matmul": 0, "paged_ragged_attention": 0,
+        "stamp_quant_grouped_matmul": 0}

@@ -1,0 +1,899 @@
+"""The port's MoE path against the JAX reference on the CPU, at the reduced
+Arctic size (``configs/arctic_480b.py:reduced``: 8 experts top-2, dense
+residual, 3 layers): the token quantizer, capacity routing, the grouped
+kernel's plain version (K5) against the Pallas kernel in interpret mode,
+the reference and fused expert FFNs, prepared expert buffers, the
+streaming setup, the paged steps and the engine.
+
+Inputs are numpy arrays from seeded generators handed to both sides;
+weights go to the port through ``from_jax_params``.  Tolerances:
+
+* quantizer codes, routing tensors and prepared buffers: exact;
+* K5's plain version: ``rtol = 1e-5`` (exact int32 sums, the same f32
+  epilogue order; only XLA's and PyTorch's ``exp`` differ, in the last
+  bit);
+* the expert FFNs in bf16: ``BF16_TOL = 2^-6`` of the output's largest
+  magnitude, two bf16 steps: each side rounds the same f32 sums to bf16
+  after three matmuls whose f32 summation orders differ;
+* the engine's teacher-forced rule of ``test_torch_engine.py``
+  (``LOGIT_TOL = 0.1``), at 8-bit chunk rows (see ``ENGINE``); at the
+  serve path's 8/4-bit mix a stated allowance, with witnesses that locate
+  where the port parts from the reference (the end of this file);
+* logits of the paged steps within ``STEP_TOL = 0.15``, and 0.05 on
+  average.  At page size 16 the port's steps are bit-identical to the
+  reference's; at page size 4 the online softmax rescales across pages,
+  XLA's and PyTorch's ``exp`` differ in the last bit there, and the MoE
+  layer's two extra 8-bit quantizers (the dispatch codes and the slab
+  requantize) carry such differences further than the dense stack's
+  (mean 0.02 against 0.01, largest 0.11 on one of 512 logits, where the
+  dense test's 0.1 holds).  A wrong route, mask, page or scale moves
+  logits by O(1): their spread is 1.0.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+jax.config.update("jax_platform_name", "cpu")
+
+from repro.configs import arctic_480b as JARCTIC
+from repro.core import ptq as JPTQ
+from repro.core import stamp as JS
+from repro.data import pipeline as JDATA
+from repro.kernels import ops as JO
+from repro.models import layers as JL
+from repro.models import lm as JLM
+from repro.serving import kvcache as JKV
+from repro.serving.engine import PagedEngineConfig as JEngineConfig
+from repro.serving.engine import PagedServingEngine as JEngine
+
+from repro_torch.configs import get_reduced
+from repro_torch.core import ptq as TPTQ
+from repro_torch.core import stamp as TS
+from repro_torch.data import pipeline as TDATA
+from repro_torch.kernels import ops as TO
+from repro_torch.kernels import ref as TR
+from repro_torch.kernels import stamp_matmul as TSM
+from repro_torch.launch import serve as TSERVE
+from repro_torch.models import layers as TL
+from repro_torch.models import lm as TLM
+from repro_torch.serving import kvcache as TKV
+from repro_torch.serving.engine import PagedEngineConfig as TEngineConfig
+from repro_torch.serving.engine import PagedServingEngine as TEngine
+from test_torch_engine import _drain
+from test_torch_model import _Seqs, _serve_pair
+
+RTOL = 1e-5
+BF16_TOL = 2.0 ** -6
+LOGIT_TOL = 0.1
+STEP_TOL = 0.15
+JCFG, TCFG = JARCTIC.reduced(), get_reduced("arctic-480b")
+E, K, CF = JCFG.num_experts, JCFG.experts_per_token, JCFG.capacity_factor
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _bf16(a: np.ndarray) -> tuple:
+    """The same bf16 values on both sides."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j, np.float32)).to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return JLM.init_params(jax.random.PRNGKey(0), JCFG)
+
+
+@pytest.fixture(scope="module")
+def tparams(jparams):
+    return TLM.from_jax_params(jax.tree.map(np.asarray, jparams), TCFG)
+
+
+@pytest.fixture(autouse=True)
+def _reset_reference_switches():
+    yield
+    JLM.set_fused_cache_attention(False)
+    JLM.set_fused_decode_matmul(False)
+
+
+def test_config_matches_reference():
+    fields = {f.name for f in dataclasses.fields(TCFG)}
+    for cfg_j, cfg_t in ((JCFG, TCFG), (JARCTIC.CONFIG,
+                                          TSERVE.get_config("arctic-480b"))):
+        for name in fields:
+            assert getattr(cfg_t, name) == getattr(cfg_j, name), name
+        assert cfg_t.expert_d_ff == cfg_j.expert_d_ff
+        assert [(s.mixer, s.ffn) for s in cfg_t.layer_specs()] == \
+            [("attn", "moe_dense")] * cfg_j.num_layers
+    kimi = dataclasses.replace(TCFG, first_layer_dense=True,
+                               dense_residual=False)
+    jkimi = dataclasses.replace(JCFG, first_layer_dense=True,
+                                dense_residual=False)
+    assert [(s.mixer, s.ffn) for s in kimi.layer_specs()] == \
+        [("attn", "mlp")] + [("attn", "moe")] * 2
+    pro, period, nper = jkimi.layer_plan()
+    assert [(s.mixer, s.ffn) for s in pro + period * nper] == \
+        [(s.mixer, s.ffn) for s in kimi.layer_specs()]
+
+
+# ---------------------------------------------------------------------------
+# the token quantizer and routing
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 32), (1, 7, 128)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_token_quantize_exact(shape, dtype):
+    """Codes, scales and zero points bit-equal to ``jax.jit`` of the
+    reference (its ``/ 255`` compiles to ``* f32(1/255)``)."""
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    if dtype == "bf16":
+        jx, tx = _bf16(x)
+    else:
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    for a, b in zip(jax.jit(JS.token_quantize)(jx), TS.token_quantize(tx)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def _route_both(x: np.ndarray, gate_w: np.ndarray, group: int, cf: float):
+    jx, tx = _bf16(x)
+    jg, tg = _bf16(gate_w)
+    jxg, jvalid, _ = JL._moe_fold(jx, group)
+    txg, tvalid, _ = TL._moe_fold(tx, group)
+    np.testing.assert_array_equal(np.asarray(jvalid), tvalid.numpy())
+    route = jax.jit(JL.moe_route, static_argnums=(2, 3))
+    jout = route(jxg, jg, K, cf, jvalid)
+    tout = TL.moe_route(txg, tg, K, cf, tvalid)
+    return jout, tout
+
+
+@pytest.mark.parametrize("seq,group,cf", [
+    (20, 16, CF),      # pad tail: 20 tokens in two 16-token groups
+    (32, 32, 0.5),     # capacity overflow: cap = 2 of 8 choices per expert
+    (16, 1024, CF),    # one group shorter than group_size
+])
+def test_moe_route_identical_to_reference(seq, group, cf):
+    """``combine`` (bf16), ``dispatch`` and ``counts`` identical to
+    ``jax.jit`` of the reference; kept slots are a prefix of ``[0, C)``."""
+    rng = np.random.default_rng(seq)
+    x = rng.standard_normal((2, seq, 64)).astype(np.float32)
+    gate_w = rng.standard_normal((64, E)).astype(np.float32) / 8
+    (jc, jd, jn), (tc, td, tn) = _route_both(x, gate_w, group, cf)
+    np.testing.assert_array_equal(np.asarray(jc, np.float32),
+                                  tc.float().numpy())
+    np.testing.assert_array_equal(np.asarray(jd, np.float32),
+                                  td.float().numpy())
+    np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
+    assert tn.dtype == torch.int32
+    occupied = td.float().sum(dim=1)                       # (b, E, C)
+    slot = torch.arange(occupied.shape[-1])
+    assert torch.equal(occupied > 0, slot < tn[..., None])
+    if cf < 1:
+        assert int(tn.sum()) < 2 * seq * K     # some choices were dropped
+
+
+def test_moe_route_on_the_stamped_round_trip_with_num_hi_past_seq():
+    """Routing input as the fused path sees it: the STaMP round trip with
+    every token at 8 bits (``num_hi >= seq``), stamped on each side.  The
+    round trips agree to a bf16 step; routed on the same one, the
+    routing tensors are identical."""
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal((2, 12, 64)).astype(np.float32)
+    gate_w = rng.standard_normal((64, E)).astype(np.float32) / 8
+    jh, th = _bf16(h)
+    jq = jax.jit(lambda a: JS.stamp_fake_quant(
+        a, JS.StampConfig(num_hi_tokens=16)))(jh)
+    tq = TS.stamp_fake_quant(th, TS.StampConfig(num_hi_tokens=16))
+    assert _rel(tq.float().numpy(), np.asarray(jq, np.float32)) <= 2 ** -7
+    (jc, _, jn), (tc, _, tn) = _route_both(np.asarray(jq, np.float32),
+                                           gate_w, 1024, CF)
+    np.testing.assert_array_equal(np.asarray(jc, np.float32),
+                                  tc.float().numpy())
+    np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
+
+
+@pytest.mark.parametrize("seq,num_hi,levels", [(16, 8, None), (16, 4, None),
+                                               (128, 4, 2), (5, 8, None)])
+def test_stamp_round_trip_matches_compiled_reference(seq, num_hi, levels):
+    """The STaMP round trip the MoE router reads, against ``jax.jit`` of
+    the reference.  The port keeps the reference's source form (the plain
+    inverse DWT of the dequantized codes); XLA fuses the dequantize into
+    the inverse and contracts products into FMAs, so a few elements land
+    one bf16 step away (measured: at most 2 in 8192 per shape here).  Every
+    element is within one bf16 step; at most one in 1000 differs at all.
+    What such differences do to routing is in the engine witnesses at the
+    end of this file (ROADMAP §3)."""
+    rng = np.random.default_rng(seq + num_hi)
+    jcfg = JS.StampConfig(num_hi_tokens=num_hi, levels=levels)
+    tcfg = TS.StampConfig(num_hi_tokens=num_hi, levels=levels)
+    round_trip = jax.jit(lambda a: JS.stamp_fake_quant(a, jcfg))
+    differ = total = 0
+    for _ in range(4):
+        jh, th = _bf16(rng.standard_normal((2, seq, 64)).astype(np.float32))
+        jq = np.asarray(round_trip(jh), np.float32)
+        tq = TS.stamp_fake_quant(th, tcfg).float().numpy()
+        assert (np.abs(tq - jq) <= 2 ** -7 * np.abs(jq)).all()
+        differ += int((tq != jq).sum())
+        total += jq.size
+    assert differ <= total / 1000
+
+
+# ---------------------------------------------------------------------------
+# K5: the grouped kernel's plain version against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+
+def _grouped_inputs(b, e, cap, d, f, counts, seed=0, codes=None):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, e * cap, d)).astype(np.float32)
+    jq, js, jz = jax.jit(JS.token_quantize)(jnp.asarray(x))
+    if codes is not None:
+        jq = jnp.full(jq.shape, codes, jnp.int8)
+    jx = (jq.reshape(b, e, cap, d), js.reshape(b, e, cap, 1),
+          jz.reshape(b, e, cap, 1), jnp.asarray(counts, jnp.int32))
+    jw, tw = [], []
+    for shape in ((e, d, f), (e, d, f), (e, f, d)):
+        w = rng.standard_normal(shape).astype(np.float32) * 0.05
+        jp = JS.prepare_linear(jnp.asarray(w))
+        tp = TS.prepare_linear(torch.from_numpy(w))
+        if codes is not None:
+            jp = dataclasses.replace(
+                jp, qw=jnp.full(jp.qw.shape, codes, jnp.int8))
+            q = torch.full(tp.qw.shape, codes, dtype=torch.int8)
+            tp = dataclasses.replace(tp, qw=q, qw_sum=q.sum(
+                dim=-2, keepdim=True, dtype=torch.int32))
+        jw += [jp.qw, jp.sw, jp.zw]
+        tw.append(tp)
+    tg, tu, td = tw
+    targs = tuple(_t(a) for a in jx) + (
+        tg.qw, tg.sw, tg.zw, tg.qw_sum, tu.qw, tu.sw, tu.zw, tu.qw_sum,
+        td.qw, td.sw, td.zw, TSM.down_slab_sums(td.qw))
+    return jx + tuple(jw), targs
+
+
+@pytest.mark.parametrize("b,e,cap,d,f,counts,block_c", [
+    # empty buckets; cap 10 is not a multiple of the 8-row capacity tile
+    (2, 4, 10, 32, 96, [[10, 7, 1, 0], [0, 3, 10, 2]], 8),
+    # f = 768 above block_f = 512, which does not divide it: bf = 256,
+    # three slabs, as Arctic's f = 4864 gives bf = 256, nineteen slabs
+    (1, 3, 4, 64, 768, [[4, 0, 2]], 128),
+    # the default capacity tile clamps to cap
+    (2, 2, 3, 64, 128, [[3, 3], [1, 0]], 128),
+])
+def test_grouped_plain_matches_pallas(b, e, cap, d, f, counts, block_c):
+    """K5's plain version against ``stamp_quant_grouped_matmul_pallas``
+    in interpret mode at ``rtol = 1e-5``; every row at or past its
+    bucket's count exactly 0; the dense oracles agree too."""
+    jargs, targs = _grouped_inputs(b, e, cap, d, f, counts)
+    want = np.asarray(JO.stamp_quant_grouped_matmul(
+        *jargs, block_c=block_c, interpret=True))
+    got = TO.stamp_quant_grouped_matmul(*targs, block_c=block_c)
+    assert got.shape == (b, e, cap, d) and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= RTOL
+    for i, row in enumerate(counts):
+        for ei, n in enumerate(row):
+            assert bool((got[i, ei, n:] == 0).all())
+            assert bool((got[i, ei, :n] != 0).any()) == (n > 0)
+    from repro.kernels import ref as JR
+    jref = np.asarray(JR.stamp_quant_grouped_matmul_ref(*jargs))
+    tref = TR.stamp_quant_grouped_matmul_ref(
+        *targs[:7], *targs[8:11], *targs[12:15])
+    assert _rel(tref.numpy(), jref) <= RTOL
+    assert _rel(got.numpy(), tref.numpy()) <= 1e-2
+
+
+def test_grouped_plain_accumulates_exactly_in_int32(monkeypatch):
+    """Every integer product of K5's plain version is an exact int32 sum:
+    codes of 127 over d = 2048 put the gate/up sums past 2^24, where an
+    f32 accumulator would round; each product is held against int64
+    numpy, and the result against the Pallas kernel."""
+    calls = []
+    real = TSM.int_matmul
+
+    def spy(qx, qw):
+        acc = real(qx, qw)
+        calls.append((qx.numpy().astype(np.int64) @
+                      qw.numpy().astype(np.int64), acc))
+        return acc
+
+    monkeypatch.setattr(TSM, "int_matmul", spy)
+    jargs, targs = _grouped_inputs(1, 2, 2, 2048, 64, [[2, 1]], codes=127)
+    got = TSM.stamp_quant_grouped_matmul(*targs)
+    want = np.asarray(JO.stamp_quant_grouped_matmul(*jargs, interpret=True))
+    assert _rel(got.numpy(), want) <= RTOL
+    assert len(calls) == 2 * (2 + 1)       # gate, up, one slab each
+    assert max(int(np.abs(ex).max()) for ex, _ in calls) > 2 ** 24
+    for exact, acc in calls:
+        assert acc.dtype == torch.int32
+        np.testing.assert_array_equal(acc.numpy(), exact)
+
+
+# ---------------------------------------------------------------------------
+# the expert FFNs
+# ---------------------------------------------------------------------------
+
+
+def _experts(rng, d, f, e=E):
+    return [rng.standard_normal(s).astype(np.float32) / np.sqrt(s[1])
+            for s in ((e, d, f), (e, d, f), (e, f, d))]
+
+
+@pytest.mark.parametrize("seq,group,cf", [(20, 16, CF), (32, 32, 0.5),
+                                          (9, 1024, CF)])
+def test_moe_ffn_matches_reference(seq, group, cf):
+    """The reference FFN in bf16 (the port computes only the routed
+    experts) within ``BF16_TOL`` of ``jax.jit(moe_ffn)``."""
+    rng = np.random.default_rng(seq)
+    x = rng.standard_normal((2, seq, 64)).astype(np.float32)
+    gate_w = rng.standard_normal((64, E)).astype(np.float32) / 8
+    ws = _experts(rng, 64, 96)
+    jx, tx = _bf16(x)
+    jw, tw = zip(*(_bf16(w) for w in ws))
+    want = jax.jit(JL.moe_ffn, static_argnums=(5, 6, 7))(
+        jx, jnp.asarray(gate_w), *jw, K, cf, group)
+    got = TL.moe_ffn(tx, torch.from_numpy(gate_w), *tw, K, cf, group)
+    assert got.dtype == torch.bfloat16 and got.shape == tx.shape
+    assert _rel(got.float().numpy(), np.asarray(want, np.float32)) <= \
+        BF16_TOL
+
+
+@pytest.mark.parametrize("seq,group,cf", [(20, 16, CF), (32, 32, 0.5),
+                                          (9, 1024, CF)])
+def test_moe_ffn_fused_matches_reference(seq, group, cf):
+    """Quantize once, gather codes, K5's plain version, bf16 combine:
+    within ``BF16_TOL`` of ``jax.jit(moe_ffn_fused)`` on the same prepared
+    expert buffers (the codes themselves are checked exact elsewhere)."""
+    rng = np.random.default_rng(seq + 1)
+    x = rng.standard_normal((2, seq, 64)).astype(np.float32)
+    gate_w = rng.standard_normal((64, E)).astype(np.float32) / 8
+    jx, tx = _bf16(x)
+    jp, tp = [], []
+    for w in _experts(rng, 64, 96):
+        p = JS.prepare_linear(jnp.asarray(w))
+        jp.append({"iq": p.qw, "isw": p.sw, "izw": p.zw})
+        tp.append(TLM._per_expert(lambda a: TLM._prep(a, 8),
+                                  torch.from_numpy(w)))
+    tp[2]["iqslab"] = TSM.down_slab_sums(tp[2]["iq"])
+    want = jax.jit(JL.moe_ffn_fused, static_argnums=(5, 6, 7))(
+        jx, jnp.asarray(gate_w), *jp, K, cf, group)
+    TO.reset_launch_counts()
+    got = TL.moe_ffn_fused(tx, torch.from_numpy(gate_w), *tp, K, cf, group)
+    assert TO.launch_counts()["stamp_quant_grouped_matmul"] == 0
+    assert _rel(got.float().numpy(), np.asarray(want, np.float32)) <= \
+        BF16_TOL
+
+
+# ---------------------------------------------------------------------------
+# weights: conversion, packing, preparation, the streaming setup
+# ---------------------------------------------------------------------------
+
+
+def test_from_jax_params_keeps_expert_stacks(jparams, tparams):
+    own = TLM.init_params(TCFG, seed=0, device="cpu")
+    assert len(tparams["layers"]) == len(own["layers"]) == 3
+    for i, layer in enumerate(tparams["layers"]):
+        assert {k: v.shape for k, v in layer.items()} == \
+            {k: v.shape for k, v in own["layers"][i].items()}
+        for k, v in layer.items():
+            np.testing.assert_array_equal(
+                v.numpy(), np.asarray(jparams["period"][0][k])[i])
+    assert tparams["layers"][0]["we_down"].shape == (E, 128, 128)
+
+
+def test_prepared_expert_buffers_match_reference(jparams, tparams):
+    """bf16 → packed int4 → prepared int8, per site: codes, scales and
+    zero points of the expert stacks and the dense residual bit-equal to
+    the reference's ``prepare_fused_weights``; ``iqslab`` holds the down
+    codes' column sums per slab (one 128-row slab at this size)."""
+    stamp_j = JS.StampConfig(num_hi_tokens=8, execution="fused")
+    stamp_t = TS.StampConfig(num_hi_tokens=8, execution="fused")
+    jpack = JLM.quantize_weights_for_serving(
+        jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams), 4)
+    jprep = JLM.prepare_fused_weights(jpack, stamp_j)["period"][0]
+    tpack = dict(tparams, layers=[
+        TLM.quantize_weights_for_serving(
+            {k: v.to(torch.bfloat16) for k, v in layer.items()}, 4)
+        for layer in tparams["layers"]])
+    tprep = TLM.prepare_fused_weights(tpack, stamp_t)["layers"]
+    for site in ("we_gate", "we_up", "we_down", "dwi_gate", "dwi_up",
+                 "dwo_mlp", "wqkv", "wo"):
+        for i in range(3):
+            for part in ("iq", "isw", "izw"):
+                got = tprep[i][site][part]
+                assert got.is_contiguous()
+                np.testing.assert_array_equal(
+                    got.numpy(), np.asarray(jprep[site][part])[i],
+                    err_msg=f"{site}.{part}")
+    for i in range(3):
+        iq = np.asarray(jprep["we_down"]["iq"])[i].astype(np.int64)
+        slabs = iq.reshape(E, 1, 128, -1).sum(axis=2)     # f = 128: one
+        np.testing.assert_array_equal(tprep[i]["we_down"]["iqslab"].numpy(),
+                                      slabs)
+        assert tprep[i]["gate_w"].dtype == torch.bfloat16
+
+
+def test_ptq_matches_reference(jparams, tparams):
+    """Layer-major calibration through the MoE stack: the reference's
+    ``num_hi`` and ``avg_bits``, and bit-identical packed expert and
+    dense-residual weights."""
+    batches = JDATA.calibration_batches(
+        JDATA.DataConfig(vocab_size=512, seq_len=64, global_batch=2), 2)
+    jsp, _, jrep = JPTQ.calibrate_and_quantize(jparams, batches, JCFG)
+    tsp, tserve, trep = TPTQ.calibrate_and_quantize(tparams, batches, TCFG,
+                                                    device="cpu")
+    assert trep.num_hi == jrep.num_hi and trep.avg_bits == jrep.avg_bits
+    assert abs(trep.toeplitz_fraction - jrep.toeplitz_fraction) < 1e-2
+    for name in ("we_gate", "we_down", "dwi_up"):
+        for part in ("q", "scale", "zp"):
+            for i in range(3):
+                np.testing.assert_array_equal(
+                    tsp["layers"][i][name][part].numpy(),
+                    np.asarray(jsp["period"][0][name][part])[i],
+                    err_msg=f"{name}.{part}")
+
+
+def _equal_trees(a, b) -> None:
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _equal_trees(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _equal_trees(x, y)
+    else:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_streaming_setup_equals_whole_model():
+    """The full-width setup path, at the reduced size: a bf16 init equals
+    the f32 one cast, its f32 routers equal; the lazily drawn layers, calibrated layer-major and
+    prepared as they are handed over, give the same PTQ report, packed and
+    prepared weights as the whole model held at once."""
+    f32 = TLM.init_params(TCFG, seed=3, device="cpu")
+    whole = TLM.init_params(TCFG, seed=3, device="cpu", dtype=torch.bfloat16)
+    _equal_trees({k: v for k, v in whole.items() if k != "layers"},
+                 {k: v.to(torch.bfloat16) for k, v in f32.items()
+                  if k != "layers"})
+    # ... but for the router, which stays f32 (it routes on f32 weights)
+    _equal_trees(whole["layers"], [{k: v if k == "gate_w" else
+                                    v.to(torch.bfloat16)
+                                    for k, v in layer.items()}
+                                   for layer in f32["layers"]])
+    lazy = TLM.init_params(TCFG, seed=3, device="cpu", dtype=torch.bfloat16,
+                           lazy=True)
+    assert not isinstance(lazy["layers"], list)
+    batches = TDATA.calibration_batches(
+        TDATA.DataConfig(vocab_size=512, seq_len=32, global_batch=2), 2)
+    out = []
+    for params in (whole, lazy):
+        sp, serve, rep = TPTQ.calibrate_and_quantize(params, batches, TCFG,
+                                                     device="cpu")
+        stamp = dataclasses.replace(serve.stamp, execution="fused")
+        packed = [dict(layer) for layer in sp["layers"]]
+        if params is lazy:
+            sp["layers"] = TSERVE._hand_over(sp["layers"])
+        out.append((rep, packed, TLM.prepare_fused_weights(sp, stamp)))
+    (rw, pw, qw), (rl, pl, ql) = out
+    assert dataclasses.asdict(rw) == dataclasses.asdict(rl)
+    _equal_trees(pw, pl)
+    _equal_trees(qw, ql)
+    # batch-major taps give the same report: the reference order
+    ref = TPTQ.calibrate_and_quantize(
+        dict(whole, layers=list(whole["layers"])), batches, TCFG,
+        device="cpu")[2]
+    assert dataclasses.asdict(ref) == dataclasses.asdict(rw)
+
+
+# ---------------------------------------------------------------------------
+# the paged steps on the same pools and tables
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("block_size", [4, 16])
+def test_paged_steps_match_reference(jparams, tparams, block_size):
+    """Two prefill chunks, a mixed step and an all-decode step of the
+    reduced Arctic stack (fused expert FFN through K5's plain version in
+    the prefill region, the routed-experts reference FFN in the decode
+    region): live logits within ``STEP_TOL`` of the reference and 0.05 on
+    average; bit-identical at page size 16."""
+    stamp_j = JS.StampConfig(num_hi_tokens=8, execution="fused")
+    stamp_t = TS.StampConfig(num_hi_tokens=8, execution="fused")
+    jprep = JLM.prepare_fused_weights(jparams, stamp_j)
+    tprep = TLM.prepare_fused_weights(tparams, stamp_t)
+    seqs = _Seqs(block_size)
+    jserve, tserve = _serve_pair(seqs)
+    rng = np.random.default_rng(block_size)
+    prompt_a = rng.integers(0, 512, 20).astype(np.int32)
+    prompt_b = rng.integers(0, 512, 11).astype(np.int32)
+    steps = [
+        seqs.step([("A", 0, prompt_a[:16]), ("B", 0, prompt_b)], {}),
+        seqs.step([("A", 16, prompt_a[16:])], {1: ("B", 11, 5)}),
+        seqs.step([], {0: ("A", 20, 7), 1: ("B", 12, 9)}),
+    ]
+    jpools = JLM.init_paged_cache(JCFG, jserve.paged)
+    tpools = TLM.init_paged_cache(TCFG, tserve.paged, device="cpu")
+    TO.reset_launch_counts()
+    for n, st in enumerate(steps):
+        jpf, jdec, jpools = JLM.paged_unified_step(
+            jprep, jpools, *(jnp.asarray(st[k]) for k in (
+                "pf_tokens", "pf_start", "pf_length")),
+            jnp.asarray(st["pf_start"] == 0), jnp.asarray(st["pf_last_index"]),
+            jnp.asarray(st["slots"]), jnp.asarray(st["dec_tokens"]),
+            jnp.asarray(st["dec_positions"]), jnp.asarray(st["active"]),
+            *(jnp.asarray(st[k]) for k in ("hi_table", "lo_table", "pages",
+                                           "offsets", "is_hi")),
+            JCFG, jserve)
+        tpf, tdec, tpools = TLM.paged_unified_step(
+            tprep, tpools, *(torch.from_numpy(st[k]) for k in (
+                "pf_tokens", "pf_start", "pf_length", "pf_last_index",
+                "dec_tokens", "dec_positions", "hi_table", "lo_table",
+                "pages", "offsets", "is_hi")), TCFG, tserve)
+        assert tpf.shape == jpf.shape and tdec.shape == jdec.shape
+        live = st["active"]
+        diff = np.concatenate([
+            np.abs(tpf.numpy() - np.asarray(jpf)).ravel(),
+            np.abs(tdec.numpy()[live] - np.asarray(jdec)[live]).ravel()])
+        assert diff.max() <= STEP_TOL and diff.mean() <= 0.05, f"step {n}"
+        if block_size == 16:
+            assert diff.max() == 0.0, f"step {n}"
+    assert set(TO.launch_counts().values()) == {0}   # plain versions only
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+# The engine runs test_torch_engine.py's schedule with every chunk row at 8
+# bits (num_hi_tokens = prefill_chunk), as test_torch_model.py's step test
+# does: routing is discontinuous, and at the 8/4-bit mix a last-bit
+# difference in the router's STaMP round trip that moves one 4-bit code
+# moves a token to another expert, which the teacher-forced rule cannot
+# absorb.  The mix has its own allowance and witnesses below.
+PROMPT_LENS = (20, 40, 12, 33)
+MAX_NEW = (10, 8, 12, 6)
+ENGINE = dict(max_slots=3, prefill_chunk=16, max_seq=96, block_size=16)
+
+
+def _serve(stamp_cls, kv_mod, execution):
+    return dict(stamp=stamp_cls(num_hi_tokens=ENGINE["prefill_chunk"],
+                                execution=execution),
+                kv=kv_mod.KVCacheConfig(quantized=True, num_hi=16),
+                fused_cache_attention=True)
+
+
+@pytest.fixture(scope="module", params=["fused", "reference"])
+def runs(request, jparams, tparams):
+    """The reference engine's greedy run with every step's logits, the
+    port's free run, and the port's run teacher-forced to the reference's
+    tokens with the port's own logits (the schedule does not depend on
+    token values, so step ``i`` plans the same batch on both sides)."""
+    execution = request.param
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, n) for n in PROMPT_LENS]
+    jeng = JEngine(jparams, JCFG, JLM.ServeConfig(**_serve(
+        JS.StampConfig, JKV, execution)), JEngineConfig(**ENGINE))
+    jsteps = []
+    step = jeng._unified
+
+    def record(*args):
+        out = step(*args)
+        jsteps.append(dict(pf_length=np.asarray(args[4]),
+                           dec_pos=np.asarray(args[9]),
+                           pf=np.asarray(out[0]), dec=np.asarray(out[1])))
+        return out
+
+    jeng._unified = record
+    try:
+        jout = _drain(jeng, prompts, MAX_NEW)
+    finally:
+        JLM.set_fused_cache_attention(False)
+        JLM.set_fused_decode_matmul(False)
+
+    def engine():
+        return TEngine(tparams, TCFG, TLM.ServeConfig(**_serve(
+            TS.StampConfig, TKV, execution)), TEngineConfig(**ENGINE),
+            device="cpu")
+
+    tout = _drain(engine(), prompts, MAX_NEW)
+    tsteps = []
+    real = TLM.paged_unified_step
+
+    def forced(*args, **kw):
+        pf, dec, pools = real(*args, **kw)
+        ref = jsteps[len(tsteps)]
+        tsteps.append(dict(pf=pf.numpy(), dec=dec.numpy()))
+        return torch.tensor(ref["pf"]), torch.tensor(ref["dec"]), pools
+
+    TLM.paged_unified_step = forced
+    try:
+        forced_out = _drain(engine(), prompts, MAX_NEW)
+    finally:
+        TLM.paged_unified_step = real
+    return dict(jout=jout, tout=tout, forced=forced_out, jsteps=jsteps,
+                tsteps=tsteps, execution=execution)
+
+
+def test_engine_first_tokens_match_reference(runs):
+    jout, tout = runs["jout"], runs["tout"]
+    assert set(jout) == set(tout) == {1, 2, 3, 4}
+    for uid in jout:
+        assert len(tout[uid]) == len(jout[uid]) == MAX_NEW[uid - 1]
+        assert tout[uid][0] == jout[uid][0], f"uid={uid}"
+
+
+def test_engine_teacher_forced_argmax_matches_reference(runs):
+    """``test_torch_engine.py``'s rule: the port's pick is the reference's
+    on every live row whose reference top-1/top-2 margin exceeds
+    ``LOGIT_TOL``, and logits agree to 0.05 on average.  Half the rows
+    must be decisive (the 512-token vocabulary's top two sit closer than
+    the dense test model's 128).  Reference execution allows one decisive
+    row in ten to disagree: the reference's compiled step keeps fused bf16
+    chains in f32 (XLA's excess precision), which the port's separate ops
+    round, so its prefill logits differ by ~0.07 and a decode token can
+    route to another expert (ROADMAP §3; measured 2 of 31 rows)."""
+    for uid, toks in runs["jout"].items():
+        np.testing.assert_array_equal(runs["forced"][uid], toks)
+    jsteps, tsteps = runs["jsteps"], runs["tsteps"]
+    assert len(tsteps) == len(jsteps)
+    live, decisive, missed, dev = _forced_compare(jsteps, tsteps)
+    assert live >= sum(MAX_NEW) and decisive >= 0.5 * live
+    assert missed <= (0 if runs["execution"] == "fused" else 0.1 * decisive)
+    assert dev <= 0.05
+
+
+def _forced_compare(jsteps, tsteps) -> tuple:
+    """(live rows, decisive rows, decisive rows whose argmax differs, mean
+    |Δlogit|) over the live rows (non-dummy chunk rows, occupied decode
+    slots); a row is decisive where the reference's top-1/top-2 margin
+    exceeds ``LOGIT_TOL``."""
+    decisive = live = missed = 0
+    dev = []
+    for j, t in zip(jsteps, tsteps):
+        rows = [(j["pf"][i], t["pf"][i]) for i in range(len(j["pf"]))
+                if j["pf_length"][i] > 0]
+        rows += [(j["dec"][s], t["dec"][s]) for s in range(len(j["dec"]))
+                 if j["dec_pos"][s] > 0]
+        for ref, got in rows:
+            live += 1
+            dev.append(np.abs(got - ref).mean())
+            top2 = np.sort(ref)[-2:]
+            if top2[1] - top2[0] > LOGIT_TOL:
+                decisive += 1
+                missed += int(got.argmax() != ref.argmax())
+    return live, decisive, missed, float(np.mean(dev))
+
+
+# ---------------------------------------------------------------------------
+# the engine at the serve path's 8/4-bit mix, and where it parts from the
+# reference
+# ---------------------------------------------------------------------------
+
+# At num_hi 8 of 16-token chunks (the mix the serve path runs) the port's
+# free run and the reference's part (ROADMAP §3, an open port fault).  The
+# allowance below is what this schedule measures; the witnesses after it
+# locate the cause by feeding the reference's own intermediates, recorded
+# from inside its compiled step, into the port's step.
+MIX_FIRST_TOKENS_AGREE = 2     # of 4 requests
+MIX_DECISIVE_MISSED = 2        # of 30 decisive live rows
+
+
+def _bf16_t(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.float32)).to(
+        torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def mix(jparams, tparams):
+    """The reference engine at the 8/4 mix, run twice: plain, and with the
+    prefill region's FFN input ``x``, router input ``hq`` and MoE output
+    recorded at every layer (``jax.debug.callback`` inside its compiled
+    step).  The port's engine then runs free and teacher-forced (1) as it
+    is, (2) with the reference's ``hq`` handed to its MoE layer, (3) with
+    the reference's ``x`` handed to its FFN block at every layer."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, n) for n in PROMPT_LENS]
+
+    def serve(stamp_cls, kv_mod):
+        return dict(stamp=stamp_cls(num_hi_tokens=8, execution="fused"),
+                    kv=kv_mod.KVCacheConfig(quantized=True, num_hi=16),
+                    fused_cache_attention=True)
+
+    rec = dict(x=[], hq=[], moe=[])
+    j_moe, j_ffn = JL.moe_ffn_fused, JLM.ffn_block
+
+    def tap(name, v):
+        jax.debug.callback(lambda a: rec[name].append(np.asarray(a)), v,
+                           ordered=True)
+
+    def moe_rec(x, *a, **kw):
+        tap("hq", x)
+        y = j_moe(x, *a, **kw)
+        tap("moe", y)
+        return y
+
+    def ffn_rec(p, x, spec, cfg, *, stamp):
+        if stamp is not None:
+            tap("x", x)
+        return j_ffn(p, x, spec, cfg, stamp=stamp)
+
+    def jrun(record):
+        jeng = JEngine(jparams, JCFG, JLM.ServeConfig(**serve(JS.StampConfig,
+                                                              JKV)),
+                       JEngineConfig(**ENGINE))
+        steps, step = [], jeng._unified
+
+        def keep(*args):
+            out = step(*args)
+            steps.append(dict(pf_length=np.asarray(args[4]),
+                              dec_pos=np.asarray(args[9]),
+                              pf=np.asarray(out[0]), dec=np.asarray(out[1])))
+            return out
+
+        jeng._unified = keep
+        if record:
+            JL.moe_ffn_fused, JLM.ffn_block = moe_rec, ffn_rec
+        try:
+            return _drain(jeng, prompts, MAX_NEW), steps
+        finally:
+            JL.moe_ffn_fused, JLM.ffn_block = j_moe, j_ffn
+            JLM.set_fused_cache_attention(False)
+            JLM.set_fused_decode_matmul(False)
+
+    jout, jsteps = jrun(False)
+    jout_rec, jsteps_rec = jrun(True)
+    t_moe, t_ffn, t_step = TL.moe_ffn_fused, TLM.ffn_block, \
+        TLM.paged_unified_step
+
+    def trun(feed):
+        """The port's free and teacher-forced runs; ``feed`` is None,
+        ``"hq"`` or ``"x"``.  Records, per prefill-region call of the free
+        run, the elements of the port's own ``hq`` that differ from the
+        reference's and (``feed="hq"``) of its MoE output."""
+        at = dict(x=0, hq=0)
+        seen = dict(x=[], hq=[], moe=[])
+
+        def moe(x, *a, **kw):
+            ref = _bf16_t(rec["hq"][at["hq"]])
+            assert ref.shape == x.shape
+            seen["hq"].append(int((ref != x).sum()))
+            y = t_moe(ref if feed == "hq" else x, *a, **kw)
+            seen["moe"].append(int((_bf16_t(rec["moe"][at["hq"]]) != y).sum()))
+            at["hq"] += 1
+            return y
+
+        def ffn(p, x, spec, cfg, stamp, dm):
+            if stamp is not None:
+                ref = _bf16_t(rec["x"][at["x"]])
+                assert ref.shape == x.shape
+                seen["x"].append(int((ref != x).sum()))
+                at["x"] += 1
+                x = ref if feed == "x" else x
+            return t_ffn(p, x, spec, cfg, stamp, dm)
+
+        def engine():
+            return TEngine(tparams, TCFG, TLM.ServeConfig(**serve(
+                TS.StampConfig, TKV)), TEngineConfig(**ENGINE), device="cpu")
+
+        tsteps = []
+
+        def forced(*args, **kw):
+            pf, dec, pools = t_step(*args, **kw)
+            ref = jsteps[len(tsteps)]
+            tsteps.append(dict(pf=pf.numpy(), dec=dec.numpy()))
+            return torch.tensor(ref["pf"]), torch.tensor(ref["dec"]), pools
+
+        TL.moe_ffn_fused, TLM.ffn_block = moe, ffn
+        try:
+            tout = _drain(engine(), prompts, MAX_NEW)
+            free = {k: v[:at["hq"]] for k, v in seen.items()}
+            at.update(x=0, hq=0)
+            TLM.paged_unified_step = forced
+            _drain(engine(), prompts, MAX_NEW)
+        finally:
+            TL.moe_ffn_fused, TLM.ffn_block = t_moe, t_ffn
+            TLM.paged_unified_step = t_step
+        first = sum(int(tout[u][0] == jout[u][0]) for u in jout)
+        return dict(first=first, forced=_forced_compare(jsteps, tsteps),
+                    **free)
+
+    return dict(jout=jout, jsteps=jsteps, jout_rec=jout_rec,
+                jsteps_rec=jsteps_rec, rec=rec, plain=trun(None),
+                hq=trun("hq"), x=trun("x"))
+
+
+def test_engine_at_the_8_4_mix_within_its_allowance(mix):
+    """The port's own engine at the serve path's mix: the first tokens of
+    at least ``MIX_FIRST_TOKENS_AGREE`` of the 4 requests agree, and at most
+    ``MIX_DECISIVE_MISSED`` decisive teacher-forced rows pick another token
+    (measured: 2 of 4 and 2 of 30; an open fault, ROADMAP §3)."""
+    run = mix["plain"]
+    live, decisive, missed, dev = run["forced"]
+    assert run["first"] >= MIX_FIRST_TOKENS_AGREE
+    assert live >= sum(MAX_NEW) and decisive >= 0.5 * live
+    assert missed <= MIX_DECISIVE_MISSED
+    assert dev <= 0.05
+
+
+def test_recording_leaves_the_reference_step_unchanged(mix):
+    """The witnesses below read the reference's intermediates through
+    callbacks inside its compiled step; that step's logits are bit-equal
+    with and without them, so what they record is what the plain run
+    computes."""
+    assert len(mix["jsteps_rec"]) == len(mix["jsteps"])
+    for a, b in zip(mix["jsteps"], mix["jsteps_rec"]):
+        np.testing.assert_array_equal(a["pf"], b["pf"])
+        np.testing.assert_array_equal(a["dec"], b["dec"])
+    n = len(mix["rec"]["hq"])
+    assert n == len(mix["rec"]["x"]) == len(mix["rec"]["moe"]) > 0
+
+
+def test_moe_layer_is_exact_given_the_reference_router_input(mix):
+    """Handed the reference's stamped router input ``hq``, the port's MoE
+    layer (routing, token quantizer, K5's plain version, combine) gives the
+    reference's output bit for bit at every prefill-region layer of every
+    step: the mismatch does not arise in the expert path."""
+    moe = mix["hq"]["moe"]
+    assert len(moe) == len(mix["rec"]["hq"])
+    assert moe == [0] * len(moe)
+
+
+def test_first_difference_is_the_router_round_trip(mix):
+    """In the port's free run at the mix, the first layer's FFN input
+    (embedding, attention through the page pools, K1/K2) equals the
+    reference's at every step; the first element that differs anywhere is
+    in that layer's router input, the STaMP round trip of the first step."""
+    run, n_layers = mix["plain"], len(TCFG.layer_specs())
+    assert run["x"][::n_layers] == [0] * len(run["x"][::n_layers])
+    assert run["hq"][0] > 0
+
+
+def test_router_input_parts_inside_the_compiled_reference_step(mix,
+                                                               tparams):
+    """On the same FFN input ``x``, the port's ``rms_norm`` → STaMP round
+    trip agrees with ``jax.jit`` of the reference's to a few elements per
+    call, while the round trip the reference computes inside its whole
+    compiled step differs from that same jit by hundreds: XLA compiles it
+    differently in the step's fusion context, last-bit changes of a
+    token's scale move 4-bit codes, and the router reads those."""
+    stamp_j = JS.StampConfig(num_hi_tokens=8, execution="fused")
+    stamp_t = TS.StampConfig(num_hi_tokens=8, execution="fused")
+    jit = jax.jit(lambda a, g: JLM._maybe_stamp(
+        JL.rms_norm(a, g, JCFG.norm_eps), stamp_j))
+    n_layers = len(TCFG.layer_specs())
+    port_vs_jit, step_vs_jit = [], []
+    for i, (x, hq) in enumerate(zip(mix["rec"]["x"], mix["rec"]["hq"])):
+        gamma = tparams["layers"][i % n_layers]["ln2"].to(torch.bfloat16)
+        ref = np.asarray(jit(jnp.asarray(x), jnp.asarray(
+            gamma.float().numpy(), jnp.bfloat16)).astype(jnp.float32))
+        h = TL.rms_norm(_bf16_t(x), gamma, TCFG.norm_eps)
+        port = TS.stamp_fake_quant(h, stamp_t).float().numpy()
+        port_vs_jit.append(int((port != ref).sum()))
+        step_vs_jit.append(int((np.asarray(hq).astype(np.float32)
+                                != ref).sum()))
+    assert max(port_vs_jit) <= 4, port_vs_jit
+    assert max(step_vs_jit) >= 100, step_vs_jit
+
+
+def test_engine_at_the_8_4_mix_agrees_given_the_reference_ffn_inputs(mix):
+    """Handed the reference's FFN input at every prefill-region layer, the
+    port's engine gives every request's first token and every decisive
+    teacher-forced row as the reference does, as at 8-bit chunk rows,
+    although its own router inputs still differ there (the test above):
+    what parts the free runs is the router input's difference carried
+    from layer to layer in the residual stream and the page pools."""
+    run = mix["x"]
+    live, decisive, missed, _ = run["forced"]
+    assert run["first"] == 4
+    assert live >= sum(MAX_NEW) and decisive >= 0.5 * live and missed == 0
