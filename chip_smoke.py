@@ -6,25 +6,34 @@
 Phases (any failure exits non-zero; nothing is caught and continued):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the five kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+2. build the six kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
    serve paths' shapes and time kernel, plain version and a library
    yardstick with CUDA events: llama3-8b (C = 128 rows x 2 prefill spans,
-   8 decode slots, 32/8 heads, head_dim 128, page size 4), and Arctic-480B
+   8 decode slots, 32/8 heads, head_dim 128, page size 4; for the bucketed
+   engine K1/K2 at 4 and 8 spans of 128 rows and K3 at 4 rows at every
+   decode site), and Arctic-480B
    (K1/K2 and K3 at every linear site of its layer: QKV 7168 -> 9216, wo
    7168 -> 7168, the dense residual's gate/up 7168 -> 4864 and down
    4864 -> 7168; K4 at 56/8 heads; K5 over 128 experts with the counts of
-   a real routing of 2 x 128 random tokens); then check a
-   prefill, a mixed and an all-decode step on the card against the same
-   steps on the CPU at the reduced size of each model;
+   a real routing of 2 x 128 random tokens), and K6 (the contiguous
+   cache's decode attention) at the bucketed serve shape (4 slots, cache
+   136, hi ``NUM_HI``) and at 8 slots x 32768 cached tokens (hi 64) with
+   ragged lengths; then check a prefill, a mixed and an all-decode step on
+   the card against the same steps on the CPU at the reduced size of each
+   model, and one ``prefill`` and two ``decode_step`` s of the bucketed
+   path at reduced llama;
 4. serve llama3-8b at full width through the port's serve entry point
    (seeded init, PTQ on the card, paged unified fused engine with the paged
    attention kernel): 4 requests x 96 prompt tokens x 8 new tokens, with
    every kernel's launch count set to 0 before that run and read after;
-   then Arctic-480B at full width, cut to ``ARCTIC_LAYERS`` layers (its
-   widths, 128 experts, top-2 and the vocabulary as published), the same
-   requests, counts read around its own run;
+   then the same model and requests through the bucketed engine (bucket
+   128, contiguous cache, the packed-cache attention kernel), counts read
+   around its own run; then Arctic-480B at full width, cut to
+   ``ARCTIC_LAYERS`` layers (its widths, 128 experts, top-2 and the
+   vocabulary as published), the same requests, counts read around its own
+   run;
 5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -125,18 +134,28 @@ ARCTIC_SITES = [("arctic_qkv", A_D, A_QKV, False),
                 ("arctic_down", A_FF, A_D, False)]
 LLAMA_DECODE_SITES = [("qkv", D, D + 2 * KV_HEADS * HD), ("gate", D, D_FF),
                       ("down", D_FF, D)]
+# the bucketed engine's shapes: its prefill quantizes the whole right-padded
+# batch at once (4 requests, up to max_batch 8 spans of C rows), and its
+# decode linears take one row per request
+BUCKETED_SPANS, BUCKETED_ROWS = (4, 8), 4
+BUCKETED_DECODE_SITES = [("bucketed_qkv", D, D + 2 * KV_HEADS * HD),
+                         ("bucketed_wo", D, D), ("bucketed_gate", D, D_FF),
+                         ("bucketed_down", D_FF, D)]
 ARCTIC_DECODE_SITES = [("arctic_qkv", A_D, A_QKV), ("arctic_wo", A_D, A_D),
                        ("arctic_gate", A_D, A_FF), ("arctic_down", A_FF, A_D)]
 
 
-def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0):
+def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
+                spans=SPANS, tag=""):
     """K1 (codes exact) and K2 (one bf16 step) at prefill linear sites
-    ``[(name, K, N, dual)]``, and their times."""
+    ``[(name, K, N, dual)]`` over ``spans`` spans of C rows, and their
+    times; ``tag`` prefixes the rows' site names."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = SPANS * C
+    rows = spans * C
     k1, k2 = [], []
     for name, k, n, dual in sites:
-        x = torch.randn((SPANS, C, k), generator=gen, device="cuda",
+        name = tag + name
+        x = torch.randn((spans, C, k), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         w = [prepare_linear(torch.randn((k, n), generator=gen,
                                         device="cuda") / math.sqrt(k))
@@ -185,13 +204,13 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0):
     return k1, k2
 
 
-def check_decode(torch, dm, prepare_linear, sites, seed=1):
-    """K3 (one bf16 step, f32 within 1e-5 relative) over SLOTS decode rows
-    at the linear sites ``[(name, K, N)]``, and its times."""
+def check_decode(torch, dm, prepare_linear, sites, seed=1, rows=SLOTS):
+    """K3 (one bf16 step, f32 within 1e-5 relative) over ``rows`` decode
+    rows at the linear sites ``[(name, K, N)]``, and its times."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = []
     for name, k, n in sites:
-        x = torch.randn((SLOTS, k), generator=gen, device="cuda",
+        x = torch.randn((rows, k), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         p = prepare_linear(torch.randn((k, n), generator=gen, device="cuda")
                            / math.sqrt(k))
@@ -207,11 +226,11 @@ def check_decode(torch, dm, prepare_linear, sites, seed=1):
             x, *w, out_dtype=torch.bfloat16), iters=20)
         pms = timed(torch, lambda: dm.decode_matmul_plain(
             x, *w, out_dtype=torch.bfloat16), iters=5)
-        # torch._int_mm needs more than 16 rows: the 8 slots padded to 32
+        # torch._int_mm needs more than 16 rows: the rows padded to 32
         qx = torch.zeros((32, k), dtype=torch.int8, device="cuda")
         lib = timed(torch, lambda: torch._int_mm(qx, p.qw), iters=20)
-        b = bound(SLOTS * k * 2 + k * n + 12 * n + SLOTS * n * 2,
-                  2 * SLOTS * k * n, INT8_OPS_PER_S)
+        b = bound(rows * k * 2 + k * n + 12 * n + rows * n * 2,
+                  2 * rows * k * n, INT8_OPS_PER_S)
         out.append(dict(site=name, max_abs_err=err, ms=ms, plain_ms=pms,
                         bound_ms=b[0], bound_by=b[1], library_ms=lib))
     return out
@@ -418,16 +437,78 @@ def check_grouped(torch, sm, L, token_quantize):
                  bound_ms=b5[0], bound_by=b5[1], library_ms=lib)]
 
 
-def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
-    """The serve path's steps on the card (kernels) against the same steps
-    on the CPU (plain versions) at the reduced size of ``arch``.  Each device
-    fills its own pools over three steps, as the engine would: prefills of
-    requests 0 and 1; prefills of 2 and 3 beside decodes of 0 and 1 (a
-    mixed step); and decodes of all four (``n_pf = 0``, which runs
-    ``paged_decode_step``).  Prefill logits and the live decode slots'
-    logits agree within a bf16 tolerance of 5e-2."""
-    import dataclasses
-    from repro_torch.serving import paged_kvcache as PKV
+# K6 shapes: the bucketed serve path's (4 slots at decode lengths 97..104 of
+# a 136-token cache) and a long cache with ragged per-slot lengths
+CACHE_SHAPES = [("serve", 4, 136, NUM_HI, [97, 99, 102, 104]),
+                ("long", 8, 32768, 64, [32768, 30001, 24576, 16385, 8192,
+                                        4097, 1024, 65])]
+
+
+def check_cache_attention(torch, ca, ref, KV):
+    """K6 against its plain version (f32 queries within 1e-5 relative to the
+    output's largest magnitude; bf16 within one bf16 step) at
+    ``CACHE_SHAPES``, 32/8 heads, head_dim 128, and its times beside the
+    byte bound of the tokens each row's length needs and an SDPA yardstick
+    over pre-dequantized bf16 K/V (one call, boolean length mask)."""
+    out = []
+    for name, b, cap, hi, lengths in CACHE_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        k = torch.randn((b, cap, KV_HEADS, HD), generator=gen, device="cuda")
+        v = torch.randn((b, cap, KV_HEADS, HD), generator=gen, device="cuda")
+        entry = KV.quantize_full(k.bfloat16(), v.bfloat16(),
+                                 KV.KVCacheConfig(num_hi=hi))
+        del k, v
+        q = torch.randn((b, 1, HEADS, HD), generator=gen, device="cuda")
+        length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        got = ca.cache_decode_attention(entry, q, length)
+        want = ref.cache_decode_attention_ref(entry, q, length)
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(rel <= 1e-5, f"K6 f32 output off by {rel} (relative, {name})")
+        qb = q.bfloat16()
+        err = close_bf16(torch, ca.cache_decode_attention(entry, qb, length),
+                         ref.cache_decode_attention_ref(entry, qb, length))
+        ms = timed(torch, lambda: ca.cache_decode_attention(entry, qb,
+                                                            length), iters=20)
+        pms = timed(torch, lambda: ref.cache_decode_attention_ref(
+            entry, qb, length), iters=3)
+        kd, vd = (t.transpose(1, 2).contiguous() for t in
+                  KV.dequantize_full(entry, KV.KVCacheConfig(num_hi=hi)))
+        mask = (torch.arange(cap, device="cuda")[None, :] <
+                length[:, None])[:, None, None, :]
+        qs = qb.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = timed(torch, lambda: sdpa(qs, kd, vd, attn_mask=mask,
+                                        enable_gqa=True), iters=20)
+        del kd, vd
+        # each row reads the hi and lo codes, scales and zero points of the
+        # tokens its length covers; q in, out (bf16)
+        nbytes, flops = 0, 0
+        for n in lengths:
+            n_hi = min(n, hi)
+            nbytes += KV_HEADS * (n_hi * 2 * HD + (n - n_hi) * HD + n * 8)
+            flops += 4 * HD * HEADS * n
+        nbytes += 2 * 2 * b * HEADS * HD
+        bd = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        out.append(dict(site=f"{name} (b={b}, cap={cap}, hi={hi})",
+                        max_abs_err=err, ms=ms, plain_ms=pms,
+                        bound_ms=bd[0], bound_by=bd[1], library_ms=lib))
+        del entry
+    return out
+
+
+def to_device(x, device):
+    """A nest of dicts and lists of tensors, moved to ``device``."""
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [to_device(v, device) for v in x]
+    return x.to(device)
+
+
+def reduced_fused(lm, cfg_mod, ptq, pipeline, arch: str) -> tuple:
+    """``arch`` at its reduced size on the CPU, PTQ'd from seed 0 and
+    prepared for fused execution with every kernel switch on: ``(cfg,
+    prepared params, serve config)``."""
     cfg = cfg_mod.get_reduced(arch)
     params = lm.init_params(cfg, seed=0, device="cpu")
     calib = pipeline.calibration_batches(pipeline.DataConfig(
@@ -437,7 +518,58 @@ def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
     serve = dataclasses.replace(
         serve, stamp=dataclasses.replace(serve.stamp, execution="fused"),
         fused_cache_attention=True, fused_decode_matmul=True)
-    prepared = lm.prepare_fused_weights(sparams, serve.stamp)
+    return cfg, lm.prepare_fused_weights(sparams, serve.stamp), serve
+
+
+def check_bucketed_against_cpu(torch, lm, cfg_mod, ptq, pipeline):
+    """The bucketed path at reduced llama on the card (kernels) against the
+    CPU (plain versions): a right-padded ``prefill`` of three prompts (32,
+    20 and 9 tokens) and two ``decode_step`` s at per-slot positions, each
+    device on its own cache, both fed the CPU run's tokens.  Logits agree
+    within 5e-2."""
+    cfg, prepared, serve = reduced_fused(lm, cfg_mod, ptq, pipeline,
+                                         "llama3-8b")
+    serve = dataclasses.replace(serve, cache_capacity=48)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 32),
+                           generator=torch.Generator().manual_seed(5),
+                           dtype=torch.int32)
+    lens = torch.tensor([32, 20, 9], dtype=torch.int32)
+
+    def run(device, feed):
+        params = to_device(prepared, device)
+        logits, cache = lm.prefill(params, tokens.to(device), cfg, serve,
+                                   last_pos=(lens - 1).to(device))
+        out = [logits.cpu()]
+        for n in range(2):
+            tok = out[-1].argmax(dim=-1).to(torch.int32) if feed is None \
+                else feed[n]
+            logits, cache = lm.decode_step(params, cache, tok.to(device),
+                                           (lens + n).to(device), cfg, serve)
+            out.append(logits.cpu())
+        return out
+
+    ref = run("cpu", None)
+    feed = [r.argmax(dim=-1).to(torch.int32) for r in ref[:2]]
+    errs = []
+    for n, (want, got) in enumerate(zip(ref, run("cuda", feed))):
+        check(bool(torch.isfinite(got).all()),
+              f"bucketed step {n}: logits on the card not finite")
+        errs.append(float((got - want).abs().max()))
+        check(errs[-1] <= 5e-2, f"bucketed step {n} on the card is "
+                                f"{errs[-1]} away from the CPU")
+    return errs
+
+
+def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
+    """The serve path's steps on the card (kernels) against the same steps
+    on the CPU (plain versions) at the reduced size of ``arch``.  Each device
+    fills its own pools over three steps, as the engine would: prefills of
+    requests 0 and 1; prefills of 2 and 3 beside decodes of 0 and 1 (a
+    mixed step); and decodes of all four (``n_pf = 0``, which runs
+    ``paged_decode_step``).  Prefill logits and the live decode slots'
+    logits agree within a bf16 tolerance of 5e-2."""
+    from repro_torch.serving import paged_kvcache as PKV
+    cfg, prepared, serve = reduced_fused(lm, cfg_mod, ptq, pipeline, arch)
     bs, c_len, slots, per_seq = serve.kv.num_hi, 32, 4, 16
     pcfg = PKV.PagedCacheConfig(block_size=bs,
                                 num_lo_blocks=1 + slots * per_seq,
@@ -491,17 +623,12 @@ def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
             step([], {s: prompt[s] + (s < 2) for s in range(slots)})]
 
     def run(device):
-        def mv(x):
-            if isinstance(x, dict):
-                return {k: mv(v) for k, v in x.items()}
-            if isinstance(x, list):
-                return [mv(v) for v in x]
-            return x.to(device)
-        params, pools, out = mv(prepared), lm.init_paged_cache(
+        params, pools, out = to_device(prepared, device), lm.init_paged_cache(
             cfg, pcfg, device=device), []
         for inputs in plan:
             pf, dec, pools = lm.paged_unified_step(
-                params, pools, **mv(inputs), cfg=cfg, serve=serve)
+                params, pools, **to_device(inputs, device), cfg=cfg,
+                serve=serve)
             live = inputs["hi_table"][len(inputs["pf_tokens"]):, 0] > 0
             out.append(torch.cat([pf.cpu(), dec.cpu()[live]]))
         return out
@@ -547,7 +674,9 @@ def main() -> None:
                 print(f"[ptxas:{name}] {line.strip()}")
 
     from repro_torch.core.stamp import prepare_linear, token_quantize
+    from repro_torch.kernels import cache_attention as ca
     from repro_torch.kernels import decode_matmul as dm
+    from repro_torch.kernels import ref
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import stamp_matmul as sm
     from repro_torch.models import layers as L
@@ -558,14 +687,23 @@ def main() -> None:
         a1, a2 = check_stamp(torch, sm, ops, prepare_linear, ARCTIC_SITES,
                              seed=5)
         k1, k2 = k1 + a1, k2 + a2
+        for spans in BUCKETED_SPANS:
+            b1, b2 = check_stamp(torch, sm, ops, prepare_linear, LLAMA_SITES,
+                                 seed=7 + spans, spans=spans,
+                                 tag=f"bucketed{spans}_")
+            k1, k2 = k1 + b1, k2 + b2
         k3 = check_decode(torch, dm, prepare_linear, LLAMA_DECODE_SITES)
         k3 += check_decode(torch, dm, prepare_linear, ARCTIC_DECODE_SITES,
                            seed=6)
+        k3 += check_decode(torch, dm, prepare_linear, BUCKETED_DECODE_SITES,
+                           seed=8, rows=BUCKETED_ROWS)
         k4 = check_attention(torch, pa, PKV, KV)
         k4 += check_attention(torch, pa, PKV, KV, heads=A_HEADS,
                               prefix="arctic_")
         k5 = check_grouped(torch, sm, L, token_quantize)
-    for rows in (k1, k2, k3, k4, k5):
+        k6 = check_cache_attention(torch, ca, ref, KV)
+        torch.cuda.empty_cache()
+    for rows in (k1, k2, k3, k4, k5, k6):
         for r in rows:
             print(f"[kernel] {json.dumps(r)}")
 
@@ -581,26 +719,39 @@ def main() -> None:
         print(f"[chip_smoke] {arch} (reduced) steps card vs CPU (prefill, "
               f"mixed, all-decode): max |logit diff| {step_errs} (bound "
               f"5e-2)")
+    with torch.inference_mode():
+        errs = check_bucketed_against_cpu(torch, lm, configs, ptq, pipeline)
+    print(f"[chip_smoke] llama3-8b (reduced) bucketed prefill + 2 decode "
+          f"steps card vs CPU: max |logit diff| {errs} (bound 5e-2)")
 
-    llama = serve_phase(torch, serve, ops, "llama3-8b", None)
-    check(llama["stamp_quant_grouped_matmul"] == 0,
-          "the dense model launched the grouped MoE kernel")
+    # which kernels each serve path must launch, and which it must not
+    dense = {"stamp_quant_grouped_matmul"}
+    paths = {"llama3-8b": (serve_phase(torch, serve, ops, "llama3-8b", None),
+                           dense | {"cache_decode_attention"}),
+             "llama3-8b:bucketed": (serve_phase(torch, serve, ops,
+                                                "llama3-8b", None,
+                                                kind="bucketed"),
+                                    dense | {"paged_ragged_attention"})}
     arctic_cfg = dataclasses.replace(configs.get_config("arctic-480b"),
                                      num_layers=ARCTIC_LAYERS)
-    arctic = serve_phase(torch, serve, ops, "arctic-480b", arctic_cfg)
-    for name in llama:
-        if name != "stamp_quant_grouped_matmul":
-            check(llama[name] > 0, f"kernel {name} was not launched by the "
-                                   f"llama3-8b serve path")
-        check(arctic[name] > 0, f"kernel {name} was not launched by the "
-                                f"arctic-480b serve path")
+    paths["arctic-480b"] = (serve_phase(torch, serve, ops, "arctic-480b",
+                                        arctic_cfg),
+                            {"cache_decode_attention"})
+    for path, (counts, absent) in paths.items():
+        for name, n in counts.items():
+            if name in absent:
+                check(n == 0, f"the {path} serve path launched {name}")
+            else:
+                check(n > 0, f"kernel {name} was not launched by the {path} "
+                             f"serve path")
+    launches = {p: counts for p, (counts, _) in paths.items()}
 
     def entry(name, source, replaces, rows):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": llama[name] + arctic[name],
-                "launches_by_path": {"llama3-8b": llama[name],
-                                     "arctic-480b": arctic[name]},
+                "launches": sum(c[name] for c in launches.values()),
+                "launches_by_path": {p: c[name]
+                                     for p, c in launches.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -627,6 +778,8 @@ def main() -> None:
               "src/repro/kernels/paged_attention.py:311", mixed),
         entry("stamp_quant_grouped_matmul", src + "grouped_matmul.cu",
               "src/repro/kernels/stamp_matmul.py:438", k5),
+        entry("cache_decode_attention", src + "cache_attention.cu",
+              "src/repro/kernels/cache_attention.py:91", k6),
     ]
     kernels[3]["per_shape"] = k4
     print(json.dumps({"kernels": kernels}))
@@ -636,12 +789,13 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def serve_phase(torch, serve, ops, arch: str, cfg) -> dict:
+def serve_phase(torch, serve, ops, arch: str, cfg,
+                kind: str = "paged") -> dict:
     """Serve ``arch`` (``cfg`` overrides its config) through the serve
-    entry point: 4 requests x 96 prompt tokens x 8 new tokens.  Every
-    kernel's launch count is set to 0 just before the run and read just
-    after; returns those counts."""
-    argv = ["--arch", arch, "--engine", "paged", "--step-mode", "unified",
+    entry point and the ``kind`` of engine: 4 requests x 96 prompt tokens x
+    8 new tokens.  Every kernel's launch count is set to 0 just before the run
+    and read just after; returns those counts."""
+    argv = ["--arch", arch, "--engine", kind, "--step-mode", "unified",
             "--execution", "fused", "--fused-cache-attention", "--device",
             "cuda", "--requests", "4", "--prompt-len", "96", "--max-new",
             "8"]
@@ -656,14 +810,15 @@ def serve_phase(torch, serve, ops, arch: str, cfg) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[serve] {arch} layers={cfg.num_layers} d_model={cfg.d_model} "
+    print(f"[serve] {arch} engine={kind} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} "
           f"experts={cfg.num_experts} num_hi={report.num_hi} "
           f"setup={setup_s:.1f}s requests={res['requests']} "
           f"tokens={res['tokens']} seconds={res['seconds']:.3f} "
           f"tok/s={res['tokens_per_s']:.2f} "
           f"ttft_p50={res['ttft_p50_s']:.3f}s steps={res['steps']} "
           f"peak_mem={peak_gb:.2f}GiB launches={json.dumps(counts)}")
-    print(f"[serve] {arch} stats {json.dumps(res['stats'])}")
+    print(f"[serve] {arch} engine={kind} stats {json.dumps(res['stats'])}")
     check(res["requests"] == 4 and all(len(t) == 8 for t in
                                        res["outputs"].values()),
           f"{arch} serve phase did not finish 4 requests x 8 tokens")

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("stamp_matmul", "decode_matmul", "paged_attention",
-           "grouped_matmul")
+           "grouped_matmul", "cache_attention")
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -30,7 +30,8 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # the GEMM epilogues evaluate in the plain versions' order: no FMA
 # contraction (the quantizer codes need none — they use no multiply-add)
 _FLAGS = {"stamp_matmul": ["-fmad=false"], "decode_matmul": ["-fmad=false"],
-          "paged_attention": [], "grouped_matmul": ["-fmad=false"]}
+          "paged_attention": [], "grouped_matmul": ["-fmad=false"],
+          "cache_attention": []}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

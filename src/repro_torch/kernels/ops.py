@@ -1,6 +1,7 @@
 """Public entry points of the port's kernels (the twin of
 ``repro.kernels.ops``).  The fused STaMP linears are the K1 → K2 chain, the
-grouped MoE expert FFN is K5; every wrapper launches its CUDA kernel for a
+grouped MoE expert FFN is K5, the contiguous cache's decode attention K6;
+every wrapper launches its CUDA kernel for a
 CUDA tensor and runs its plain PyTorch version for a CPU tensor."""
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.cache_attention import cache_decode_attention
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
 from repro_torch.kernels.paged_attention import paged_ragged_attention
 from repro_torch.kernels import stamp_matmul as SM
@@ -18,7 +20,8 @@ from repro_torch.kernels.stamp_matmul import (stamp_int_gemm,
 #: every kernel wrapper of the serve paths; each carries a ``launches``
 #: count
 KERNELS = (stamp_transform_quantize, stamp_int_gemm, stamp_decode_matmul,
-           paged_ragged_attention, SM.stamp_quant_grouped_matmul)
+           paged_ragged_attention, SM.stamp_quant_grouped_matmul,
+           cache_decode_attention)
 
 
 def reset_launch_counts() -> None:

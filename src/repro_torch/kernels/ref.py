@@ -2,7 +2,10 @@
 ``repro.kernels.ref``: each runs the reference execution path as separate
 PyTorch ops (float fake-quant and dequantized weights for the linears, a
 dense direct softmax for attention).  The kernels' plain versions, beside
-them in their modules, repeat the kernels' own arithmetic instead."""
+them in their modules, repeat the kernels' own arithmetic instead.  The
+exception is :func:`cache_decode_attention_ref`: it is both the plain
+version of the packed-cache attention kernel K6 (the Pallas kernel's own
+order of operations) and the oracle the CPU tests hold to that kernel."""
 
 from __future__ import annotations
 
@@ -174,3 +177,73 @@ def paged_attention_ref(entry, q, lengths, hi_table, lo_table):
     q_pf = q.new_empty((0, 1, *q.shape[2:]))
     return paged_ragged_attention_ref(entry, q_pf, q, lengths - 1, lengths,
                                       hi_table, lo_table)[1]
+
+
+def cache_block_size(block_s: int, s_lo: int) -> int:
+    """The Pallas kernel's lo block: ``min(block_s, s_lo)`` halved until it
+    divides ``s_lo``."""
+    bs = min(block_s, s_lo)
+    while s_lo % bs:
+        bs //= 2
+    return max(bs, 1)
+
+
+def cache_decode_attention_ref(entry: dict, q: torch.Tensor,
+                               length: torch.Tensor,
+                               block_s: int = 2048) -> torch.Tensor:
+    """Plain version of K6: decode attention over one layer's contiguous
+    packed cache, in the order of operations of the Pallas kernel
+    (``repro/kernels/cache_attention.py``).  Per (batch row, kv head): q in
+    f32 times ``1/√hd``; the lo region in blocks of
+    :func:`cache_block_size`, each block's scores masked to ``-1e30`` at
+    ``pos >= length``, its max, ``exp``, sums and ``p @ v``; block 0
+    merged with the dequantized int8 hi region, later blocks by the online
+    merge ``l·c_prev + l_blk·c_blk``; then ``o / max(l, 1e-30)`` in q's
+    dtype.  ``q``: (b, 1, h, hd); ``length``: (b,) or (1,) int32."""
+    b, _, h, hd = q.shape
+    hi_len, g = entry["k_hi"].shape[1], entry["k_hi"].shape[2]
+    rep = h // g
+    s_lo = entry["k_lo"].shape[1]
+    bs = cache_block_size(block_s, s_lo)
+    length = length.to(q.device).reshape(-1).expand(b)[:, None, None, None]
+    qg = q.reshape(b, g, rep, hd).float() * (1.0 / math.sqrt(hd))
+
+    def region(name, lo, start, stop):
+        """Dequantized f32 (b, g, n, hd) tokens [start, stop) of a region;
+        scale/zp at the tokens' absolute positions."""
+        codes = entry[f"{name}_{'lo' if lo else 'hi'}"][:, start:stop]
+        vals = KV.unpack_nibbles(codes) if lo else codes.float()
+        off = hi_len if lo else 0
+        sc = entry[f"{name}_scale"][:, off + start:off + stop].float()
+        zp = entry[f"{name}_zp"][:, off + start:off + stop].float()
+        return ((vals - zp[..., None]) * sc[..., None]).transpose(1, 2)
+
+    def scores(k, start):
+        s = qg @ k.transpose(-1, -2)                       # (b, g, rep, n)
+        pos = start + torch.arange(k.shape[2], device=q.device)
+        return torch.where(pos < length, s, -1e30)
+
+    m = l = o = None
+    for blk in range(s_lo // bs):
+        s = scores(region("k", True, blk * bs, (blk + 1) * bs),
+                   hi_len + blk * bs)
+        m_blk = s.amax(dim=-1)
+        p = torch.exp(s - m_blk[..., None])
+        l_blk = p.sum(dim=-1)
+        o_blk = p @ region("v", True, blk * bs, (blk + 1) * bs)
+        if blk == 0:
+            s_hi = scores(region("k", False, 0, hi_len), 0)
+            m = torch.maximum(s_hi.amax(dim=-1), m_blk)
+            p_hi = torch.exp(s_hi - m[..., None])
+            corr = torch.exp(m_blk - m)
+            l = p_hi.sum(dim=-1) + l_blk * corr
+            o = p_hi @ region("v", False, 0, hi_len) + o_blk * corr[..., None]
+        else:
+            m_new = torch.maximum(m, m_blk)
+            c_prev = torch.exp(m - m_new)
+            c_blk = torch.exp(m_blk - m_new)
+            l = l * c_prev + l_blk * c_blk
+            o = o * c_prev[..., None] + o_blk * c_blk[..., None]
+            m = m_new
+    out = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, 1, h, hd).to(q.dtype)

@@ -1,10 +1,15 @@
 """Serving driver of the port: PTQ a random-init model from a seed and serve
-batched requests through the paged unified engine.
+batched requests through the paged unified engine or the bucketed one.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --engine paged --step-mode unified --execution fused \\
         --fused-cache-attention --device cuda \\
         --requests 4 --prompt-len 96 --max-new 8
+
+``--engine bucketed`` serves the same requests through the lockstep engine
+over the contiguous cache (bucket 128, cache ``128 + --max-new`` tokens);
+with ``--fused-cache-attention`` its decode attention is the packed-cache
+kernel.
 
 ``--arch arctic-480b`` serves the MoE path (128 experts, top-2, dense
 residual); at full width one H100 holds a few of its 35 layers, which a
@@ -28,7 +33,8 @@ from repro_torch.core.ptq import calibrate_and_quantize
 from repro_torch.data.pipeline import DataConfig, calibration_batches
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serving.engine import PagedEngineConfig, PagedServingEngine
+from repro_torch.serving.engine import (BucketedEngine, EngineConfig,
+                                        PagedEngineConfig, PagedServingEngine)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -39,13 +45,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=96)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--no-stamp", action="store_true")
-    ap.add_argument("--engine", choices=("paged",), default="paged")
+    ap.add_argument("--engine", choices=("paged", "bucketed"),
+                    default="paged")
     ap.add_argument("--execution", choices=("reference", "fused"),
                     default="reference",
                     help="STaMP linear path: plain PyTorch or the fused "
                          "integer kernels")
     ap.add_argument("--fused-cache-attention", action="store_true",
-                    help="attention through the paged attention kernel")
+                    help="attention through the paged (or, bucketed, the "
+                         "packed contiguous) cache attention kernel")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=128)
     ap.add_argument("--step-mode", choices=("unified",), default="unified")
@@ -90,20 +98,26 @@ def build(args: argparse.Namespace, cfg=None) -> tuple:
             serve.stamp, execution=args.execution))
     serve = dataclasses.replace(
         serve, fused_cache_attention=args.fused_cache_attention)
+    sparams["layers"] = _hand_over(sparams["layers"])
+    max_seq = 128 + args.max_new
+    if args.engine == "bucketed":
+        engine = BucketedEngine(sparams, cfg, serve,
+                                EngineConfig(max_batch=8, bucket=128,
+                                             max_seq=max_seq), device=dev)
+        return engine, cfg, report
     bs = args.block_size
     if serve.kv.num_hi % bs:
         bs = serve.kv.num_hi     # pages are single-precision
-    sparams["layers"] = _hand_over(sparams["layers"])
     engine = PagedServingEngine(
         sparams, cfg, serve,
         PagedEngineConfig(max_slots=8, prefill_chunk=args.prefill_chunk,
-                          max_seq=128 + args.max_new, block_size=bs,
+                          max_seq=max_seq, block_size=bs,
                           max_prefills=args.max_prefills,
                           prefix_caching=args.prefix_cache), device=dev)
     return engine, cfg, report
 
 
-def serve_requests(engine: PagedServingEngine, cfg, args) -> dict:
+def serve_requests(engine, cfg, args) -> dict:
     """Submit ``args.requests`` seeded prompts, drain the engine and
     return the end-to-end numbers."""
     rng = np.random.default_rng(args.seed)
@@ -130,7 +144,8 @@ def main(argv=None) -> dict:
     res = serve_requests(engine, cfg, args)
     where = torch.cuda.get_device_name(engine.device) \
         if engine.device.type == "cuda" else "cpu"
-    print(f"[serve:paged:unified] {res['requests']} requests, "
+    mode = "paged:unified" if args.engine == "paged" else "bucketed"
+    print(f"[serve:{mode}] {res['requests']} requests, "
           f"{res['tokens']} tokens in {res['seconds']:.2f}s "
           f"({res['tokens_per_s']:.1f} tok/s on {where}), "
           f"ttft p50={res['ttft_p50_s']:.3f}s, steps={res['steps']} "

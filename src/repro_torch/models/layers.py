@@ -182,24 +182,58 @@ def moe_ffn_fused(x: torch.Tensor, gate_w: torch.Tensor, w_gate: dict,
 # ---------------------------------------------------------------------------
 
 
+ATTN_CHUNK = 2048     # the reference's ``AttnChunks`` (query and KV)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """Causal GQA attention in f32 (calibration's forward).  q: (b, sq, h,
-    hd); k/v: (b, skv, g, hd).  One masked softmax per row — what the
-    reference's chunked online softmax computes when a sequence fits one
-    2048-token chunk."""
+    """GQA attention in f32.  q: (b, sq, h, hd); k/v: (b, skv, g, hd).  A
+    sequence that fits one ``ATTN_CHUNK`` takes one masked softmax per row
+    (what the reference's online softmax computes over a single chunk);
+    longer ones walk ``ATTN_CHUNK``-token query and KV chunks with the
+    reference's running ``(m, l, acc)`` recurrence, in its order."""
     b, sq, h, hd = q.shape
     skv, g = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, g, h // g, hd).float() * (1.0 / np.sqrt(hd))
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float())
-    if causal:
-        mask = torch.arange(sq, device=q.device)[:, None] >= \
-            torch.arange(skv, device=q.device)[None, :]
-        s = torch.where(mask, s, -1e30)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    o = torch.einsum("bgrqk,bkgd->bgrqd", p, v.float())
-    o = o / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    rep = h // g
+    qg = q.reshape(b, sq, g, rep, hd).float() * (1.0 / np.sqrt(hd))
+    if sq <= ATTN_CHUNK and skv <= ATTN_CHUNK:
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float())
+        if causal:
+            mask = torch.arange(sq, device=q.device)[:, None] >= \
+                torch.arange(skv, device=q.device)[None, :]
+            s = torch.where(mask, s, -1e30)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.einsum("bgrqk,bkgd->bgrqd", p, v.float())
+        o = o / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+        return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    cq, ckv = min(ATTN_CHUNK, sq), min(ATTN_CHUNK, skv)
+    if sq % cq or skv % ckv:
+        raise ValueError(f"sequence lengths ({sq}, {skv}) must be multiples "
+                         f"of the {ATTN_CHUNK}-token attention chunk")
+    outs = []
+    for qi in range(sq // cq):
+        qc = qg[:, qi * cq:(qi + 1) * cq]
+        m = qc.new_full((b, g, rep, cq), -1e30)
+        l = qc.new_zeros((b, g, rep, cq))
+        acc = qc.new_zeros((b, g, rep, cq, hd))
+        for ki in range(skv // ckv):
+            kc = k[:, ki * ckv:(ki + 1) * ckv].float()
+            vc = v[:, ki * ckv:(ki + 1) * ckv].float()
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qc, kc)
+            if causal:
+                qpos = qi * cq + torch.arange(cq, device=q.device)
+                kpos = ki * ckv + torch.arange(ckv, device=q.device)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgd->bgrqd", p, vc)
+            m = m_new
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    o = torch.cat(outs, dim=3)                        # (b, g, rep, sq, hd)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
 
 
 def _merge_parts(parts: list) -> tuple:
@@ -240,6 +274,15 @@ def decode_attention_segments(q: torch.Tensor, segments: list,
     o_tot, l_tot = _merge_parts(parts)
     out = o_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     length: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-token attention over a dense (b, s, kv, hd) cache: the
+    segment attention with one segment (the reference's oracle)."""
+    return decode_attention_segments(q, [(k_cache, v_cache, 0)],
+                                     length=length)
 
 
 def chunked_prefill_attention(q: torch.Tensor, segments: list,

@@ -1,5 +1,6 @@
-"""Dense GQA and MoE decoders: calibration forward, and the paged serving
-steps of the unified engine (the port of those paths of
+"""Dense GQA and MoE decoders: calibration forward, the paged serving
+steps of the unified engine, and the contiguous-cache ``prefill`` /
+``decode_step`` of the bucketed engine (the port of those paths of
 ``repro.models.lm``).
 
 Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
@@ -32,6 +33,7 @@ from repro_torch.core.stamp import (StampConfig, fused_eligible,
                                     prepare_linear, stamp_fake_quant)
 from repro_torch.core.quant import EPS, fdiv
 from repro_torch.device import resolve_device
+from repro_torch.kernels.cache_attention import cache_decode_attention
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
 from repro_torch.kernels.paged_attention import paged_ragged_attention
 from repro_torch.kernels.stamp_matmul import down_slab_sums, silu
@@ -51,7 +53,8 @@ class ServeConfig:
     stamp: Optional[StampConfig] = None          # activation STaMP (prefill)
     kv: KV.KVCacheConfig = KV.KVCacheConfig()
     weight_bits: Optional[int] = None            # 4 => packed-int4 weights
-    fused_cache_attention: bool = False          # paged attention kernel
+    cache_capacity: Optional[int] = None         # contiguous cache length
+    fused_cache_attention: bool = False          # packed-cache attention
     fused_decode_matmul: bool = False            # single-token int8 kernel
     paged: Optional[PKV.PagedCacheConfig] = None
 
@@ -400,22 +403,62 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     return x + out
 
 
-def attn_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over whole sequences (calibration)."""
+def attn_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       stamp: Optional[StampConfig],
+                       kv: Optional[KV.KVCacheConfig] = None,
+                       capacity: Optional[int] = None) -> tuple:
+    """Causal self-attention over whole sequences: QKV (the fused STaMP
+    linear over prepared weights, or the reference path), RoPE, attention,
+    out-projection.  With ``kv`` it also returns the layer's contiguous
+    cache, quantized from the RoPE'd K and V with room for ``capacity``
+    tokens (the bucketed engine's prefill); without, ``None`` (the
+    calibration forward)."""
     hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
-    q, k, v = _attn_qkv(p, h, cfg, None, False)
+    q, k, v = _attn_qkv(p, h, cfg, stamp, False)
     q = _rope(q, positions, cfg, nh, hd)
     k = _rope(k, positions, cfg, kvh, hd)
-    attn = L.flash_attention(q, k, _split_heads(v, kvh, hd), causal=True)
-    return _attn_out(p, attn, x, None, False)
+    v = _split_heads(v, kvh, hd)
+    attn = L.flash_attention(q, k, v, causal=True)
+    entry = None if kv is None else KV.quantize_full(k, v, kv,
+                                                     capacity=capacity)
+    return _attn_out(p, attn, x, stamp, False), entry
+
+
+def attn_block_cached_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                             serve: ServeConfig, entry: dict,
+                             pos: torch.Tensor, dm: bool) -> torch.Tensor:
+    """One token per slot against the contiguous cache: write the token's
+    K/V at ``pos`` (scalar or (b,)), then attend over ``pos + 1`` tokens —
+    through the packed-cache attention kernel K6 when
+    ``fused_cache_attention`` is set, else over the dequantized hi and lo
+    segments (or the dense bf16 cache)."""
+    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    kv = serve.kv
+    positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1)
+    h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+    q, k, v = _attn_qkv(p, h, cfg, None, dm)
+    q = _rope(q, positions, cfg, nh, hd)
+    k = _rope(k, positions, cfg, kvh, hd)
+    KV.write_token(entry, k, _split_heads(v, kvh, hd), pos, kv)
+    length = (pos.reshape(-1) + 1).to(torch.int32).expand(x.shape[0])
+    if kv.quantized and serve.fused_cache_attention:
+        attn = cache_decode_attention(entry, q, length)
+    elif kv.quantized:
+        (k_hi, v_hi), (k_lo, v_lo) = KV.dequantize_segments(entry, x.dtype)
+        attn = L.decode_attention_segments(
+            q, [(k_hi, v_hi, 0), (k_lo, v_lo, k_hi.shape[1])], length=length)
+    else:
+        kf, vf = KV.dequantize_full(entry, kv, x.dtype)
+        attn = L.decode_attention(q, kf, vf, length=length)
+    return _attn_out(p, attn, x, None, dm)
 
 
 def _decode_attention(entry: dict, q_dec, paged: dict, serve: ServeConfig,
                       dtype) -> torch.Tensor:
     pcfg = serve.paged
-    if serve.fused_cache_attention:
+    if serve.fused_cache_attention and pcfg.quant.quantized:
         q_pf = q_dec.new_empty((0, 1, *q_dec.shape[2:]))
         return paged_ragged_attention(
             entry, q_pf, q_dec, paged["dec_positions"],
@@ -475,7 +518,7 @@ def attn_block_unified(p: dict, x: tuple, cfg: ModelConfig,
                         v_dec.reshape(s_slots, kvh, hd)])
     PKV.write_ragged(entry, k_flat, v_flat, paged["pages"], paged["offsets"],
                      paged["is_hi"], serve.paged)
-    if serve.fused_cache_attention:
+    if serve.fused_cache_attention and serve.paged.quant.quantized:
         attn_pf, attn_dec = paged_ragged_attention(
             entry, q_pf, q_dec, paged["span_starts"], paged["span_lengths"],
             paged["span_ht"], paged["span_lt"], serve.paged.block_size)
@@ -502,8 +545,7 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 def hidden_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """One layer of the full-sequence forward without STaMP."""
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = attn_block_train(p, x, cfg, positions)
+    x, _ = attn_block_prefill(p, x, cfg, None)
     return ffn_block(p, x, spec, cfg, None, False)
 
 
@@ -520,6 +562,63 @@ def model_hidden(params: dict, tokens: torch.Tensor,
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
         x = hidden_layer(p, spec, x, cfg)
     return final_hidden(params, x, cfg)
+
+
+def _attention_layers_only(cfg: ModelConfig) -> None:
+    if any(spec.mixer != "attn" for spec in cfg.layer_specs()):
+        raise NotImplementedError("the port's caches hold attention layers "
+                                  "only (no Mamba state yet)")
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, serve: ServeConfig,
+               device=None) -> list:
+    """Zero contiguous decode cache, one dict per attention layer."""
+    _attention_layers_only(cfg)
+    dev = resolve_device(device)
+    return [KV.init_layer_cache(batch, seq, cfg.num_kv_heads,
+                                cfg.resolved_head_dim, serve.kv, device=dev)
+            for _ in range(cfg.num_layers)]
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            serve: ServeConfig,
+            last_pos: Optional[torch.Tensor] = None) -> tuple:
+    """Whole-prompt forward with STaMP activation quantization: next-token
+    logits ``(b, V)`` f32 read at ``last_pos`` (b,) per row (default: the
+    last column; right-padded prompts read their true last token), and
+    the contiguous mixed-precision cache (one dict per layer) sized
+    ``serve.cache_capacity``."""
+    _attention_layers_only(cfg)
+    x = _embed(params, tokens)
+    cache = []
+    for spec, p in zip(cfg.layer_specs(), params["layers"]):
+        x, entry = attn_block_prefill(p, x, cfg, serve.stamp, serve.kv,
+                                      serve.cache_capacity)
+        x = ffn_block(p, x, spec, cfg, serve.stamp, False)
+        cache.append(entry)
+    if last_pos is None:
+        x_last = x[:, -1]
+    else:
+        rows = torch.arange(x.shape[0], device=x.device)
+        x_last = x[rows, last_pos.to(x.device).long()]
+    return _logits(params, x_last, cfg), cache
+
+
+def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
+                cfg: ModelConfig, serve: ServeConfig) -> tuple:
+    """One token per slot against the contiguous cache.  ``tokens``: (b,);
+    ``pos``: a scalar (every slot at the same length) or (b,) per-slot
+    positions, where each new token's K/V is written.  Decode runs
+    transform free; with ``fused_decode_matmul`` its linears over prepared
+    weights take the decode kernel K3.  The cache updates in place.
+    Returns ``(logits (b, V) f32, cache)``."""
+    dm = serve.fused_decode_matmul
+    x = _embed(params, tokens[:, None])
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
+    for spec, p, entry in zip(cfg.layer_specs(), params["layers"], cache):
+        x = attn_block_cached_decode(p, x, cfg, serve, entry, pos, dm)
+        x = ffn_block(p, x, spec, cfg, None, dm)
+    return _logits(params, x[:, 0], cfg), cache
 
 
 def init_paged_cache(cfg: ModelConfig, pcfg: PKV.PagedCacheConfig,

@@ -1,15 +1,25 @@
-"""Continuous-batching serving engine over the block-paged mixed-precision
-cache (the port of ``repro.serving.engine.PagedServingEngine`` in its
-unified step mode).
+"""Serving engines (the port of ``repro.serving.engine``): lockstep bucketed
+batching over the contiguous mixed-precision cache, and continuous batching
+over the block-paged one in its unified step mode.  Both share one request
+API (``submit`` → ``run`` → finished :class:`Request` s with tokens, TTFT
+and latency) and the fused-weight preparation, in :class:`_EngineBase`.
 
-Each engine step the scheduler (`serving/scheduler.py`) admits waiting
-requests into free slots, reserves pages (preempting the latest arrival on
-exhaustion and swapping its pages to host memory), adopts cached prompt
-prefixes (copy-on-write on a mid-page match), and plans up to
-``max_prefills`` prefill chunks plus the decode slot array.  The whole step
-then runs as ONE forward, `lm.paged_unified_step`, with the chunk-row count
-bucketed to 0, 1, 2, 4, … ``max_prefills`` so the step sees a fixed set of
-shapes.  Greedy sampling; ``stats`` is a plain dict of counters.
+:class:`BucketedEngine` groups up to ``max_batch`` requests, right-pads
+their prompts to the bucket, runs one `lm.prefill` reading each row's
+logits at its last prompt token, then decodes in lockstep with per-slot
+positions (`lm.decode_step` at ``len + step``): pad tokens sit after every
+prompt position, so causal attention never sees them, and each first
+generated token overwrites the pad K/V at position ``len``.
+
+In :class:`PagedServingEngine` each engine step the scheduler
+(`serving/scheduler.py`) admits waiting requests into free slots, reserves
+pages (preempting the latest arrival on exhaustion and swapping its pages
+to host memory), adopts cached prompt prefixes (copy-on-write on a mid-page
+match), and plans up to ``max_prefills`` prefill chunks plus the decode
+slot array.  The whole step then runs as ONE forward,
+`lm.paged_unified_step`, with the chunk-row count bucketed to 0, 1, 2, 4, …
+``max_prefills`` so the step sees a fixed set of shapes.  Greedy sampling;
+``stats`` is a plain dict of counters.
 """
 
 from __future__ import annotations
@@ -53,6 +63,14 @@ class Request:
 
 
 @dataclasses.dataclass
+class EngineConfig:
+    max_batch: int = 8
+    bucket: int = 128             # prompt bucket length (pad to this)
+    max_seq: int = 256            # cache capacity
+    eos_id: int = -1              # < 0 disables EOS stopping
+
+
+@dataclasses.dataclass
 class PagedEngineConfig:
     max_slots: int = 8            # decode batch width
     prefill_chunk: int = 128      # tokens per prefill chunk row
@@ -71,34 +89,155 @@ STAT_KEYS = ("steps", "decode_tokens", "prefill_chunks", "preemptions",
              "prefix_tokens_reused", "cow_copies", "nonfinite_logit_rows")
 
 
-class PagedServingEngine:
-    """Continuous batching with one forward per step (see the module
-    docstring).  A fused STaMP config prepares every fused site's weights
-    to int8 once here, layer by layer (the packed input weights are not
-    kept), and turns on the decode kernel for decode-shaped linears.
-    ``params["layers"]`` may be an iterator: a layer handed over that way
-    is released as soon as it is prepared, so a full-width model never
-    holds its packed and prepared forms at once.  Runs on ``cuda`` unless
+class _EngineBase:
+    """What both engines share: a fused STaMP config prepares every fused
+    site's weights to int8 once here, layer by layer (the packed input
+    weights are not kept), and turns on the decode kernel for
+    decode-shaped linears; ``params["layers"]`` may be an iterator, whose
+    layers are released as soon as they are prepared, so a full-width model
+    never holds its packed and prepared forms at once.  Then the request
+    queue (``submit``) and the ``stats`` counters.  Runs on ``cuda`` unless
     ``device`` says otherwise; ``params`` must lie there."""
 
     def __init__(self, params: dict, cfg: ModelConfig,
-                 serve: lm.ServeConfig,
-                 ecfg: Optional[PagedEngineConfig] = None, device=None):
+                 serve: lm.ServeConfig, device=None):
         self.device = resolve_device(device)
-        self.ecfg = e = ecfg if ecfg is not None else PagedEngineConfig()
         if serve.stamp is not None and serve.stamp.enabled and \
                 serve.stamp.execution == "fused":
             params = lm.prepare_fused_weights(params, serve.stamp)
             serve = dataclasses.replace(serve, fused_decode_matmul=True)
         self.params = dict(params, layers=list(params["layers"]))
         self.cfg = cfg
-        quant = serve.kv
-        if not quant.quantized:
-            raise NotImplementedError("the port serves the quantized cache")
-        if quant.num_hi % e.block_size:
+        self.serve = serve
+        self.stats: Dict[str, int] = {k: 0 for k in STAT_KEYS}
+        self._uid = 0
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+        """Queue one request; returns its uid.  Malformed input raises
+        here."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new_tokens <= 0:
+            raise ValueError(f"max_new_tokens must be positive, got "
+                             f"{max_new_tokens}")
+        limit = self._max_prompt_len()
+        if prompt.size > limit:
+            raise ValueError(f"prompt length {prompt.size} exceeds the "
+                             f"engine's limit of {limit}")
+        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
+            raise ValueError("prompt token ids outside the vocabulary")
+        self._uid += 1
+        self._enqueue(Request(self._uid, prompt, max_new_tokens,
+                              submit_t=time.perf_counter()))
+        return self._uid
+
+    def _count_nonfinite(self, *logits: torch.Tensor) -> None:
+        bad = ~torch.isfinite(torch.cat(logits)).all(dim=-1)
+        self.stats["nonfinite_logit_rows"] += int(bad.sum())
+
+    def _max_prompt_len(self) -> int:
+        raise NotImplementedError
+
+    def _enqueue(self, req: Request) -> None:
+        raise NotImplementedError
+
+
+class BucketedEngine(_EngineBase):
+    """Lockstep slot batching over the contiguous cache (see the module
+    docstring): the simple baseline beside the paged engine, and its
+    numerics oracle.  The cache holds ``ecfg.max_seq`` tokens per slot."""
+
+    def __init__(self, params: dict, cfg: ModelConfig,
+                 serve: lm.ServeConfig, ecfg: Optional[EngineConfig] = None,
+                 device=None):
+        super().__init__(params, cfg, serve, device)
+        self.ecfg = ecfg if ecfg is not None else EngineConfig()
+        self.serve = dataclasses.replace(self.serve,
+                                         cache_capacity=self.ecfg.max_seq)
+        self.queue: List[Request] = []
+
+    def _max_prompt_len(self) -> int:
+        # one position stays free for the first generated token's K/V
+        return min(self.ecfg.bucket, self.ecfg.max_seq - 1)
+
+    def _enqueue(self, req: Request) -> None:
+        self.queue.append(req)
+
+    @torch.inference_mode()
+    def run(self) -> List[Request]:
+        """Drain the queue in batches of ``max_batch``; returns the
+        finished requests."""
+        done: List[Request] = []
+        while self.queue:
+            batch = self.queue[:self.ecfg.max_batch]
+            self.queue = self.queue[self.ecfg.max_batch:]
+            done.extend(self._run_batch(batch))
+        return done
+
+    def _run_batch(self, reqs: List[Request]) -> List[Request]:
+        t0 = time.perf_counter()
+        e, b = self.ecfg, len(reqs)
+        prompts = np.zeros((b, e.bucket), np.int32)
+        lens = np.zeros((b,), np.int32)
+        for i, r in enumerate(reqs):
+            prompts[i, :r.prompt.size] = r.prompt          # right-pad
+            lens[i] = r.prompt.size
+        self.stats["steps"] += 1
+        self.stats["prefill_chunks"] += b
+        logits, cache = lm.prefill(
+            self.params, torch.from_numpy(prompts).to(self.device), self.cfg,
+            self.serve, last_pos=torch.from_numpy(lens - 1).to(self.device))
+        self._count_nonfinite(logits)
+        max_new = min(max(r.max_new_tokens for r in reqs),
+                      e.max_seq - int(lens.max()))
+        outs = np.zeros((b, max_new), np.int32)
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        tok_host = tok.cpu().numpy()         # waits for the prefill
+        t_first = time.perf_counter()
+        for r in reqs:
+            r.ttft_s = t_first - r.submit_t
+        alive = np.ones(b, bool)
+        pos = torch.from_numpy(lens).to(self.device)
+        for step in range(max_new):
+            outs[:, step] = np.where(alive, tok_host, 0)
+            if e.eos_id >= 0:
+                alive &= outs[:, step] != e.eos_id
+                if not alive.any():
+                    outs = outs[:, :step + 1]
+                    break
+            self.stats["steps"] += 1
+            logits, cache = lm.decode_step(self.params, cache, tok,
+                                           pos + step, self.cfg, self.serve)
+            self._count_nonfinite(logits)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            tok_host = tok.cpu().numpy()
+            self.stats["decode_tokens"] += int(alive.sum())
+        dt = time.perf_counter() - t0
+        for i, r in enumerate(reqs):
+            r.out_tokens = outs[i][:r.max_new_tokens]
+            r.latency_s = dt
+            r.status = "finished"
+            self.stats["finished"] += 1
+        return reqs
+
+
+class PagedServingEngine(_EngineBase):
+    """Continuous batching with one forward per step (see the module
+    docstring).  A request the pools could never hold comes back
+    rejected."""
+
+    def __init__(self, params: dict, cfg: ModelConfig,
+                 serve: lm.ServeConfig,
+                 ecfg: Optional[PagedEngineConfig] = None, device=None):
+        super().__init__(params, cfg, serve, device)
+        self.ecfg = e = ecfg if ecfg is not None else PagedEngineConfig()
+        quant = self.serve.kv
+        num_hi = quant.num_hi if quant.quantized else 0
+        if num_hi % e.block_size:
             raise ValueError("num_hi must be a multiple of block_size")
-        hi_per_seq = quant.num_hi // e.block_size
-        lo_per_seq = -(-(e.max_seq - quant.num_hi) // e.block_size)
+        hi_per_seq = num_hi // e.block_size
+        lo_per_seq = -(-(e.max_seq - num_hi) // e.block_size)
         n_hi = e.num_hi_blocks if e.num_hi_blocks is not None \
             else e.max_slots * hi_per_seq + 1
         n_lo = e.num_lo_blocks if e.num_lo_blocks is not None \
@@ -107,7 +246,7 @@ class PagedServingEngine:
             block_size=e.block_size, num_lo_blocks=n_lo,
             num_hi_blocks=max(n_hi, 1), max_blocks_per_seq=lo_per_seq,
             quant=quant)
-        self.serve = dataclasses.replace(serve, paged=self.pcfg)
+        self.serve = dataclasses.replace(self.serve, paged=self.pcfg)
         self.pools = lm.init_paged_cache(cfg, self.pcfg, device=self.device)
         self.sched = Scheduler(
             SchedulerConfig(
@@ -118,10 +257,8 @@ class PagedServingEngine:
                 prefix_caching=e.prefix_caching),
             self.pcfg, swap_out=self._swap_out, swap_in=self._swap_in,
             cow=self._cow_copy, on_prefix=self._on_prefix_lookup)
-        self.stats: Dict[str, int] = {k: 0 for k in STAT_KEYS}
         self._requests: Dict[int, Request] = {}
         self._rejected: List[Request] = []
-        self._uid = 0
         mp = max(e.max_prefills, 1)
         buckets, b = {0, mp}, 1
         while b < mp:
@@ -130,26 +267,13 @@ class PagedServingEngine:
         self._npf_buckets = sorted(buckets)
 
     # -- requests ---------------------------------------------------------
-    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
-        """Queue one request; returns its uid.  Malformed input raises
-        here; a request the pools could never hold comes back rejected."""
-        prompt = np.asarray(prompt, np.int32).reshape(-1)
-        if prompt.size == 0:
-            raise ValueError("empty prompt")
-        if max_new_tokens <= 0:
-            raise ValueError(f"max_new_tokens must be positive, got "
-                             f"{max_new_tokens}")
-        if prompt.size > self.ecfg.max_seq - 1:
-            raise ValueError(f"prompt length {prompt.size} exceeds the "
-                             f"engine's limit of {self.ecfg.max_seq - 1}")
-        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
-            raise ValueError("prompt token ids outside the vocabulary")
-        self._uid += 1
-        req = Request(self._uid, prompt, max_new_tokens,
-                      submit_t=time.perf_counter())
+    def _max_prompt_len(self) -> int:
+        return self.ecfg.max_seq - 1
+
+    def _enqueue(self, req: Request) -> None:
         self._requests[req.uid] = req
-        gen = min(max_new_tokens, self.ecfg.max_seq - prompt.size)
-        nh, nl = PKV.pages_needed(prompt.size + gen - 1, self.pcfg)
+        gen = min(req.max_new_tokens, self.ecfg.max_seq - req.prompt.size)
+        nh, nl = PKV.pages_needed(req.prompt.size + gen - 1, self.pcfg)
         cap_hi, cap_lo = self.sched.alloc.capacity()
         if nh > cap_hi or nl > cap_lo:
             req.status, req.error = "rejected", (
@@ -159,10 +283,9 @@ class PagedServingEngine:
             self.stats["rejected"] += 1
             self._rejected.append(req)
         else:
-            self.sched.submit(SchedRequest(uid=req.uid, prompt=prompt,
-                                           max_new_tokens=max_new_tokens,
+            self.sched.submit(SchedRequest(uid=req.uid, prompt=req.prompt,
+                                           max_new_tokens=req.max_new_tokens,
                                            arrival=req.uid))
-        return req.uid
 
     @torch.inference_mode()
     def run(self) -> List[Request]:
@@ -267,8 +390,7 @@ class PagedServingEngine:
             dev(ishi), self.cfg, self.serve)
         pf_next = pf_logits.argmax(dim=-1).cpu().numpy()
         dec_next = dec_logits.argmax(dim=-1).cpu().numpy()
-        bad = ~torch.isfinite(torch.cat([pf_logits, dec_logits])).all(dim=-1)
-        self.stats["nonfinite_logit_rows"] += int(bad.sum())
+        self._count_nonfinite(pf_logits, dec_logits)
 
         for i, w in enumerate(works):
             sreq = w.sreq

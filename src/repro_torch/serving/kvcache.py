@@ -6,6 +6,7 @@ nibbles per byte (hi nibble = even feature) for the lo region."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -58,3 +59,135 @@ def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
 def dequant_tokens(q: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
                    dtype=torch.bfloat16) -> torch.Tensor:
     return ((q - zp[..., None].float()) * scale[..., None].float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache: init / bulk write (prefill) / token write (decode) / read
+# ---------------------------------------------------------------------------
+
+
+def init_layer_cache(batch: int, seq: int, kv_heads: int, head_dim: int,
+                     cfg: KVCacheConfig, device=None) -> dict:
+    """Zero cache for one attention layer."""
+    def z(dtype, *shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if not cfg.quantized:
+        return {"k": z(torch.bfloat16, batch, seq, kv_heads, head_dim),
+                "v": z(torch.bfloat16, batch, seq, kv_heads, head_dim)}
+    hi = min(cfg.num_hi, seq)
+    out = {}
+    for name in ("k", "v"):
+        out[f"{name}_hi"] = z(torch.int8, batch, hi, kv_heads, head_dim)
+        out[f"{name}_lo"] = z(torch.uint8, batch, seq - hi, kv_heads,
+                              head_dim // 2)
+    for name in ("k", "v"):
+        for suffix in ("scale", "zp"):
+            out[f"{name}_{suffix}"] = z(torch.float16, batch, seq, kv_heads)
+    return out
+
+
+def quantize_full(k: torch.Tensor, v: torch.Tensor, cfg: KVCacheConfig,
+                  capacity: Optional[int] = None) -> dict:
+    """Prefill: quantize a whole (b, s, kv, hd) K/V pair into the cache
+    layout; ``capacity`` reserves room for decode tokens (zero codes,
+    scale 1 and zero point 0 past ``s``)."""
+    s = k.shape[1]
+    cap = max(capacity or s, s)
+    if not cfg.quantized:
+        pad = (0, 0, 0, 0, 0, cap - s)
+        return {"k": torch.nn.functional.pad(k.to(torch.bfloat16), pad),
+                "v": torch.nn.functional.pad(v.to(torch.bfloat16), pad)}
+    hi = min(cfg.num_hi, s)
+    hi_cap = min(cfg.num_hi, cap)
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        q_hi, sc_hi, zp_hi = quant_tokens(t[:, :hi], cfg.hi_bits)
+        q_lo, sc_lo, zp_lo = quant_tokens(t[:, hi:], cfg.lo_bits)
+        hi_buf, zp_hi = to_signed8(q_hi, zp_hi)
+        lo_buf = pack_nibbles(q_lo)
+        sc = torch.cat([sc_hi, sc_lo], dim=1)
+        zp = torch.cat([zp_hi, zp_lo], dim=1)
+        if cap > s:
+            f = torch.nn.functional.pad
+            hi_buf = f(hi_buf, (0, 0, 0, 0, 0, hi_cap - hi))
+            lo_buf = f(lo_buf, (0, 0, 0, 0, 0, cap - hi_cap - lo_buf.shape[1]))
+            sc = f(sc, (0, 0, 0, cap - s), value=1.0)
+            zp = f(zp, (0, 0, 0, cap - s))
+        out[f"{name}_hi"] = hi_buf
+        out[f"{name}_lo"] = lo_buf
+        out[f"{name}_scale"] = sc.half()
+        out[f"{name}_zp"] = zp.half()
+    return out
+
+
+def dequantize_segments(entry: dict, dtype=torch.bfloat16) -> tuple:
+    """``((k_hi, v_hi), (k_lo, v_lo))`` dequantized, the two regions kept
+    apart (decode attends to them as separate segments)."""
+    outs = []
+    for name in ("k", "v"):
+        hi_len = entry[f"{name}_hi"].shape[1]
+        sc, zp = entry[f"{name}_scale"], entry[f"{name}_zp"]
+        hi = dequant_tokens(entry[f"{name}_hi"].float(), sc[:, :hi_len],
+                            zp[:, :hi_len], dtype)
+        lo = dequant_tokens(unpack_nibbles(entry[f"{name}_lo"]),
+                            sc[:, hi_len:], zp[:, hi_len:], dtype)
+        outs.append((hi, lo))
+    (k_hi, k_lo), (v_hi, v_lo) = outs
+    return (k_hi, v_hi), (k_lo, v_lo)
+
+
+def dequantize_full(entry: dict, cfg: KVCacheConfig,
+                    dtype=torch.bfloat16) -> tuple:
+    """The whole cache as dense ``(b, S, kv, hd)`` K and V."""
+    if not cfg.quantized:
+        return entry["k"].to(dtype), entry["v"].to(dtype)
+    (k_hi, v_hi), (k_lo, v_lo) = dequantize_segments(entry, dtype)
+    return torch.cat([k_hi, k_lo], dim=1), torch.cat([v_hi, v_lo], dim=1)
+
+
+def _write_rows(buf: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+                token: torch.Tensor) -> None:
+    """``buf[rows[i], pos[i]] = token[rows[i]]`` in place (token: (b, ...)
+    — one entry per batch row)."""
+    if rows.numel():
+        buf[rows, pos[rows]] = token[rows].to(buf.dtype)
+
+
+def write_token(entry: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                pos, cfg: KVCacheConfig) -> dict:
+    """Decode: write one (b, 1, kv, hd) K/V at ``pos``, in place.  ``pos``
+    is a scalar (every slot at the same length) or a (b,) vector (each
+    slot at its own).  A token below ``num_hi`` goes to the int8 region
+    with its 8-bit scale / zero point, others to the packed lo region with
+    their 4-bit ones — the buffers the reference's one-hot writes give."""
+    b = k_new.shape[0]
+    dev = k_new.device
+    pos = torch.as_tensor(pos, device=dev).to(torch.long).reshape(-1)
+    pos = pos.expand(b)
+    rows = torch.arange(b, device=dev)
+    if not cfg.quantized:
+        for name, t in (("k", k_new), ("v", v_new)):
+            _write_rows(entry[name], rows, pos, t[:, 0])
+        return entry
+    hi_len = entry["k_hi"].shape[1]
+    in_hi = pos < hi_len
+    hi_rows, lo_rows = rows[in_hi], rows[~in_hi]
+    for name, t in (("k", k_new), ("v", v_new)):
+        t = t[:, 0]
+        q8, sc8, zp8 = quant_tokens(t, cfg.hi_bits)
+        q8, zp8 = to_signed8(q8, zp8)
+        q4, sc4, zp4 = quant_tokens(t, cfg.lo_bits)
+        _write_rows(entry[f"{name}_hi"], hi_rows, pos, q8)
+        _write_rows(entry[f"{name}_lo"], lo_rows, pos - hi_len,
+                    pack_nibbles(q4))
+        sel = in_hi[:, None]
+        _write_rows(entry[f"{name}_scale"], rows, pos,
+                    torch.where(sel, sc8, sc4).half())
+        _write_rows(entry[f"{name}_zp"], rows, pos,
+                    torch.where(sel, zp8, zp4).half())
+    return entry
+
+
+def cache_bytes(entry: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in entry.values())

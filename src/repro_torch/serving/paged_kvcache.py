@@ -10,6 +10,9 @@ Per attention layer, two page pools shared by all requests:
 * ``*_scale / *_zp`` — ``(N?, bs, kv)`` f16 per-token parameters paged with
   their codes.
 
+An unquantized cache is one bf16 pool, ``k / v``: ``(NL, bs, kv, hd)``,
+addressed through the lo tables (no hi region).
+
 Page 0 of each pool is the **null page**: never allocated; block tables
 hold 0 for unmapped blocks and masked / pad writes land there, so every
 reader masks by length.  Block ids are shared across layers.  Unlike the
@@ -44,20 +47,18 @@ class PagedCacheConfig:
     quant: KV.KVCacheConfig = KV.KVCacheConfig()
 
     def __post_init__(self):
-        if not self.quant.quantized:
-            raise NotImplementedError("the port's paged cache is quantized")
-        if self.quant.num_hi % self.block_size:
+        if self.quant.quantized and self.quant.num_hi % self.block_size:
             raise ValueError(
                 f"num_hi={self.quant.num_hi} must be a multiple of "
                 f"block_size={self.block_size} (pages are single-precision)")
 
     @property
     def hi_blocks_per_seq(self) -> int:
-        return self.quant.num_hi // self.block_size
+        return self.num_hi // self.block_size
 
     @property
     def num_hi(self) -> int:
-        return self.quant.num_hi
+        return self.quant.num_hi if self.quant.quantized else 0
 
 
 def init_pools(kv_heads: int, head_dim: int, cfg: PagedCacheConfig,
@@ -69,6 +70,9 @@ def init_pools(kv_heads: int, head_dim: int, cfg: PagedCacheConfig,
         return torch.zeros((n, bs, kv_heads, *tail), dtype=dtype,
                            device=device)
 
+    if not cfg.quant.quantized:
+        return {"k": z(nl, head_dim, dtype=torch.bfloat16),
+                "v": z(nl, head_dim, dtype=torch.bfloat16)}
     pools = {"k_hi": z(nh, head_dim, dtype=torch.int8),
              "v_hi": z(nh, head_dim, dtype=torch.int8),
              "k_lo": z(nl, head_dim // 2, dtype=torch.uint8),
@@ -386,6 +390,10 @@ def write_ragged(entry: dict, k: torch.Tensor, v: torch.Tensor,
     pg_hi = torch.where(is_hi, pages, 0).long()
     pg_lo = torch.where(is_hi, 0, pages).long()
     offs = offsets.long()
+    if not cfg.quant.quantized:
+        for name, t in (("k", k), ("v", v)):
+            entry[name][pg_lo, offs] = t.to(entry[name].dtype)
+        return entry
     for name, t in (("k", k), ("v", v)):
         q8, sc8, zp8 = _quant_token(t, 8)
         q4, sc4, zp4 = _quant_token(t, cfg.quant.lo_bits)
@@ -409,8 +417,16 @@ def gather_segments(entry: dict, hi_table: torch.Tensor,
                     dtype=torch.bfloat16) -> list:
     """Block tables -> dense dequantized segments ``[(k_hi, v_hi, 0),
     (k_lo, v_lo, num_hi)]`` shaped (S, n·bs, kv, hd) for the plain
-    attention path."""
-    s = hi_table.shape[0]
+    attention path (``[(k, v, 0)]`` for an unquantized cache)."""
+    s = lo_table.shape[0]
+
+    def dense(key, table):
+        g = entry[key][table.long()]
+        return g.reshape(s, g.shape[1] * g.shape[2], *g.shape[3:])
+
+    if not cfg.quant.quantized:
+        return [(dense("k", lo_table).to(dtype),
+                 dense("v", lo_table).to(dtype), 0)]
     regions = (("hi", hi_table, 0), ("lo", lo_table, cfg.num_hi))
     if hi_table.shape[1] == 0:
         regions = regions[1:]
@@ -418,14 +434,12 @@ def gather_segments(entry: dict, hi_table: torch.Tensor,
     for region, table, offset in regions:
         pair = []
         for name in ("k", "v"):
-            def dense(key):
-                g = entry[key][table.long()]
-                return g.reshape(s, g.shape[1] * g.shape[2], *g.shape[3:])
-            codes = dense(f"{name}_{region}")
+            codes = dense(f"{name}_{region}", table)
             vals = codes.float() if region == "hi" \
                 else KV.unpack_nibbles(codes)
-            pair.append(KV.dequant_tokens(vals, dense(f"{name}_{region}_scale"),
-                                          dense(f"{name}_{region}_zp"), dtype))
+            pair.append(KV.dequant_tokens(
+                vals, dense(f"{name}_{region}_scale", table),
+                dense(f"{name}_{region}_zp", table), dtype))
         segs.append((pair[0], pair[1], offset))
     return segs
 
@@ -442,7 +456,7 @@ def _crc(arr: np.ndarray) -> int:
 
 
 def _pool_of(name: str) -> str:
-    return "lo" if "_lo" in name else "hi"
+    return "lo" if "_lo" in name or name in ("k", "v") else "hi"
 
 
 def extract_pages(pools: list, hi_ids: list, lo_ids: list) -> dict:

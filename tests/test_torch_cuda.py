@@ -15,7 +15,9 @@ import torch
 
 from repro_torch.core import stamp as TS
 from repro_torch.kernels import cuda as kcuda
+from repro_torch.kernels import cache_attention as TCA
 from repro_torch.kernels import decode_matmul as TDM
+from repro_torch.kernels import ref as TR
 from repro_torch.kernels import paged_attention as TPA
 from repro_torch.kernels import stamp_matmul as TSM
 from repro_torch.serving import kvcache as TKV
@@ -190,3 +192,52 @@ def test_cuda_grouped_moe_refuses_cpu_operands(card):
     args[:4] = [t.to(card) for t in args[:4]]
     with pytest.raises(ValueError):
         TSM.stamp_quant_grouped_matmul(*args)
+
+
+def cache_case(b, s, g, hd, h, num_hi, device, seed=0):
+    """A contiguous packed cache of random K/V (``quantize_full``) and one
+    random query token per row."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    k = torch.randn((b, s, g, hd), generator=gen, device=device)
+    v = torch.randn((b, s, g, hd), generator=gen, device=device)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=device)
+    return TKV.quantize_full(k, v, TKV.KVCacheConfig(num_hi=num_hi)), q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lengths", [
+    ((2, 288, 2, 64, 8, 32), (271, 271)),
+    ((4, 136, 8, 128, 32, 4), (97, 98, 99, 100)),
+    # head_dim 32, four query heads a kv head, one row just past hi
+    ((2, 520, 4, 32, 16, 16), (17, 520)),
+    # ragged: inside the hi region, inside the first tile, across ranges
+    ((3, 2000, 2, 16, 4, 8), (5, 130, 2000)),
+])
+def test_cuda_cache_attention_matches_plain(card, shape, lengths):
+    """K6 with f32 queries within 1e-5 of its plain version (relative to
+    the output's largest magnitude: the sequence split and merge order
+    differ from the Pallas block order), and with bf16 queries within one
+    bf16 step of the plain version's bf16 output."""
+    b, s, g, hd, h, num_hi = shape
+    entry, q = cache_case(b, s, g, hd, h, num_hi, card)
+    length = torch.tensor(lengths, dtype=torch.int32, device=card)
+    got = TCA.cache_decode_attention(entry, q, length)
+    want = TR.cache_decode_attention_ref(entry, q, length)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    qb = q.to(torch.bfloat16)
+    got_b = TCA.cache_decode_attention(entry, qb, length).float()
+    want_b = TR.cache_decode_attention_ref(entry, qb, length).float()
+    assert bool(((got_b - want_b).abs() <=
+                 2 ** -7 * want_b.abs() + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_cuda_cache_attention_refuses_cpu_operands(card):
+    """K6 with the query on the card and the cache left on the CPU raises
+    instead of running the plain version."""
+    entry, q = cache_case(1, 40, 2, 16, 4, 8, "cpu")
+    with pytest.raises(ValueError):
+        TCA.cache_decode_attention(entry, q.to(card),
+                                   torch.tensor([30], dtype=torch.int32,
+                                                device=card))

@@ -34,6 +34,7 @@ from repro_torch.kernels import ops as TO
 from repro_torch.kernels import paged_attention as TPA
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import stamp_matmul as TSM
+from repro_torch.serving import kvcache as TKV
 from test_torch_cuda import paged_pools
 
 RTOL = 1e-5
@@ -343,7 +344,11 @@ def test_plain_versions_do_not_count_launches():
     from test_torch_cuda import grouped_case
     TO.stamp_quant_grouped_matmul(*grouped_case(1, 2, 4, 16, 32, [[4, 1]],
                                                 "cpu"))
+    kv, q = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             for shape in ((1, 12, 2, 16), (1, 1, 4, 16)))
+    entry = TKV.quantize_full(kv, kv, TKV.KVCacheConfig(num_hi=4))
+    TO.cache_decode_attention(entry, q, torch.tensor([7], dtype=torch.int32))
     assert TO.launch_counts() == {
         "stamp_transform_quantize": 0, "stamp_int_gemm": 0,
         "stamp_decode_matmul": 0, "paged_ragged_attention": 0,
-        "stamp_quant_grouped_matmul": 0}
+        "stamp_quant_grouped_matmul": 0, "cache_decode_attention": 0}
