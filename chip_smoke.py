@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught and continued):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the six kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, started together);
+2. build the ten kernels from the nine sources in ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
    serve paths' shapes and time kernel, plain version and a library
    yardstick with CUDA events: llama3-8b (C = 128 rows x 2 prefill spans,
@@ -23,8 +23,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ragged lengths; then check a prefill, a mixed and an all-decode step on
    the card against the same steps on the CPU at the reduced size of each
    model, and one ``prefill`` and two ``decode_step`` s of the bucketed
-   path at reduced llama;
-4. serve llama3-8b at full width through the port's serve entry point
+   path at reduced llama; then the standalone kernel library at llama3-8b's
+   widths (K7 ``int8_matmul`` at 2048 rows through its qkv, gate and down
+   shapes and at 8 rows, K8 ``quantize_pack`` at 4 and 8 bits, K9
+   ``haar_dwt_seq`` at 3 and 5 levels up to 32768 tokens, K10
+   ``walsh_hadamard`` along the sequence, split and not, and the features);
+4. drive the kernel library's path through ``repro_torch.kernels.ops``: a
+   (1, 2048, 4096) activation through ``haar_dwt_seq`` (3 levels),
+   ``quantize_pack`` (8 bits), ``int8_matmul`` against ``prepare_linear``'s
+   codes of a 4096 -> 14336 weight and the inverse ``haar_dwt_seq``, and a
+   ``walsh_hadamard`` involution, with every kernel's launch count set to 0
+   before it and read after, held against the same chain of plain versions;
+   then serve llama3-8b at full width through the port's serve entry point
    (seeded init, PTQ on the card, paged unified fused engine with the paged
    attention kernel): 4 requests x 96 prompt tokens x 8 new tokens, with
    every kernel's launch count set to 0 before that run and read after;
@@ -55,6 +65,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
 
 # main-path shapes (configs/llama3_8b.py; PTQ picks num_hi = 4 on 128-token
 # calibration, so the serve path pages at block size 4)
@@ -496,6 +507,180 @@ def check_cache_attention(torch, ca, ref, KV):
     return out
 
 
+# --------------------------------------- phase 3: the standalone library --
+
+# K7-K10 at llama3-8b's widths (d 4096, d_ff 14336, 8 kv heads x 128)
+DWT_SHAPES = [("b4_s2048_l3", (4, 2048, D), 3),
+              ("b1_s32768_l5", (1, 32768, D), 5)]
+WHT_SHAPES = [("seq_b4_s2048", (4, 2048, D), -2),
+              ("seq_split_b1_s16384", (1, 16384, 1024), -2),
+              ("feature_b4_s2048", (4, 2048, D), -1)]
+PACK_SHAPES = [("b4_s2048_4bit", (4, 2048, D), 4),
+               ("b4_s2048_8bit", (4, 2048, D), 8),
+               ("kv_b8_s4096_4bit", (8, 4096, KV_HEADS * HD), 4)]
+GEMM_SHAPES = [("qkv_m2048", 2048, D, D + 2 * KV_HEADS * HD),
+               ("gate_m2048", 2048, D, D_FF), ("down_m2048", 2048, D_FF, D),
+               ("qkv_m8", 8, D, D + 2 * KV_HEADS * HD)]
+MAX_DENSE = 16384     # the largest dense transform matrix timed (512 MiB)
+
+
+def exact(torch, got, want, what: str) -> None:
+    check(got.dtype == want.dtype and got.shape == want.shape and
+          torch.equal(got, want), f"{what} differs from its plain version")
+
+
+def _dense(torch, fn, n: int, dtype):
+    """The (n, n) matrix of a transform along the sequence axis: ``fn`` of
+    the identity, in ``dtype`` (the library yardstick's operand)."""
+    return fn(torch.eye(n, device="cuda")[None])[0].to(dtype)
+
+
+def check_standalone(torch, hd, wt, qp, im) -> dict:
+    """K7-K10 against their plain versions at llama3-8b's widths: K7 exact
+    (f32 and bf16 outputs), K8's codes, scales and zero points exact, K9 and
+    K10 exact in f32 and within one bf16 step in bf16; times of kernel,
+    plain version and library yardstick (a dense transform matmul, or
+    ``torch._int_mm`` with rows padded to 32; none for K8) beside the
+    bound of one HBM read and write (or the int8 peak)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = {"haar_dwt_seq": [], "walsh_hadamard": [], "quantize_pack": [],
+            "int8_matmul": []}
+
+    def transform_rows(kernel, plain, name, shape, arg, flops, dense,
+                       left=True):
+        x32 = torch.randn(shape, generator=gen, device="cuda")
+        exact(torch, kernel(x32, *arg), plain(x32, *arg), f"{name} (f32)")
+        x = x32.bfloat16()
+        del x32
+        got, want = kernel(x, *arg), plain(x, *arg)
+        err = close_bf16(torch, got, want)
+        ms = timed(torch, lambda: kernel(x, *arg), iters=20)
+        pms = timed(torch, lambda: plain(x, *arg), iters=3)
+        lib = None
+        if dense is not None:
+            mat = dense()
+            lib = timed(torch, lambda: torch.matmul(mat, x) if left
+                        else torch.matmul(x, mat), iters=10)
+            del mat
+        b = bound(2 * x.numel() * 2, flops * x.numel(), F32_FLOPS_PER_S)
+        return dict(site=name, max_abs_err=err, ms=ms, plain_ms=pms,
+                    bound_ms=b[0], bound_by=b[1], library_ms=lib)
+
+    for name, shape, levels in DWT_SHAPES:
+        for inverse in (False, True):
+            s = shape[1]
+            dense = None if s > MAX_DENSE else (
+                lambda: _dense(torch, lambda e: hd.haar_dwt_plain(
+                    e, levels, inverse), s, torch.bfloat16))
+            # a pair's add, subtract and two scales over a band halving
+            # each level: < 4 flops a value
+            rows["haar_dwt_seq"].append(transform_rows(
+                hd.haar_dwt_seq, hd.haar_dwt_plain,
+                f"{name}_{'inverse' if inverse else 'forward'}", shape,
+                (levels, inverse), 4, dense))
+            torch.cuda.empty_cache()
+    for name, shape, axis in WHT_SHAPES:
+        n = shape[-1] if axis == -1 else shape[1]
+        dense = None if n > MAX_DENSE else (
+            lambda: _dense(torch, lambda e: wt.wht_plain(e, -2), n,
+                           torch.bfloat16))
+        rows["walsh_hadamard"].append(transform_rows(
+            wt.walsh_hadamard, wt.wht_plain, name, shape, (axis,),
+            int(math.log2(n)) + 1, dense, left=axis == -2))
+        torch.cuda.empty_cache()
+    for name, shape, bits in PACK_SHAPES:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).bfloat16()
+        for g, w in zip(qp.quantize_pack(x, bits), qp.quant_pack_plain(x,
+                                                                       bits)):
+            exact(torch, g, w, f"K8 at {name}")
+        ms = timed(torch, lambda: qp.quantize_pack(x, bits), iters=20)
+        pms = timed(torch, lambda: qp.quant_pack_plain(x, bits), iters=5)
+        n_rows = x.numel() // shape[-1]
+        code_bytes = x.numel() // 2 if bits == 4 else x.numel()
+        b = bound(x.numel() * 2 + code_bytes + n_rows * 8, 0,
+                  F32_FLOPS_PER_S)
+        rows["quantize_pack"].append(dict(
+            site=name, max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None))
+    for name, m, k, n in GEMM_SHAPES:
+        qx = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        qw = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        sx = torch.rand((m, 1), generator=gen, device="cuda") * 0.1 + 1e-3
+        zx = torch.randint(-128, 128, (m, 1), generator=gen,
+                           device="cuda").float()
+        sw = torch.rand((1, n), generator=gen, device="cuda") * 1e-2 + 1e-4
+        zw = torch.randint(-8, 9, (1, n), generator=gen, device="cuda").float()
+        args = (qx, qw, sx, zx, sw, zw)
+        for dtype in (torch.float32, torch.bfloat16):
+            exact(torch, im.int8_matmul(*args, out_dtype=dtype),
+                  im.int8_matmul_plain(*args, out_dtype=dtype),
+                  f"K7 at {name} ({dtype})")
+        ms = timed(torch, lambda: im.int8_matmul(*args), iters=20)
+        pms = timed(torch, lambda: im.int8_matmul_plain(*args), iters=3)
+        # torch._int_mm needs more than 16 rows: pad to 32
+        pad = qx if m > 16 else torch.cat(
+            [qx, torch.zeros((32 - m, k), dtype=torch.int8, device="cuda")])
+        lib = timed(torch, lambda: torch._int_mm(pad, qw), iters=20)
+        b = bound(m * k + k * n + 8 * m + 8 * n + 2 * m * n, 2 * m * n * k,
+                  INT8_OPS_PER_S)
+        rows["int8_matmul"].append(dict(
+            site=name, max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0],
+            bound_by=b[1], library_ms=lib))
+        del qx, qw, pad
+        torch.cuda.empty_cache()
+    return rows
+
+
+def library_phase(torch, ops, prepare_linear, hd, wt, qp, im) -> dict:
+    """The kernel library's path through ``repro_torch.kernels.ops`` at
+    llama3-8b's width: a (1, 2048, 4096) bf16 activation -> 3-level Haar
+    DWT -> 8-bit per-token quantize -> int8 GEMM against ``prepare_linear``'s
+    codes of a 4096 -> 14336 weight -> inverse DWT, and a Walsh-Hadamard
+    involution (the chain of ``test_quantize_then_matmul_approximates_float``
+    with the transform around it).  Launch counts are set to 0 just before
+    and read just after; the same chain of plain versions gives the same
+    bits, and the product is within 2% of the float matmul it replaces."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((1, 2048, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    p = prepare_linear(torch.randn((D, D_FF), generator=gen, device="cuda")
+                       / math.sqrt(D))
+
+    def chain(dwt, pack, gemm, wht):
+        y = dwt(x, 3, False)
+        q, s, z = pack(y, 8)
+        out = gemm(q[0], p.qw, s[0], z[0], p.sw, p.zw, torch.bfloat16)
+        return y, out, dwt(out[None], 3, True), wht(wht(x, -2), -2)
+
+    ops.reset_launch_counts()
+    got = chain(ops.haar_dwt_seq, ops.quantize_pack, ops.int8_matmul,
+                ops.walsh_hadamard)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = chain(hd.haar_dwt_plain, qp.quant_pack_plain, im.int8_matmul_plain,
+                 wt.wht_plain)
+    for what, g, w in zip(("DWT", "quantized GEMM", "inverse DWT",
+                           "WHT involution"), got, want):
+        check(bool(torch.isfinite(g).all()), f"library path: {what} not "
+                                             f"finite")
+        exact(torch, g, w, f"library path: {what}")
+    wd = (p.qw.float() - p.zw) * p.sw
+    rels = []
+    for g, ref in ((got[1], got[0][0].float() @ wd),
+                   (got[2][0], x[0].float() @ wd), (got[3], x)):
+        rels.append(float(torch.linalg.norm(g.float() - ref.float()) /
+                          torch.linalg.norm(ref.float())))
+    check(max(rels[:2]) < 0.02 and rels[2] < 2 ** -7,
+          f"library path outputs off the float computation: {rels}")
+    print(f"[library] x {tuple(x.shape)} -> dwt -> 8-bit pack -> int8 GEMM "
+          f"{D}->{D_FF} -> inverse dwt; wht twice: relative error vs float "
+          f"(gemm, token domain, involution) {rels}; "
+          f"launches={json.dumps(counts)}")
+    return counts
+
+
 def to_device(x, device):
     """A nest of dicts and lists of tensors, moved to ``device``."""
     if isinstance(x, dict):
@@ -676,9 +861,13 @@ def main() -> None:
     from repro_torch.core.stamp import prepare_linear, token_quantize
     from repro_torch.kernels import cache_attention as ca
     from repro_torch.kernels import decode_matmul as dm
+    from repro_torch.kernels import haar_dwt as hd
+    from repro_torch.kernels import int8_gemm as im
+    from repro_torch.kernels import quant_pack as qp
     from repro_torch.kernels import ref
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import stamp_matmul as sm
+    from repro_torch.kernels import wht as wt
     from repro_torch.models import layers as L
     from repro_torch.serving import kvcache as KV
     from repro_torch.serving import paged_kvcache as PKV
@@ -703,7 +892,9 @@ def main() -> None:
         k5 = check_grouped(torch, sm, L, token_quantize)
         k6 = check_cache_attention(torch, ca, ref, KV)
         torch.cuda.empty_cache()
-    for rows in (k1, k2, k3, k4, k5, k6):
+        std = check_standalone(torch, hd, wt, qp, im)
+        torch.cuda.empty_cache()
+    for rows in (k1, k2, k3, k4, k5, k6, *std.values()):
         for r in rows:
             print(f"[kernel] {json.dumps(r)}")
 
@@ -724,19 +915,25 @@ def main() -> None:
     print(f"[chip_smoke] llama3-8b (reduced) bucketed prefill + 2 decode "
           f"steps card vs CPU: max |logit diff| {errs} (bound 5e-2)")
 
-    # which kernels each serve path must launch, and which it must not
-    dense = {"stamp_quant_grouped_matmul"}
-    paths = {"llama3-8b": (serve_phase(torch, serve, ops, "llama3-8b", None),
-                           dense | {"cache_decode_attention"}),
-             "llama3-8b:bucketed": (serve_phase(torch, serve, ops,
-                                                "llama3-8b", None,
-                                                kind="bucketed"),
-                                    dense | {"paged_ragged_attention"})}
+    # which kernels each path must launch, and which it must not: the
+    # library path runs only the standalone kernels, the serve paths none
+    standalone = set(std)
+    serving = {k.__name__ for k in ops.KERNELS} - standalone
+    with torch.inference_mode():
+        paths = {"kernel_library": (library_phase(torch, ops, prepare_linear,
+                                                  hd, wt, qp, im), serving)}
+    torch.cuda.empty_cache()
+    dense = {"stamp_quant_grouped_matmul"} | standalone
+    paths["llama3-8b"] = (serve_phase(torch, serve, ops, "llama3-8b", None),
+                          dense | {"cache_decode_attention"})
+    paths["llama3-8b:bucketed"] = (serve_phase(torch, serve, ops, "llama3-8b",
+                                               None, kind="bucketed"),
+                                   dense | {"paged_ragged_attention"})
     arctic_cfg = dataclasses.replace(configs.get_config("arctic-480b"),
                                      num_layers=ARCTIC_LAYERS)
     paths["arctic-480b"] = (serve_phase(torch, serve, ops, "arctic-480b",
                                         arctic_cfg),
-                            {"cache_decode_attention"})
+                            standalone | {"cache_decode_attention"})
     for path, (counts, absent) in paths.items():
         for name, n in counts.items():
             if name in absent:
@@ -757,7 +954,8 @@ def main() -> None:
                 "plain_ms": sum(r["plain_ms"] for r in rows),
                 "bound_ms": sum(r["bound_ms"] for r in rows),
                 "bound_by": rows[0]["bound_by"],
-                "library_ms": (None if rows[0]["library_ms"] is None
+                "library_ms": (None if any(r["library_ms"] is None
+                                           for r in rows)
                                else sum(r["library_ms"] for r in rows)),
                 "per_shape": rows}
 
@@ -780,6 +978,14 @@ def main() -> None:
               "src/repro/kernels/stamp_matmul.py:438", k5),
         entry("cache_decode_attention", src + "cache_attention.cu",
               "src/repro/kernels/cache_attention.py:91", k6),
+        entry("int8_matmul", src + "int8_matmul.cu",
+              "src/repro/kernels/int8_matmul.py:56", std["int8_matmul"]),
+        entry("quantize_pack", src + "quant_pack.cu",
+              "src/repro/kernels/quant_pack.py:44", std["quantize_pack"]),
+        entry("haar_dwt_seq", src + "haar_dwt.cu",
+              "src/repro/kernels/haar_dwt.py:63", std["haar_dwt_seq"]),
+        entry("walsh_hadamard", src + "wht.cu",
+              "src/repro/kernels/wht.py:47", std["walsh_hadamard"]),
     ]
     kernels[3]["per_shape"] = k4
     print(json.dumps({"kernels": kernels}))

@@ -22,21 +22,26 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("stamp_matmul", "decode_matmul", "paged_attention",
-           "grouped_matmul", "cache_attention")
+           "grouped_matmul", "cache_attention", "int8_matmul", "quant_pack",
+           "haar_dwt", "wht")
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-lineinfo"]
-# the GEMM epilogues evaluate in the plain versions' order: no FMA
-# contraction (the quantizer codes need none — they use no multiply-add)
+# the GEMM epilogues and the multi-level Haar DWT (whose levels sum the
+# previous level's products) evaluate in the plain versions' order: no FMA
+# contraction (the quantizers and the WHT need none — they use no
+# multiply-add)
 _FLAGS = {"stamp_matmul": ["-fmad=false"], "decode_matmul": ["-fmad=false"],
           "paged_attention": [], "grouped_matmul": ["-fmad=false"],
-          "cache_attention": []}
+          "cache_attention": [], "int8_matmul": ["-fmad=false"],
+          "quant_pack": [], "haar_dwt": ["-fmad=false"], "wht": []}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 VP = ctypes.c_void_p
 INT = ctypes.c_int
+LL = ctypes.c_longlong
 FLT = ctypes.c_float
 
 
@@ -139,3 +144,14 @@ def require_cuda(*tensors) -> None:
             raise ValueError("kernel inputs must be contiguous")
         if t.data_ptr() % 4:
             raise ValueError("kernel inputs must be 4-byte aligned")
+
+
+#: dtype codes of the kernels that take f32, bf16 or f16 tensors
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def float_code(dtype: torch.dtype, what: str) -> int:
+    if dtype not in FLOAT_CODES:
+        raise ValueError(f"{what} takes f32, bf16 or f16 tensors, not "
+                         f"{dtype}")
+    return FLOAT_CODES[dtype]

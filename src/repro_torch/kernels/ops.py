@@ -1,8 +1,11 @@
 """Public entry points of the port's kernels (the twin of
 ``repro.kernels.ops``).  The fused STaMP linears are the K1 → K2 chain, the
 grouped MoE expert FFN is K5, the contiguous cache's decode attention K6;
-every wrapper launches its CUDA kernel for a
-CUDA tensor and runs its plain PyTorch version for a CPU tensor."""
+the standalone kernel library is ``int8_matmul`` (K7), ``quantize_pack``
+(K8), ``haar_dwt_seq`` (K9) and ``walsh_hadamard`` (K10), with the
+reference's signatures less ``interpret`` and ``block_d`` (a Pallas tile
+that changes no number).  Every wrapper launches its CUDA kernel for a CUDA
+tensor and runs its plain PyTorch version for a CPU tensor."""
 
 from __future__ import annotations
 
@@ -12,16 +15,21 @@ import torch
 
 from repro_torch.kernels.cache_attention import cache_decode_attention
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
+from repro_torch.kernels.haar_dwt import haar_dwt_seq
+from repro_torch.kernels.int8_gemm import int8_matmul
 from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.kernels.quant_pack import quantize_pack
 from repro_torch.kernels import stamp_matmul as SM
 from repro_torch.kernels.stamp_matmul import (stamp_int_gemm,
                                               stamp_transform_quantize)
+from repro_torch.kernels.wht import walsh_hadamard
 
-#: every kernel wrapper of the serve paths; each carries a ``launches``
-#: count
+#: every kernel wrapper: the serve paths' and the standalone library's;
+#: each carries a ``launches`` count
 KERNELS = (stamp_transform_quantize, stamp_int_gemm, stamp_decode_matmul,
            paged_ragged_attention, SM.stamp_quant_grouped_matmul,
-           cache_decode_attention)
+           cache_decode_attention, int8_matmul, quantize_pack, haar_dwt_seq,
+           walsh_hadamard)
 
 
 def reset_launch_counts() -> None:

@@ -1,11 +1,14 @@
-"""Unfused oracles of the main path's kernels — the counterparts of
+"""Unfused oracles of the port's kernels — the counterparts of
 ``repro.kernels.ref``: each runs the reference execution path as separate
 PyTorch ops (float fake-quant and dequantized weights for the linears, a
-dense direct softmax for attention).  The kernels' plain versions, beside
-them in their modules, repeat the kernels' own arithmetic instead.  The
-exception is :func:`cache_decode_attention_ref`: it is both the plain
-version of the packed-cache attention kernel K6 (the Pallas kernel's own
-order of operations) and the oracle the CPU tests hold to that kernel."""
+dense direct softmax for attention, a dequantized float matmul for the
+standalone int8 GEMM).  The kernels' plain versions, beside them in their
+modules, repeat the kernels' own arithmetic instead.  The exceptions are
+:func:`cache_decode_attention_ref`, both the plain version of the
+packed-cache attention kernel K6 (the Pallas kernel's own order of
+operations) and the oracle the CPU tests hold to that kernel, and
+``quant_pack_ref``, K8's plain version (the reference's oracle and kernel
+share one expression)."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from repro_torch.core import quant as Q
 from repro_torch.core import transforms as T
 from repro_torch.kernels.decode_matmul import row_quantize8
+from repro_torch.kernels.quant_pack import quant_pack_plain
 from repro_torch.kernels.stamp_matmul import grouped_block_f, silu
 from repro_torch.serving import kvcache as KV
 
@@ -247,3 +251,41 @@ def cache_decode_attention_ref(entry: dict, q: torch.Tensor,
             m = m_new
     out = o / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+# ------------------------------------------- the standalone kernel library --
+
+
+def haar_dwt_ref(x: torch.Tensor, levels: int = 3,
+                 inverse: bool = False) -> torch.Tensor:
+    """Multi-level Haar DWT (or its inverse) along the sequence axis."""
+    fn = T.haar_idwt if inverse else T.haar_dwt
+    return fn(x, levels=levels, axis=-2)
+
+
+def wht_ref(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    return T.wht(x, axis=axis)
+
+
+#: per-token min-max quantize, then two nibbles a byte at 4 bits (even
+#: feature high) or int8 codes shifted by −128 otherwise.  The reference's
+#: oracle is its Pallas kernel's expression, so it is K8's plain version.
+quant_pack_ref = quant_pack_plain
+
+
+def unpack_dequant_ref(packed: torch.Tensor, scale: torch.Tensor,
+                       zp: torch.Tensor, bits: int = 4,
+                       dtype=torch.float32) -> torch.Tensor:
+    if bits == 4:
+        q = torch.stack([(packed >> 4).float(), (packed & 0xF).float()],
+                        dim=-1).reshape(*packed.shape[:-1], -1)
+    else:
+        q = packed.float()
+    return ((q - zp) * scale).to(dtype)
+
+
+def int8_matmul_ref(qx, qw, sx, zx, sw, zw,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """Dequantize both operands, then a float matmul."""
+    x = (qx.float() - zx) * sx
+    return (x @ _dequant_w(qw, sw, zw)).to(out_dtype)

@@ -17,9 +17,13 @@ from repro_torch.core import stamp as TS
 from repro_torch.kernels import cuda as kcuda
 from repro_torch.kernels import cache_attention as TCA
 from repro_torch.kernels import decode_matmul as TDM
+from repro_torch.kernels import haar_dwt as THD
+from repro_torch.kernels import int8_gemm as TIM
+from repro_torch.kernels import quant_pack as TQP
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import paged_attention as TPA
 from repro_torch.kernels import stamp_matmul as TSM
+from repro_torch.kernels import wht as TW
 from repro_torch.serving import kvcache as TKV
 from repro_torch.serving import paged_kvcache as TPKV
 
@@ -241,3 +245,104 @@ def test_cuda_cache_attention_refuses_cpu_operands(card):
         TCA.cache_decode_attention(entry, q.to(card),
                                    torch.tensor([30], dtype=torch.int32,
                                                 device=card))
+
+
+# ---------------------------------------------------------------------------
+# the standalone kernel library: K7 int8_matmul, K8 quantize_pack, K9
+# haar_dwt_seq, K10 walsh_hadamard
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,levels", [
+    ((2, 256, 96), 1), ((2, 256, 96), 5), ((3, 64, 4096), 3),
+    # a chain of launches past five levels
+    ((1, 512, 40), 7)])
+def test_cuda_haar_dwt_matches_plain(card, dtype, shape, levels):
+    """K9 forward and inverse equal to its plain version: the same f32
+    operations in the same order (``-fmad=false``) and one cast; d = 96
+    and 40 are not multiples of 128."""
+    gen = torch.Generator(device=card).manual_seed(levels)
+    x = torch.randn(shape, generator=gen, device=card).to(dtype)
+    for inverse in (False, True):
+        got = THD.haar_dwt_seq(x, levels, inverse)
+        want = THD.haar_dwt_plain(x, levels, inverse)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", [
+    ((2, 256, 128), -2), ((2, 128, 256), -1), ((4, 2048, 128), -2),
+    # the split sequence transform (two launches through f32 scratch)
+    ((1, 16384, 128), -2), ((1, 100, 16384), -1)])
+def test_cuda_wht_matches_plain(card, dtype, shape, axis):
+    """K10 equal to its plain version along the sequence and the features:
+    each stage is the same add and subtract on the same values, split or
+    not, and the f32(1/sqrt n) scale comes once at the end."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=card).to(dtype)
+    got = TW.walsh_hadamard(x, axis)
+    want = TW.wht_plain(x, axis)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8, 3])
+@pytest.mark.parametrize("shape", [(2, 256, 4096), (1, 64, 100),
+                                   (3, 16, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quant_pack_matches_plain(card, bits, shape, dtype):
+    """K8's codes, scales and zero points exactly the plain version's, on
+    the 16-byte path (d = 4096) and the byte path (d = 100; 48 at 4
+    bits)."""
+    gen = torch.Generator(device=card).manual_seed(bits)
+    x = (torch.randn(shape, generator=gen, device=card) * 3).to(dtype)
+    got = TQP.quantize_pack(x, bits)
+    want = TQP.quant_pack_plain(x, bits)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mnk", [(8, 6144, 4096), (256, 384, 128),
+                                 (128, 256, 4096), (8, 5, 7), (64, 96, 80)])
+def test_cuda_int8_matmul_matches_plain(card, mnk):
+    """K7 equal to its plain version in f32, bf16 and f16: exact int32
+    products and sums, the same f32 epilogue order (``-fmad=false``);
+    M = 8 decode rows, N = 6144, and ragged tiles (N = 5, K = 7; K = 80)."""
+    m, n, k = mnk
+    gen = torch.Generator(device=card).manual_seed(m + n + k)
+    qx = torch.randint(-128, 128, (m, k), generator=gen, device=card,
+                       dtype=torch.int8)
+    qw = torch.randint(-128, 128, (k, n), generator=gen, device=card,
+                       dtype=torch.int8)
+    sx = torch.rand((m, 1), generator=gen, device=card) * 0.1 + 1e-3
+    zx = torch.randint(-128, 128, (m, 1), generator=gen, device=card).float()
+    sw = torch.rand((1, n), generator=gen, device=card) * 1e-2 + 1e-4
+    zw = torch.randint(-8, 9, (1, n), generator=gen, device=card).float()
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        got = TIM.int8_matmul(qx, qw, sx, zx, sw, zw, out_dtype=dtype)
+        want = TIM.int8_matmul_plain(qx, qw, sx, zx, sw, zw, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_standalone_kernels_refuse_cpu_operands(card):
+    """K7 with the weight codes left on the CPU raises; a CUDA tensor of a
+    dtype K8-K10 do not take raises: no wrapper falls back to its plain
+    version."""
+    qx = torch.zeros((8, 64), dtype=torch.int8, device=card)
+    ones = torch.ones((8, 1), device=card)
+    with pytest.raises(ValueError):
+        TIM.int8_matmul(qx, torch.zeros((64, 16), dtype=torch.int8), ones,
+                        ones, torch.ones((1, 16)), torch.ones((1, 16)))
+    x = torch.zeros((1, 16, 128), dtype=torch.float64, device=card)
+    for fn in (TQP.quantize_pack, THD.haar_dwt_seq, TW.walsh_hadamard):
+        with pytest.raises(ValueError):
+            fn(x)
