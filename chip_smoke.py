@@ -10,24 +10,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (one ``nvcc`` per source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
    serve paths' shapes and time kernel, plain version and a library
-   yardstick with CUDA events: llama3-8b (C = 128 rows x 2 prefill spans,
-   8 decode slots, 32/8 heads, head_dim 128, page size 4; for the bucketed
-   engine K1/K2 at 4 and 8 spans of 128 rows and K3 at 4 rows at every
-   decode site), and Arctic-480B
-   (K1/K2 and K3 at every linear site of its layer: QKV 7168 -> 9216, wo
-   7168 -> 7168, the dense residual's gate/up 7168 -> 4864 and down
-   4864 -> 7168; K4 at 56/8 heads; K5 over 128 experts with the counts of
-   a real routing of 2 x 128 random tokens), and K6 (the contiguous
-   cache's decode attention) at the bucketed serve shape (4 slots, cache
-   136, hi ``NUM_HI``) and at 8 slots x 32768 cached tokens (hi 64) with
-   ragged lengths; then check a prefill, a mixed and an all-decode step on
-   the card against the same steps on the CPU at the reduced size of each
-   model, and one ``prefill`` and two ``decode_step`` s of the bucketed
-   path at reduced llama; then the standalone kernel library at llama3-8b's
-   widths (K7 ``int8_matmul`` at 2048 rows through its qkv, gate and down
-   shapes and at 8 rows, K8 ``quantize_pack`` at 4 and 8 bits, K9
-   ``haar_dwt_seq`` at 3 and 5 levels up to 32768 tokens, K10
-   ``walsh_hadamard`` along the sequence, split and not, and the features);
+   yardstick with CUDA events (K4 over 200 calls and K2 over 50, both also
+   replayed from CUDA graphs, ``graph_ms``: the device's time without the
+   wrapper's host cost; K2's yardstick ``torch._int_mm`` on the row-major
+   weight and on its column-major copy, the faster counting): llama3-8b
+   (C = 128 rows x 2 prefill spans, 8 decode slots, 32/8 heads, head_dim
+   128, page size 4; for the bucketed engine K1/K2 at 4 and 8 spans of 128
+   rows and K3 at 4 rows at every decode site), and Arctic-480B (K1/K2 and
+   K3 at every linear site of its layer: QKV 7168 -> 9216, wo 7168 -> 7168,
+   the dense residual's gate/up 7168 -> 4864 and down 4864 -> 7168; K4 at
+   56/8 heads; K5 over 128 experts with the counts of a real routing of 2 x
+   128 random tokens); K4 at both head counts also over a long all-decode
+   step (8 slots of 65 to 32768 cached tokens, split over blocks); K6 (the
+   contiguous cache's decode attention) at the bucketed serve shape (4
+   slots, cache 136, hi ``NUM_HI``) and at 8 slots x 32768 cached tokens
+   (hi 64) with ragged lengths; then check a prefill, a mixed and an
+   all-decode step on the card against the same steps on the CPU at the
+   reduced size of each model, and one ``prefill`` and two ``decode_step``
+   s of the bucketed path at reduced llama; then the standalone kernel
+   library at llama3-8b's widths (K7 ``int8_matmul`` at 2048 rows through
+   its qkv, gate and down shapes and at 8 rows, K8 ``quantize_pack`` at 4
+   and 8 bits, K9 ``haar_dwt_seq`` at 3 and 5 levels up to 32768 tokens,
+   K10 ``walsh_hadamard`` along the sequence, split and not, and the
+   features);
 4. drive the kernel library's path through ``repro_torch.kernels.ops``: a
    (1, 2048, 4096) activation through ``haar_dwt_seq`` (3 levels),
    ``quantize_pack`` (8 bits), ``int8_matmul`` against ``prepare_linear``'s
@@ -78,6 +83,9 @@ A_EXPERTS, A_TOPK, A_CF = 128, 2, 1.25
 ARCTIC_LAYERS = 4
 STAMP = dict(transform="dwt", levels=3, skip_first=True, num_hi=NUM_HI,
              hi_bits=8, lo_bits=4)
+# timed calls: launches under 0.13 ms spread up to 1.5x between calls, so
+# K4 (tens of microseconds) is timed over 200 calls and K2 over 50
+K4_ITERS, K2_ITERS = 200, 50
 
 
 def fail(msg: str) -> None:
@@ -111,6 +119,37 @@ def timed(torch, fn, iters: int = 10) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def timed_graph(torch, fn, calls: int, per_graph: int = 20) -> float:
+    """Mean ms per call with the host out of the timing: ``per_graph``
+    calls captured in one CUDA graph, replayed until ``calls`` calls ran.
+    For a launch of a few microseconds the eager loop of :func:`timed`
+    measures the wrapper's host cost (checks, ctypes, allocation); this
+    measures the device's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    reps = max(calls // per_graph, 1)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / (reps * per_graph)
+    del graph
+    return ms
 
 
 def bound(nbytes: float, ops: float, rate: float) -> tuple:
@@ -196,16 +235,34 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
         rel = float((y32 - yp32).abs().max() / yp32.abs().max())
         check(rel <= 1e-5, f"K2 f32 output off by {rel} (relative) at {name}")
         ms2 = timed(torch, lambda: sm.stamp_int_gemm(qx, sx, zx, C, *wargs,
-                                                     **kw))
+                                                     **kw), iters=K2_ITERS)
         pms2 = timed(torch, lambda: sm.int_gemm_plain(qx, sx, zx, C, *wargs,
                                                       **kw), iters=3)
-        mats = [wi.qw for wi in w]
-        lib2 = timed(torch, lambda: [torch._int_mm(qx, m) for m in mats])
+        # the yardstick on the (K, N) row-major weight the port keeps and on
+        # its column-major copy (cuBLASLt's preferred layout); the faster
+        # counts
+        row_major = [wi.qw for wi in w]
+        col_major = [m.t().contiguous().t() for m in row_major]
+        lib_row = timed(torch, lambda: [torch._int_mm(qx, m)
+                                        for m in row_major], iters=K2_ITERS)
+        lib_col = timed(torch, lambda: [torch._int_mm(qx, m)
+                                        for m in col_major], iters=K2_ITERS)
+        gms2 = timed_graph(torch, lambda: sm.stamp_int_gemm(
+            qx, sx, zx, C, *wargs, **kw), K2_ITERS, per_graph=10)
+        glib = min(timed_graph(torch, lambda: [torch._int_mm(qx, m)
+                                               for m in mats], K2_ITERS,
+                               per_graph=10)
+                   for mats in (row_major, col_major))
+        del col_major
         nw = len(w)
         b2 = bound(rows * k + rows * 8 + nw * (k * n + 12 * n) + rows * n * 2,
                    2 * rows * k * n * nw, INT8_OPS_PER_S)
         k2.append(dict(site=name, max_abs_err=err, ms=ms2, plain_ms=pms2,
-                       bound_ms=b2[0], bound_by=b2[1], library_ms=lib2))
+                       bound_ms=b2[0], bound_by=b2[1],
+                       library_ms=min(lib_row, lib_col),
+                       library_row_major_ms=lib_row,
+                       library_col_major_ms=lib_col, graph_ms=gms2,
+                       library_graph_ms=glib))
         # the composed op the model calls is the same chain
         yo = (ops_mod.stamp_quant_dual_matmul(x, *wargs[:4], *wargs[5:9],
                                               **STAMP)
@@ -247,22 +304,25 @@ def check_decode(torch, dm, prepare_linear, sites, seed=1, rows=SLOTS):
     return out
 
 
-def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int):
+def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
+                    dec_lengths=None, capacity: int = C + 8):
     """Pools holding random K/V for ``n_pf`` prefill spans (start 0, chunk
-    C, lengths 96..) and SLOTS decode spans (lengths 97..104), written
-    through ``write_ragged`` at page size 4; ``heads`` query heads over
-    KV_HEADS."""
+    C, lengths 96..) and SLOTS decode spans (lengths 97..104, or
+    ``dec_lengths``), written through ``write_ragged`` at page size 4;
+    ``heads`` query heads over KV_HEADS; tables mapping ``capacity``
+    positions a span (the serve path's 136, or the longest span)."""
     gen = torch.Generator(device="cuda").manual_seed(2 + n_pf + heads)
     quant = KV.KVCacheConfig(quantized=True, num_hi=NUM_HI)
-    lo_per_seq = -(-(C + 8 - NUM_HI) // BLOCK)
-    spans = n_pf + SLOTS
+    dec_lengths = dec_lengths or [97 + j for j in range(SLOTS)]
+    capacity = max(capacity, *dec_lengths)
+    lo_per_seq = -(-(capacity - NUM_HI) // BLOCK)
+    spans = n_pf + len(dec_lengths)
     pcfg = PKV.PagedCacheConfig(block_size=BLOCK,
                                 num_lo_blocks=spans * lo_per_seq + 1,
                                 num_hi_blocks=spans + 1,
                                 max_blocks_per_seq=lo_per_seq, quant=quant)
     entry = PKV.init_pools(KV_HEADS, HD, pcfg, device="cuda")
-    lengths = [96 + 4 * i for i in range(n_pf)] + \
-        [97 + j for j in range(SLOTS)]
+    lengths = [96 + 4 * i for i in range(n_pf)] + list(dec_lengths)
     ht = torch.zeros((spans, 1), dtype=torch.int32)
     lt = torch.zeros((spans, lo_per_seq), dtype=torch.int32)
     pages, offs, ishi, ks, vs = [], [], [], [], []
@@ -286,8 +346,8 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int):
                      torch.tensor(ishi, device="cuda"), pcfg)
     q_pf = torch.randn((n_pf, C, heads, HD), generator=gen, device="cuda",
                        dtype=dtype)
-    q_dec = torch.randn((SLOTS, 1, heads, HD), generator=gen, device="cuda",
-                        dtype=dtype)
+    q_dec = torch.randn((len(dec_lengths), 1, heads, HD), generator=gen,
+                        device="cuda", dtype=dtype)
     starts = torch.tensor([0] * n_pf + [l - 1 for l in lengths[n_pf:]],
                           dtype=torch.int32, device="cuda")
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
@@ -312,11 +372,20 @@ def _attention_work(lengths, n_pf: int, heads: int) -> tuple:
     return nbytes, flops
 
 
+# K4 shapes: the serve path's mixed step (2 chunks + SLOTS decode spans) and
+# all-decode step (tables of 136 positions), and a long all-decode step whose
+# ragged spans (K6's long lengths) are split over blocks
+ATTENTION_SHAPES = [("mixed", SPANS, None), ("all_decode", 0, None),
+                    ("long_decode", 0, [32768, 30001, 24576, 16385, 8192,
+                                        4097, 1024, 65])]
+
+
 def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix=""):
     out = []
-    for name, n_pf in (("mixed", SPANS), ("all_decode", 0)):
+    for name, n_pf, dec_lengths in ATTENTION_SHAPES:
         entry, q_pf, q_dec, starts, lens, ht, lt, lengths = \
-            _attention_case(torch, PKV, KV, n_pf, torch.bfloat16, heads)
+            _attention_case(torch, PKV, KV, n_pf, torch.bfloat16, heads,
+                            dec_lengths)
         args = (entry, q_pf, q_dec, starts, lens, ht, lt)
         o_pf, o_dec = pa.paged_ragged_attention(*args, BLOCK)
         p_pf, p_dec = pa.paged_attention_plain(*args, BLOCK)
@@ -330,16 +399,22 @@ def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix=""):
         abs32 = float((k32 - p32).abs().max())
         check(abs32 <= 1e-4, f"K4 f32 output off by {abs32} ({name})")
         ms = timed(torch, lambda: pa.paged_ragged_attention(*args, BLOCK),
-                   iters=20)
+                   iters=K4_ITERS)
         pms = timed(torch, lambda: pa.paged_attention_plain(*args, BLOCK),
-                    iters=3)
-        lib = timed(torch, _sdpa_yardstick(torch, args, n_pf, heads),
-                    iters=20)
+                    iters=1 if dec_lengths else 3)
+        sdpa = _sdpa_yardstick(torch, args, n_pf, heads)
+        lib = timed(torch, sdpa, iters=K4_ITERS)
+        gms = timed_graph(torch, lambda: pa.paged_ragged_attention(
+            *args, BLOCK), K4_ITERS)
+        glib = timed_graph(torch, sdpa, K4_ITERS)
         nbytes, flops = _attention_work(lengths, n_pf, heads)
         b = bound(nbytes, flops, BF16_FLOPS_PER_S)
         out.append(dict(site=prefix + name, max_abs_err=err, ms=ms,
                         plain_ms=pms,
-                        bound_ms=b[0], bound_by=b[1], library_ms=lib))
+                        bound_ms=b[0], bound_by=b[1], library_ms=lib,
+                        graph_ms=gms, library_graph_ms=glib))
+        del entry, args, f32, sdpa
+        torch.cuda.empty_cache()
     return out
 
 
@@ -943,6 +1018,10 @@ def main() -> None:
                              f"serve path")
     launches = {p: counts for p, (counts, _) in paths.items()}
 
+    def total(rows, key):
+        vals = [r.get(key) for r in rows]
+        return None if any(v is None for v in vals) else sum(vals)
+
     def entry(name, source, replaces, rows):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
@@ -954,9 +1033,9 @@ def main() -> None:
                 "plain_ms": sum(r["plain_ms"] for r in rows),
                 "bound_ms": sum(r["bound_ms"] for r in rows),
                 "bound_by": rows[0]["bound_by"],
-                "library_ms": (None if any(r["library_ms"] is None
-                                           for r in rows)
-                               else sum(r["library_ms"] for r in rows)),
+                "library_ms": total(rows, "library_ms"),
+                "graph_ms": total(rows, "graph_ms"),
+                "library_graph_ms": total(rows, "library_graph_ms"),
                 "per_shape": rows}
 
     src = "src/repro_torch/csrc/"

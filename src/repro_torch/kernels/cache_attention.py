@@ -64,7 +64,7 @@ def cache_decode_attention(entry: dict, q: torch.Tensor,
         raise ValueError("K6 reads cache codes in 16-byte vectors: the "
                          "buffers must be 16-byte aligned")
     lib = cuda.library("cache_attention", _SIGNATURES)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sms = cuda.sm_count(q.device)
     split_len = lib.cache_attention_split_len(b, g, s_total, sms)
     n_split = -(-s_total // split_len)
     part = torch.empty((b, g, n_split, h // g, hd + 2), dtype=torch.float32,

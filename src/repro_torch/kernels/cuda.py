@@ -11,6 +11,7 @@ sources in parallel (one ``nvcc`` process each)."""
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -118,6 +119,28 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _properties(index: int) -> tuple:
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count, p.shared_memory_per_block_optin
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's multiprocessors (read once per card: the launch plans
+    size their grids by it on every call)."""
+    return _properties(_index(device))[0]
+
+
+def smem_optin(device: torch.device) -> int:
+    """The most shared memory a block may opt into on the card."""
+    return _properties(_index(device))[1]
 
 
 def stream_ptr(t: torch.Tensor) -> int:

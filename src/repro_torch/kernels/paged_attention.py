@@ -10,9 +10,14 @@ length``.  An all-decode step is the ``n_pf = 0`` case of the same kernel,
 as the reference runs it.  Prefill spans attend to their own chunk through
 the pages the step has just written (``write_ragged`` runs first).
 
-Bound on the H100: bytes of the pages each span's length needs; this first
-version walks pages in a loop per block and is latency-bound at small page
-sizes (see the source note).
+Bound on the H100: bytes of the pages each span's length needs, but at the
+serve path's sizes the kernel is latency-bound.  Each block gathers tiles of
+``KV_TILE`` positions through the block table (two stages of
+``cp.async``); prefill blocks own ``PF_ROWS`` query rows, decode blocks
+one range of a decode span; a split span's ranges are merged in range order
+by a second launch.  :func:`launch_plan` sizes the launch;
+:func:`decode_ranges` is the split the card works out from the lengths.  The queries are
+read in 16-byte vectors (a misaligned one is copied first).
 """
 
 from __future__ import annotations
@@ -28,12 +33,73 @@ _POOL_KEYS = ("k_hi", "v_hi", "k_hi_scale", "k_hi_zp", "v_hi_scale",
               "v_hi_zp", "k_lo", "v_lo", "k_lo_scale", "k_lo_zp",
               "v_lo_scale", "v_lo_zp")
 _HEAD_DIMS = (16, 32, 64, 128)
+KV_TILE = 32          # positions a block gathers and scores per tile
+PF_ROWS = 64          # query rows of a prefill block
+MAX_REP = 8           # query heads per kv head (a decode block's rows)
+FILL = 2              # K4 blocks an SM holds
+SPLIT_FROM_TILES = 8  # a decode span is split over blocks from this many tiles
+MIN_RANGE_TILES = 2   # tiles a range of a split span holds at least
+MAX_SPLIT_SPANS = 256  # decode spans a split step may carry
 
 _SIGNATURES = {"paged_attention": [
     cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
     cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
     *([cuda.VP] * 12), cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.FLT,
-    cuda.VP, cuda.VP, cuda.VP]}
+    cuda.INT, cuda.INT, cuda.VP, cuda.VP, cuda.VP, cuda.VP],
+    "paged_attention_smem_bytes": [cuda.INT]}
+
+
+def launch_plan(n_pf: int, s_slots: int, c_len: int, rep: int, g: int,
+                capacity: int, sms: int) -> dict:
+    """The launch's size: ``n_pf · g · row_tiles`` prefill blocks of
+    ``PF_ROWS`` query rows, then ``s_slots · g · n_split`` decode blocks.
+    In a mixed step the prefill blocks fill the card and walk as far, so
+    decode spans stay whole (``n_split`` 1).  In an all-decode step whose
+    tables map at least ``SPLIT_FROM_TILES`` tiles (``capacity``
+    positions), each kv head gets ``n_split`` block slots a span, as many as
+    one wave of ``FILL`` blocks an SM holds (``sms``); which span and range
+    each slot takes is worked out on the card from the spans' lengths
+    (:func:`decode_ranges`)."""
+    row_tiles = -(-c_len * rep // PF_ROWS) if n_pf else 0
+    tiles = -(-capacity // KV_TILE)
+    n_split = 1
+    if not n_pf and tiles >= SPLIT_FROM_TILES and s_slots <= MAX_SPLIT_SPANS:
+        n_split = max(min(FILL * sms // (s_slots * g),
+                          tiles // MIN_RANGE_TILES, 4096 // s_slots), 1)
+    return dict(row_tiles=row_tiles, n_split=n_split)
+
+
+def _range_count(tiles: int, total: int, spare: int) -> int:
+    if tiles < SPLIT_FROM_TILES:
+        return 1
+    return min(1 + tiles * spare // total, tiles // MIN_RANGE_TILES)
+
+
+def decode_ranges(lengths, n_split: int) -> list:
+    """The decode blocks' work for one kv head, as K4 works it out on the
+    card from the decode spans' lengths (``decode_slot`` in
+    ``csrc/paged_attention.cu``): a list, in block-slot order, of ``(span,
+    kv0, kv1, k)``, range ``[kv0, kv1)`` of a span cut into ``k`` ranges;
+    slots past the list are unused.  Unsplit (``n_split`` 1), slot i walks
+    span i whole.  Split: every span has one slot, and the other ``S ·
+    (n_split - 1)`` go to the spans of at least ``SPLIT_FROM_TILES`` tiles
+    in proportion to their tiles (``T`` the step's): a span of ``t`` tiles
+    takes ``k = 1 + t·S·(n_split - 1) // T`` ranges, at most one every
+    ``MIN_RANGE_TILES`` tiles, range ``r`` its tiles ``[t·r // k,
+    t·(r+1) // k)``, in the slots after the spans before it.  A span of one
+    range writes its output; the others' partials are merged in range order
+    by the merge launch."""
+    lengths = [int(n) for n in lengths]
+    if n_split == 1:
+        return [(i, 0, n, 1) for i, n in enumerate(lengths)]
+    tiles = [-(-n // KV_TILE) for n in lengths]
+    total, spare = max(sum(tiles), 1), len(lengths) * (n_split - 1)
+    out = []
+    for i, (n, t) in enumerate(zip(lengths, tiles)):
+        k = _range_count(t, total, spare)
+        out += [(i, t * r // k * KV_TILE, min(t * (r + 1) // k * KV_TILE, n),
+                 k) for r in range(k)]
+    return out
 
 
 def _page(entry: dict, name: str, region: str, pages: torch.Tensor):
@@ -77,6 +143,15 @@ def _walk(entry, q, qpos, lengths, hi_table, lo_table, bs: int):
         o = o * c_prev[..., None] + o_blk * c_blk[..., None]
         m = m_new
     return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+_SMEM = {}
+
+
+def _smem_bytes(lib, hd: int) -> int:
+    if hd not in _SMEM:
+        _SMEM[hd] = lib.paged_attention_smem_bytes(hd)
+    return _SMEM[hd]
 
 
 def paged_attention_plain(entry, q_pf, q_dec, q_starts, lengths, hi_table,
@@ -125,16 +200,23 @@ def paged_ragged_attention(entry: dict, q_pf: torch.Tensor,
     if q_dec.device.type == "cpu":
         return paged_attention_plain(entry, q_pf, q_dec, q_starts, lengths,
                                      hi_table, lo_table, block_size)
-    q_pf, q_dec = q_pf.contiguous(), q_dec.contiguous()
+    # the kernel loads queries in 16-byte vectors
+    q_pf, q_dec = (q if q.is_contiguous() and q.data_ptr() % 16 == 0
+                   else q.clone(memory_format=torch.contiguous_format)
+                   for q in (q_pf, q_dec))
     n_pf, c_len, h, hd = q_pf.shape
     s_slots = q_dec.shape[0]
     g = entry["k_lo"].shape[2]
     bs = block_size
     nh, nl = hi_table.shape[1], lo_table.shape[1]
-    if hd not in _HEAD_DIMS or h % g or 2 * bs * hd * 4 > 48 * 1024:
+    if hd not in _HEAD_DIMS or h % g or h // g > MAX_REP or bs * g % 2:
         raise ValueError(f"K4 takes head_dim in {_HEAD_DIMS}, whole GQA "
-                         f"groups and 2·bs·hd·4 <= 48 KiB; got hd={hd}, "
-                         f"h={h}, g={g}, bs={bs}")
+                         f"groups of at most {MAX_REP} heads (a decode "
+                         f"block's rows) and pages of an even number of "
+                         f"(token, kv head) values (it gathers a token's "
+                         f"f16 scale and zero point as the 4-byte pair that "
+                         f"holds them, which must not leave the pool); got "
+                         f"hd={hd}, h={h}, g={g}, bs={bs}")
     if q_pf.dtype not in (torch.bfloat16, torch.float32) or \
             q_dec.dtype != q_pf.dtype:
         raise ValueError("K4 takes bf16 or f32 queries of one dtype")
@@ -142,15 +224,35 @@ def paged_ragged_attention(entry: dict, q_pf: torch.Tensor,
             for t in (hi_table, lo_table, lengths, q_starts)]
     pools = [entry[k] for k in _POOL_KEYS]
     cuda.require_cuda(q_pf, q_dec, *pools, *ints)
+    codes = _POOL_KEYS[:2] + _POOL_KEYS[6:8]
+    if any(entry[k].data_ptr() % (16 if k in codes else 4)
+           for k in _POOL_KEYS):
+        raise ValueError("K4 gathers page codes in 16-byte chunks and f16 "
+                         "scales in 4-byte pairs: the code pools must be "
+                         "16-byte aligned and the scale pools 4-byte")
+    lib = cuda.library("paged_attention", _SIGNATURES)
+    dev = q_dec.device
+    smem = _smem_bytes(lib, hd)
+    if smem > cuda.smem_optin(dev):
+        raise ValueError(f"K4 at head_dim {hd} needs {smem} bytes of shared "
+                         f"memory a block (two raw tile stages, f32 K, V, "
+                         f"query and score tiles); the card allows "
+                         f"{cuda.smem_optin(dev)}")
+    plan = launch_plan(n_pf, s_slots, c_len, h // g, g, (nh + nl) * bs,
+                       cuda.sm_count(dev))
     out_pf = torch.empty_like(q_pf)
     out_dec = torch.empty_like(q_dec)
-    lib = cuda.library("paged_attention", _SIGNATURES)
+    part = None
+    if plan["n_split"] > 1:
+        part = torch.empty((g, s_slots * plan["n_split"], h // g, hd + 2),
+                           dtype=torch.float32, device=dev)
     err = lib.paged_attention(
         q_pf.data_ptr(), q_dec.data_ptr(), int(q_pf.dtype == torch.bfloat16),
         n_pf, s_slots, c_len, h, g, hd, bs, nh, nl,
         *(t.data_ptr() for t in pools), *(t.data_ptr() for t in ints),
-        1.0 / math.sqrt(hd), out_pf.data_ptr(), out_dec.data_ptr(),
-        cuda.stream_ptr(q_dec))
+        1.0 / math.sqrt(hd), plan["row_tiles"], plan["n_split"],
+        cuda.ptr(part), out_pf.data_ptr(),
+        out_dec.data_ptr(), cuda.stream_ptr(q_dec))
     cuda.check(err, "paged_attention")
     paged_ragged_attention.launches += 1
     return out_pf, out_dec

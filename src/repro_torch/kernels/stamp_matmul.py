@@ -13,8 +13,10 @@ the inverse transform and the bias on chip for one whole span per block.
 
 Bound on the H100: K1 by bytes (it reads the activation twice: the min/max
 pass and the quantize pass recompute the transform instead of spilling f32),
-K2 by integer operations (dp4a on CUDA cores in this first version).  See the
-source note for the design.
+K2 by integer operations (``wgmma`` on the tensor cores, fed by a
+``cp.async`` ring; :func:`gemm_plan` splits K over a thread block cluster
+where the column tiles and spans give too few blocks).  See the source note
+for the design.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 plain PyTorch version for a CPU tensor; ``launches`` counts kernel launches.
@@ -36,6 +38,10 @@ from repro_torch.kernels import cuda
 
 _KINDS = {"none": 0, "dwt": 1, "wht": 2}
 MAX_SPAN = 128        # rows K2 keeps on chip: one whole span per block
+GEMM_COLS = 128       # B columns a K2 block multiplies (dual: 64 + 64)
+GEMM_BK = 64          # k per pipeline step
+MIN_SPLIT_STEPS = 8   # steps a K range holds at least
+MAX_SPLITS = 8        # K ranges of one output tile: one thread block cluster
 
 _SIGNATURES = {
     "stamp_transform_quantize": [
@@ -46,7 +52,7 @@ _SIGNATURES = {
         cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
         cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
         cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.FLT,
-        cuda.FLT, cuda.VP, cuda.INT, cuda.VP],
+        cuda.FLT, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP],
 }
 
 
@@ -193,6 +199,24 @@ def int_gemm_plain(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
     return y.to(out_dtype)
 
 
+def gemm_plan(spans: int, k: int, n: int, dual: bool, sms: int) -> dict:
+    """K2's launch: ``col_tiles`` blocks of output columns (128, or 64
+    gate/up pairs) per span, and K cut into ``n_split`` ranges of
+    ``split_k`` (whole steps of ``GEMM_BK``) when the column tiles and spans
+    give fewer blocks than the card has SMs (``sms``), each range at least
+    ``MIN_SPLIT_STEPS`` steps and at most ``MAX_SPLITS`` ranges (one
+    cluster).  The ranges' int32 products are summed before the epilogue,
+    so any split gives the same bits."""
+    cols = GEMM_COLS // 2 if dual else GEMM_COLS
+    col_tiles = -(-n // cols)
+    steps = max(-(-k // GEMM_BK), 1)
+    want = -(-sms // max(spans * col_tiles, 1))
+    splits = max(min(want, steps // MIN_SPLIT_STEPS, MAX_SPLITS), 1)
+    per = -(-steps // splits)
+    return dict(col_tiles=col_tiles, n_split=-(-steps // per),
+                split_k=per * GEMM_BK)
+
+
 def _f32_vec(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.reshape(-1).float().contiguous()
 
@@ -240,14 +264,20 @@ def stamp_int_gemm(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
         raise ValueError("the dual GEMM needs an up weight of the gate's "
                          "shape with its column sums")
     b = rows // span_len
-    out = torch.empty((b, span_len, n), dtype=out_dtype, device=qx.device)
+    dev = qx.device
+    plan = gemm_plan(b, k, n, dual, cuda.sm_count(dev))
+    # 16-byte copies where rows and pointers allow, else 4-byte ones
+    vec = int(k % 16 == 0 and n % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (qx, qw, qw_up) if t is not None))
+    out = torch.empty((b, span_len, n), dtype=out_dtype, device=dev)
     err = _lib().stamp_int_gemm(
         qx.data_ptr(), sx.data_ptr(), zx.data_ptr(), b, span_len, k, n,
         qw.data_ptr(), sw.data_ptr(), zw.data_ptr(), qw_sum.data_ptr(),
         cuda.ptr(bias), cuda.ptr(qw_up), cuda.ptr(sw_up), cuda.ptr(zw_up),
         cuda.ptr(qw_sum_up), cuda.ptr(bias_up),
         *_transform_args(transform, levels, skip_first, span_len),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), cuda.stream_ptr(qx))
+        out.data_ptr(), int(out_dtype == torch.bfloat16), plan["n_split"],
+        plan["split_k"], vec, cuda.stream_ptr(qx))
     cuda.check(err, "stamp_int_gemm")
     stamp_int_gemm.launches += 1
     return out

@@ -138,6 +138,144 @@ def test_cuda_paged_attention_matches_plain(card, block_size):
         assert float((a - b).abs().max()) <= 1e-4
 
 
+def _close_bf16(got, want) -> None:
+    """Every element within one bf16 step (2^-7 relative) of the plain
+    version's, both written in bf16: the f32 values agree to rounding, so a
+    rounding boundary between them moves an element by at most one step."""
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    assert bool(((g - w).abs() <= 2 ** -7 * w.abs() + 1e-6).all()), \
+        float((g - w).abs().max())
+
+
+# prefill chunks (start, length): a first chunk shorter than its 128 rows and
+# a continuation chunk; decode spans of 1 position, under a tile, several
+# tiles, and long enough to be split over two blocks
+K4_PREFILL = [(0, 100), (200, 328)]
+K4_DECODE = [(0, 1), (32, 33), (76, 77), (599, 600)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 64])
+@pytest.mark.parametrize("rep", [4, 7])
+@pytest.mark.parametrize("block_size", [4, 16, 5])
+def test_cuda_paged_attention_tilings(card, hd, rep, block_size):
+    """K4's tiles, row tiles and split ranges against its plain version: a
+    mixed step (two 128-row chunks and four decode spans, walked whole) and
+    an all-decode step (its spans split into ranges merged in order), at
+    head dims 128 and 64, 4 and 7 query heads per kv head, page sizes 4 and
+    16, and 5 (odd: a token's f16 scale pair may start on the token before
+    it); span lengths not multiples of the 32-position tile, up to 600
+    positions (longer than one tile and one range).  f32 queries within 1e-4
+    absolute (exp and summation order), bf16 within one bf16 step."""
+    g, c_len = 2, 128
+    spans = K4_PREFILL + K4_DECODE
+    entry, ht, lt = paged_pools(block_size, -(-16 // block_size) * block_size,
+                                spans, g=g, hd=hd, seed=hd + rep + block_size)
+    entry = {k: v.to(card) for k, v in entry.items()}
+    ht, lt = torch.from_numpy(ht).to(card), torch.from_numpy(lt).to(card)
+    plan = TPA.launch_plan(0, 4, c_len, rep, g,
+                           (ht.shape[1] + lt.shape[1]) * block_size,
+                           torch.cuda.get_device_properties(card)
+                           .multi_processor_count)
+    assert plan["n_split"] > 1      # the all-decode step splits its spans
+    rng = np.random.default_rng(rep)
+    q_pf = torch.from_numpy(rng.standard_normal(
+        (2, c_len, g * rep, hd)).astype(np.float32)).to(card)
+    q_dec = torch.from_numpy(rng.standard_normal(
+        (4, 1, g * rep, hd)).astype(np.float32)).to(card)
+    ints = dict(dtype=torch.int32, device=card)
+    starts = torch.tensor([s for s, _ in spans], **ints)
+    lengths = torch.tensor([n for _, n in spans], **ints)
+    cases = [(q_pf, q_dec, starts, lengths, ht, lt),
+             (q_pf[:0], q_dec, starts[2:], lengths[2:], ht[2:], lt[2:])]
+    for qp, qd, st, ln, h_t, l_t in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (entry, qp.to(dtype), qd.to(dtype), st, ln, h_t, l_t)
+            got = TPA.paged_ragged_attention(*args, block_size)
+            want = TPA.paged_attention_plain(*args, block_size)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert a.shape == b.shape and a.dtype == dtype
+                if a.numel() == 0:     # the all-decode step's prefill part
+                    continue
+                if dtype == torch.float32:
+                    assert float((a - b).abs().max()) <= 1e-4
+                else:
+                    _close_bf16(a, b)
+
+
+def _gemm_weights(gen, k, n, dual, card):
+    ws = [TS.prepare_linear(torch.randn((k, n), generator=gen, device=card)
+                            / k ** 0.5) for _ in range(2 if dual else 1)]
+    out = []
+    for w in ws:
+        out += [w.qw, w.sw, w.zw, w.qw_sum,
+                torch.randn(n, generator=gen, device=card)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [1, 16, 100, 128])
+@pytest.mark.parametrize("transform", ["dwt", "wht", "none"])
+@pytest.mark.parametrize("dual", [False, True])
+def test_cuda_stamp_int_gemm_tilings(card, span, transform, dual):
+    """K2 against its plain version over 2 spans: span lengths 1 to 128;
+    K 256 (one k range: the epilogue in the main kernel), 1000 and 1024
+    (split over two ranges of one cluster, their int32 products summed in
+    distributed shared memory; 1000 is not a multiple of the 64-deep step,
+    nor of 16, so it takes 4-byte copies), N 200 and 336 (not multiples of
+    the column tile); single and dual; bf16 within one step, f32 within
+    1e-5 relative (the same f32 epilogue order)."""
+    gen = torch.Generator(device=card).manual_seed(span)
+    kw = dict(transform=transform, levels=3, skip_first=True)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for k, n in ((256, 200), (1000, 200), (1024, 336)):
+        x = torch.randn((2, span, k), generator=gen, device=card)
+        qx, sx, zx = TSM.stamp_transform_quantize(x, num_hi=4, hi_bits=8,
+                                                  lo_bits=4, **kw)
+        w = _gemm_weights(gen, k, n, dual, card)
+        assert TSM.gemm_plan(2, k, n, dual, sms)["n_split"] == \
+            (1 if k == 256 else 2)
+        for dtype in (torch.float32, torch.bfloat16):
+            y = TSM.stamp_int_gemm(qx, sx, zx, span, *w, out_dtype=dtype,
+                                   **kw)
+            yp = TSM.int_gemm_plain(qx, sx, zx, span, *w, out_dtype=dtype,
+                                    **kw)
+            torch.cuda.synchronize()
+            assert y.shape == yp.shape == (2, span, n) and y.dtype == dtype
+            if dtype == torch.float32:
+                assert _rel(y, yp) <= 1e-5
+            else:
+                _close_bf16(y, yp)
+
+
+@pytest.mark.cuda
+def test_cuda_stamp_int_gemm_accumulates_in_int32(card):
+    """|codes| = 128 over K = 14336: row 0 against column 0 sums 7112
+    products of +16384, 56 of +1 and 7168 of -16256, exactly 56.  An f32
+    accumulator loses the +1s beside 1.2e8 (and gives 0), a 16-bit one
+    overflows; K2's int32 sums give 56, as the plain version does."""
+    k, n, span = 14336, 128, 128
+    gen = torch.Generator(device=card).manual_seed(3)
+    qx = torch.randint(-128, 128, (span, k), generator=gen, device=card,
+                       dtype=torch.int8)
+    qw = torch.randint(-128, 128, (k, n), generator=gen, device=card,
+                       dtype=torch.int8)
+    qx[0, :7112], qw[:7112, 0] = -128, -128
+    qx[0, 7112:7168], qw[7112:7168, 0] = 1, 1
+    qx[0, 7168:], qw[7168:, 0] = -128, 127
+    ones = torch.ones(span, device=card)
+    w = (qw, torch.ones((1, n), device=card), torch.zeros((1, n), device=card),
+         qw.sum(dim=0, keepdim=True, dtype=torch.int32))
+    kw = dict(transform="none", levels=0, skip_first=False)
+    y = TSM.stamp_int_gemm(qx, ones, ones * 0, span, *w, **kw)
+    yp = TSM.int_gemm_plain(qx, ones, ones * 0, span, *w, **kw)
+    torch.cuda.synchronize()
+    assert float(y[0, 0, 0]) == 56.0
+    assert torch.equal(y, yp)
+
+
 def grouped_case(b, e, cap, d, f, counts, device, seed=0):
     """K5's inputs: token-quantized dispatch rows with the first
     ``counts[i][e]`` slots of each bucket kept, and stacked prepared

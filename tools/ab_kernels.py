@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Same-card A/B of two builds of the port's K4 (paged attention) and K2
+(STaMP int GEMM) kernels, at every K4 and K2 site that ``chip_smoke.py``
+times.
+
+    python3 tools/ab_kernels.py --old DIR [--new DIR] [--tree NAME=DIR ...]
+                                [--order old,new,new,old] [--kernels k2,k4]
+
+``DIR`` is the root of a checkout (or of a ``git archive`` of one) holding
+``src/repro_torch``; ``--new`` defaults to this checkout, and ``--tree``
+names further trees for the order.  Each run of the order is its own
+process on the one card: it builds that tree's ``stamp_matmul`` and
+``paged_attention`` sources into its own build directory and runs this
+checkout's ``chip_smoke.check_stamp`` and ``check_attention`` with that
+tree's modules: the same sites, checks against the plain versions and
+timings as the smoke (K4 200 calls, K2 50, eager and replayed from CUDA
+graphs, beside the library yardsticks); ``--kernels`` keeps one of the
+two.  Prints one ``[ab]`` line a run and site, and last a JSON object with
+every run; needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+KEYS = ("ms", "graph_ms", "library_ms", "library_graph_ms",
+        "library_row_major_ms", "library_col_major_ms")
+
+
+def worker(src: Path, build: Path, kernels: str) -> dict:
+    os.environ["REPRO_TORCH_BUILD_DIR"] = str(build)
+    sys.path.insert(0, str(src / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core.stamp import prepare_linear
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import stamp_matmul as sm
+    from repro_torch.serving import kvcache as KV
+    from repro_torch.serving import paged_kvcache as PKV
+    if not torch.cuda.is_available():
+        cs.fail("the A/B needs a CUDA card")
+    assert Path(pa.__file__).resolve().is_relative_to(src.resolve())
+    kcuda.build([n for k, n in (("k2", "stamp_matmul"),
+                                ("k4", "paged_attention")) if k in kernels])
+    rows = {}
+    with torch.inference_mode():
+        for heads, prefix in ((cs.HEADS, ""), (cs.A_HEADS, "arctic_")) \
+                if "k4" in kernels else ():
+            for r in cs.check_attention(torch, pa, PKV, KV, heads=heads,
+                                        prefix=prefix):
+                rows[f"K4 {r['site']}"] = r
+        stamp = [dict(sites=cs.LLAMA_SITES), dict(sites=cs.ARCTIC_SITES,
+                                                  seed=5)]
+        stamp += [dict(sites=cs.LLAMA_SITES, seed=7 + s, spans=s,
+                       tag=f"bucketed{s}_") for s in cs.BUCKETED_SPANS]
+        for kw in stamp if "k2" in kernels else ():
+            _, k2 = cs.check_stamp(torch, sm, ops, prepare_linear, **kw)
+            for r in k2:
+                rows[f"K2 {r['site']}"] = r
+            torch.cuda.empty_cache()
+    return {site: {k: r[k] for k in KEYS if k in r} for site, r in
+            rows.items()}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", type=Path)
+    ap.add_argument("--new", type=Path, default=ROOT)
+    ap.add_argument("--tree", action="append", default=[],
+                    metavar="NAME=DIR")
+    ap.add_argument("--order", default="old,new,new,old")
+    ap.add_argument("--kernels", default="k2,k4")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--build", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker(args.worker, args.build, args.kernels)))
+        return
+    if args.old is None:
+        ap.error("--old is required")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    trees = {"old": args.old, "new": args.new}
+    trees.update(dict(t.split("=", 1) for t in args.tree))
+    runs = []
+    for i, label in enumerate(args.order.split(",")):
+        src = Path(trees[label])
+        build = ROOT / "build" / f"ab_{label}"
+        out = subprocess.run([sys.executable, __file__, "--worker",
+                              str(src.resolve()), "--build", str(build),
+                              "--kernels", args.kernels],
+                             capture_output=True, text=True)
+        if out.returncode:
+            sys.stderr.write(out.stdout + out.stderr)
+            sys.exit(f"run {i} ({label}) failed")
+        rows = json.loads(out.stdout.strip().splitlines()[-1])
+        for site, r in rows.items():
+            print(f"[ab] run {i} {label} {site}: {json.dumps(r)}")
+        runs.append(dict(label=label, rows=rows))
+    print(json.dumps({"card": smi, "runs": runs}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,293 @@
+#!/usr/bin/env python3
+"""Where K2's (``stamp_int_gemm``) and K4's (``paged_ragged_attention``)
+time goes: each timed replayed from CUDA graphs at the serve path's shapes,
+built whole and built with one part taken out, or with its launch plan
+changed.
+
+    python3 tools/probe.py k2 [--src DIR] [--fill 1,2,3]
+    python3 tools/probe.py k4 [--splits 1,2,3,5] [--cuts]
+    python3 tools/probe.py k4 --sweep [--splits 1,2,4,8]
+
+A cut variant is the kernel's source (``src/repro_torch/csrc``, of this
+checkout or of the checkout at ``DIR``) with one statement deleted; its
+output is then wrong and only its time is read.
+
+k2: variants without the tensor core products (``no_mma``), the transpose
+of the B tile (``no_transpose``), the stage copies after the prologue's
+(``no_loads``), the wait for them (``no_wait``: issued, never awaited), the
+epilogue (``no_epilogue``) or every k step (``no_main_loop``: launch and
+epilogue are left); and builds whose ``cp.async`` ring holds 3 or 5 stages
+(``stages3``, ``stages5``; these give the right output).  Sites: llama3-8b's
+paged qkv (2 spans, K split in two), gate_up dual (2 spans) and the bucketed
+engine's gate_up at 8 spans.  ``--fill``: the whole build with the k-split
+plan sized for that many blocks an SM (1 is the plan's own), at the paged
+qkv, down and gate_up and Arctic's wo.
+
+k4: llama3-8b's and Arctic's all-decode and mixed steps from
+``chip_smoke.py``, with the launch plan's own split and with each count of
+block slots a decode span forced (the card splits the spans over them;
+each run checked against the plain version within one bf16 step); ``--cuts``: variants without the gather of
+the next tile, the dequantizing pass, the prefill scores or the prefill
+p.V.  ``--sweep``: all-decode steps of SLOTS spans instead, every span of
+one length from 256 to 32768 positions (tables of that capacity), K6's
+ragged long lengths, and the serve path's short spans in tables of 32768
+positions, each with the plan's split and with each count of slots of
+``--splits`` forced: where splitting a span pays.
+
+Prints one ``[probe]`` line a site and run; needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+K2_VARIANTS = {
+    "full": (),
+    "no_mma": ("wgmma_s8(acc,",),
+    "no_transpose": ("if (kt + 1 < KT) transpose(kt + 1);",),
+    "no_loads": ("if (kt + STAGES - 1 < KT) issue(kt + STAGES - 1);",),
+    "no_wait": ("cp_wait<STAGES - 3>();",),
+    "no_epilogue": ("finish_chunk<DUAL, EW>(Y0, Y1, Tmp, rs,",),
+    "no_main_loop": ("const int KT = (ke - kb + BK - 1) / BK",),
+    # not cuts: the ring of cp.async stages made one shorter or longer
+    "stages3": ("constexpr int STAGES = 4;", "constexpr int STAGES = 3;"),
+    "stages5": ("constexpr int STAGES = 4;", "constexpr int STAGES = 5;"),
+}
+K4_CUTS = {
+    "no_gather": ("issue_tile<HD>(a, span, kvh, t0 + TILE, kv1,",),
+    "no_dequant": ("dequant_tile<HD>(smem + (t & 1) * L::RAW,",),
+    "no_pf_scores": ("for (int d4 = 0; d4 < NV; ++d4) {",
+                     "for (int d4 = 0; d4 < 0; ++d4) {"),
+    "no_pf_pv": ("for (int j = 0; j < n_valid; ++j) {",
+                 "for (int j = 0; j < 0; ++j) {"),
+}
+
+
+def variant_source(src: str, cuts) -> str:
+    """The source with the first statement that starts with one of
+    ``cuts`` removed (up to its semicolon); a pair ``(old, new)`` whose
+    ``new`` ends with a semicolon or a brace replaces ``old`` instead."""
+    if len(cuts) == 2 and cuts[1][-1] in ";{":
+        if cuts[0] not in src:
+            raise ValueError(f"{cuts[0]!r} is not in the source")
+        return src.replace(cuts[0], cuts[1], 1)
+    for cut in cuts:
+        if cut in src:
+            i = src.index(cut)
+            j = src.index(";", i)
+            if cut.startswith("const int KT"):   # no k steps at all
+                return src[:i] + "const int KT = 0" + src[j:]
+            return src[:i] + "(void)0" + src[j:]
+    if cuts:
+        raise ValueError(f"none of {cuts} is in the source")
+    return src
+
+
+def build_variants(cs, kcuda, name: str, src_root: Path, variants: dict,
+                   signatures: dict) -> dict:
+    """Compile every variant of ``csrc/<name>.cu`` (one ``nvcc`` each, all
+    started together) and load it with the wrapper's signatures."""
+    out_dir = ROOT / "build" / "probe" / name / src_root.resolve().name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = (src_root / "src" / "repro_torch" / "csrc" / f"{name}.cu") \
+        .read_text()
+    procs = {}
+    for label, cuts in variants.items():
+        cu = out_dir / f"{label}.cu"
+        cu.write_text(variant_source(src, cuts))
+        so = out_dir / f"lib{label}.so"
+        procs[label] = (so, subprocess.Popen(
+            [kcuda.nvcc(), *kcuda._ARCH, *kcuda._COMMON, *kcuda._FLAGS[name],
+             "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for label, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            cs.fail(f"variant {label} did not build:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[label] = lib
+    return libs
+
+
+def k2_case(torch, cs, sm, prepare_linear, gen, spans, k, n, dual):
+    """K2's inputs at one site, and a call of it."""
+    x = torch.randn((spans, cs.C, k), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = [prepare_linear(torch.randn((k, n), generator=gen, device="cuda")
+                        / math.sqrt(k)) for _ in range(2 if dual else 1)]
+    qx, sx, zx = sm.stamp_transform_quantize(x, **cs.STAMP)
+    wargs = [w[0].qw, w[0].sw, w[0].zw, w[0].qw_sum, None]
+    if dual:
+        wargs += [w[1].qw, w[1].sw, w[1].zw, w[1].qw_sum, None]
+    kw = dict(transform="dwt", levels=3, skip_first=True,
+              out_dtype=torch.bfloat16)
+    return (lambda: sm.stamp_int_gemm(qx, sx, zx, cs.C, *wargs, **kw),
+            lambda: sm.int_gemm_plain(qx, sx, zx, cs.C, *wargs, **kw))
+
+
+def probe_k2(torch, cs, args) -> None:
+    from repro_torch.core.stamp import prepare_linear
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import stamp_matmul as sm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.fill:
+        fills = [int(f) for f in args.fill.split(",")]
+        own = sm.gemm_plan
+        sites = [("qkv", cs.SPANS, cs.D, cs.D + 2 * cs.KV_HEADS * cs.HD,
+                  False),
+                 ("down", cs.SPANS, cs.D_FF, cs.D, False),
+                 ("arctic_wo", cs.SPANS, cs.A_D, cs.A_D, False),
+                 ("gate_up", cs.SPANS, cs.D, cs.D_FF, True)]
+        for site, spans, k, n, dual in sites:
+            call, plain = k2_case(torch, cs, sm, prepare_linear, gen, spans,
+                                  k, n, dual)
+            want = plain()
+            for fill in fills:
+                sm.gemm_plan = (lambda f: lambda b, k_, n_, d, sms:
+                                own(b, k_, n_, d, f * sms))(fill)
+                plan = sm.gemm_plan(spans, k, n, dual, 132)
+                cs.close_bf16(torch, call(), want)
+                ms = cs.timed_graph(torch, call, 50, per_graph=10)
+                print(f"[probe] {site} fill={fill} n_split={plan['n_split']}"
+                      f": graph_ms={ms:.4f}")
+            sm.gemm_plan = own
+        return
+    libs = build_variants(cs, kcuda, "stamp_matmul", args.src, K2_VARIANTS,
+                          sm._SIGNATURES)
+    sites = [("qkv", cs.SPANS, cs.D, cs.D + 2 * cs.KV_HEADS * cs.HD, False),
+             ("gate_up", cs.SPANS, cs.D, cs.D_FF, True),
+             ("bucketed8_gate_up", 8, cs.D, cs.D_FF, True)]
+    for site, spans, k, n, dual in sites:
+        call, _ = k2_case(torch, cs, sm, prepare_linear, gen, spans, k, n,
+                          dual)
+        for label, lib in libs.items():
+            kcuda._LIBS["stamp_matmul"] = lib
+            ms = cs.timed_graph(torch, call, 50, per_graph=10)
+            print(f"[probe] {site} {label}: graph_ms={ms:.4f}")
+        torch.cuda.empty_cache()
+
+
+def probe_k4(torch, cs, args) -> None:
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving import kvcache as KV
+    from repro_torch.serving import paged_kvcache as PKV
+    own_plan = pa.launch_plan
+    forced = {}
+
+    def plan(*a):
+        p = own_plan(*a)
+        if "n_split" in forced:      # block slots a decode span
+            p.update(n_split=forced["n_split"])
+        return p
+
+    pa.launch_plan = plan
+    if args.sweep:
+        sweep_k4(torch, cs, pa, PKV, KV, forced, args.splits, own_plan)
+        return
+    libs = build_variants(cs, kcuda, "paged_attention", ROOT, K4_CUTS,
+                          pa._SIGNATURES) if args.cuts else {}
+    whole = kcuda.library("paged_attention", pa._SIGNATURES)
+    for heads, arch in ((cs.HEADS, "llama"), (cs.A_HEADS, "arctic")):
+        for name, n_pf in (("all_decode", 0), ("mixed", cs.SPANS)):
+            entry, q_pf, q_dec, starts, lens, ht, lt, _ = \
+                cs._attention_case(torch, PKV, KV, n_pf, torch.bfloat16,
+                                   heads)
+            step = (entry, q_pf, q_dec, starts, lens, ht, lt)
+
+            def call():
+                return pa.paged_ragged_attention(*step, cs.BLOCK)
+
+            want = torch.cat([t.flatten() for t in
+                              pa.paged_attention_plain(*step, cs.BLOCK)])
+            own = own_plan(0, len(lengths), cs.C, heads // cs.KV_HEADS,
+                           cs.KV_HEADS, tiles * pa.KV_TILE, sms)["n_split"]
+            runs = [("plan", None)] + [(f"n_split={n}", int(n))
+                                       for n in args.splits.split(",")]
+            for label, n in runs:
+                forced.clear()
+                if n is not None:
+                    forced["n_split"] = n
+                cs.close_bf16(torch, torch.cat([t.flatten()
+                                                for t in call()]), want)
+                ms = cs.timed_graph(torch, call, 200)
+                print(f"[probe] {arch} {name} {label}: graph_ms={ms:.4f}")
+            forced.clear()
+            for label, lib in libs.items():
+                kcuda._LIBS["paged_attention"] = lib
+                ms = cs.timed_graph(torch, call, 200)
+                print(f"[probe] {arch} {name} {label}: graph_ms={ms:.4f}")
+            kcuda._LIBS["paged_attention"] = whole
+
+
+SWEEP_LENGTHS = [(f"uniform{n}", [n] * 8, 0)
+                 for n in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)]
+SWEEP_LENGTHS += [("ragged_long", [32768, 30001, 24576, 16385, 8192, 4097,
+                                   1024, 65], 0),
+                  ("short_in_32768", [97 + j for j in range(8)], 32768)]
+
+
+def sweep_k4(torch, cs, pa, PKV, KV, forced, splits, own_plan) -> None:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for heads, arch in ((cs.HEADS, "llama"), (cs.A_HEADS, "arctic")):
+        for name, lengths, capacity in SWEEP_LENGTHS:
+            entry, q_pf, q_dec, starts, lens, ht, lt, _ = \
+                cs._attention_case(torch, PKV, KV, 0, torch.bfloat16, heads,
+                                   lengths, capacity)
+            step = (entry, q_pf, q_dec, starts, lens, ht, lt)
+
+            def call():
+                return pa.paged_ragged_attention(*step, cs.BLOCK)
+
+            want = pa.paged_attention_plain(*step, cs.BLOCK)[1]
+            tiles = -(-(ht.shape[1] + lt.shape[1]) * cs.BLOCK // pa.KV_TILE)
+            own = own_plan(0, len(lengths), cs.C, heads // cs.KV_HEADS,
+                           cs.KV_HEADS, tiles * pa.KV_TILE, sms)["n_split"]
+            runs = [("plan", None)] + [(f"n_split={n}", int(n))
+                                       for n in splits.split(",")
+                                       if int(n) <= tiles]
+            for label, n in runs:
+                forced.clear()
+                if n is not None:
+                    forced["n_split"] = n
+                cs.close_bf16(torch, call()[1], want)
+                ms = cs.timed_graph(torch, call, 200)
+                print(f"[probe] {arch} {name} {label} (plan n_split={own})"
+                      f": graph_ms={ms:.4f}")
+            forced.clear()
+            del entry, step, want
+            torch.cuda.empty_cache()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", choices=("k2", "k4"))
+    ap.add_argument("--src", type=Path, default=ROOT)
+    ap.add_argument("--fill", default="")
+    ap.add_argument("--splits", default="1,2,3,5")
+    ap.add_argument("--cuts", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import chip_smoke as cs
+    if not torch.cuda.is_available():
+        cs.fail("the probe needs a CUDA card")
+    print(cs.nvidia_smi())
+    with torch.inference_mode():
+        (probe_k2 if args.kernel == "k2" else probe_k4)(torch, cs, args)
+
+
+if __name__ == "__main__":
+    main()
