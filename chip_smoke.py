@@ -10,10 +10,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (one ``nvcc`` per source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
    serve paths' shapes and time kernel, plain version and a library
-   yardstick with CUDA events (K4 over 200 calls and K2 over 50, both also
-   replayed from CUDA graphs, ``graph_ms``: the device's time without the
-   wrapper's host cost; K2's yardstick ``torch._int_mm`` on the row-major
-   weight and on its column-major copy, the faster counting): llama3-8b
+   yardstick with CUDA events (K4 and K3 over 200 calls, K2 over 50 and K7
+   over 20, each also replayed from CUDA graphs, ``graph_ms``: the device's
+   time without the wrapper's host cost; the int8 GEMMs' yardstick
+   ``torch._int_mm`` on the row-major weight and on its column-major copy,
+   the faster counting, also replayed for K2, K3 and K7): llama3-8b
    (C = 128 rows x 2 prefill spans, 8 decode slots, 32/8 heads, head_dim
    128, page size 4; for the bucketed engine K1/K2 at 4 and 8 spans of 128
    rows and K3 at 4 rows at every decode site), and Arctic-480B (K1/K2 and
@@ -24,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    step (8 slots of 65 to 32768 cached tokens, split over blocks); K6 (the
    contiguous cache's decode attention) at the bucketed serve shape (4
    slots, cache 136, hi ``NUM_HI``) and at 8 slots x 32768 cached tokens
-   (hi 64) with ragged lengths; then check a prefill, a mixed and an
+   (hi 64) with ragged lengths; K4 and K6 again at Kimi-K2's attention
+   widths (64/8 heads, head_dim 112); then check a prefill, a mixed and an
    all-decode step on the card against the same steps on the CPU at the
    reduced size of each model, and one ``prefill`` and two ``decode_step``
    s of the bucketed path at reduced llama; then the standalone kernel
@@ -81,11 +83,15 @@ C, SPANS, SLOTS, NUM_HI, BLOCK = 128, 2, 8, 4, 4
 A_D, A_FF, A_HEADS, A_QKV = 7168, 4864, 56, 7168 + 2 * 8 * 128
 A_EXPERTS, A_TOPK, A_CF = 128, 2, 1.25
 ARCTIC_LAYERS = 4
+# Kimi-K2 (configs/kimi_k2_1t_a32b.py): its attention widths only, 64 query
+# heads over 8 kv heads of head_dim 112 (K4 and K6 checks; no Kimi serve)
+KIMI_HEADS, KIMI_HD = 64, 112
 STAMP = dict(transform="dwt", levels=3, skip_first=True, num_hi=NUM_HI,
              hi_bits=8, lo_bits=4)
 # timed calls: launches under 0.13 ms spread up to 1.5x between calls, so
-# K4 (tens of microseconds) is timed over 200 calls and K2 over 50
-K4_ITERS, K2_ITERS = 200, 50
+# K4 and K3 (tens of microseconds) are timed over 200 calls, K2 over 50 and
+# K7 (near a millisecond at 2048 rows) over 20
+K4_ITERS, K3_ITERS, K2_ITERS, K7_ITERS = 200, 200, 50, 20
 
 
 def fail(msg: str) -> None:
@@ -241,28 +247,14 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
         # the yardstick on the (K, N) row-major weight the port keeps and on
         # its column-major copy (cuBLASLt's preferred layout); the faster
         # counts
-        row_major = [wi.qw for wi in w]
-        col_major = [m.t().contiguous().t() for m in row_major]
-        lib_row = timed(torch, lambda: [torch._int_mm(qx, m)
-                                        for m in row_major], iters=K2_ITERS)
-        lib_col = timed(torch, lambda: [torch._int_mm(qx, m)
-                                        for m in col_major], iters=K2_ITERS)
+        lib = int_mm_yardstick(torch, qx, [wi.qw for wi in w], K2_ITERS)
         gms2 = timed_graph(torch, lambda: sm.stamp_int_gemm(
             qx, sx, zx, C, *wargs, **kw), K2_ITERS, per_graph=10)
-        glib = min(timed_graph(torch, lambda: [torch._int_mm(qx, m)
-                                               for m in mats], K2_ITERS,
-                               per_graph=10)
-                   for mats in (row_major, col_major))
-        del col_major
         nw = len(w)
         b2 = bound(rows * k + rows * 8 + nw * (k * n + 12 * n) + rows * n * 2,
                    2 * rows * k * n * nw, INT8_OPS_PER_S)
         k2.append(dict(site=name, max_abs_err=err, ms=ms2, plain_ms=pms2,
-                       bound_ms=b2[0], bound_by=b2[1],
-                       library_ms=min(lib_row, lib_col),
-                       library_row_major_ms=lib_row,
-                       library_col_major_ms=lib_col, graph_ms=gms2,
-                       library_graph_ms=glib))
+                       bound_ms=b2[0], bound_by=b2[1], graph_ms=gms2, **lib))
         # the composed op the model calls is the same chain
         yo = (ops_mod.stamp_quant_dual_matmul(x, *wargs[:4], *wargs[5:9],
                                               **STAMP)
@@ -290,27 +282,52 @@ def check_decode(torch, dm, prepare_linear, sites, seed=1, rows=SLOTS):
         yp32 = dm.decode_matmul_plain(x, *w)
         rel = float((y32 - yp32).abs().max() / yp32.abs().max())
         check(rel <= 1e-5, f"K3 f32 output off by {rel} at {name}")
-        ms = timed(torch, lambda: dm.stamp_decode_matmul(
-            x, *w, out_dtype=torch.bfloat16), iters=20)
+        def call():
+            return dm.stamp_decode_matmul(x, *w, out_dtype=torch.bfloat16)
+
+        ms = timed(torch, call, iters=K3_ITERS)
         pms = timed(torch, lambda: dm.decode_matmul_plain(
             x, *w, out_dtype=torch.bfloat16), iters=5)
         # torch._int_mm needs more than 16 rows: the rows padded to 32
-        qx = torch.zeros((32, k), dtype=torch.int8, device="cuda")
-        lib = timed(torch, lambda: torch._int_mm(qx, p.qw), iters=20)
+        qx = torch.zeros((max(32, rows), k), dtype=torch.int8, device="cuda")
+        lib = int_mm_yardstick(torch, qx, [p.qw], K3_ITERS)
+        gms = timed_graph(torch, call, K3_ITERS)
         b = bound(rows * k * 2 + k * n + 12 * n + rows * n * 2,
                   2 * rows * k * n, INT8_OPS_PER_S)
         out.append(dict(site=name, max_abs_err=err, ms=ms, plain_ms=pms,
-                        bound_ms=b[0], bound_by=b[1], library_ms=lib))
+                        bound_ms=b[0], bound_by=b[1], graph_ms=gms, **lib))
     return out
 
 
+def int_mm_yardstick(torch, qx, row_major, iters: int,
+                     per_graph: int = 10) -> dict:
+    """``torch._int_mm`` of ``qx`` against each (K, N) weight of
+    ``row_major`` and against its column-major copy (cuBLASLt's preferred
+    layout), eager and replayed from CUDA graphs; ``library_ms`` is the
+    faster layout's eager time, ``library_graph_ms`` the faster graph
+    time."""
+    col_major = [m.t().contiguous().t() for m in row_major]
+    times = {}
+    for layout, mats in (("row_major", row_major), ("col_major", col_major)):
+        def fn(mats=mats):
+            return [torch._int_mm(qx, m) for m in mats]
+        times[layout] = (timed(torch, fn, iters=iters),
+                         timed_graph(torch, fn, iters, per_graph=per_graph))
+    del col_major
+    return dict(library_ms=min(t[0] for t in times.values()),
+                library_row_major_ms=times["row_major"][0],
+                library_col_major_ms=times["col_major"][0],
+                library_graph_ms=min(t[1] for t in times.values()))
+
+
 def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
-                    dec_lengths=None, capacity: int = C + 8):
+                    dec_lengths=None, capacity: int = C + 8, hd: int = HD):
     """Pools holding random K/V for ``n_pf`` prefill spans (start 0, chunk
     C, lengths 96..) and SLOTS decode spans (lengths 97..104, or
     ``dec_lengths``), written through ``write_ragged`` at page size 4;
     ``heads`` query heads over KV_HEADS; tables mapping ``capacity``
-    positions a span (the serve path's 136, or the longest span)."""
+    positions a span (the serve path's 136, or the longest span); head_dim
+    ``hd``."""
     gen = torch.Generator(device="cuda").manual_seed(2 + n_pf + heads)
     quant = KV.KVCacheConfig(quantized=True, num_hi=NUM_HI)
     dec_lengths = dec_lengths or [97 + j for j in range(SLOTS)]
@@ -321,7 +338,7 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
                                 num_lo_blocks=spans * lo_per_seq + 1,
                                 num_hi_blocks=spans + 1,
                                 max_blocks_per_seq=lo_per_seq, quant=quant)
-    entry = PKV.init_pools(KV_HEADS, HD, pcfg, device="cuda")
+    entry = PKV.init_pools(KV_HEADS, hd, pcfg, device="cuda")
     lengths = [96 + 4 * i for i in range(n_pf)] + list(dec_lengths)
     ht = torch.zeros((spans, 1), dtype=torch.int32)
     lt = torch.zeros((spans, lo_per_seq), dtype=torch.int32)
@@ -338,15 +355,15 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
             offs.append(off)
             ishi.append(is_hi)
     t = len(pages)
-    k = torch.randn((t, KV_HEADS, HD), generator=gen, device="cuda")
-    v = torch.randn((t, KV_HEADS, HD), generator=gen, device="cuda")
+    k = torch.randn((t, KV_HEADS, hd), generator=gen, device="cuda")
+    v = torch.randn((t, KV_HEADS, hd), generator=gen, device="cuda")
     PKV.write_ragged(entry, k.to(dtype), v.to(dtype),
                      torch.tensor(pages, device="cuda"),
                      torch.tensor(offs, device="cuda"),
                      torch.tensor(ishi, device="cuda"), pcfg)
-    q_pf = torch.randn((n_pf, C, heads, HD), generator=gen, device="cuda",
+    q_pf = torch.randn((n_pf, C, heads, hd), generator=gen, device="cuda",
                        dtype=dtype)
-    q_dec = torch.randn((len(dec_lengths), 1, heads, HD), generator=gen,
+    q_dec = torch.randn((len(dec_lengths), 1, heads, hd), generator=gen,
                         device="cuda", dtype=dtype)
     starts = torch.tensor([0] * n_pf + [l - 1 for l in lengths[n_pf:]],
                           dtype=torch.int32, device="cuda")
@@ -354,21 +371,21 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
     return entry, q_pf, q_dec, starts, lens, ht.cuda(), lt.cuda(), lengths
 
 
-def _attention_work(lengths, n_pf: int, heads: int) -> tuple:
+def _attention_work(lengths, n_pf: int, heads: int, hd: int = HD) -> tuple:
     """Bytes the spans' pages hold up to each length (K and V codes plus f16
     scale/zp), queries and outputs; and the flops the mask admits."""
     nbytes, flops = 0, 0
-    per_tok_hi = KV_HEADS * (2 * HD + 8)          # k, v codes + 4 f16 params
-    per_tok_lo = KV_HEADS * (HD + 8)
+    per_tok_hi = KV_HEADS * (2 * hd + 8)          # k, v codes + 4 f16 params
+    per_tok_lo = KV_HEADS * (hd + 8)
     for i, length in enumerate(lengths):
         pages_tok = -(-length // BLOCK) * BLOCK
         hi = min(pages_tok, NUM_HI)
         nbytes += hi * per_tok_hi + (pages_tok - hi) * per_tok_lo
         rows = C if i < n_pf else 1
-        nbytes += 2 * 2 * rows * heads * HD       # q in, out (bf16)
+        nbytes += 2 * 2 * rows * heads * hd       # q in, out (bf16)
         visible = sum(min(c + 1, length) for c in range(rows)) \
             if i < n_pf else length
-        flops += 4 * HD * heads * visible
+        flops += 4 * hd * heads * visible
     return nbytes, flops
 
 
@@ -380,12 +397,12 @@ ATTENTION_SHAPES = [("mixed", SPANS, None), ("all_decode", 0, None),
                                         4097, 1024, 65])]
 
 
-def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix=""):
+def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix="", hd=HD):
     out = []
     for name, n_pf, dec_lengths in ATTENTION_SHAPES:
         entry, q_pf, q_dec, starts, lens, ht, lt, lengths = \
             _attention_case(torch, PKV, KV, n_pf, torch.bfloat16, heads,
-                            dec_lengths)
+                            dec_lengths, hd=hd)
         args = (entry, q_pf, q_dec, starts, lens, ht, lt)
         o_pf, o_dec = pa.paged_ragged_attention(*args, BLOCK)
         p_pf, p_dec = pa.paged_attention_plain(*args, BLOCK)
@@ -402,12 +419,12 @@ def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix=""):
                    iters=K4_ITERS)
         pms = timed(torch, lambda: pa.paged_attention_plain(*args, BLOCK),
                     iters=1 if dec_lengths else 3)
-        sdpa = _sdpa_yardstick(torch, args, n_pf, heads)
+        sdpa = _sdpa_yardstick(torch, args, n_pf, heads, hd)
         lib = timed(torch, sdpa, iters=K4_ITERS)
         gms = timed_graph(torch, lambda: pa.paged_ragged_attention(
             *args, BLOCK), K4_ITERS)
         glib = timed_graph(torch, sdpa, K4_ITERS)
-        nbytes, flops = _attention_work(lengths, n_pf, heads)
+        nbytes, flops = _attention_work(lengths, n_pf, heads, hd)
         b = bound(nbytes, flops, BF16_FLOPS_PER_S)
         out.append(dict(site=prefix + name, max_abs_err=err, ms=ms,
                         plain_ms=pms,
@@ -418,7 +435,7 @@ def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix=""):
     return out
 
 
-def _sdpa_yardstick(torch, args, n_pf: int, heads: int):
+def _sdpa_yardstick(torch, args, n_pf: int, heads: int, hd: int = HD):
     """One ``scaled_dot_product_attention`` call over the same spans with
     K/V dequantized up front (bf16, padded to the longest span)."""
     from repro_torch.kernels.ref import span_kv
@@ -427,9 +444,9 @@ def _sdpa_yardstick(torch, args, n_pf: int, heads: int):
     kvs = [span_kv(entry, ht[i], lt[i]) for i in range(spans)]
     kv_len = max(k.shape[0] for k, _ in kvs)
     rows = C if n_pf else 1
-    q = torch.zeros((spans, heads, rows, HD), dtype=torch.bfloat16,
+    q = torch.zeros((spans, heads, rows, hd), dtype=torch.bfloat16,
                     device="cuda")
-    k = torch.zeros((spans, KV_HEADS, kv_len, HD), dtype=torch.bfloat16,
+    k = torch.zeros((spans, KV_HEADS, kv_len, hd), dtype=torch.bfloat16,
                     device="cuda")
     v = torch.zeros_like(k)
     mask = torch.zeros((spans, 1, rows, kv_len), dtype=torch.bool,
@@ -459,7 +476,8 @@ def check_grouped(torch, sm, L, token_quantize):
     (f32 checked within 1e-5 relative: the same int32 sums and f32
     epilogue order); times beside the byte bound and a library yardstick:
     ``torch._int_mm`` for the gate, up and down GEMMs of every occupied
-    expert (rows zero-padded to 32), summed."""
+    expert (rows zero-padded to 32), summed, on the row-major weights and
+    on column-major copies (the faster counts)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn((SPANS, C, A_D), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
@@ -500,13 +518,21 @@ def check_grouped(torch, sm, L, token_quantize):
     pad = torch.zeros((32, A_D), dtype=torch.int8, device="cuda")
     pad_f = torch.zeros((32, A_FF), dtype=torch.int8, device="cuda")
 
-    def library():
+    def library(stacks):
         for ei in occupied:
-            torch._int_mm(pad, wg[0][ei])
-            torch._int_mm(pad, wu[0][ei])
-            torch._int_mm(pad_f, wd[0][ei])
+            torch._int_mm(pad, stacks[0][ei])
+            torch._int_mm(pad, stacks[1][ei])
+            torch._int_mm(pad_f, stacks[2][ei])
 
-    lib = timed(torch, library, iters=5)
+    # the yardstick on the (K, N) row-major expert weights K5 reads and on
+    # column-major copies of the occupied experts' (cuBLASLt's preferred
+    # layout), as at K2's and K7's sites; the faster counts
+    row_major = (wg[0], wu[0], wd[0])
+    col_major = [{ei: t[ei].t().contiguous().t() for ei in occupied}
+                 for t in row_major]
+    lib_row = timed(torch, lambda: library(row_major), iters=5)
+    lib_col = timed(torch, lambda: library(col_major), iters=5)
+    del col_major
     rows = int(counts.sum())
     nf = A_FF // sm.grouped_block_f(512, A_FF)
     # per occupied expert: its codes, gate/up scale, zero point and column
@@ -520,7 +546,9 @@ def check_grouped(torch, sm, L, token_quantize):
           f"choices, {len(occupied)} of {e} experts occupied "
           f"(per span {(counts > 0).sum(dim=1).tolist()}), capacity {cap}")
     return [dict(site="arctic_experts", max_abs_err=err, ms=ms, plain_ms=pms,
-                 bound_ms=b5[0], bound_by=b5[1], library_ms=lib)]
+                 bound_ms=b5[0], bound_by=b5[1],
+                 library_ms=min(lib_row, lib_col),
+                 library_row_major_ms=lib_row, library_col_major_ms=lib_col)]
 
 
 # K6 shapes: the bucketed serve path's (4 slots at decode lengths 97..104 of
@@ -530,21 +558,23 @@ CACHE_SHAPES = [("serve", 4, 136, NUM_HI, [97, 99, 102, 104]),
                                         4097, 1024, 65])]
 
 
-def check_cache_attention(torch, ca, ref, KV):
+def check_cache_attention(torch, ca, ref, KV, heads=HEADS, hd=HD,
+                          prefix=""):
     """K6 against its plain version (f32 queries within 1e-5 relative to the
     output's largest magnitude; bf16 within one bf16 step) at
-    ``CACHE_SHAPES``, 32/8 heads, head_dim 128, and its times beside the
-    byte bound of the tokens each row's length needs and an SDPA yardstick
-    over pre-dequantized bf16 K/V (one call, boolean length mask)."""
+    ``CACHE_SHAPES``, ``heads`` query heads over 8 of head_dim ``hd``
+    (llama's 32 and 128 unless given), and its times beside the byte bound
+    of the tokens each row's length needs and an SDPA yardstick over
+    pre-dequantized bf16 K/V (one call, boolean length mask)."""
     out = []
     for name, b, cap, hi, lengths in CACHE_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(7)
-        k = torch.randn((b, cap, KV_HEADS, HD), generator=gen, device="cuda")
-        v = torch.randn((b, cap, KV_HEADS, HD), generator=gen, device="cuda")
+        k = torch.randn((b, cap, KV_HEADS, hd), generator=gen, device="cuda")
+        v = torch.randn((b, cap, KV_HEADS, hd), generator=gen, device="cuda")
         entry = KV.quantize_full(k.bfloat16(), v.bfloat16(),
                                  KV.KVCacheConfig(num_hi=hi))
         del k, v
-        q = torch.randn((b, 1, HEADS, HD), generator=gen, device="cuda")
+        q = torch.randn((b, 1, heads, hd), generator=gen, device="cuda")
         length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         got = ca.cache_decode_attention(entry, q, length)
         want = ref.cache_decode_attention_ref(entry, q, length)
@@ -571,11 +601,11 @@ def check_cache_attention(torch, ca, ref, KV):
         nbytes, flops = 0, 0
         for n in lengths:
             n_hi = min(n, hi)
-            nbytes += KV_HEADS * (n_hi * 2 * HD + (n - n_hi) * HD + n * 8)
-            flops += 4 * HD * HEADS * n
-        nbytes += 2 * 2 * b * HEADS * HD
+            nbytes += KV_HEADS * (n_hi * 2 * hd + (n - n_hi) * hd + n * 8)
+            flops += 4 * hd * heads * n
+        nbytes += 2 * 2 * b * heads * hd
         bd = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        out.append(dict(site=f"{name} (b={b}, cap={cap}, hi={hi})",
+        out.append(dict(site=f"{prefix}{name} (b={b}, cap={cap}, hi={hi})",
                         max_abs_err=err, ms=ms, plain_ms=pms,
                         bound_ms=bd[0], bound_by=bd[1], library_ms=lib))
         del entry
@@ -677,6 +707,16 @@ def check_standalone(torch, hd, wt, qp, im) -> dict:
         rows["quantize_pack"].append(dict(
             site=name, max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0],
             bound_by=b[1], library_ms=None))
+    rows["int8_matmul"] = check_int8_gemm(torch, im, gen)
+    return rows
+
+
+def check_int8_gemm(torch, im, gen) -> list:
+    """K7 at ``GEMM_SHAPES``, exact against its plain version in f32 and
+    bf16, timed eager and replayed from CUDA graphs beside ``torch._int_mm``
+    on the row-major weight and on its column-major copy (rows padded to
+    32 where fewer: ``_int_mm`` needs more than 16)."""
+    out = []
     for name, m, k, n in GEMM_SHAPES:
         qx = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                            dtype=torch.int8)
@@ -692,20 +732,23 @@ def check_standalone(torch, hd, wt, qp, im) -> dict:
             exact(torch, im.int8_matmul(*args, out_dtype=dtype),
                   im.int8_matmul_plain(*args, out_dtype=dtype),
                   f"K7 at {name} ({dtype})")
-        ms = timed(torch, lambda: im.int8_matmul(*args), iters=20)
+
+        def call():
+            return im.int8_matmul(*args)
+
+        ms = timed(torch, call, iters=K7_ITERS)
+        gms = timed_graph(torch, call, K7_ITERS, per_graph=10)
         pms = timed(torch, lambda: im.int8_matmul_plain(*args), iters=3)
-        # torch._int_mm needs more than 16 rows: pad to 32
         pad = qx if m > 16 else torch.cat(
             [qx, torch.zeros((32 - m, k), dtype=torch.int8, device="cuda")])
-        lib = timed(torch, lambda: torch._int_mm(pad, qw), iters=20)
+        lib = int_mm_yardstick(torch, pad, [qw], K7_ITERS)
         b = bound(m * k + k * n + 8 * m + 8 * n + 2 * m * n, 2 * m * n * k,
                   INT8_OPS_PER_S)
-        rows["int8_matmul"].append(dict(
-            site=name, max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0],
-            bound_by=b[1], library_ms=lib))
+        out.append(dict(site=name, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                        bound_ms=b[0], bound_by=b[1], graph_ms=gms, **lib))
         del qx, qw, pad
         torch.cuda.empty_cache()
-    return rows
+    return out
 
 
 def library_phase(torch, ops, prepare_linear, hd, wt, qp, im) -> dict:
@@ -964,8 +1007,12 @@ def main() -> None:
         k4 = check_attention(torch, pa, PKV, KV)
         k4 += check_attention(torch, pa, PKV, KV, heads=A_HEADS,
                               prefix="arctic_")
+        k4 += check_attention(torch, pa, PKV, KV, heads=KIMI_HEADS,
+                              prefix="kimi_", hd=KIMI_HD)
         k5 = check_grouped(torch, sm, L, token_quantize)
         k6 = check_cache_attention(torch, ca, ref, KV)
+        k6 += check_cache_attention(torch, ca, ref, KV, heads=KIMI_HEADS,
+                                    hd=KIMI_HD, prefix="kimi_")
         torch.cuda.empty_cache()
         std = check_standalone(torch, hd, wt, qp, im)
         torch.cuda.empty_cache()

@@ -56,7 +56,8 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// NW 32-bit words of a row whose start is aligned to min(16, 4 * NW) bytes
+// NW 32-bit words of a row whose start is aligned to 16 bytes (NW a multiple
+// of 4) or to 8 (NW even: a lo row at head_dim 16 or 112)
 template <int NW>
 __device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[NW]) {
   if constexpr (NW % 4 == 0) {
@@ -168,7 +169,9 @@ cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
                       int hi_len, int S, int split_len, float scale,
                       float* part) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int NG = THREADS / HD;        // position groups in the V sum
+  // position groups in the V sum (threads past NG * HD, as at head_dim 112,
+  // take none)
+  constexpr int NG = THREADS / HD;
   const int rep = h / g;
   float* qs = smem;                       // rep x HD pre-scaled queries
   float* ps = qs + MAX_REP * HD;          // rep x TILE scores, then p
@@ -263,7 +266,7 @@ cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r)
       if (r < rep) acc[r] *= corr[r];
-    for (int j = grp; j < n; j += NG) {
+    for (int j = grp; j < n && grp < NG; j += NG) {
       const float v = (code_at(vcodes + j * SLOT, t0 + j < hi_len, d) -
                        vzp[j]) * vsc[j];
 #pragma unroll
@@ -364,6 +367,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const Cache& C,
     case 16: return launch<16, T>(q, C, lengths, b, h, g, hi_len, S, split_len, n_split, scale, part, out, st);
     case 32: return launch<32, T>(q, C, lengths, b, h, g, hi_len, S, split_len, n_split, scale, part, out, st);
     case 64: return launch<64, T>(q, C, lengths, b, h, g, hi_len, S, split_len, n_split, scale, part, out, st);
+    case 112: return launch<112, T>(q, C, lengths, b, h, g, hi_len, S, split_len, n_split, scale, part, out, st);
     case 128: return launch<128, T>(q, C, lengths, b, h, g, hi_len, S, split_len, n_split, scale, part, out, st);
     default: return cudaErrorInvalidValue;
   }

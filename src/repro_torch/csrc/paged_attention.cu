@@ -184,9 +184,12 @@ __device__ __forceinline__ void issue_tile(const Args& a, int span, int kvh,
       else cp_async(vdst + 16 * (c - N), vs + 16 * (c - N), 16);
     }
   } else {
+    // a lo row of HD / 2 bytes in the largest chunks that divide it (and so
+    // keep every row's chunks aligned): 16 bytes, or 8 at head_dim 16 and 112
     constexpr int RB = HD / 2;
-    constexpr int CH = RB >= 16 ? 16 : 8;
+    constexpr int CH = RB % 16 == 0 ? 16 : 8;
     constexpr int N = RB / CH;
+    static_assert(RB % 8 == 0, "head_dim is a multiple of 16");
     const uint8_t* ks = a.P.k_lo + tok * RB;
     const uint8_t* vs = a.P.v_lo + tok * RB;
     for (int c = sub; c < 2 * N; c += 8) {
@@ -773,6 +776,7 @@ cudaError_t dispatch_hd(int hd, const Args& a, int S, cudaStream_t st) {
     case 16: return launch<16, T>(a, S, st);
     case 32: return launch<32, T>(a, S, st);
     case 64: return launch<64, T>(a, S, st);
+    case 112: return launch<112, T>(a, S, st);
     case 128: return launch<128, T>(a, S, st);
     default: return cudaErrorInvalidValue;
   }
@@ -787,6 +791,7 @@ extern "C" int paged_attention_smem_bytes(int hd) {
     case 16: return Layout<16>::BYTES;
     case 32: return Layout<32>::BYTES;
     case 64: return Layout<64>::BYTES;
+    case 112: return Layout<112>::BYTES;
     case 128: return Layout<128>::BYTES;
     default: return -1;
   }

@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import cuda
 from repro_torch.kernels.ref import cache_decode_attention_ref
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 112, 128)   # every config's (Kimi-K2: 112)
 _MAX_REP = 8
 _CODES = ("k_hi", "v_hi", "k_lo", "v_lo")
 _PARAMS = ("k_scale", "k_zp", "v_scale", "v_zp")

@@ -7,9 +7,13 @@ int8 GEMM against the prepared int8 weight, zero-point epilogue and bias.
 Decode spans are single tokens, so no sequence transform applies.
 
 Bound on the H100: bytes — the (K, N) int8 weight is read once per call
-and the 8-row product does 16 operations per weight byte.  The kernel
-splits K across some 500 blocks so the weight streams from every SM, with
-exact int32 atomics joining the partial sums (see the source note).
+and an 8-row product does 16 operations per weight byte.  One launch: a
+block streams a (K range, column strip) slab of the weight for a tile of
+up to ``ROWS`` rows through a deep ring of 16-byte copies; the K ranges
+of a strip form a thread block cluster, which shares the rows' min / max
+(every block quantizes its own range with the whole row's scale) and sums
+the ranges' int32 products in distributed shared memory before the
+epilogue (see the source note).  :func:`decode_plan` sizes the launch.
 """
 
 from __future__ import annotations
@@ -20,13 +24,17 @@ from repro_torch.core.stamp import token_quantize
 from repro_torch.kernels import cuda
 from repro_torch.kernels.stamp_matmul import _epilogue, int_matmul
 
-MAX_ROWS = 16
-_TARGET_BLOCKS = 4 * 132     # about four blocks per SM of an H100
+ROWS = 8             # decode rows a block (any M is tiled by them)
+STRIPS = (256, 128)  # weight columns a block: the wider unless it idles SMs
+STAGE_K = 32         # k rows a stage of the ring
+MAX_SPLIT = 8        # k ranges of a cluster
+MIN_RANGE_K = 256    # k rows a range holds at least
+FILL = 3             # blocks an SM the plan aims at (one wave)
 
 _SIGNATURES = {"stamp_decode_matmul": [
     cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.VP,
-    cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
-    cuda.VP, cuda.VP, cuda.INT, cuda.VP]}
+    cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
+    cuda.VP, cuda.INT, cuda.VP]}
 
 
 def row_quantize8(x: torch.Tensor) -> tuple:
@@ -49,28 +57,45 @@ def decode_matmul_plain(x, qw, sw, zw, qw_sum, bias=None,
     return y.to(out_dtype)
 
 
-def _kchunk(k: int, n: int) -> int:
-    col_blocks = -(-n // 512)
-    split = max(1, min(-(-_TARGET_BLOCKS // col_blocks), k // 4))
-    chunk = -(-k // split)
-    return min(max(4, -(-chunk // 4) * 4), 2048)
+def decode_plan(m: int, k: int, n: int, sms: int) -> dict:
+    """K3's launch: strips of ``strip`` columns, row tiles of ``ROWS``, and
+    ``n_split`` ranges of ``split_k`` rows (whole stages) covering K, one
+    cluster a (strip, row tile): as many ranges as keep the blocks within
+    one wave of ``FILL`` blocks an SM (at most ``MAX_SPLIT``, each range at
+    least ``MIN_RANGE_K`` rows unless K is shorter), in clusters of 1, 2, 4
+    or 8 blocks — a cluster must fit one GPC (16–18 SMs), and 7-block
+    clusters left a second wave (Arctic's qkv, 36 x 7, measured).  Strips
+    are 256 columns wide unless that leaves SMs without a block (llama's
+    down: 16 strips x 8 ranges), then 128."""
+    row_tiles = -(-m // ROWS)
+    for strip in STRIPS:
+        strips = -(-n // strip)
+        n_split = max(1, min(MAX_SPLIT,
+                             FILL * sms // max(strips * row_tiles, 1),
+                             k // MIN_RANGE_K))
+        n_split = 1 << (n_split.bit_length() - 1)
+        if strips * row_tiles * n_split >= sms:
+            break
+    split_k = -(-(-(-k // n_split)) // STAGE_K) * STAGE_K
+    n_split = -(-k // split_k)
+    return dict(strip=strip, strips=strips, row_tiles=row_tiles,
+                n_split=n_split, split_k=split_k)
 
 
 def stamp_decode_matmul(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
                         zw: torch.Tensor, qw_sum: torch.Tensor, bias=None,
                         out_dtype=torch.float32) -> torch.Tensor:
-    """K3.  ``x``: (M, K) bf16 or f32 with M <= 16; ``qw``: (K, N) int8;
-    ``sw/zw``: (1, N) f32; ``qw_sum``: (1, N) int32 column sums of ``qw``
+    """K3.  ``x``: (M, K) bf16 or f32, any M; ``qw``: (K, N) int8; ``sw/zw``:
+    (1, N) f32; ``qw_sum``: (1, N) int32 column sums of ``qw``
     (``PreparedLinear.qw_sum``)."""
     if x.device.type == "cpu":
         return decode_matmul_plain(x, qw, sw, zw, qw_sum, bias, out_dtype)
     x = x.contiguous()
     m, k = x.shape
     n = qw.shape[1]
-    if m > MAX_ROWS or k % 4 or n % 4 or qw.shape[0] != k:
-        raise ValueError(f"K3 takes M <= {MAX_ROWS} rows and K, N multiples "
-                         f"of 4; got x {tuple(x.shape)}, qw "
-                         f"{tuple(qw.shape)}")
+    if k < 1 or k % 4 or n % 4 or qw.shape[0] != k:
+        raise ValueError(f"K3 takes K, N multiples of 4; got x "
+                         f"{tuple(x.shape)}, qw {tuple(qw.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32) or \
             out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("K3 reads and writes bf16 or f32")
@@ -81,19 +106,13 @@ def stamp_decode_matmul(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
         raise ValueError(f"column sums must be int32, got {qw_sum.dtype}")
     qw_sum = qw_sum.reshape(-1).contiguous()
     cuda.require_cuda(x, qw, sw, zw, qw_sum, bias)
-    dev = x.device
-    qx = torch.empty((m, k), dtype=torch.int8, device=dev)
-    sx = torch.empty(m, dtype=torch.float32, device=dev)
-    zx = torch.empty(m, dtype=torch.float32, device=dev)
-    ints = torch.empty(m + m * n, dtype=torch.int32, device=dev)
-    qxsum, acc = ints[:m], ints[m:]
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    lib = cuda.library("decode_matmul", _SIGNATURES)
-    err = lib.stamp_decode_matmul(
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    plan = decode_plan(m, k, n, cuda.sm_count(x.device))
+    vec = int(n % 16 == 0 and qw.data_ptr() % 16 == 0)
+    err = cuda.library("decode_matmul", _SIGNATURES).stamp_decode_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, n, qw.data_ptr(),
         sw.data_ptr(), zw.data_ptr(), qw_sum.data_ptr(), cuda.ptr(bias),
-        _kchunk(k, n), qx.data_ptr(), sx.data_ptr(), zx.data_ptr(),
-        qxsum.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        plan["n_split"], plan["split_k"], plan["strip"], vec, out.data_ptr(),
         int(out_dtype == torch.bfloat16), cuda.stream_ptr(x))
     cuda.check(err, "stamp_decode_matmul")
     stamp_decode_matmul.launches += 1

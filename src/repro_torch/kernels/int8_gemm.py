@@ -7,9 +7,14 @@ W4A4 / W8A8 deployment matmul of per-row quantized activations against
 per-column quantized weights, ``Y = (Σqx·qw − zx·Σqw − zw·Σqx + K·zx·zw) ·
 sx · sw`` with int32 accumulation and the sums of both operands taken on
 the fly, dequantized once in an f32 epilogue in the reference's order.  K7
-runs the product on the tensor cores (``mma.sync`` int8) over 128 x 128
-output tiles and sums the operands from the same shared-memory tiles (see
-the source note).
+is a persistent, warp-specialised kernel: TMA loads into a 4-stage ring,
+a warpgroup that transposes the (K, N) weight tiles to the K-major layout
+``wgmma`` reads and sums their columns, and two warpgroups on the tensor
+cores (``wgmma`` int8, whose 16 extra columns of ones give the rows' sums)
+that run the epilogue from their registers (see the source note).  TMA
+addresses rows of multiples of 16 bytes: other shapes (every dimension
+below 128 may be any size) go through zero-padded copies, which change no
+product or sum.
 
 Bound on the H100: integer operations at prefill row counts; bytes (the
 weight, read once) at a decode batch of 8 rows.
@@ -23,10 +28,11 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.stamp_matmul import _epilogue, int_matmul
 
 BLOCK = 128          # the reference's block: its divisibility checks
+ALIGN = 16           # TMA: row strides and base addresses, in bytes
 
 _SIGNATURES = {"int8_matmul": [
     cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.INT,
-    cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.INT, cuda.VP]}
+    cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.INT, cuda.VP]}
 
 
 def int8_matmul_plain(qx, qw, sx, zx, sw, zw,
@@ -64,6 +70,26 @@ def _check(qx, qw, sx, zx, sw, zw) -> None:
                          f"({bm}, {bn}, {bk})")
 
 
+def tma_operands(qx: torch.Tensor, qw: torch.Tensor) -> tuple:
+    """``qx`` (M, K) and ``qw`` (K, N) as K7's tensor maps address them:
+    unchanged where K and N are multiples of ``ALIGN`` and both start on
+    an ``ALIGN``-byte boundary, else copied into zeroed (M, Kp) and (Kp, Np)
+    buffers, Kp and Np the next multiples of ``ALIGN`` (at least one).  The
+    zeros add nothing to the int32 products or to Σqx and Σqw."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    if k and k % ALIGN == 0 and n % ALIGN == 0 and \
+            qx.data_ptr() % ALIGN == 0 and qw.data_ptr() % ALIGN == 0:
+        return qx, qw
+    kp = max(ALIGN, -(-k // ALIGN) * ALIGN)
+    np_ = max(ALIGN, -(-n // ALIGN) * ALIGN)
+    xp = qx.new_zeros((m, kp))
+    wp = qw.new_zeros((kp, np_))
+    xp[:, :k] = qx
+    wp[:k, :n] = qw
+    return xp, wp
+
+
 def int8_matmul(qx: torch.Tensor, qw: torch.Tensor, sx: torch.Tensor,
                 zx: torch.Tensor, sw: torch.Tensor, zw: torch.Tensor,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -81,11 +107,12 @@ def int8_matmul(qx: torch.Tensor, qw: torch.Tensor, sx: torch.Tensor,
     n = qw.shape[1]
     vecs = [t.reshape(-1).float().contiguous() for t in (sx, zx, sw, zw)]
     cuda.require_cuda(qx, qw, *vecs)
+    qx, qw = tma_operands(qx, qw)
     out = torch.empty((m, n), dtype=out_dtype, device=qx.device)
-    vec = int(k % 16 == 0 and n % 4 == 0 and qx.data_ptr() % 16 == 0)
     err = cuda.library("int8_matmul", _SIGNATURES).int8_matmul(
         qx.data_ptr(), qw.data_ptr(), *(t.data_ptr() for t in vecs), m, n, k,
-        vec, out.data_ptr(), out_code, cuda.stream_ptr(qx))
+        qx.shape[1], qw.shape[1], out.data_ptr(), out_code,
+        cuda.stream_ptr(qx))
     cuda.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return out

@@ -116,6 +116,58 @@ def test_cuda_decode_matmul_matches_plain(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 32, 64])
+@pytest.mark.parametrize("k", [1000, 4096, 14336])
+@pytest.mark.parametrize("n", [200, 6144])
+def test_cuda_decode_matmul_tilings(card, m, k, n):
+    """K3 against its plain version over its row tiles and cluster ranges:
+    M from 1 to 64 rows (tiles of 8, the last one partial), K 1000 (not a
+    multiple of the 32-row stage), 4096 and 14336 (cut into up to 8 ranges
+    whose products meet in distributed shared memory), N 200 (4-byte
+    copies, a partial strip) and 6144; bf16 activations with a bias, f32
+    output within 1e-5 relative (exact int32 sums, the same epilogue
+    order), bf16 within one bf16 step."""
+    gen = torch.Generator(device=card).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=card).to(torch.bfloat16)
+    p = TS.prepare_linear(torch.randn((k, n), generator=gen, device=card)
+                          / k ** 0.5)
+    bias = torch.randn(n, generator=gen, device=card)
+    w = (p.qw, p.sw, p.zw, p.qw_sum, bias)
+    y = TDM.stamp_decode_matmul(x, *w)
+    yp = TDM.decode_matmul_plain(x, *w)
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape == (m, n) and y.dtype == torch.float32
+    assert _rel(y, yp) <= 1e-5
+    _close_bf16(TDM.stamp_decode_matmul(x, *w, out_dtype=torch.bfloat16),
+                TDM.decode_matmul_plain(x, *w, out_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_matmul_accumulates_in_int32(card):
+    """|codes| = 128 over K = 14336: row 0 quantizes to 7112 codes of -128,
+    56 of 1 and 7168 of 127, and column 0 of the weight holds -128, 1 and
+    -128 there, so their product is exactly 56: 1.2e8 cancelled to 56.  An
+    f32 accumulator loses the +1s (and the output moves by 56 scales, a few
+    f32 steps beside the zero-point terms); K3's int32 sums keep them, as
+    the plain version does."""
+    k, n = 14336, 256
+    gen = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn((4, k), generator=gen, device=card)
+    x[0, :7112], x[0, 7112:7168], x[0, 7168:] = 0.0, 129.0, 255.0
+    qw = torch.randint(-128, 128, (k, n), generator=gen, device=card,
+                       dtype=torch.int8)
+    qw[:7112, 0], qw[7112:7168, 0], qw[7168:, 0] = -128, 1, -128
+    qx = TDM.row_quantize8(x)[0]
+    assert int(TSM.int_matmul(qx, qw)[0, 0]) == 56
+    w = (qw, torch.ones((1, n), device=card), torch.zeros((1, n), device=card),
+         qw.sum(dim=0, keepdim=True, dtype=torch.int32))
+    y = TDM.stamp_decode_matmul(x, *w)
+    yp = TDM.decode_matmul_plain(x, *w)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yp)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("block_size", [4, 16])
 def test_cuda_paged_attention_matches_plain(card, block_size):
     """K4 with f32 queries: the online softmax against the direct one
@@ -168,6 +220,21 @@ def test_cuda_paged_attention_tilings(card, hd, rep, block_size):
     it); span lengths not multiples of the 32-position tile, up to 600
     positions (longer than one tile and one range).  f32 queries within 1e-4
     absolute (exp and summation order), bf16 within one bf16 step."""
+    _paged_tiling_case(card, hd, rep, block_size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [4, 16, 5])
+def test_cuda_paged_attention_head_dim_112(card, block_size):
+    """K4 at Kimi-K2's head_dim 112 with 8 query heads a kv head (its GQA
+    group): the same steps and tolerances as the tilings above.  112 is no
+    power of two: 7 sixteen-byte chunks a hi row, 56-byte lo rows gathered
+    in 8-byte chunks, two key groups of 112 threads (32 idle) in the decode
+    p.v."""
+    _paged_tiling_case(card, 112, 8, block_size)
+
+
+def _paged_tiling_case(card, hd, rep, block_size):
     g, c_len = 2, 128
     spans = K4_PREFILL + K4_DECODE
     entry, ht, lt = paged_pools(block_size, -(-16 // block_size) * block_size,
@@ -360,6 +427,24 @@ def test_cuda_cache_attention_matches_plain(card, shape, lengths):
     the output's largest magnitude: the sequence split and merge order
     differ from the Pallas block order), and with bf16 queries within one
     bf16 step of the plain version's bf16 output."""
+    _cache_case_matches(card, shape, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lengths", [
+    # Kimi-K2's group (8 query heads a kv head) at its head_dim, a bucketed
+    # serve shape and ragged lengths across the hi region and the ranges
+    ((4, 136, 8, 112, 64, 4), (97, 98, 99, 100)),
+    ((3, 2000, 2, 112, 16, 64), (5, 130, 2000)),
+])
+def test_cuda_cache_attention_head_dim_112(card, shape, lengths):
+    """K6 at head_dim 112 with rep 8, held as above: a hi row of 28 words
+    read as 16-byte vectors, a lo row of 14 words as 8-byte ones, and the
+    16 threads past the 112 features idle in the p.v sum."""
+    _cache_case_matches(card, shape, lengths)
+
+
+def _cache_case_matches(card, shape, lengths):
     b, s, g, hd, h, num_hi = shape
     entry, q = cache_case(b, s, g, hd, h, num_hi, card)
     length = torch.tensor(lengths, dtype=torch.int32, device=card)
@@ -454,6 +539,32 @@ def test_cuda_int8_matmul_matches_plain(card, mnk):
     products and sums, the same f32 epilogue order (``-fmad=false``);
     M = 8 decode rows, N = 6144, and ragged tiles (N = 5, K = 7; K = 80)."""
     m, n, k = mnk
+    gen = torch.Generator(device=card).manual_seed(m + n + k)
+    qx = torch.randint(-128, 128, (m, k), generator=gen, device=card,
+                       dtype=torch.int8)
+    qw = torch.randint(-128, 128, (k, n), generator=gen, device=card,
+                       dtype=torch.int8)
+    sx = torch.rand((m, 1), generator=gen, device=card) * 0.1 + 1e-3
+    zx = torch.randint(-128, 128, (m, 1), generator=gen, device=card).float()
+    sw = torch.rand((1, n), generator=gen, device=card) * 1e-2 + 1e-4
+    zw = torch.randint(-8, 9, (1, n), generator=gen, device=card).float()
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        got = TIM.int8_matmul(qx, qw, sx, zx, sw, zw, out_dtype=dtype)
+        want = TIM.int8_matmul_plain(qx, qw, sx, zx, sw, zw, out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 100, 256, 2048])
+@pytest.mark.parametrize("k", [100, 128, 14336])
+@pytest.mark.parametrize("n", [384, 14336])
+def test_cuda_int8_matmul_tilings(card, m, k, n):
+    """K7's tiles, stages and persistent walk against its plain version in
+    f32, bf16 and f16, bit for bit: M 8 and 100 (one partial row tile), 256
+    and 2048 (many tiles a block); K 100 (rows TMA cannot address: the
+    wrapper's zero-padded copies), 128 (one stage) and 14336 (112 stages);
+    N 384 and 14336 (3 and 112 column tiles)."""
     gen = torch.Generator(device=card).manual_seed(m + n + k)
     qx = torch.randint(-128, 128, (m, k), generator=gen, device=card,
                        dtype=torch.int8)

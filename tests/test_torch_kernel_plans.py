@@ -1,11 +1,14 @@
 """The launch plans of the port's redesigned kernels, run in PyTorch on the
-CPU against the plain versions: K4's tile gather through the block table,
-its prefill row tiles, the split of a decode span over blocks and the
-in-order merge of the ranges' ``(m, l, acc)`` partials; K2's split of K into
-ranges whose int32 products are summed before the epilogue.  The CUDA
-kernels follow these plans (``launch_plan`` and ``gemm_plan`` size their
-launches); ``tests/test_torch_cuda.py`` holds the kernels themselves against
-the plain versions on a card."""
+CPU against the plain versions: K4's tile gather through the block table
+(head_dim 112 too), its prefill row tiles, the split of a decode span over
+blocks and the in-order merge of the ranges' ``(m, l, acc)`` partials; K2's
+split of K into ranges whose int32 products are summed before the
+epilogue; K3's row tiles and cluster of K ranges (shared min / max, int32
+products joined, then the epilogue); K7's tiles, k stages, transposed B
+layout and operand sums.  The CUDA kernels follow these plans
+(``launch_plan``, ``gemm_plan`` and ``decode_plan`` size their launches);
+``tests/test_torch_cuda.py`` holds the kernels themselves against the plain
+versions on a card."""
 
 import math
 
@@ -14,6 +17,8 @@ import pytest
 import torch
 
 from repro_torch.core import stamp as TS
+from repro_torch.kernels import decode_matmul as TDM
+from repro_torch.kernels import int8_gemm as TIM
 from repro_torch.kernels import paged_attention as TPA
 from repro_torch.kernels import stamp_matmul as TSM
 from repro_torch.kernels.ref import span_kv
@@ -161,6 +166,94 @@ def test_k4_tile_gather_reads_the_plain_pages(block_size):
             k, v = _gather(entry, span, length, kvh, ht, lt, block_size)
             assert torch.equal(k, kd[:length, kvh])
             assert torch.equal(v, vd[:length, kvh])
+
+
+def issue_chunks(hd: int, hi: bool) -> tuple:
+    """K4's gather of one token's K or V code row (``issue_tile``): ``(chunk
+    bytes, chunks)`` — 16-byte chunks of a hi row of ``hd`` bytes, and the
+    largest of 16 or 8 bytes that divides a lo row of ``hd / 2``."""
+    if hi:
+        return 16, hd // 16
+    rb = hd // 2
+    ch = 16 if rb % 16 == 0 else 8
+    return ch, rb // ch
+
+
+def _gather_rows(entry, span, length, kvh, hi_table, lo_table, bs, hd):
+    """The code rows of one kv head as K4 copies them chunk by chunk from
+    the pools' bytes (each chunk aligned to its size), then dequantized."""
+    out = {"k": [], "v": []}
+    for pos in range(length):
+        is_hi, page, off = kv_slot(pos, span, hi_table, lo_table, bs)
+        region = "hi" if is_hi else "lo"
+        ch, n = issue_chunks(hd, is_hi)
+        for name in ("k", "v"):
+            pool = entry[f"{name}_{region}"]
+            flat = pool.contiguous().view(torch.uint8).reshape(-1)
+            row_bytes = pool.shape[-1]
+            tok = (page * bs + off) * pool.shape[2] + kvh
+            assert (tok * row_bytes) % ch == 0      # every chunk aligned
+            row = torch.cat([flat[tok * row_bytes + ch * c:
+                                  tok * row_bytes + ch * (c + 1)]
+                             for c in range(n)])
+            assert row.numel() == row_bytes         # the chunks cover it
+            codes = row.view(torch.int8) if is_hi else row
+            vals = codes.float() if is_hi else TKV.unpack_nibbles(codes)
+            out[name].append(
+                (vals - entry[f"{name}_{region}_zp"][page, off, kvh].float())
+                * entry[f"{name}_{region}_scale"][page, off, kvh].float())
+    return torch.stack(out["k"]), torch.stack(out["v"])
+
+
+@pytest.mark.parametrize("block_size", [4, 16, 5])
+def test_k4_tile_gather_at_head_dim_112(block_size):
+    """At Kimi-K2's head_dim 112 a hi row is 7 chunks of 16 bytes and a lo
+    row 56 bytes, 7 chunks of 8 (16-byte chunks would leave 8 bytes out and
+    misalign every odd row): the rows K4 copies chunk by chunk through the
+    block table dequantize to the plain version's K and V, 8 kv heads."""
+    assert issue_chunks(112, True) == (16, 7)
+    assert issue_chunks(112, False) == (8, 7)
+    spans = [(0, 70), (16, 27), (0, 9)]
+    entry, ht, lt = paged_pools(block_size, hi_tokens(block_size), spans,
+                                g=8, hd=112, seed=5)
+    ht, lt = torch.from_numpy(ht), torch.from_numpy(lt)
+    for span, (_, length) in enumerate(spans):
+        kd, vd = span_kv(entry, ht[span], lt[span])
+        for kvh in (0, 7):
+            k, v = _gather_rows(entry, span, length, kvh, ht, lt, block_size,
+                                112)
+            assert torch.equal(k, kd[:length, kvh])
+            assert torch.equal(v, vd[:length, kvh])
+
+
+@pytest.mark.parametrize("block_size", [4, 16])
+def test_k4_schedule_at_head_dim_112(block_size):
+    """K4's row tiles and decode ranges at head_dim 112 with 8 query heads
+    a kv head give the plain version's outputs, mixed and all-decode."""
+    spans = [(16, 27), (0, 9), (599, 600), (70, 71), (0, 1), (300, 301)]
+    num_hi, c_len, g, hd, heads = hi_tokens(block_size), 12, 2, 112, 16
+    entry, ht, lt = paged_pools(block_size, num_hi, spans, g=g, hd=hd,
+                                seed=block_size)
+    rng = np.random.default_rng(block_size)
+    q_pf = torch.from_numpy(rng.standard_normal(
+        (2, c_len, heads, hd)).astype(np.float32))
+    q_dec = torch.from_numpy(rng.standard_normal(
+        (4, 1, heads, hd)).astype(np.float32))
+    starts = torch.tensor([s for s, _ in spans], dtype=torch.int32)
+    lengths = torch.tensor([n for _, n in spans], dtype=torch.int32)
+    ht, lt = torch.from_numpy(ht), torch.from_numpy(lt)
+    capacity = (ht.shape[1] + lt.shape[1]) * block_size
+    for n_pf in (2, 0):
+        plan = TPA.launch_plan(n_pf, 4, c_len, heads // g, g, capacity, 132)
+        args = (entry, q_pf[:n_pf], q_dec, starts[2 - n_pf:],
+                lengths[2 - n_pf:], ht[2 - n_pf:], lt[2 - n_pf:])
+        got = _k4_schedule(*args, block_size, plan)
+        want = TPA.paged_attention_plain(*args, block_size)
+        for i in range(n_pf):
+            n = int(lengths[i] - starts[i])
+            torch.testing.assert_close(got[0][i, :n], want[0][i, :n],
+                                       rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("block_size,heads", [(4, 4), (16, 4), (4, 8),
@@ -360,3 +453,219 @@ def test_k2_split_k_then_epilogue_is_the_plain_gemm(transform, dual):
         args += [ws[1].qw, ws[1].sw, ws[1].zw, ws[1].qw_sum, bias[1]]
     want = TSM.int_gemm_plain(qx, sx, zx, s, *args, **kw)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K3: decode matmul
+# ---------------------------------------------------------------------------
+
+
+def k3_plan_run(x, qw, sw, zw, qw_sum, bias, plan):
+    """K3's launch run in PyTorch: row tiles of ``ROWS``; in each, the
+    cluster's ``n_split`` K ranges of ``split_k`` rows take their rows' min
+    and max, share them (every range derives the same scale and zero point
+    from the whole row), quantize their own range stage by stage, and form
+    their int32 products and Σqx; the ranges' sums are joined in rank
+    order and the epilogue (bias last) finishes."""
+    m, k = x.shape
+    xf = x.float()
+    out = torch.empty((m, qw.shape[1]))
+    inv255 = torch.tensor(1.0 / 255.0, dtype=torch.float32)
+    ranges = [(r * plan["split_k"], min(k, (r + 1) * plan["split_k"]))
+              for r in range(plan["n_split"])]
+    assert ranges[-1][1] == k and all(kb < ke for kb, ke in ranges)
+    for row0 in range(0, m, TDM.ROWS):
+        xt = xf[row0:row0 + TDM.ROWS]
+        mins = [xt[:, kb:ke].amin(dim=1) for kb, ke in ranges]
+        maxs = [xt[:, kb:ke].amax(dim=1) for kb, ke in ranges]
+        mn, mx = mins[0], maxs[0]
+        for a, b in zip(mins[1:], maxs[1:]):
+            mn, mx = torch.minimum(mn, a), torch.maximum(mx, b)
+        s = torch.clamp_min((mx - mn) * inv255, 1e-8)
+        z = torch.round(-mn / s)
+        acc = torch.zeros((xt.shape[0], qw.shape[1]), dtype=torch.int32)
+        qsum = torch.zeros(xt.shape[0], dtype=torch.int32)
+        for kb, ke in ranges:
+            for k0 in range(kb, ke, TDM.STAGE_K):
+                k1 = min(k0 + TDM.STAGE_K, ke)
+                codes = (torch.clamp(torch.round(xt[:, k0:k1] / s[:, None]) +
+                                     z[:, None], 0.0, 255.0) - 128
+                         ).to(torch.int8)
+                acc += TSM.int_matmul(codes, qw[k0:k1])
+                qsum += codes.sum(dim=1, dtype=torch.int32)
+        y = TSM._epilogue(acc, s, z - 128, sw.reshape(1, -1).float(),
+                          zw.reshape(1, -1).float(), qsum, qw_sum.reshape(-1),
+                          k)
+        if bias is not None:
+            y = y + bias.reshape(1, -1).float()
+        out[row0:row0 + TDM.ROWS] = y
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64])
+@pytest.mark.parametrize("k", [1000, 4096, 14336])
+def test_k3_plan_is_the_plain_decode_matmul(m, k):
+    """K3's row tiles, K ranges (shared min / max, per-stage codes, int32
+    products and Σqx joined in rank order) and epilogue give
+    ``decode_matmul_plain``'s output bit for bit, bf16 activations with a
+    bias; the plan fills one wave of the card's 132 SMs."""
+    n = 200
+    gen = torch.Generator().manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+    p = TS.prepare_linear(torch.randn((k, n), generator=gen) / k ** 0.5)
+    bias = torch.randn(n, generator=gen)
+    plan = TDM.decode_plan(m, k, n, 132)
+    assert plan["row_tiles"] == -(-m // TDM.ROWS)
+    assert plan["strips"] * plan["row_tiles"] * plan["n_split"] <= \
+        max(TDM.FILL * 132, plan["strips"] * plan["row_tiles"])
+    assert plan["split_k"] % TDM.STAGE_K == 0 and \
+        plan["n_split"] in (1, 2, 4, 8)
+    got = k3_plan_run(x, p.qw, p.sw, p.zw, p.qw_sum, bias, plan)
+    want = TDM.decode_matmul_plain(x, p.qw, p.sw, p.zw, p.qw_sum, bias)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n,strip,n_split,split_k", [
+    (8, 4096, 6144, 256, 8, 512),       # llama qkv: 24 strips x 8 ranges
+    (8, 4096, 14336, 256, 4, 1024),     # gate: 56 strips
+    (8, 14336, 4096, 128, 8, 1792),     # down: 16 wide strips idle SMs
+    (8, 7168, 9216, 256, 8, 896),       # Arctic qkv: 36 strips x 8
+    (4, 4096, 4096, 128, 8, 512),       # bucketed wo
+    (64, 4096, 6144, 256, 2, 2048),     # 8 row tiles
+    (1, 100, 200, 128, 1, 128),         # shorter than a range: whole
+])
+def test_k3_decode_plan(m, k, n, strip, n_split, split_k):
+    """The ranges cover K in whole stages, none empty, in clusters of a
+    power of two blocks, as many as keep the blocks within one wave of
+    ``FILL`` an SM; strips are 256 columns unless that leaves SMs without
+    a block."""
+    plan = TDM.decode_plan(m, k, n, 132)
+    assert plan["n_split"] & (plan["n_split"] - 1) == 0
+    assert (plan["strip"], plan["n_split"], plan["split_k"]) == \
+        (strip, n_split, split_k)
+    assert plan["strips"] == -(-n // strip)
+    assert (n_split - 1) * split_k < k <= n_split * split_k
+
+
+# ---------------------------------------------------------------------------
+# K7: standalone int8 GEMM
+# ---------------------------------------------------------------------------
+
+K7_TILE, K7_BK, BT_SBO, BT_LBO = 128, 128, 1040, 128
+
+
+def byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's ``__byte_perm``: byte i of the result is byte ``(s >> 4i) &
+    7`` of the 8 bytes ``y:x``."""
+    both = (y & 0xFFFFFFFF) << 32 | (x & 0xFFFFFFFF)
+    return sum(((both >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def transpose4(w):
+    """K7's (and K2's, K3's) ``transpose4``: 4 words, rows k .. k+3 of 4
+    columns, to 4 words, columns of 4 k values."""
+    t0, t1 = byte_perm(w[0], w[1], 0x5140), byte_perm(w[2], w[3], 0x5140)
+    t2, t3 = byte_perm(w[0], w[1], 0x7362), byte_perm(w[2], w[3], 0x7362)
+    return [byte_perm(t0, t1, 0x5410), byte_perm(t0, t1, 0x7632),
+            byte_perm(t2, t3, 0x5410), byte_perm(t2, t3, 0x7632)]
+
+
+def k7_transposed_tile(raw: np.ndarray) -> np.ndarray:
+    """The transposer's output for one (128 k, 128 columns) raw B tile:
+    the bytes of the K-major core-matrix buffer, column n's 16-byte k-chunk
+    c at ``(n // 8) · 1040 + c · 128 + (n % 8) · 16``, built item by item
+    as the kernel's threads do (chunk c, columns 4 cw .. 4 cw + 3)."""
+    words = raw.view(np.uint32)                      # (128, 32)
+    buf = np.zeros(K7_TILE // 8 * BT_SBO, np.uint8)
+    for c in range(K7_BK // 16):
+        for cw in range(K7_TILE // 4):
+            col = [transpose4([int(words[16 * c + 4 * q + r, cw])
+                               for r in range(4)]) for q in range(4)]
+            for j in range(4):
+                n = 4 * cw + j
+                off = (n >> 3) * BT_SBO + c * BT_LBO + (n & 7) * 16
+                buf[off:off + 16] = np.array(
+                    [col[q][j] for q in range(4)], np.uint32).view(np.uint8)
+    return buf
+
+
+def test_k7_transposed_tile_is_the_k_major_weight():
+    """Reading the transposer's buffer as ``wgmma``'s descriptor does
+    (column n's chunks c at the core-matrix offsets) gives the weight tile
+    transposed, every byte; the 1040-byte groups put a warp's 16-byte
+    stores (8 lanes, columns 4 cw + j) on 8 distinct 4-bank groups."""
+    raw = np.random.default_rng(0).integers(-128, 128, (128, 128)).astype(
+        np.int8)
+    buf = k7_transposed_tile(raw)
+    got = np.zeros((128, 128), np.int8)               # (n, k)
+    for n in range(128):
+        for c in range(8):
+            off = (n >> 3) * BT_SBO + c * BT_LBO + (n & 7) * 16
+            got[n, 16 * c:16 * c + 16] = buf[off:off + 16].view(np.int8)
+    np.testing.assert_array_equal(got, raw.T)
+    for j in range(4):
+        banks = {((((4 * cw + j) >> 3) * BT_SBO + ((4 * cw + j) & 7) * 16)
+                  // 16) % 8 for cw in range(8)}
+        assert len(banks) == 8
+
+
+def k7_tile_run(qx, qw, sx, zx, sw, zw):
+    """K7's walk in PyTorch: 128 x 128 output tiles, k stages of 128
+    (zero-padded past K, as TMA fills them), each stage's int32 product
+    with the B tile and 16 columns of ones added (the ones' products are
+    the rows' Σqx), Σqw from the staged B columns; then the epilogue of
+    each tile."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    kp = -(-k // K7_BK) * K7_BK
+    xp = torch.zeros((m, kp), dtype=torch.int8)
+    wp = torch.zeros((kp, n), dtype=torch.int8)
+    xp[:, :k], wp[:k] = qx, qw
+    out = torch.empty((m, n))
+    for m0 in range(0, m, K7_TILE):
+        for n0 in range(0, n, K7_TILE):
+            a = xp[m0:m0 + K7_TILE]
+            b = wp[:, n0:n0 + K7_TILE]
+            acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.int32)
+            rsum = torch.zeros(a.shape[0], dtype=torch.int32)
+            csum = torch.zeros(b.shape[1], dtype=torch.int32)
+            ones = torch.ones((K7_BK, 16), dtype=torch.int8)
+            for k0 in range(0, kp, K7_BK):
+                sa, sb = a[:, k0:k0 + K7_BK], b[k0:k0 + K7_BK]
+                prod = TSM.int_matmul(sa, torch.cat([sb, ones], dim=1))
+                acc += prod[:, :sb.shape[1]]
+                rsum += prod[:, sb.shape[1]]
+                csum += sb.sum(dim=0, dtype=torch.int32)
+            y = TSM._epilogue(acc, sx[m0:m0 + K7_TILE, 0].float(),
+                              zx[m0:m0 + K7_TILE, 0].float(),
+                              sw[:, n0:n0 + K7_TILE].float(),
+                              zw[:, n0:n0 + K7_TILE].float(), rsum, csum, k)
+            out[m0:m0 + K7_TILE, n0:n0 + K7_TILE] = y
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 100, 384), (100, 128, 200),
+                                   (256, 1024, 384), (130, 300, 7)])
+def test_k7_tile_plan_is_the_plain_int8_matmul(m, k, n):
+    """K7's tiles and k stages, with Σqx from the ones columns' products
+    and Σqw from the staged B tiles, give ``int8_matmul_plain``'s f32
+    output bit for bit; the wrapper's padded operands (K and N off 16)
+    hold the same products and sums."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    qx = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8)
+    qw = torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int8)
+    sx = torch.rand((m, 1), generator=gen) * 0.1 + 1e-3
+    zx = torch.randint(-128, 128, (m, 1), generator=gen).float()
+    sw = torch.rand((1, n), generator=gen) * 1e-2 + 1e-4
+    zw = torch.randint(-8, 9, (1, n), generator=gen).float()
+    want = TIM.int8_matmul_plain(qx, qw, sx, zx, sw, zw,
+                                 out_dtype=torch.float32)
+    assert torch.equal(k7_tile_run(qx, qw, sx, zx, sw, zw), want)
+    xp, wp = TIM.tma_operands(qx, qw)
+    assert xp.shape[1] % TIM.ALIGN == 0 and wp.shape[1] % TIM.ALIGN == 0
+    assert torch.equal(TSM.int_matmul(xp, wp)[:, :n], TSM.int_matmul(qx, qw))
+    assert torch.equal(xp.sum(dim=1, dtype=torch.int32),
+                       qx.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(wp.sum(dim=0, dtype=torch.int32)[:n],
+                       qw.sum(dim=0, dtype=torch.int32))

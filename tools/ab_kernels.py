@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Same-card A/B of two builds of the port's K4 (paged attention) and K2
-(STaMP int GEMM) kernels, at every K4 and K2 site that ``chip_smoke.py``
-times.
+"""Same-card A/B of two builds of the port's K4 (paged attention), K2
+(STaMP int GEMM), K3 (decode matmul), K5 (grouped MoE GEMM) and K7
+(standalone int8 GEMM) kernels, at every site of theirs that
+``chip_smoke.py`` times.
 
     python3 tools/ab_kernels.py --old DIR [--new DIR] [--tree NAME=DIR ...]
-                                [--order old,new,new,old] [--kernels k2,k4]
+                                [--order old,new,new,old]
+                                [--kernels k2,k3,k4,k5,k7]
 
 ``DIR`` is the root of a checkout (or of a ``git archive`` of one) holding
 ``src/repro_torch``; ``--new`` defaults to this checkout, and ``--tree``
 names further trees for the order.  Each run of the order is its own
-process on the one card: it builds that tree's ``stamp_matmul`` and
-``paged_attention`` sources into its own build directory and runs this
-checkout's ``chip_smoke.check_stamp`` and ``check_attention`` with that
-tree's modules: the same sites, checks against the plain versions and
-timings as the smoke (K4 200 calls, K2 50, eager and replayed from CUDA
-graphs, beside the library yardsticks); ``--kernels`` keeps one of the
-two.  Prints one ``[ab]`` line a run and site, and last a JSON object with
-every run; needs a CUDA card.
+process on the one card: it builds that tree's sources of the chosen
+kernels into its own build directory and runs this checkout's
+``chip_smoke.check_stamp``, ``check_decode``, ``check_attention``,
+``check_grouped`` and ``check_int8_gemm`` with that tree's modules: the
+same sites, checks against the plain versions and timings as the smoke
+(eager and replayed from CUDA graphs, beside the library yardsticks);
+``--kernels`` keeps a subset.  Prints one ``[ab]`` line a run and site,
+and last a JSON object with every run; needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -39,18 +41,24 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
     sys.path.insert(0, str(ROOT))
     import torch
     import chip_smoke as cs
-    from repro_torch.core.stamp import prepare_linear
+    from repro_torch.core.stamp import prepare_linear, token_quantize
     from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import decode_matmul as dm
+    from repro_torch.kernels import int8_gemm as im
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import stamp_matmul as sm
+    from repro_torch.models import layers as L
     from repro_torch.serving import kvcache as KV
     from repro_torch.serving import paged_kvcache as PKV
     if not torch.cuda.is_available():
         cs.fail("the A/B needs a CUDA card")
     assert Path(pa.__file__).resolve().is_relative_to(src.resolve())
     kcuda.build([n for k, n in (("k2", "stamp_matmul"),
-                                ("k4", "paged_attention")) if k in kernels])
+                                ("k3", "decode_matmul"),
+                                ("k4", "paged_attention"),
+                                ("k5", "grouped_matmul"),
+                                ("k7", "int8_matmul")) if k in kernels])
     rows = {}
     with torch.inference_mode():
         for heads, prefix in ((cs.HEADS, ""), (cs.A_HEADS, "arctic_")) \
@@ -67,6 +75,21 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
             for r in k2:
                 rows[f"K2 {r['site']}"] = r
             torch.cuda.empty_cache()
+        decode = [dict(sites=cs.LLAMA_DECODE_SITES),
+                  dict(sites=cs.ARCTIC_DECODE_SITES, seed=6),
+                  dict(sites=cs.BUCKETED_DECODE_SITES, seed=8,
+                       rows=cs.BUCKETED_ROWS)]
+        for kw in decode if "k3" in kernels else ():
+            for r in cs.check_decode(torch, dm, prepare_linear, **kw):
+                rows[f"K3 {r['site']}"] = r
+        if "k5" in kernels:
+            for r in cs.check_grouped(torch, sm, L, token_quantize):
+                rows[f"K5 {r['site']}"] = r
+            torch.cuda.empty_cache()
+        if "k7" in kernels:
+            gen = torch.Generator(device="cuda").manual_seed(9)
+            for r in cs.check_int8_gemm(torch, im, gen):
+                rows[f"K7 {r['site']}"] = r
     return {site: {k: r[k] for k in KEYS if k in r} for site, r in
             rows.items()}
 
@@ -78,7 +101,7 @@ def main() -> None:
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=DIR")
     ap.add_argument("--order", default="old,new,new,old")
-    ap.add_argument("--kernels", default="k2,k4")
+    ap.add_argument("--kernels", default="k2,k3,k4,k7")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--build", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where K2's (``stamp_int_gemm``) and K4's (``paged_ragged_attention``)
-time goes: each timed replayed from CUDA graphs at the serve path's shapes,
-built whole and built with one part taken out, or with its launch plan
-changed.
+"""Where K2's (``stamp_int_gemm``), K3's (``stamp_decode_matmul``), K4's
+(``paged_ragged_attention``) and K7's (``int8_matmul``) time goes: each
+timed replayed from CUDA graphs at the serve path's (or the kernel
+library's) shapes, built whole and built with one part taken out, or with
+its launch plan changed.
 
     python3 tools/probe.py k2 [--src DIR] [--fill 1,2,3]
+    python3 tools/probe.py k3 [--src DIR] [--fill 1,2,3]
     python3 tools/probe.py k4 [--splits 1,2,3,5] [--cuts]
     python3 tools/probe.py k4 --sweep [--splits 1,2,4,8]
+    python3 tools/probe.py k7 [--src DIR]
 
 A cut variant is the kernel's source (``src/repro_torch/csrc``, of this
 checkout or of the checkout at ``DIR``) with one statement deleted; its
@@ -34,6 +37,20 @@ ragged long lengths, and the serve path's short spans in tables of 32768
 positions, each with the plan's split and with each count of slots of
 ``--splits`` forced: where splitting a span pays.
 
+k3: variants without the weight stream past the prologue's stages
+(``no_loads``), the rows' min / max pass (``no_minmax``), the stages'
+quantizing (``no_quantize``), the dp4a products (``no_products``) or the
+join of the ranges and the epilogue (``no_join``); rings of 4 and 8 stages
+(``stages4``, ``stages8``; right output).  Sites: llama3-8b's decode qkv,
+gate and down at 8 rows and the bucketed qkv at 4.  ``--fill``: the whole
+build with the plan sized for that many blocks an SM (2 is the plan's own).
+
+k7: variants without the tensor core products (``no_mma``), the B
+transpose (``no_transpose``: the tile's stores and its Σqw) or the
+epilogue (``no_epilogue``); a TMA ring of 3 stages
+(``stages3``) and a transposed ring of 2 (``bt2``) (right output).  Sites:
+the smoke's ``GEMM_SHAPES`` (qkv, gate and down at 2048 rows, qkv at 8).
+
 Prints one ``[probe]`` line a site and run; needs a CUDA card.
 """
 
@@ -58,6 +75,28 @@ K2_VARIANTS = {
     # not cuts: the ring of cp.async stages made one shorter or longer
     "stages3": ("constexpr int STAGES = 4;", "constexpr int STAGES = 3;"),
     "stages5": ("constexpr int STAGES = 4;", "constexpr int STAGES = 5;"),
+}
+K3_VARIANTS = {
+    "full": (),
+    "no_loads": ("issue(kt + STAGES - 1);",),
+    "no_minmax": ("for (int v0 = part; v0 < nv; v0 += tpr * U) {",
+                  "for (int v0 = part; v0 < 0; v0 += tpr * U) {"),
+    "no_quantize": ("if (kt + 1 < KT) quantize(kt + 1);",),
+    "no_products": ("acc[m][j] = __dp4a(xq[q], col[q][j], acc[m][j]);",),
+    "no_join": ("for (int i = tid; i < rows * (w1 - w0); i += THREADS) {",
+                "for (int i = tid; i < 0; i += THREADS) {"),
+    "stages4": ("constexpr int STAGES = 6;", "constexpr int STAGES = 4;"),
+    "stages8": ("constexpr int STAGES = 6;", "constexpr int STAGES = 8;"),
+}
+K7_VARIANTS = {
+    "full": (),
+    "no_mma": ("wgmma_s8(acc, desc_a(",),
+    "no_transpose": ("for (int it = 0; it < 2; ++it) {",
+                     "for (int it = 0; it < 0; ++it) {"),
+    "no_epilogue": ("for (int hf = 0; hf < 2; ++hf) {",
+                    "for (int hf = 0; hf < 0; ++hf) {"),
+    "stages3": ("constexpr int STAGES = 4;", "constexpr int STAGES = 3;"),
+    "bt2": ("constexpr int BT_STAGES = 3;", "constexpr int BT_STAGES = 2;"),
 }
 K4_CUTS = {
     "no_gather": ("issue_tile<HD>(a, span, kvh, t0 + TILE, kv1,",),
@@ -177,6 +216,72 @@ def probe_k2(torch, cs, args) -> None:
         torch.cuda.empty_cache()
 
 
+def probe_k3(torch, cs, args) -> None:
+    from repro_torch.core.stamp import prepare_linear
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import decode_matmul as dm
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sites = [(name, cs.SLOTS, k, n) for name, k, n in cs.LLAMA_DECODE_SITES]
+    sites.append(("bucketed_qkv", cs.BUCKETED_ROWS, cs.D,
+                  cs.D + 2 * cs.KV_HEADS * cs.HD))
+    fills = [int(f) for f in args.fill.split(",")] if args.fill else []
+    libs = {} if fills else build_variants(cs, kcuda, "decode_matmul",
+                                           args.src, K3_VARIANTS,
+                                           dm._SIGNATURES)
+    own = dm.FILL
+    for site, rows, k, n in sites:
+        x = torch.randn((rows, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        p = prepare_linear(torch.randn((k, n), generator=gen, device="cuda")
+                           / math.sqrt(k))
+
+        def call():
+            return dm.stamp_decode_matmul(x, p.qw, p.sw, p.zw, p.qw_sum,
+                                          out_dtype=torch.bfloat16)
+
+        want = dm.decode_matmul_plain(x, p.qw, p.sw, p.zw, p.qw_sum,
+                                      out_dtype=torch.bfloat16)
+        for fill in fills:
+            dm.FILL = fill
+            plan = dm.decode_plan(rows, k, n, 132)
+            cs.close_bf16(torch, call(), want)
+            ms = cs.timed_graph(torch, call, 200)
+            print(f"[probe] k3 {site} fill={fill} n_split={plan['n_split']}"
+                  f": graph_ms={ms:.4f}")
+        dm.FILL = own
+        for label, lib in libs.items():
+            kcuda._LIBS["decode_matmul"] = lib
+            ms = cs.timed_graph(torch, call, 200)
+            print(f"[probe] k3 {site} {label}: graph_ms={ms:.4f}")
+
+
+def probe_k7(torch, cs, args) -> None:
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import int8_gemm as im
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    libs = build_variants(cs, kcuda, "int8_matmul", args.src, K7_VARIANTS,
+                          im._SIGNATURES)
+    for site, m, k, n in cs.GEMM_SHAPES:
+        qx = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        qw = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        sx, zx = torch.rand((m, 1), device="cuda"), torch.zeros(
+            (m, 1), device="cuda")
+        sw, zw = torch.rand((1, n), device="cuda"), torch.zeros(
+            (1, n), device="cuda")
+
+        def call():
+            return im.int8_matmul(qx, qw, sx, zx, sw, zw)
+
+        for label, lib in libs.items():
+            kcuda._LIBS["int8_matmul"] = lib
+            ms = cs.timed_graph(torch, call, 20, per_graph=10)
+            print(f"[probe] k7 {site} {label}: graph_ms={ms:.4f}")
+        del qx, qw
+        torch.cuda.empty_cache()
+
+
 def probe_k4(torch, cs, args) -> None:
     from repro_torch.kernels import cuda as kcuda
     from repro_torch.kernels import paged_attention as pa
@@ -271,7 +376,7 @@ def sweep_k4(torch, cs, pa, PKV, KV, forced, splits, own_plan) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("k2", "k4"))
+    ap.add_argument("kernel", choices=("k2", "k3", "k4", "k7"))
     ap.add_argument("--src", type=Path, default=ROOT)
     ap.add_argument("--fill", default="")
     ap.add_argument("--splits", default="1,2,3,5")
@@ -286,7 +391,8 @@ def main() -> None:
         cs.fail("the probe needs a CUDA card")
     print(cs.nvidia_smi())
     with torch.inference_mode():
-        (probe_k2 if args.kernel == "k2" else probe_k4)(torch, cs, args)
+        {"k2": probe_k2, "k3": probe_k3, "k4": probe_k4,
+         "k7": probe_k7}[args.kernel](torch, cs, args)
 
 
 if __name__ == "__main__":
