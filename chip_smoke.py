@@ -10,11 +10,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (one ``nvcc`` per source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
    serve paths' shapes and time kernel, plain version and a library
-   yardstick with CUDA events (K4 and K3 over 200 calls, K2 over 50 and K7
-   over 20, each also replayed from CUDA graphs, ``graph_ms``: the device's
-   time without the wrapper's host cost; the int8 GEMMs' yardstick
-   ``torch._int_mm`` on the row-major weight and on its column-major copy,
-   the faster counting, also replayed for K2, K3 and K7): llama3-8b
+   yardstick with CUDA events (K4, K3 and K6 over 200 calls, K2 over 50 and
+   K7, K9 and K10 over 20, each also replayed from CUDA graphs,
+   ``graph_ms``: the device's time without the wrapper's host cost; the
+   int8 GEMMs' yardstick ``torch._int_mm`` on the row-major weight and on
+   its column-major copy, the faster counting, also replayed for K2, K3 and
+   K7, as are SDPA beside K4 and K6 and the dense transform matmul beside
+   K9 and K10): llama3-8b
    (C = 128 rows x 2 prefill spans, 8 decode slots, 32/8 heads, head_dim
    128, page size 4; for the bucketed engine K1/K2 at 4 and 8 spans of 128
    rows and K3 at 4 rows at every decode site), and Arctic-480B (K1/K2 and
@@ -565,7 +567,8 @@ def check_cache_attention(torch, ca, ref, KV, heads=HEADS, hd=HD,
     ``CACHE_SHAPES``, ``heads`` query heads over 8 of head_dim ``hd``
     (llama's 32 and 128 unless given), and its times beside the byte bound
     of the tokens each row's length needs and an SDPA yardstick over
-    pre-dequantized bf16 K/V (one call, boolean length mask)."""
+    pre-dequantized bf16 K/V (one call, boolean length mask), each eager
+    and replayed from CUDA graphs."""
     out = []
     for name, b, cap, hi, lengths in CACHE_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(7)
@@ -583,8 +586,12 @@ def check_cache_attention(torch, ca, ref, KV, heads=HEADS, hd=HD,
         qb = q.bfloat16()
         err = close_bf16(torch, ca.cache_decode_attention(entry, qb, length),
                          ref.cache_decode_attention_ref(entry, qb, length))
-        ms = timed(torch, lambda: ca.cache_decode_attention(entry, qb,
-                                                            length), iters=20)
+
+        def call():
+            return ca.cache_decode_attention(entry, qb, length)
+
+        ms = timed(torch, call, iters=20)
+        gms = timed_graph(torch, call, K4_ITERS)
         pms = timed(torch, lambda: ref.cache_decode_attention_ref(
             entry, qb, length), iters=3)
         kd, vd = (t.transpose(1, 2).contiguous() for t in
@@ -593,8 +600,12 @@ def check_cache_attention(torch, ca, ref, KV, heads=HEADS, hd=HD,
                 length[:, None])[:, None, None, :]
         qs = qb.transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = timed(torch, lambda: sdpa(qs, kd, vd, attn_mask=mask,
-                                        enable_gqa=True), iters=20)
+
+        def library():
+            return sdpa(qs, kd, vd, attn_mask=mask, enable_gqa=True)
+
+        lib = timed(torch, library, iters=20)
+        lib_gms = timed_graph(torch, library, K4_ITERS)
         del kd, vd
         # each row reads the hi and lo codes, scales and zero points of the
         # tokens its length covers; q in, out (bf16)
@@ -607,7 +618,8 @@ def check_cache_attention(torch, ca, ref, KV, heads=HEADS, hd=HD,
         bd = bound(nbytes, flops, BF16_FLOPS_PER_S)
         out.append(dict(site=f"{prefix}{name} (b={b}, cap={cap}, hi={hi})",
                         max_abs_err=err, ms=ms, plain_ms=pms,
-                        bound_ms=bd[0], bound_by=bd[1], library_ms=lib))
+                        bound_ms=bd[0], bound_by=bd[1], library_ms=lib,
+                        graph_ms=gms, library_graph_ms=lib_gms))
         del entry
     return out
 
@@ -640,37 +652,73 @@ def _dense(torch, fn, n: int, dtype):
     return fn(torch.eye(n, device="cuda")[None])[0].to(dtype)
 
 
+def transform_rows(torch, gen, kernel, plain, name, shape, arg, flops,
+                   dense, left=True, exact_bf16=False):
+    """One transform site: the kernel exact against its plain version in
+    f32, and in bf16 exact (``exact_bf16``) or within one bf16 step; times
+    of kernel (eager and replayed from CUDA graphs), plain version and the
+    dense transform matmul ``dense()`` (``None``: no yardstick) beside the
+    bound of one HBM read and write."""
+    x32 = torch.randn(shape, generator=gen, device="cuda")
+    exact(torch, kernel(x32, *arg), plain(x32, *arg), f"{name} (f32)")
+    x = x32.bfloat16()
+    del x32
+    got, want = kernel(x, *arg), plain(x, *arg)
+    if exact_bf16:
+        exact(torch, got, want, f"{name} (bf16)")
+        err = 0.0
+    else:
+        err = close_bf16(torch, got, want)
+
+    def call():
+        return kernel(x, *arg)
+
+    ms = timed(torch, call, iters=20)
+    gms = timed_graph(torch, call, 20, per_graph=10)
+    pms = timed(torch, lambda: plain(x, *arg), iters=3)
+    lib = lib_gms = None
+    if dense is not None:
+        mat = dense()
+
+        def library():
+            return torch.matmul(mat, x) if left else torch.matmul(x, mat)
+
+        lib = timed(torch, library, iters=10)
+        lib_gms = timed_graph(torch, library, 20, per_graph=10)
+        del mat
+    b = bound(2 * x.numel() * 2, flops * x.numel(), F32_FLOPS_PER_S)
+    return dict(site=name, max_abs_err=err, ms=ms, plain_ms=pms,
+                bound_ms=b[0], bound_by=b[1], library_ms=lib, graph_ms=gms,
+                library_graph_ms=lib_gms)
+
+
+def check_wht(torch, wt, gen) -> list:
+    """K10 at ``WHT_SHAPES``, bit-equal to its plain version in f32 and
+    bf16, beside the dense Hadamard ``torch.matmul`` (up to ``MAX_DENSE``)."""
+    rows = []
+    for name, shape, axis in WHT_SHAPES:
+        n = shape[-1] if axis == -1 else shape[1]
+        dense = None if n > MAX_DENSE else (
+            lambda: _dense(torch, lambda e: wt.wht_plain(e, -2), n,
+                           torch.bfloat16))
+        rows.append(transform_rows(
+            torch, gen, wt.walsh_hadamard, wt.wht_plain, name, shape,
+            (axis,), int(math.log2(n)) + 1, dense, left=axis == -2,
+            exact_bf16=True))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_standalone(torch, hd, wt, qp, im) -> dict:
     """K7-K10 against their plain versions at llama3-8b's widths: K7 exact
-    (f32 and bf16 outputs), K8's codes, scales and zero points exact, K9 and
-    K10 exact in f32 and within one bf16 step in bf16; times of kernel,
-    plain version and library yardstick (a dense transform matmul, or
-    ``torch._int_mm`` with rows padded to 32; none for K8) beside the
-    bound of one HBM read and write (or the int8 peak)."""
+    (f32 and bf16 outputs), K8's codes, scales and zero points exact, K9
+    exact in f32 and within one bf16 step in bf16, K10 exact in both; times
+    of kernel, plain version and library yardstick (a dense transform
+    matmul, or ``torch._int_mm`` with rows padded to 32; none for K8)
+    beside the bound of one HBM read and write (or the int8 peak)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = {"haar_dwt_seq": [], "walsh_hadamard": [], "quantize_pack": [],
             "int8_matmul": []}
-
-    def transform_rows(kernel, plain, name, shape, arg, flops, dense,
-                       left=True):
-        x32 = torch.randn(shape, generator=gen, device="cuda")
-        exact(torch, kernel(x32, *arg), plain(x32, *arg), f"{name} (f32)")
-        x = x32.bfloat16()
-        del x32
-        got, want = kernel(x, *arg), plain(x, *arg)
-        err = close_bf16(torch, got, want)
-        ms = timed(torch, lambda: kernel(x, *arg), iters=20)
-        pms = timed(torch, lambda: plain(x, *arg), iters=3)
-        lib = None
-        if dense is not None:
-            mat = dense()
-            lib = timed(torch, lambda: torch.matmul(mat, x) if left
-                        else torch.matmul(x, mat), iters=10)
-            del mat
-        b = bound(2 * x.numel() * 2, flops * x.numel(), F32_FLOPS_PER_S)
-        return dict(site=name, max_abs_err=err, ms=ms, plain_ms=pms,
-                    bound_ms=b[0], bound_by=b[1], library_ms=lib)
-
     for name, shape, levels in DWT_SHAPES:
         for inverse in (False, True):
             s = shape[1]
@@ -680,19 +728,11 @@ def check_standalone(torch, hd, wt, qp, im) -> dict:
             # a pair's add, subtract and two scales over a band halving
             # each level: < 4 flops a value
             rows["haar_dwt_seq"].append(transform_rows(
-                hd.haar_dwt_seq, hd.haar_dwt_plain,
+                torch, gen, hd.haar_dwt_seq, hd.haar_dwt_plain,
                 f"{name}_{'inverse' if inverse else 'forward'}", shape,
                 (levels, inverse), 4, dense))
             torch.cuda.empty_cache()
-    for name, shape, axis in WHT_SHAPES:
-        n = shape[-1] if axis == -1 else shape[1]
-        dense = None if n > MAX_DENSE else (
-            lambda: _dense(torch, lambda e: wt.wht_plain(e, -2), n,
-                           torch.bfloat16))
-        rows["walsh_hadamard"].append(transform_rows(
-            wt.walsh_hadamard, wt.wht_plain, name, shape, (axis,),
-            int(math.log2(n)) + 1, dense, left=axis == -2))
-        torch.cuda.empty_cache()
+    rows["walsh_hadamard"] = check_wht(torch, wt, gen)
     for name, shape, bits in PACK_SHAPES:
         x = (torch.randn(shape, generator=gen, device="cuda") * 3).bfloat16()
         for g, w in zip(qp.quantize_pack(x, bits), qp.quant_pack_plain(x,

@@ -7,20 +7,40 @@
 //
 // Bound on the H100: bytes.  A stage is one add and one subtract per pair,
 // log2(n) stages in all, so one read and one write of the activation is
-// what it needs.  Design: a block stages a tile of w transform vectors (w
-// columns in sequence mode, w rows in feature mode) of T elements each in
-// dynamic shared memory as f32 (padded to T + 1 a vector so both the
-// loads and the stages avoid bank conflicts), runs the tile's stages with a
-// barrier between them, scales if asked and writes the tile out (tile
-// lengths and widths are powers of two, so indices take shifts and masks,
-// no integer division).  When the whole transform fits one tile (T = n)
-// that is one launch.  Otherwise the
-// wrapper splits the stages over two launches through an f32 scratch: the
-// stages h < 2^a on contiguous tiles of 2^a elements, then the stages
-// h >= 2^a on tiles of elements spaced 2^a apart.  Each stage is the same
-// elementwise a + b, a - b on the same values, so every output's tree of
-// additions is the plain version's and the result is bit for bit its
-// result.  No multiply meets an add, so no FMA contraction can occur.
+// what it needs.
+//
+// Design.  A launch transforms tiles of T elements spaced `istride` apart
+// along the transform axis; a block takes one tile of `w` vectors.  Its
+// values move in chunks of four elements that sit side by side in memory:
+// four neighbouring vectors when the vectors are contiguous (sequence mode:
+// four columns, 8 bytes of bf16 or 16 of f32), or four neighbouring
+// elements of one vector (feature mode), whose two stages run inside the
+// chunk first.  The tile is P chunk positions by Q chunk columns.  A thread
+// holds R = 8 chunks whose positions differ in three bits and runs those
+// three stages in registers; the tile then passes once through shared
+// memory (f32, XOR-swizzled so that no access conflicts) and the threads
+// take the next three bits.  So a transform of 2^11 positions is four
+// register phases with three exchanges in between, where a stage a barrier
+// was eleven.  The first phase reads its chunks from device memory and the
+// last writes them scaled, so each element is read and written once.
+// Every stage is the same elementwise a + b, a - b on the same values in
+// stage order, so every output's tree of additions is the plain version's
+// and the result is bit for bit its result; no multiply meets an add, so
+// no FMA contraction can occur.
+//
+// A sequence tile of 1024 positions or more is one block an SM, so that
+// the loads still overlap the work: the blocks are persistent, and while a
+// block runs a tile's later phases, cp.async copies its next tile's raw rows
+// (32-byte pieces, rows permuted so that the first phase's reads do not
+// conflict) into a staging buffer beside the f32 tile.  Its later phases
+// take four bits (16 chunks a thread, 512 threads), so 2^11 positions need
+// two exchanges.
+//
+// Where a tile would not fit a block (long sequences), the wrapper splits
+// the stages over two launches through an f32 scratch: the stages h < T1
+// on tiles of T1 contiguous positions, then the stages h >= T1 on tiles of
+// positions spaced T1 apart.  Vectors of fewer than four elements in feature
+// mode take a plain one-thread-a-vector kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -29,7 +49,8 @@
 
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int MAX_THREADS = 1024;
+constexpr int STAGED_THREADS = 512;   // 128 registers: 16 chunks a thread
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -46,57 +67,286 @@ __device__ __forceinline__ void st(__half* p, float v) {
   *p = __float2half_rn(v);
 }
 
-// Tile (blockIdx.y, blockIdx.x, blockIdx.z): batch z, tile t = y along the
-// transform axis, vectors [x*w, x*w + w).  Element j of vector c of tile t
-// sits at  z*bstride + (t*tmul + j*istride)*ax + c*vstride.  T and w are
-// powers of two, so every index splits with shifts and masks.
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(THREADS)
-wht_tile_kernel(const TI* x, TO* y, long long bstride, int T, int tmul,
-                int istride, long long ax, int nvec, long long vstride, int w,
-                int scale, float r) {
-  extern __shared__ float sm[];
-  const int P = T + 1;
-  const int lg_t = __ffs(T) - 1, lg_w = __ffs(w) - 1;
-  const int c0 = blockIdx.x * w;
-  const long long base = (long long)blockIdx.z * bstride +
-                         (long long)blockIdx.y * tmul * ax;
-  const long long jstep = (long long)istride * ax;
-  // sequence mode reads rows of w contiguous columns; feature mode reads
-  // each vector's T contiguous elements
-  const bool vec_fast = vstride == 1;
-  const int n = T << lg_w;
-  for (int e = threadIdx.x; e < n; e += THREADS) {
-    const int cc = vec_fast ? e & (w - 1) : e >> lg_t;
-    const int j = vec_fast ? e >> lg_w : e & (T - 1);
-    const int c = c0 + cc;
-    float v = 0.0f;
-    if (c < nvec) v = ld(x + base + j * jstep + c * vstride);
-    sm[cc * P + j] = v;
+// four contiguous elements (16-byte aligned in f32, 8-byte in 16 bits)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 ld4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void st4(__half* p, float4 v) {
+  __half2 a = __floats2half2_rn(v.x, v.y);
+  __half2 b = __floats2half2_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+// row p of a staged tile of rb-byte rows: rows eight apart trade places
+// within 128 bytes, so that the first phase (rows p, p + 8, ... across a
+// quarter or half warp) reads distinct banks
+__device__ __forceinline__ int staged_row(int p, int rb) {
+  return rb >= 128 ? p : p ^ ((p >> 3) & (128 / rb - 1));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+// one tile of one launch; element (c, i) of the block's tile lies at
+// base + c * vstride + i * pstride, vectors c in [c0, c0 + w)
+struct Tile {
+  long long base;       // the tile's first element (batch, tile, c0)
+  long long vstride;    // between vectors
+  long long pstride;    // between positions of the tile
+  int c0, nvec;         // the block's first vector, vectors in all
+  int lp, lq;           // log2 of chunk positions P and chunk columns Q
+  bool chunk_pos;       // chunks along the positions (feature mode)
+};
+
+// shared-memory slot of chunk u = p * Q + q: the low three bits are XORed
+// with higher bits so that the first phase's writes (chunk positions eight
+// apart across the threads) and every later phase's accesses (eight
+// neighbouring chunks a quarter warp) hit distinct banks
+__device__ __forceinline__ int slot(int u, int lq) {
+  const int mask = lq >= 3 ? 0 : 7 & ~((1 << lq) - 1);
+  return u ^ ((u >> 3) & mask);
+}
+
+// global offset of chunk (p, q) and whether it holds data
+__device__ __forceinline__ long long chunk_off(const Tile& t, int p, int q,
+                                               bool& ok) {
+  if (t.chunk_pos) {
+    const int c = t.c0 + q;
+    ok = c < t.nvec;
+    return t.base + (long long)c * t.vstride + (long long)(4 * p) * t.pstride;
   }
-  const int half = T >> 1, lg_half = lg_t - 1;
-  int lg_h = 0;
-  for (int h = 1; h < T; h <<= 1, ++lg_h) {
-    __syncthreads();
-    for (int p = threadIdx.x; p < (half << lg_w); p += THREADS) {
-      const int cc = p >> lg_half, q = p & (half - 1);
-      const int i = ((q >> lg_h) << (lg_h + 1)) | (q & (h - 1));
-      float* col = sm + cc * P;
-      const float a = col[i], b = col[i + h];
-      col[i] = a + b;
-      col[i + h] = a - b;
+  const int c = t.c0 + 4 * q;
+  ok = c < t.nvec;
+  return t.base + (long long)c * t.vstride + (long long)p * t.pstride;
+}
+
+// one register phase: every thread's items hold R = 2^gb chunks whose
+// positions differ in bits [s, s + gb); `first` reads them from device
+// memory (STAGED: from the staged rows `stage`), `last` scales and writes
+// them there, the others go through shared memory
+template <int R, bool STAGED, typename TI, typename TO>
+__device__ __forceinline__ void phase(const Tile& t, const TI* x, TO* y,
+                                      float4* sm, const uint8_t* stage,
+                                      int rb, int s, bool first, bool last,
+                                      bool scale, float r) {
+  constexpr int GB = R == 1 ? 0 : R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : 4;
+  const int Q = 1 << t.lq;
+  const int items = 1 << (t.lp + t.lq - GB);
+  const int low = (1 << s) - 1;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int q = it & (Q - 1), o = it >> t.lq;
+    const int pb = (o & low) | ((o >> s) << (s + GB));
+    float4 v[R];
+    if (first) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if constexpr (STAGED) {
+          v[j] = ld4(reinterpret_cast<const TI*>(
+              stage + staged_row(pb + j, rb) * rb) + 4 * q);
+        } else {
+          bool ok;
+          const long long off = chunk_off(t, pb + (j << s), q, ok);
+          v[j] = ok ? ld4(x + off) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      if (t.chunk_pos) {     // the stages h = 1, 2 inside each chunk
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const float4 a = v[j];
+          const float4 b = make_float4(a.x + a.y, a.x - a.y, a.z + a.w,
+                                       a.z - a.w);
+          v[j] = make_float4(b.x + b.z, b.y + b.w, b.x - b.z, b.y - b.w);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        v[j] = sm[slot(((pb + (j << s)) << t.lq) | q, t.lq)];
+    }
+#pragma unroll
+    for (int h = 1; h < R; h <<= 1)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if (!(j & h)) {
+          const float4 a = v[j], b = v[j + h];
+          v[j] = add4(a, b);
+          v[j + h] = sub4(a, b);
+        }
+    if (last) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        bool ok;
+        const long long off = chunk_off(t, pb + (j << s), q, ok);
+        float4 a = v[j];
+        if (scale) a = make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
+        if (ok) st4(y + off, a);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        sm[slot(((pb + (j << s)) << t.lq) | q, t.lq)] = v[j];
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < n; e += THREADS) {
-    const int cc = vec_fast ? e & (w - 1) : e >> lg_t;
-    const int j = vec_fast ? e >> lg_w : e & (T - 1);
-    const int c = c0 + cc;
-    if (c >= nvec) continue;
-    float v = sm[cc * P + j];
-    if (scale) v = v * r;
-    st(y + base + j * jstep + c * vstride, v);
+}
+
+// a tile's register phases, three position bits the first and at most
+// GMAX each later one; after_first() runs once the first phase is done with
+// its source
+template <bool STAGED, int GMAX, typename TI, typename TO, typename F>
+__device__ __forceinline__ void run_tile(const Tile& t, const TI* x, TO* y,
+                                         float4* sm, const uint8_t* stage,
+                                         int rb, int scale, float r,
+                                         F after_first) {
+  int s = 0;
+  bool first = true;
+  while (true) {
+    const int gb = min(t.lp - s, first ? 3 : GMAX);
+    const bool last = s + gb >= t.lp;
+    if (!first) __syncthreads();
+#define WHT_PHASE(R) phase<R, STAGED>(t, x, y, sm, stage, rb, s, first, \
+                                      last, scale, r)
+    switch (gb) {
+      case 0: WHT_PHASE(1); break;
+      case 1: WHT_PHASE(2); break;
+      case 2: WHT_PHASE(4); break;
+      case 3: WHT_PHASE(8); break;
+      default:
+        if constexpr (GMAX > 3) WHT_PHASE(16);
+        break;
+    }
+#undef WHT_PHASE
+    if (first) after_first();
+    if (last) break;
+    s += gb;
+    first = false;
   }
+}
+
+// Block (x, y, z): vectors [x*w, x*w + w) of tile y of batch z; element j of
+// vector c of tile t lies at z*bstride + c*vstride + (t*tmul + j*istride)*ax.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(MAX_THREADS)
+wht_kernel(const TI* x, TO* y, long long bstride, int lt, int tmul,
+           int istride, long long ax, int nvec, long long vstride, int w,
+           int scale, float r) {
+  extern __shared__ float4 sm[];
+  Tile t;
+  t.chunk_pos = istride * ax == 1;
+  t.c0 = blockIdx.x * w;
+  t.nvec = nvec;
+  t.vstride = vstride;
+  t.pstride = (long long)istride * ax;
+  t.base = (long long)blockIdx.z * bstride +
+           (long long)blockIdx.y * tmul * ax;
+  const int lw = __ffs(w) - 1;
+  t.lp = t.chunk_pos ? lt - 2 : lt;
+  t.lq = t.chunk_pos ? lw : lw - 2;
+  run_tile<false, 3>(t, x, y, sm, nullptr, 0, scale, r, [] {});
+}
+
+// Sequence mode, one whole-sequence tile (positions ax apart) of w columns
+// a block, the blocks persistent over the (column block, batch) tiles; the
+// next tile's rows are staged by cp.async while this one's later phases run;
+// the later phases take four position bits (16 chunks a thread)
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(STAGED_THREADS)
+wht_staged_kernel(const TI* x, TO* y, int batches, long long bstride, int lt,
+                  long long ax, int nvec, int w, int scale, float r) {
+  extern __shared__ float4 sm[];
+  const int T = 1 << lt, lw = __ffs(w) - 1;
+  const int rb = w * (int)sizeof(TI);        // a staged row's bytes
+  uint8_t* stage = reinterpret_cast<uint8_t*>(sm + (T << lw) / 4);
+  const int ncx = (nvec + w - 1) / w, total = ncx * batches;
+  auto fetch = [&](int tau) {
+    const int c0 = (tau % ncx) * w;
+    const TI* src = x + (long long)(tau / ncx) * bstride + c0;
+    constexpr int PER = 16 / sizeof(TI);     // elements a 16-byte piece
+    const int pieces = rb / 16;
+    for (int i = threadIdx.x; i < T * pieces; i += blockDim.x) {
+      const int p = i / pieces, h = i % pieces;
+      if (c0 + h * PER < nvec)
+        cp_async16(stage + staged_row(p, rb) * rb + 16 * h,
+                   src + p * ax + h * PER);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  int tau = blockIdx.x;
+  if (tau < total) fetch(tau);
+  for (; tau < total; tau += gridDim.x) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    Tile t;
+    t.chunk_pos = false;
+    t.c0 = (tau % ncx) * w;
+    t.nvec = nvec;
+    t.vstride = 1;
+    t.pstride = ax;
+    t.base = (long long)(tau / ncx) * bstride;
+    t.lp = lt;
+    t.lq = lw - 2;
+    const int next = tau + gridDim.x;
+    run_tile<true, 4>(t, x, y, sm, stage, rb, scale, r, [&] {
+      __syncthreads();                       // the staged rows are read
+      if (next < total) fetch(next);
+    });
+  }
+}
+
+// feature mode with vectors of 1 or 2 elements: one thread a vector
+template <typename TI, typename TO>
+__global__ void wht_short_kernel(const TI* x, TO* y, int T, int nvec,
+                                 int scale, float r) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= nvec) return;
+  float a = ld(x + (long long)c * T), b = 0.0f;
+  if (T == 2) {
+    b = ld(x + (long long)c * T + 1);
+    const float s = a + b, d = a - b;
+    a = s;
+    b = d;
+  }
+  if (scale) {
+    a = a * r;
+    b = b * r;
+  }
+  st(y + (long long)c * T, a);
+  if (T == 2) st(y + (long long)c * T + 1, b);
 }
 
 template <typename TI, typename TO>
@@ -104,15 +354,68 @@ cudaError_t launch(const void* x, void* y, int batches, long long bstride,
                    int T, int tiles, int tmul, int istride, long long ax,
                    int nvec, long long vstride, int w, int scale, float r,
                    cudaStream_t st) {
-  const size_t smem = sizeof(float) * (size_t)w * (T + 1);
-  cudaError_t e = cudaFuncSetAttribute(
-      wht_tile_kernel<TI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const TI* xi = static_cast<const TI*>(x);
+  TO* yo = static_cast<TO*>(y);
+  // positions side by side in memory: feature mode
+  const bool chunk_pos = (long long)istride * ax == 1;
+  if (chunk_pos && T < 4) {
+    if (tiles != 1 || batches != 1 || vstride != T)
+      return cudaErrorInvalidValue;
+    wht_short_kernel<TI, TO><<<(nvec + 255) / 256, 256, 0, st>>>(
+        xi, yo, T, nvec, scale, r);
+    return cudaGetLastError();
+  }
+  // chunks along the vectors need whole chunks of them; chunk positions
+  // P and chunk columns Q; a thread holds 8 chunks in the widest phase
+  if (!chunk_pos && (vstride != 1 || w < 4 || nvec % 4))
+    return cudaErrorInvalidValue;
+  const long long chunks = (long long)T * w / 4;
+  const long long threads = chunks >= 8 ? chunks / 8 : 1;
+  const int nthr = (int)(threads < 32 ? 32
+                         : threads > MAX_THREADS ? MAX_THREADS : threads);
+  const int lt = __builtin_ctz(T);
+  const int lp = chunk_pos ? lt - 2 : lt;
+  const size_t staged_smem = (size_t)chunks * sizeof(float4) +
+                             (size_t)T * w * sizeof(TI);
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return e;
+  if (!chunk_pos && tiles == 1 && T >= 1024 &&
+      (w * (int)sizeof(TI)) % 16 == 0 && staged_smem <= (size_t)optin) {
+    // a whole-sequence tile: persistent blocks staging the next tile
+    const size_t smem = staged_smem;
+    e = cudaFuncSetAttribute(wht_staged_kernel<TI, TO>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    const int sthr = nthr < STAGED_THREADS ? nthr : STAGED_THREADS;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, wht_staged_kernel<TI, TO>, sthr, smem)) != cudaSuccess)
+      return e;
+    const long long total = (long long)((nvec + w - 1) / w) * batches;
+    const int grid = (int)(total < (long long)sms * per_sm
+                               ? total : (long long)sms * per_sm);
+    if (grid < 1) return cudaErrorInvalidConfiguration;
+    wht_staged_kernel<TI, TO><<<grid, sthr, smem, st>>>(
+        xi, yo, batches, bstride, lt, ax, nvec, w, scale, r);
+    return cudaGetLastError();
+  }
+  // one phase (at most 3 position bits) needs no shared memory
+  const size_t smem = lp > 3 ? (size_t)chunks * sizeof(float4) : 0;
+  e = cudaFuncSetAttribute(
+      wht_kernel<TI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((nvec + w - 1) / w, tiles, batches);
-  wht_tile_kernel<TI, TO><<<grid, THREADS, smem, st>>>(
-      static_cast<const TI*>(x), static_cast<TO*>(y), bstride, T, tmul,
-      istride, ax, nvec, vstride, w, scale, r);
+  wht_kernel<TI, TO><<<grid, nthr, smem, st>>>(
+      xi, yo, bstride, lt, tmul, istride, ax, nvec, vstride, w, scale, r);
   return cudaGetLastError();
 }
 

@@ -5,10 +5,12 @@ Replaces ``cache_decode_attention`` (``src/repro/kernels/cache_attention.py``),
 the bucketed engine's fused decode attention: one query token per batch row
 over that row's int8 hi region (the first ``hi_len`` tokens) and int4-nibble
 lo region, with f16 per-(token, head) scale / zero point, under the mask
-``pos < length``.  The kernel splits each row's positions over several blocks
-(flash-decoding) and merges their partial softmax states in a second launch,
-in a fixed order; its plain version (``ref.cache_decode_attention_ref``)
-keeps the Pallas kernel's block order, so the two agree to rounding.
+``pos < length``.  The kernel splits each row's tiles (``TILE_HI`` hi and
+``TILE_LO`` lo positions) into ranges over several blocks (flash-decoding,
+:func:`launch_plan`) and merges their partial softmax states in a second
+launch, in a fixed order; its plain version
+(``ref.cache_decode_attention_ref``) keeps the Pallas kernel's block order,
+so the two agree to rounding.
 
 Bound on the H100: bytes — the packed cache, its scales and zero points.
 """
@@ -27,12 +29,34 @@ _MAX_REP = 8
 _CODES = ("k_hi", "v_hi", "k_lo", "v_lo")
 _PARAMS = ("k_scale", "k_zp", "v_scale", "v_zp")
 
+TILE_HI, TILE_LO = 64, 128   # a tile's positions (csrc/cache_attention.cu)
+FILL = 8                     # blocks an SM the ranges aim at, rows full
+
 _SIGNATURES = {
     "cache_attention": [cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
                         cuda.INT, cuda.INT, cuda.INT, *([cuda.VP] * 8),
                         cuda.VP, cuda.INT, cuda.INT, cuda.FLT, cuda.VP,
-                        cuda.VP, cuda.VP],
-    "cache_attention_split_len": [cuda.INT, cuda.INT, cuda.INT, cuda.INT]}
+                        cuda.VP, cuda.VP]}
+
+
+def tiles(hi_len: int, s_total: int) -> list:
+    """A row's tiles as (first position, positions, hi): the hi region in
+    tiles of ``TILE_HI``, then the lo region in tiles of ``TILE_LO``."""
+    out = [(t, min(TILE_HI, hi_len - t), True)
+           for t in range(0, hi_len, TILE_HI)]
+    return out + [(t, min(TILE_LO, s_total - t), False)
+                  for t in range(hi_len, s_total, TILE_LO)]
+
+
+def launch_plan(b: int, g: int, hi_len: int, s_total: int,
+                sms: int) -> tuple:
+    """``(tiles_per_range, n_split)``: each (b, g) row's tiles cut into
+    ``n_split`` ranges of whole tiles, enough for about ``FILL`` blocks on
+    each of the card's ``sms`` multiprocessors when every row is full."""
+    n_tiles = len(tiles(hi_len, s_total))
+    splits = min(max(-(-FILL * max(sms, 1) // (b * g)), 1), n_tiles)
+    per = -(-n_tiles // splits)
+    return per, -(-n_tiles // per)
 
 
 def cache_decode_attention(entry: dict, q: torch.Tensor,
@@ -64,16 +88,15 @@ def cache_decode_attention(entry: dict, q: torch.Tensor,
         raise ValueError("K6 reads cache codes in 16-byte vectors: the "
                          "buffers must be 16-byte aligned")
     lib = cuda.library("cache_attention", _SIGNATURES)
-    sms = cuda.sm_count(q.device)
-    split_len = lib.cache_attention_split_len(b, g, s_total, sms)
-    n_split = -(-s_total // split_len)
+    per, n_split = launch_plan(b, g, hi_len, s_total,
+                               cuda.sm_count(q.device))
     part = torch.empty((b, g, n_split, h // g, hd + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty_like(q)
     err = lib.cache_attention(
         q.data_ptr(), int(q.dtype == torch.bfloat16), b, h, g, hd, hi_len,
         s_total, *(t.data_ptr() for t in bufs), length.data_ptr(),
-        split_len, n_split, 1.0 / math.sqrt(hd),
+        per, n_split, 1.0 / math.sqrt(hd),
         part.data_ptr(), out.data_ptr(), cuda.stream_ptr(q))
     cuda.check(err, "cache_attention")
     cache_decode_attention.launches += 1

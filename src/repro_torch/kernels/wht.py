@@ -4,11 +4,12 @@ source: ``csrc/wht.cu``).
 Replaces ``wht_pallas`` (``src/repro/kernels/wht.py``): the WHT of ``(b,
 s, d)`` activations along the sequence (axis -2) or the features (axis
 -1), butterfly stages h = 1, 2, 4, … in f32 and one scale by f32(1/√n).
-A K10 block stages a tile of ``w`` transform vectors of ``T`` elements in
-shared memory and runs the tile's stages.  Where the whole transform fits
-one tile that is one launch; otherwise :func:`plan` splits the stages over
-two launches through an f32 scratch (see the source note), which keeps
-every output's tree of additions the plain version's.
+A K10 block takes a tile of ``w`` transform vectors of ``T`` elements and
+runs its stages three or four at a time in registers, with one pass through
+shared memory between them (see the source note).  Where the whole
+transform fits one tile that is one launch; otherwise :func:`plan` splits
+the stages over two launches through an f32 scratch, which keeps every
+output's tree of additions the plain version's.
 
 Bound on the H100: bytes — one read and one write of the activation (two of
 each, through the scratch, when split).
@@ -26,11 +27,12 @@ from repro_torch.core.quant import recip32
 from repro_torch.kernels import cuda
 
 BLOCK = 128                  # the reference's tile: its shape checks
-SMEM_BYTES = 200 * 1024      # one block's f32 tile at most
-SEQ_SMEM_BYTES = 100 * 1024  # sequence tiles: two or more blocks an SM
-FEATURE_SMEM_BYTES = 48 * 1024   # feature tiles: smaller, more blocks an SM
-MAX_WIDTH = 32               # transform vectors a block
-MIN_SEQ_WIDTH = 8            # sequence mode: columns one row read covers
+SMEM_BYTES = 64 * 1024       # a block's f32 tile: three blocks an SM
+MAX_SMEM_BYTES = 128 * 1024  # one block an SM, for the longest tiles
+SECTOR = 32                  # bytes a row piece of a sequence tile spans
+FEATURE_TILE = 32768         # the longest feature vector one launch takes
+THREADS = 256                # a block's threads aimed at (1024 at most)
+MAX_WIDTH = 1024             # vectors a block
 
 _SIGNATURES = {"wht_tiles": [
     cuda.VP, cuda.INT, cuda.VP, cuda.INT, cuda.INT, cuda.LL, cuda.INT,
@@ -39,44 +41,81 @@ _SIGNATURES = {"wht_tiles": [
 
 
 class Launch(NamedTuple):
-    """One K10 launch: ``tiles`` tiles of ``T`` elements along the
-    transform axis, tile ``t``'s element ``j`` at index ``t·tmul +
-    j·istride``, ``w`` vectors a block; ``last`` scales and writes the
-    output (else an f32 scratch)."""
+    """One K10 launch: ``batches`` batches ``bstride`` elements apart, each
+    ``tiles`` tiles of ``T`` elements along the transform axis over ``nvec``
+    vectors ``vstride`` apart, ``w`` vectors a block; element ``j`` of
+    vector ``c`` of tile ``t`` at ``c·vstride + (t·tmul + j·istride)·ax``.
+    ``last`` scales and writes the output (else an f32 scratch)."""
+    batches: int
+    bstride: int
     T: int
     tiles: int
     tmul: int
     istride: int
+    ax: int
+    nvec: int
+    vstride: int
     w: int
     last: bool
 
 
-def _width(t: int, budget: int) -> int:
-    """The most vectors (a power of two, at most ``MAX_WIDTH``) whose
-    padded f32 tiles of ``t`` elements fit ``budget`` bytes; 0 if none."""
-    fit = budget // (4 * (t + 1))
-    return min(1 << (fit.bit_length() - 1), MAX_WIDTH) if fit else 0
+def _pow2_floor(v: int) -> int:
+    return 1 << (max(v, 1).bit_length() - 1)
 
 
-def plan(n: int, feature: bool) -> list:
-    """K10's launches for a transform of length ``n`` (a power of two):
-    one whole-vector tile where it fits (sequence mode: at least
-    ``MIN_SEQ_WIDTH`` columns), as many vectors as a smaller budget allows
-    so that several blocks share an SM, else the stages ``h < 2^a`` on
-    contiguous tiles of ``2^a`` and the stages ``h >= 2^a`` on tiles spaced
-    ``2^a`` apart, ``a = ceil(log2(n) / 2)``."""
-    wmin = 1 if feature else MIN_SEQ_WIDTH
-    w = _width(n, FEATURE_SMEM_BYTES if feature else SEQ_SMEM_BYTES)
-    if w < wmin:
-        w = _width(n, SMEM_BYTES)
-    if w >= wmin:
-        return [Launch(n, 1, n, 1, w, True)]
-    t1 = 1 << ((n.bit_length() - 1 + 1) // 2)
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(v - 1, 0).bit_length()
+
+
+def _width(t: int, nvec: int, chunk_vectors: bool, itemsize: int = 4
+           ) -> int:
+    """Vectors a block for tiles of ``t`` elements: as many as keep the f32
+    tile within ``SMEM_BYTES`` (no shared memory is used when the stages
+    all fit one thread's registers: at most 8 chunk positions) and give a
+    block about ``THREADS`` threads of 8 chunks, but no more than the
+    vectors there are.  Sequence tiles hold whole chunks of 4 vectors and
+    rows of at least ``SECTOR`` bytes of ``itemsize``-byte elements, so
+    that no write leaves part of a memory sector to another block."""
+    positions = t if chunk_vectors else t // 4
+    # a block's threads: positions · (w / 4 or w) chunks over 8 a thread
+    w = (32 if chunk_vectors else 8) * THREADS // positions
+    if positions > 8:
+        w = min(w, SMEM_BYTES // (4 * t))
+    w = min(_pow2_floor(w), MAX_WIDTH, _pow2_ceil(nvec))
+    return max(w, 4, SECTOR // itemsize) if chunk_vectors else max(w, 1)
+
+
+def plan(b: int, s: int, d: int, seq: bool, itemsize: int = 4) -> list:
+    """K10's launches for a (b, s, d) transform along the sequence (``seq``)
+    or the features of ``itemsize``-byte elements; the transformed length
+    ``n`` is a power of two.  One launch where one tile holds a whole
+    vector (sequence mode: ``SECTOR``-byte rows within ``MAX_SMEM_BYTES``);
+    else the stages h < T1 on contiguous tiles of T1 and the stages h >= T1
+    on tiles spaced T1 apart (sequence mode: the longest tile that fits;
+    feature mode: T1 = 16384, the second launch seeing each row as (n / T1,
+    T1) and transforming its sequence axis)."""
+    if seq:
+        n, geo = s, (b, s * d, d, d, 1)
+        longest = MAX_SMEM_BYTES // (4 * max(SECTOR // itemsize, 4))
+        if n <= longest:
+            return [Launch(*geo[:2], n, 1, n, 1, *geo[2:],
+                           _width(n, d, True, itemsize), True)]
+        t1 = longest
+        t2 = n // t1
+        return [Launch(*geo[:2], t1, t2, t1, 1, *geo[2:],
+                       _width(t1, d, True, 4), False),
+                Launch(*geo[:2], t2, t1, 1, t1, *geo[2:],
+                       _width(t2, d, True, itemsize), True)]
+    n, rows = d, b * s
+    if n < 4 or n <= FEATURE_TILE:
+        w = 1 if n < 4 else _width(n, rows, False)
+        return [Launch(1, 0, n, 1, n, 1, 1, rows, n, w, True)]
+    t1 = 16384
     t2 = n // t1
-    w1, w2 = _width(t1, SMEM_BYTES), _width(t2, SMEM_BYTES)
-    if min(w1, w2) < wmin:
-        raise ValueError(f"K10 transforms up to 2^24 elements, not {n}")
-    return [Launch(t1, t2, t1, 1, w1, False), Launch(t2, t1, 1, t1, w2, True)]
+    return [Launch(1, 0, t1, 1, t1, 1, 1, rows * t2, t1,
+                   _width(t1, rows * t2, False), False),
+            Launch(rows, n, t2, 1, t2, 1, t1, t1, 1,
+                   _width(t2, t1, True, itemsize), True)]
 
 
 def _is_seq(axis: int) -> bool:
@@ -115,21 +154,21 @@ def walsh_hadamard(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
         return wht_plain(x, axis)
     code = cuda.float_code(x.dtype, "K10")
     cuda.require_cuda(x)
-    # sequence mode: vectors are the d columns of each batch; feature
-    # mode: the b·s rows
-    geo = (b, s * d, d, d, 1) if seq else (1, 0, 1, b * s, d)
-    batches, bstride, ax, nvec, vstride = geo
+    if x.data_ptr() % 16:          # chunks load as 8- or 16-byte vectors
+        x = x.clone()
+    if not x.numel():
+        return torch.empty_like(x)
     lib = cuda.library("wht", _SIGNATURES)
-    r = recip32(math.sqrt(n)) if n else 1.0
+    r = recip32(math.sqrt(n))
     src, src_code = x, code
-    for st in plan(max(n, 1), not seq):
+    for st in plan(b, s, d, seq, x.element_size()):
         dst = torch.empty(x.shape, dtype=x.dtype if st.last else torch.float32,
                           device=x.device)
         dst_code = code if st.last else 0
         err = lib.wht_tiles(
-            src.data_ptr(), src_code, dst.data_ptr(), dst_code, batches,
-            bstride, st.T, st.tiles, st.tmul, st.istride, ax, nvec, vstride,
-            st.w, int(st.last), r, cuda.stream_ptr(x))
+            src.data_ptr(), src_code, dst.data_ptr(), dst_code, st.batches,
+            st.bstride, st.T, st.tiles, st.tmul, st.istride, st.ax, st.nvec,
+            st.vstride, st.w, int(st.last), r, cuda.stream_ptr(x))
         cuda.check(err, "walsh_hadamard")
         walsh_hadamard.launches += 1
         src, src_code = dst, dst_code

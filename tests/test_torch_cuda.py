@@ -444,9 +444,43 @@ def test_cuda_cache_attention_head_dim_112(card, shape, lengths):
     _cache_case_matches(card, shape, lengths)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_cuda_cache_attention_head_dims_and_groups(card, hd, rep):
+    """K6 at every head_dim and 1, 4 or 8 query heads a kv head, held as
+    above, at lengths of 1, on the hi region's edge (64, 65), on a range's
+    (192, 193: with 64 rows on a 132-SM card the ranges hold two tiles) and
+    on a tile's inside a range (320, 321), and the whole cache."""
+    _cache_case_matches(card, (8, 4000, 8, hd, 8 * rep, 64),
+                        (1, 64, 65, 192, 193, 320, 321, 4000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,rep", [(128, 4), (112, 8)])
+def test_cuda_cache_attention_far_zero_points(card, hd, rep):
+    """K6 where every K token lies near 50, so its zero points (about
+    -140 at 4 bits, -2500 at 8) fall outside the [-128, 127] the kernel
+    takes off the codes in bf16 and the remainder goes through f32, held
+    as above (queries at a tenth of the usual scale keep the scores' shared
+    part near 5, as in real attention)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    b, s, g = 3, 700, 2
+    k = torch.randn((b, s, g, hd), generator=gen, device=card) + 50.0
+    v = torch.randn((b, s, g, hd), generator=gen, device=card)
+    q = 0.1 * torch.randn((b, 1, g * rep, hd), generator=gen, device=card)
+    entry = TKV.quantize_full(k, v, TKV.KVCacheConfig(num_hi=64))
+    assert float(entry["k_zp"].float().min()) < -128
+    _cache_entry_matches(card, entry, q, (1, 65, 700))
+
+
 def _cache_case_matches(card, shape, lengths):
     b, s, g, hd, h, num_hi = shape
     entry, q = cache_case(b, s, g, hd, h, num_hi, card)
+    _cache_entry_matches(card, entry, q, lengths)
+
+
+def _cache_entry_matches(card, entry, q, lengths):
     length = torch.tensor(lengths, dtype=torch.int32, device=card)
     got = TCA.cache_decode_attention(entry, q, length)
     want = TR.cache_decode_attention_ref(entry, q, length)
@@ -506,6 +540,27 @@ def test_cuda_wht_matches_plain(card, dtype, shape, axis):
     each stage is the same add and subtract on the same values, split or
     not, and the f32(1/sqrt n) scale comes once at the end."""
     gen = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=card).to(dtype)
+    got = TW.walsh_hadamard(x, axis)
+    want = TW.wht_plain(x, axis)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("n", [2, 32, 256, 2048, 16384])
+def test_cuda_wht_lengths(card, dtype, axis, n):
+    """K10 bit-equal to its plain version at transform lengths from 2 (one
+    register phase, or one thread a vector) to 16384 (split along the
+    sequence), with 384 columns or 5 and 100 rows: not whole blocks."""
+    if axis == -2:
+        shape = (2 if n < 16384 else 1, n, 384)
+    else:
+        shape = (3, 5, n) if n < 256 else (1, 100, n)
+    gen = torch.Generator(device=card).manual_seed(n)
     x = torch.randn(shape, generator=gen, device=card).to(dtype)
     got = TW.walsh_hadamard(x, axis)
     want = TW.wht_plain(x, axis)

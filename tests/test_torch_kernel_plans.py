@@ -5,7 +5,9 @@ blocks and the in-order merge of the ranges' ``(m, l, acc)`` partials; K2's
 split of K into ranges whose int32 products are summed before the
 epilogue; K3's row tiles and cluster of K ranges (shared min / max, int32
 products joined, then the epilogue); K7's tiles, k stages, transposed B
-layout and operand sums.  The CUDA kernels follow these plans
+layout and operand sums; K6's tiles and ranges, its factored scores and
+weights merged in order, its MMA fragments' feature order and its
+shared-memory layout.  The CUDA kernels follow these plans
 (``launch_plan``, ``gemm_plan`` and ``decode_plan`` size their launches);
 ``tests/test_torch_cuda.py`` holds the kernels themselves against the plain
 versions on a card."""
@@ -17,9 +19,11 @@ import pytest
 import torch
 
 from repro_torch.core import stamp as TS
+from repro_torch.kernels import cache_attention as TCA
 from repro_torch.kernels import decode_matmul as TDM
 from repro_torch.kernels import int8_gemm as TIM
 from repro_torch.kernels import paged_attention as TPA
+from repro_torch.kernels import ref as TR
 from repro_torch.kernels import stamp_matmul as TSM
 from repro_torch.kernels.ref import span_kv
 from repro_torch.serving import kvcache as TKV
@@ -669,3 +673,251 @@ def test_k7_tile_plan_is_the_plain_int8_matmul(m, k, n):
                        qx.sum(dim=1, dtype=torch.int32))
     assert torch.equal(wp.sum(dim=0, dtype=torch.int32)[:n],
                        qw.sum(dim=0, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K6: decode attention over the contiguous packed cache
+# ---------------------------------------------------------------------------
+
+
+def k6_k_feature(hdp: int, tig: int, kk: int, j: int) -> int:
+    """``k_feature`` of ``csrc/cache_attention.cu``: the feature in slot
+    ``j`` (b0 low, b0 high, b1 low, b1 high) of k-step ``kk`` of lane group
+    ``tig`` in the score MMAs."""
+    beta = (j & 1) if hdp == 16 else 4 * (kk >> 1) + (kk & 1) + 2 * (j & 1)
+    return tig * (hdp // 4) + 2 * beta + (j >> 1)
+
+
+def nibble_pair(w: int, sh: int) -> tuple:
+    """The kernel's ``nibbles(w, sh)``: the nibbles at bits [sh, sh + 4)
+    and [sh + 16, sh + 20), as (128 + x) − 128 in bf16 (exact)."""
+    return (w >> sh) & 0xF, (w >> (sh + 16)) & 0xF
+
+
+def k6_score_codes(row: np.ndarray, hdp: int, tig: int, kk: int) -> list:
+    """Lane group ``tig``'s four codes of k-step ``kk`` read from a lo row
+    (``hdp / 2`` bytes) as the kernel reads them: its ``hdp / 8`` bytes as
+    words (at head_dim 16 its two bytes spread to bytes 0 and 2)."""
+    nb = hdp // 8
+    chunk = row[tig * nb:(tig + 1) * nb]
+    if hdp == 16:
+        words = [int(chunk[0]) | (int(chunk[1]) << 16)]
+    else:
+        words = [int.from_bytes(bytes(chunk[4 * i:4 * i + 4]), "little")
+                 for i in range(nb // 4)]
+    x = words[kk >> 1]
+    b0 = nibble_pair(x, 12 if kk & 1 else 4)
+    b1 = nibble_pair(x, 8 if kk & 1 else 0)
+    return [b0[0], b0[1], b1[0], b1[1]]
+
+
+def k6_value_codes(rows: np.ndarray, hdp: int, gid: int, tig: int,
+                   mt: int) -> list:
+    """Lane (gid, tig)'s A fragment of m-tile ``mt`` in the value MMAs, as
+    pairs (k = 2 tig, 2 tig + 1 and 2 tig + 8, 2 tig + 9) for rows gid and
+    gid + 8: bytes ``KS·gid + mt`` of positions tig, tig + 4, tig + 8 and
+    tig + 12 through the kernel's ``__byte_perm``."""
+    ks = hdp // 16
+    w = [int.from_bytes(bytes(rows[tig + 4 * i, ks * gid:ks * gid + ks]),
+                        "little") for i in range(4)]
+    sel = (mt & 3) | ((4 + (mt & 3)) << 8)
+    v01 = byte_perm(w[0] >> (32 * (mt >> 2)) & 0xFFFFFFFF,
+                    w[1] >> (32 * (mt >> 2)) & 0xFFFFFFFF, sel)
+    v23 = byte_perm(w[2] >> (32 * (mt >> 2)) & 0xFFFFFFFF,
+                    w[3] >> (32 * (mt >> 2)) & 0xFFFFFFFF, sel)
+    return [nibble_pair(v01, 4), nibble_pair(v01, 0), nibble_pair(v23, 4),
+            nibble_pair(v23, 0)]
+
+
+def _nibble(rows: np.ndarray, pos: int, f: int) -> int:
+    byte = int(rows[pos, f // 2])
+    return byte >> 4 if f % 2 == 0 else byte & 0xF
+
+
+@pytest.mark.parametrize("hdp", [16, 32, 64, 128])
+def test_k6_score_fragments_read_every_feature_once(hdp):
+    """The score MMAs' feature order: over the 4 lane groups and hdp/16
+    k-steps the slots cover every feature once, and the codes a lane
+    extracts from its words (masks and shifts into bf16's mantissa) are
+    the row's nibbles at exactly those features, so codes and queries
+    (loaded by ``k_feature``) meet feature by feature."""
+    rng = np.random.default_rng(hdp)
+    row = rng.integers(0, 256, hdp // 2, dtype=np.uint8)
+    seen = []
+    for tig in range(4):
+        for kk in range(hdp // 16):
+            feats = [k6_k_feature(hdp, tig, kk, j) for j in range(4)]
+            seen += feats
+            assert k6_score_codes(row, hdp, tig, kk) == [
+                _nibble(row[None], 0, f) for f in feats]
+    assert sorted(seen) == list(range(hdp))
+
+
+@pytest.mark.parametrize("hdp", [16, 32, 64, 128])
+def test_k6_value_fragments_are_the_transposed_codes(hdp):
+    """The value MMAs' A fragments: lane (gid, tig) of m-tile mt holds
+    feature 2 (KS gid + mt) (row gid) and the one after it (row gid + 8)
+    at positions tig, tig + 4 (k = 2 tig, 2 tig + 1) and tig + 8, tig + 12
+    (k = 2 tig + 8, 2 tig + 9): the m-tiles' rows cover every feature
+    once, and k matches the score accumulators' positions."""
+    rng = np.random.default_rng(hdp + 1)
+    rows = rng.integers(0, 256, (16, hdp // 2), dtype=np.uint8)
+    ks = hdp // 16
+    feats = set()
+    for gid in range(8):
+        for mt in range(ks):
+            f = 2 * (ks * gid + mt)
+            feats |= {f, f + 1}
+            for tig in range(4):
+                a0, a1, a2, a3 = k6_value_codes(rows, hdp, gid, tig, mt)
+                p = [tig, tig + 4, tig + 8, tig + 12]
+                assert a0 == (_nibble(rows, p[0], f), _nibble(rows, p[1], f))
+                assert a1 == (_nibble(rows, p[0], f + 1),
+                              _nibble(rows, p[1], f + 1))
+                assert a2 == (_nibble(rows, p[2], f), _nibble(rows, p[3], f))
+                assert a3 == (_nibble(rows, p[2], f + 1),
+                              _nibble(rows, p[3], f + 1))
+    assert feats == set(range(hdp))
+    # the score accumulators d[nt][e] of lane (gid, tig) hold positions
+    # 8 nt + tig + 4 e, the value MMAs' k = 2 tig + 8 nt + e
+    for nt in range(2):
+        for c in range(8):
+            pos = 8 * nt + (c >> 1) + 4 * (c & 1)
+            tig, e = c >> 1, c & 1
+            assert pos == 8 * nt + tig + 4 * e
+
+
+def k6_lo_off(r: int, c: int) -> int:
+    """``lo_off<128>``: byte offset of 8-byte chunk c of row r of a lo
+    tile at head_dim 128 (rows of 64 bytes)."""
+    return 64 * (r ^ ((r >> 2) & 1)) + 8 * (c ^ (((r >> 1) & 1) << 2))
+
+
+def test_k6_lo_tile_layout_has_no_bank_conflict():
+    """Head_dim 128's lo tile (128 rows of 64 bytes): every chunk has its
+    own place, the score reads (16 bytes of rows p0 + 8 nt + gid / 2 +
+    4 (gid % 2), a quarter warp a wavefront) and the value reads (8 bytes
+    of rows p0 + tig + 4 i, a half warp a wavefront) each cover a
+    wavefront's 128 bytes without two lanes on one bank."""
+    offs = {k6_lo_off(r, c) for r in range(128) for c in range(8)}
+    assert offs == set(range(0, 128 * 64, 8))
+    for p0 in range(0, 128, 16):
+        for nt in range(2):
+            for quarter in range(4):
+                banks = []
+                for lane in range(8 * quarter, 8 * quarter + 8):
+                    gid, tig = lane >> 2, lane & 3
+                    r = p0 + 8 * nt + (gid >> 1) + 4 * (gid & 1)
+                    o = k6_lo_off(r, 2 * tig)
+                    assert k6_lo_off(r, 2 * tig + 1) == o + 8
+                    banks += [(o // 4 + i) % 32 for i in range(4)]
+                assert len(set(banks)) == 32
+        for i in range(4):
+            for half in range(2):
+                banks = []
+                for lane in range(16 * half, 16 * half + 16):
+                    gid, tig = lane >> 2, lane & 3
+                    o = k6_lo_off(p0 + tig + 4 * i, gid)
+                    banks += [(o // 4 + k) % 32 for k in range(2)]
+                assert len(set(banks)) == 32
+
+
+@pytest.mark.parametrize("b,g,hi,s,sms,per,n_split", [
+    (4, 8, 4, 136, 132, 1, 3),          # the bucketed serve shape
+    (8, 8, 64, 32768, 132, 16, 17),     # the long cache
+    (1, 1, 0, 100, 132, 1, 1),
+    (2, 2, 300, 2000, 132, 1, 19),
+    (64, 8, 8, 4096, 132, 11, 3)])
+def test_k6_launch_plan(b, g, hi, s, sms, per, n_split):
+    """K6's ranges: whole tiles of ``TILE_HI`` hi and ``TILE_LO`` lo
+    positions (no tile holds both), about ``FILL`` blocks an SM when every
+    row is full, the ranges covering the row's tiles."""
+    tiles = TCA.tiles(hi, s)
+    assert sum(n for _, n, _ in tiles) == s
+    assert all(t + n <= hi for t, n, is_hi in tiles if is_hi)
+    assert all(t >= hi for t, n, is_hi in tiles if not is_hi)
+    assert TCA.launch_plan(b, g, hi, s, sms) == (per, n_split)
+    assert (n_split - 1) * per < len(tiles) <= n_split * per
+
+
+def k6_range_run(entry, q, length, sms=132):
+    """K6 on the CPU in its own terms: each range of the launch plan scores
+    its tiles' valid positions on the codes minus their zero points cut to
+    whole numbers in [-128, 127] (zc), s = sk (Σ (c − zkc) q − (zk − zkc)
+    Σ q) / √hd, keeps (m, l, Σ w (c − zvc) − Σ w (zv − zvc)) with w = p
+    sv, and the ranges merge in order as the second launch does; then
+    o / max(l, 1e-30)."""
+    b, _, h, hd = q.shape
+    hi, g = entry["k_hi"].shape[1], entry["k_hi"].shape[2]
+    s_total = entry["k_scale"].shape[1]
+    rep = h // g
+    per, n_split = TCA.launch_plan(b, g, hi, s_total, sms)
+    tiles = TCA.tiles(hi, s_total)
+    codes = {n: torch.cat([entry[f"{n}_hi"].float(),
+                           TKV.unpack_nibbles(entry[f"{n}_lo"])], dim=1)
+             for n in ("k", "v")}
+
+    def cut(z):
+        return torch.clamp(torch.round(z), -128.0, 127.0)
+
+    out = torch.empty((b, h, hd))
+    for bi in range(b):
+        n = int(length.reshape(-1).expand(b)[bi])
+        for kvh in range(g):
+            qg = q[bi, 0, kvh * rep:(kvh + 1) * rep].float()
+            parts = []
+            for sp in range(n_split):
+                pos = [p for t, cnt, _ in tiles[sp * per:(sp + 1) * per]
+                       for p in range(t, t + cnt) if p < n]
+                if not pos:
+                    parts.append((torch.full((rep,), NEG), torch.zeros(rep),
+                                  torch.zeros(rep, hd)))
+                    continue
+                ix = torch.tensor(pos)
+                ck, cv = codes["k"][bi, ix, kvh], codes["v"][bi, ix, kvh]
+                sk, zk, sv, zv = (entry[f"{a}"][bi, ix, kvh].float() for a in
+                                  ("k_scale", "k_zp", "v_scale", "v_zp"))
+                sc = ((qg @ (ck - cut(zk)[:, None]).T)
+                      - (zk - cut(zk)) * qg.sum(-1, keepdim=True)) * sk \
+                    / math.sqrt(hd)
+                m = sc.amax(-1)
+                p = torch.exp(sc - m[:, None])
+                w = p * sv
+                parts.append((m, p.sum(-1),
+                              w @ (cv - cut(zv)[:, None])
+                              - (w * (zv - cut(zv))).sum(-1)[:, None]))
+            mm = torch.stack([m for m, _, _ in parts]).amax(0)
+            l = sum(l * torch.exp(m - mm) for m, l, _ in parts)
+            o = sum(o * torch.exp(m - mm)[:, None] for m, _, o in parts)
+            out[bi, kvh * rep:(kvh + 1) * rep] = o / torch.clamp_min(
+                l, 1e-30)[:, None]
+    return out.reshape(b, 1, h, hd)
+
+
+@pytest.mark.parametrize("shape,lengths,sms,shift", [
+    ((4, 136, 8, 32, 32, 4), (97, 98, 99, 100), 132, 0.0),
+    ((2, 600, 2, 16, 8, 70), (1, 600), 132, 0.0),
+    ((3, 400, 2, 112, 16, 64), (64, 65, 300), 2, 0.0),
+    ((1, 300, 1, 64, 4, 1), (300,), 1, 0.0),
+    # zero points far outside [-128, 127]: K and V all near 200
+    ((2, 200, 2, 32, 8, 8), (9, 200), 132, 200.0)])
+def test_k6_ranges_merge_to_the_plain_attention(shape, lengths, sms, shift):
+    """K6's factored scores and weights (codes minus cut zero points times
+    queries, the zero points' remainder times Σ q; weights times codes
+    minus cut zero points, minus the weights times the remainder) over the
+    launch plan's ranges, merged in order, give the plain version's
+    attention within 1e-5 of its largest magnitude: lengths of 1, at the
+    hi boundary, inside and past the first range, and zero points that the
+    cut leaves a remainder."""
+    b, s, g, hd, h, num_hi = shape
+    gen = torch.Generator().manual_seed(0)
+    k = torch.randn((b, s, g, hd), generator=gen) + shift
+    v = torch.randn((b, s, g, hd), generator=gen) + shift
+    q = torch.randn((b, 1, h, hd), generator=gen) / math.sqrt(hd)
+    entry = TKV.quantize_full(k, v, TKV.KVCacheConfig(num_hi=num_hi))
+    if shift:
+        assert float(entry["k_zp"].float().abs().max()) > 128
+    length = torch.tensor(lengths, dtype=torch.int32)
+    got = k6_range_run(entry, q, length, sms)
+    want = TR.cache_decode_attention_ref(entry, q, length)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

@@ -285,39 +285,83 @@ def test_wht_involution():
     np.testing.assert_allclose(y.numpy(), x.numpy(), atol=1e-4)
 
 
-def _run_plan(x: torch.Tensor, plan) -> torch.Tensor:
-    """K10's launches on (vectors, n) rows, in PyTorch: each launch gathers
-    its tiles (element j of tile t at index t·tmul + j·istride), runs the
-    tile's stages as the plain WHT does, and scatters them back; the last
-    scales by f32(1/√n)."""
-    n = x.shape[-1]
+def _run_plan(x: torch.Tensor, plan, n: int) -> torch.Tensor:
+    """K10's launches on a (b, s, d) tensor, in PyTorch: each launch gathers
+    its tiles through its address formula (element j of vector c of tile t
+    of batch z at z·bstride + c·vstride + (t·tmul + j·istride)·ax), runs
+    the tile's stages as the plain WHT does, and scatters them back; the
+    last scales by f32(1/√n).  Every launch covers each element once."""
+    flat = x.reshape(-1)
     for st in plan:
-        idx = (torch.arange(st.tiles)[:, None] * st.tmul
-               + torch.arange(st.T)[None, :] * st.istride)
-        tile = x[:, idx]                          # (vectors, tiles, T)
+        idx = (torch.arange(st.batches)[:, None, None, None] * st.bstride
+               + torch.arange(st.nvec)[None, :, None, None] * st.vstride
+               + (torch.arange(st.tiles)[None, None, :, None] * st.tmul
+                  + torch.arange(st.T)[None, None, None, :] * st.istride)
+               * st.ax)
+        assert torch.equal(idx.flatten().sort().values,
+                           torch.arange(flat.numel()))
+        tile = flat[idx]                      # (batches, nvec, tiles, T)
         h = 1
         while h < st.T:
             sh = tile.reshape(*tile.shape[:-1], st.T // (2 * h), 2, h)
             a, b = sh[..., 0, :], sh[..., 1, :]
             tile = torch.stack([a + b, a - b], dim=-2).reshape(tile.shape)
             h *= 2
-        x = x.clone()
-        x[:, idx] = tile
+        flat = flat.clone()
+        flat[idx] = tile
         if st.last:
-            x = x * torch.tensor(recip32(np.sqrt(n)))
-    return x
+            flat = flat * torch.tensor(recip32(np.sqrt(n)))
+    return flat.reshape(x.shape)
 
 
 @pytest.mark.parametrize("n,feature", [(8192, False), (16384, False),
                                        (2048, False), (1 << 16, True)])
 def test_wht_split_plan_is_the_plain_transform(n, feature):
-    """Where a sequence column does not fit one block, K10 splits the stages
-    over two launches through an f32 scratch; run in PyTorch, the plan is
-    the plain transform bit for bit."""
-    plan = TW.plan(n, feature)
+    """Where a vector does not fit one block, K10 splits the stages over
+    two launches through an f32 scratch (a long feature vector's second
+    launch sees each row as (n / T1, T1) and transforms its sequence
+    axis); run in PyTorch, the plan is the plain transform bit for bit."""
+    shape = (3, 1, n) if feature else (1, n, 8)
+    plan = TW.plan(*shape, seq=not feature, itemsize=2)
     assert len(plan) == (1 if n == 2048 else 2)
-    x = torch.from_numpy(rand((3, n), seed=6))
-    assert torch.equal(_run_plan(x, plan), T.wht(x, axis=-1))
+    x = torch.from_numpy(rand(shape, seed=6))
+    axis = -1 if feature else -2
+    assert torch.equal(_run_plan(x, plan, n), T.wht(x, axis=axis))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape,axis", [
+    ((2, 2, 128), -2), ((2, 32, 128), -2), ((1, 256, 384), -2),
+    ((4, 2048, 4096), -2), ((1, 4096, 128), -2),
+    ((3, 5, 2), -1), ((2, 7, 4), -1), ((2, 3, 32), -1), ((1, 100, 256), -1),
+    ((4, 2048, 4096), -1), ((1, 3, 32768), -1)])
+def test_wht_launch_plan(shape, axis, itemsize):
+    """K10's plans for 16- and 32-bit elements: one launch whose tile is
+    the whole vector, bar a sequence longer than the longest tile (4096
+    positions in f32, 2048 in 16 bits: two launches); a sequence block
+    takes whole chunks of 4 columns and rows of at least 32 bytes of its
+    output, a feature block whole rows; a tile that needs more than one
+    register phase (over 8 chunk positions) fits ``SMEM_BYTES`` as f32
+    unless its width is that least one (then ``MAX_SMEM_BYTES``) or it is
+    one feature row; run in PyTorch, the plan is the plain transform bit
+    for bit."""
+    b, s, d = shape
+    seq = axis == -2
+    n = s if seq else d
+    plan = TW.plan(b, s, d, seq, itemsize)
+    split = seq and n * 4 * max(32 // itemsize, 4) > TW.MAX_SMEM_BYTES
+    assert len(plan) == (2 if split else 1) and plan[-1].last
+    for st in plan:
+        out = itemsize if st.last else 4
+        positions = st.T if seq else st.T // 4
+        if seq:
+            assert st.vstride == 1 and st.w % 4 == 0 and st.w * out >= 32
+        if positions > 8:
+            assert 4 * st.T * st.w <= TW.MAX_SMEM_BYTES
+            if not (seq and st.w * out == 32) and st.w > 1:
+                assert 4 * st.T * st.w <= TW.SMEM_BYTES
+    x = torch.from_numpy(rand(shape, seed=7))
+    assert torch.equal(_run_plan(x, plan, n), T.wht(x, axis=axis))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Same-card A/B of two builds of the port's K4 (paged attention), K2
-(STaMP int GEMM), K3 (decode matmul), K5 (grouped MoE GEMM) and K7
-(standalone int8 GEMM) kernels, at every site of theirs that
+(STaMP int GEMM), K3 (decode matmul), K5 (grouped MoE GEMM), K6 (decode
+attention over the contiguous packed cache), K7 (standalone int8 GEMM) and
+K10 (Walsh-Hadamard transform) kernels, at every site of theirs that
 ``chip_smoke.py`` times.
 
     python3 tools/ab_kernels.py --old DIR [--new DIR] [--tree NAME=DIR ...]
                                 [--order old,new,new,old]
-                                [--kernels k2,k3,k4,k5,k7]
+                                [--kernels k2,k3,k4,k5,k6,k7,k10]
 
 ``DIR`` is the root of a checkout (or of a ``git archive`` of one) holding
 ``src/repro_torch``; ``--new`` defaults to this checkout, and ``--tree``
@@ -14,7 +15,9 @@ names further trees for the order.  Each run of the order is its own
 process on the one card: it builds that tree's sources of the chosen
 kernels into its own build directory and runs this checkout's
 ``chip_smoke.check_stamp``, ``check_decode``, ``check_attention``,
-``check_grouped`` and ``check_int8_gemm`` with that tree's modules: the
+``check_grouped``, ``check_cache_attention`` (Kimi-K2's head_dim 112 rows
+only where that tree's K6 takes it), ``check_int8_gemm`` and ``check_wht``
+with that tree's modules: the
 same sites, checks against the plain versions and timings as the smoke
 (eager and replayed from CUDA graphs, beside the library yardsticks);
 ``--kernels`` keeps a subset.  Prints one ``[ab]`` line a run and site,
@@ -42,27 +45,33 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
     import torch
     import chip_smoke as cs
     from repro_torch.core.stamp import prepare_linear, token_quantize
+    from repro_torch.kernels import cache_attention as ca
     from repro_torch.kernels import cuda as kcuda
     from repro_torch.kernels import decode_matmul as dm
     from repro_torch.kernels import int8_gemm as im
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
     from repro_torch.kernels import stamp_matmul as sm
+    from repro_torch.kernels import wht as wt
     from repro_torch.models import layers as L
     from repro_torch.serving import kvcache as KV
     from repro_torch.serving import paged_kvcache as PKV
     if not torch.cuda.is_available():
         cs.fail("the A/B needs a CUDA card")
     assert Path(pa.__file__).resolve().is_relative_to(src.resolve())
+    want = set(kernels.split(","))
     kcuda.build([n for k, n in (("k2", "stamp_matmul"),
                                 ("k3", "decode_matmul"),
                                 ("k4", "paged_attention"),
                                 ("k5", "grouped_matmul"),
-                                ("k7", "int8_matmul")) if k in kernels])
+                                ("k6", "cache_attention"),
+                                ("k7", "int8_matmul"),
+                                ("k10", "wht")) if k in want])
     rows = {}
     with torch.inference_mode():
         for heads, prefix in ((cs.HEADS, ""), (cs.A_HEADS, "arctic_")) \
-                if "k4" in kernels else ():
+                if "k4" in want else ():
             for r in cs.check_attention(torch, pa, PKV, KV, heads=heads,
                                         prefix=prefix):
                 rows[f"K4 {r['site']}"] = r
@@ -70,7 +79,7 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
                                                   seed=5)]
         stamp += [dict(sites=cs.LLAMA_SITES, seed=7 + s, spans=s,
                        tag=f"bucketed{s}_") for s in cs.BUCKETED_SPANS]
-        for kw in stamp if "k2" in kernels else ():
+        for kw in stamp if "k2" in want else ():
             _, k2 = cs.check_stamp(torch, sm, ops, prepare_linear, **kw)
             for r in k2:
                 rows[f"K2 {r['site']}"] = r
@@ -79,17 +88,30 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
                   dict(sites=cs.ARCTIC_DECODE_SITES, seed=6),
                   dict(sites=cs.BUCKETED_DECODE_SITES, seed=8,
                        rows=cs.BUCKETED_ROWS)]
-        for kw in decode if "k3" in kernels else ():
+        for kw in decode if "k3" in want else ():
             for r in cs.check_decode(torch, dm, prepare_linear, **kw):
                 rows[f"K3 {r['site']}"] = r
-        if "k5" in kernels:
+        if "k5" in want:
             for r in cs.check_grouped(torch, sm, L, token_quantize):
                 rows[f"K5 {r['site']}"] = r
             torch.cuda.empty_cache()
-        if "k7" in kernels:
+        if "k6" in want:
+            shapes = [dict()]
+            if cs.KIMI_HD in ca._HEAD_DIMS:
+                shapes.append(dict(heads=cs.KIMI_HEADS, hd=cs.KIMI_HD,
+                                   prefix="kimi_"))
+            for kw in shapes:
+                for r in cs.check_cache_attention(torch, ca, ref, KV, **kw):
+                    rows[f"K6 {r['site']}"] = r
+            torch.cuda.empty_cache()
+        if "k7" in want:
             gen = torch.Generator(device="cuda").manual_seed(9)
             for r in cs.check_int8_gemm(torch, im, gen):
                 rows[f"K7 {r['site']}"] = r
+        if "k10" in want:
+            gen = torch.Generator(device="cuda").manual_seed(9)
+            for r in cs.check_wht(torch, wt, gen):
+                rows[f"K10 {r['site']}"] = r
     return {site: {k: r[k] for k in KEYS if k in r} for site, r in
             rows.items()}
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where K2's (``stamp_int_gemm``), K3's (``stamp_decode_matmul``), K4's
-(``paged_ragged_attention``) and K7's (``int8_matmul``) time goes: each
+(``paged_ragged_attention``), K6's (``cache_decode_attention``), K7's
+(``int8_matmul``) and K10's (``walsh_hadamard``) time goes: each
 timed replayed from CUDA graphs at the serve path's (or the kernel
 library's) shapes, built whole and built with one part taken out, or with
 its launch plan changed.
@@ -9,11 +10,16 @@ its launch plan changed.
     python3 tools/probe.py k3 [--src DIR] [--fill 1,2,3]
     python3 tools/probe.py k4 [--splits 1,2,3,5] [--cuts]
     python3 tools/probe.py k4 --sweep [--splits 1,2,4,8]
+    python3 tools/probe.py k6 [--src DIR]
     python3 tools/probe.py k7 [--src DIR]
+    python3 tools/probe.py k10 [--src DIR]
 
 A cut variant is the kernel's source (``src/repro_torch/csrc``, of this
-checkout or of the checkout at ``DIR``) with one statement deleted; its
-output is then wrong and only its time is read.
+checkout or of the checkout at ``DIR``, whose wrappers are then the ones
+imported) with one statement deleted or replaced; its output is then wrong
+and only its time is read.  Where a kernel's source was redesigned, each
+design has its own set of cuts, and the set whose statements the source
+holds is taken.
 
 k2: variants without the tensor core products (``no_mma``), the transpose
 of the B tile (``no_transpose``), the stage copies after the prologue's
@@ -50,6 +56,19 @@ transpose (``no_transpose``: the tile's stores and its Σqw) or the
 epilogue (``no_epilogue``); a TMA ring of 3 stages
 (``stages3``) and a transposed ring of 2 (``bt2``) (right output).  Sites:
 the smoke's ``GEMM_SHAPES`` (qkv, gate and down at 2048 rows, qkv at 8).
+
+k6: variants without the K scores, the V sum, the dequantizing of the
+codes, the stream of tiles past a range's first, the softmax or the merge
+launch, and (the tensor-core design) with the value MMAs on one bf16
+piece of the weights instead of three (the statements of each design are
+listed in ``K6_VARIANTS``).
+Sites: the smoke's ``CACHE_SHAPES`` (serve and long) at llama3-8b's and
+Kimi-K2's attention widths, bf16 queries.
+
+k10: variants without the butterfly stages, the loads or the stores (a
+store that never happens, so nothing is optimised away), and (the
+register-phase design) without the barriers between its phases.  Sites: the
+smoke's ``WHT_SHAPES`` in bf16.
 
 Prints one ``[probe]`` line a site and run; needs a CUDA card.
 """
@@ -98,6 +117,84 @@ K7_VARIANTS = {
     "stages3": ("constexpr int STAGES = 4;", "constexpr int STAGES = 3;"),
     "bt2": ("constexpr int BT_STAGES = 3;", "constexpr int BT_STAGES = 2;"),
 }
+# one set of cuts for each design of K6 and K10: the earlier one on CUDA
+# cores and shared-memory stages, the later one on registers and MMAs
+K6_VARIANTS = {
+    "cuda_cores": {
+        "full": (),
+        "no_kscore": ("score_row<HD>(hi, C.k_hi + hrow * HD,",),
+        "no_vsum": ("for (int j = grp; j < n && grp < NG; j += NG) {",
+                    "for (int j = grp; j < 0 && grp < NG; j += NG) {"),
+        "no_dequant": {"replace": [
+            ("((float)(byte >> 4) - zp) * sc", "(float)byte"),
+            ("((float)(byte & 0xFu) - zp) * sc", "(float)w[i]"),
+            ("(code_at(vcodes + j * SLOT, t0 + j < hi_len, d) -",
+             "(vsc[j] -")]},
+        "no_stream": {"replace": [("const int pos = t0 + tid;",
+                                   "const int pos = start + tid;")]},
+        "no_softmax": ("for (int r = warp; r < rep; r += THREADS / 32) {",
+                       "for (int r = warp; r < 0; r += THREADS / 32) {"),
+        "no_merge": ("cache_attention_merge<T><<<dim3(g, b), THREADS, 0, "
+                     "st>>>(",),
+    },
+    "tensor_cores": {
+        "full": (),
+        # the scores' word reads, unpacking and MMAs (dead without these)
+        "no_kscore": {"replace": [
+            ("mma(d[nt], qa[pc][kk][0], 0u, qa[pc][kk][1], 0u, b0, b1);",
+             "(void)0;")]},
+        # the values' reads, unpacking and MMAs
+        "no_vsum": {"replace": [
+            ("mma(acc[mt], a0, a1, a2, a3, wb[pc][0], wb[pc][1]);",
+             "(void)0;")]},
+        "v_one_piece": {"replace": [
+            ("mma(acc[mt], a0, a1, a2, a3, wb[pc][0], wb[pc][1]);",
+             "if (pc == 0) mma(acc[mt], a0, a1, a2, a3, wb[pc][0], "
+             "wb[pc][1]);")]},
+        "no_dequant": {"replace": [
+            ("uint32_t x = ((w >> sh) & 0x000F000Fu) | MAGIC;",
+             "return w >> sh; uint32_t x = 0;")]},
+        "no_stream": {"replace": [
+            ("fetch(t0 + nxt, nxt % STAGES);", "(void)0;"),
+            ("pf = params(t0 + nxt);", "(void)0;")]},
+        "no_softmax": {"replace": [
+            ("const float corr = expf(m - m_new);", "const float corr = 1.f;"),
+            ("const float pe = ok ? expf(sc[gr][nt][e] - m_new) : 0.f;",
+             "const float pe = ok ? sc[gr][nt][e] : 0.f;")]},
+        "no_merge": {"replace": [
+            ("return cudaLaunchKernelEx(&cfg, cache_attention_merge<T>,",
+             "if (cfg.numAttrs) return cudaSuccess;\n  return "
+             "cudaLaunchKernelEx(&cfg, cache_attention_merge<T>,")]},
+    },
+}
+K10_VARIANTS = {
+    "smem_stages": {
+        "full": (),
+        "no_stages": ("for (int h = 1; h < T; h <<= 1, ++lg_h) {",
+                      "for (int h = 1; h < 0; h <<= 1, ++lg_h) {"),
+        "no_loads": ("if (c < nvec) v = ld(x + base + j * jstep + "
+                     "c * vstride);",),
+        "no_stores": ("st(y + base + j * jstep + c * vstride, v);",
+                      "if (v == -1.2345e-38f) st(y + base + j * jstep + "
+                      "c * vstride, v);"),
+    },
+    "register_phases": {
+        "full": (),
+        "no_stages": {"replace": [("v[j] = add4(a, b);", "v[j] = a;"),
+                                  ("v[j + h] = sub4(a, b);",
+                                   "v[j + h] = b;")]},
+        "no_loads": {"replace": [
+            ("v[j] = ok ? ld4(x + off) : make_float4(0.f, 0.f, 0.f, 0.f);",
+             "v[j] = make_float4((float)off, 0.f, 0.f, 0.f);"),
+            ("if (c0 + h * PER < nvec)", "if (c0 + h * PER < 0)")]},
+        "no_stores": {"replace": [
+            ("if (ok) st4(y + off, a);",
+             "if (ok && a.x == -1.2345e-38f) st4(y + off, a);")]},
+        # the barriers between the register phases (a race: time only)
+        "no_sync": {"replace": [("if (!first) __syncthreads();",
+                                 "(void)0;")]},
+    },
+}
 K4_CUTS = {
     "no_gather": ("issue_tile<HD>(a, span, kvh, t0 + TILE, kv1,",),
     "no_dequant": ("dequant_tile<HD>(smem + (t & 1) * L::RAW,",),
@@ -111,7 +208,14 @@ K4_CUTS = {
 def variant_source(src: str, cuts) -> str:
     """The source with the first statement that starts with one of
     ``cuts`` removed (up to its semicolon); a pair ``(old, new)`` whose
-    ``new`` ends with a semicolon or a brace replaces ``old`` instead."""
+    ``new`` ends with a semicolon or a brace replaces ``old`` instead, and
+    ``{"replace": [(old, new), ...]}`` replaces every ``old`` in turn."""
+    if isinstance(cuts, dict):
+        for old, new in cuts["replace"]:
+            if old not in src:
+                raise ValueError(f"{old!r} is not in the source")
+            src = src.replace(old, new)
+        return src
     if len(cuts) == 2 and cuts[1][-1] in ";{":
         if cuts[0] not in src:
             raise ValueError(f"{cuts[0]!r} is not in the source")
@@ -126,6 +230,22 @@ def variant_source(src: str, cuts) -> str:
     if cuts:
         raise ValueError(f"none of {cuts} is in the source")
     return src
+
+
+def variants_of(designs: dict, src_root: Path, name: str) -> dict:
+    """The set of cuts in ``designs`` whose every statement is in the
+    source ``csrc/<name>.cu`` under ``src_root``."""
+    src = (src_root / "src" / "repro_torch" / "csrc" / f"{name}.cu") \
+        .read_text()
+    for design, variants in designs.items():
+        try:
+            for cuts in variants.values():
+                variant_source(src, cuts)
+        except ValueError:
+            continue
+        print(f"[probe] {name}.cu: the {design} design's cuts")
+        return variants
+    raise SystemExit(f"no set of cuts matches {name}.cu")
 
 
 def build_variants(cs, kcuda, name: str, src_root: Path, variants: dict,
@@ -282,6 +402,62 @@ def probe_k7(torch, cs, args) -> None:
         torch.cuda.empty_cache()
 
 
+def probe_k6(torch, cs, args) -> None:
+    from repro_torch.kernels import cache_attention as ca
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.serving import kvcache as KV
+    libs = build_variants(cs, kcuda, "cache_attention", args.src,
+                          variants_of(K6_VARIANTS, args.src,
+                                      "cache_attention"), ca._SIGNATURES)
+    for heads, hd, arch in ((cs.HEADS, cs.HD, "llama"),
+                            (cs.KIMI_HEADS, cs.KIMI_HD, "kimi")):
+        if hd not in ca._HEAD_DIMS:
+            continue
+        for name, b, cap, hi, lengths in cs.CACHE_SHAPES:
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            k = torch.randn((b, cap, cs.KV_HEADS, hd), generator=gen,
+                            device="cuda")
+            v = torch.randn((b, cap, cs.KV_HEADS, hd), generator=gen,
+                            device="cuda")
+            entry = KV.quantize_full(k.bfloat16(), v.bfloat16(),
+                                     KV.KVCacheConfig(num_hi=hi))
+            del k, v
+            q = torch.randn((b, 1, heads, hd), generator=gen,
+                            device="cuda").bfloat16()
+            length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+            def call():
+                return ca.cache_decode_attention(entry, q, length)
+
+            for label, lib in libs.items():
+                kcuda._LIBS["cache_attention"] = lib
+                ms = cs.timed_graph(torch, call, 200)
+                print(f"[probe] k6 {arch} {name} {label}: graph_ms={ms:.4f}")
+            del entry
+            torch.cuda.empty_cache()
+
+
+def probe_k10(torch, cs, args) -> None:
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import wht as wt
+    libs = build_variants(cs, kcuda, "wht", args.src,
+                          variants_of(K10_VARIANTS, args.src, "wht"),
+                          wt._SIGNATURES)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for name, shape, axis in cs.WHT_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+        def call():
+            return wt.walsh_hadamard(x, axis)
+
+        for label, lib in libs.items():
+            kcuda._LIBS["wht"] = lib
+            ms = cs.timed_graph(torch, call, 20, per_graph=10)
+            print(f"[probe] k10 {name} {label}: graph_ms={ms:.4f}")
+        del x
+        torch.cuda.empty_cache()
+
+
 def probe_k4(torch, cs, args) -> None:
     from repro_torch.kernels import cuda as kcuda
     from repro_torch.kernels import paged_attention as pa
@@ -376,14 +552,14 @@ def sweep_k4(torch, cs, pa, PKV, KV, forced, splits, own_plan) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("k2", "k3", "k4", "k7"))
+    ap.add_argument("kernel", choices=("k2", "k3", "k4", "k6", "k7", "k10"))
     ap.add_argument("--src", type=Path, default=ROOT)
     ap.add_argument("--fill", default="")
     ap.add_argument("--splits", default="1,2,3,5")
     ap.add_argument("--cuts", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve() / "src"))
     sys.path.insert(0, str(ROOT))
     import torch
     import chip_smoke as cs
@@ -391,8 +567,8 @@ def main() -> None:
         cs.fail("the probe needs a CUDA card")
     print(cs.nvidia_smi())
     with torch.inference_mode():
-        {"k2": probe_k2, "k3": probe_k3, "k4": probe_k4,
-         "k7": probe_k7}[args.kernel](torch, cs, args)
+        {"k2": probe_k2, "k3": probe_k3, "k4": probe_k4, "k6": probe_k6,
+         "k7": probe_k7, "k10": probe_k10}[args.kernel](torch, cs, args)
 
 
 if __name__ == "__main__":
