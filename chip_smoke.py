@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (one ``nvcc`` per source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
    serve paths' shapes and time kernel, plain version and a library
-   yardstick with CUDA events (K4, K3 and K6 over 200 calls, K2 over 50 and
-   K7, K9 and K10 over 20, each also replayed from CUDA graphs,
+   yardstick with CUDA events (K4, K3, K1 and K6 over 200 calls, K2 over
+   50, K7, K8, K9 and K10 over 20 and K5 over 10, each also replayed from
+   CUDA graphs,
    ``graph_ms``: the device's time without the wrapper's host cost; the
    int8 GEMMs' yardstick ``torch._int_mm`` on the row-major weight and on
    its column-major copy, the faster counting, also replayed for K2, K3 and
@@ -23,7 +24,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    K3 at every linear site of its layer: QKV 7168 -> 9216, wo 7168 -> 7168,
    the dense residual's gate/up 7168 -> 4864 and down 4864 -> 7168; K4 at
    56/8 heads; K5 over 128 experts with the counts of a real routing of 2 x
-   128 random tokens); K4 at both head counts also over a long all-decode
+   128 random tokens, and again at Kimi-K2's expert widths, 384 experts of
+   7168 -> 2048 top-8, each beside ``torch._int_mm`` over the occupied
+   experts, replayed from graphs too); K4 at both head counts also over a
+   long all-decode
    step (8 slots of 65 to 32768 cached tokens, split over blocks); K6 (the
    contiguous cache's decode attention) at the bucketed serve shape (4
    slots, cache 136, hi ``NUM_HI``) and at 8 slots x 32768 cached tokens
@@ -91,9 +95,10 @@ KIMI_HEADS, KIMI_HD = 64, 112
 STAMP = dict(transform="dwt", levels=3, skip_first=True, num_hi=NUM_HI,
              hi_bits=8, lo_bits=4)
 # timed calls: launches under 0.13 ms spread up to 1.5x between calls, so
-# K4 and K3 (tens of microseconds) are timed over 200 calls, K2 over 50 and
-# K7 (near a millisecond at 2048 rows) over 20
+# K4, K3 and K1 (tens of microseconds) are timed over 200 calls, K2 over 50
+# and K7 (near a millisecond at 2048 rows) over 20
 K4_ITERS, K3_ITERS, K2_ITERS, K7_ITERS = 200, 200, 50, 20
+K1_ITERS = 200
 
 
 def fail(msg: str) -> None:
@@ -203,6 +208,41 @@ ARCTIC_DECODE_SITES = [("arctic_qkv", A_D, A_QKV), ("arctic_wo", A_D, A_D),
                        ("arctic_gate", A_D, A_FF), ("arctic_down", A_FF, A_D)]
 
 
+def k1_row(torch, sm, x, name: str) -> dict:
+    """K1 at one site: its codes, scales and zero points exactly the plain
+    version's, and its times (eager and replayed from CUDA graphs) beside
+    the bound of reading ``x`` and writing the codes and per-token pairs."""
+    got = sm.stamp_transform_quantize(x, **STAMP)
+    want = sm.transform_quantize_plain(x, **STAMP)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"K1 codes differ at {name}")
+
+    def call():
+        return sm.stamp_transform_quantize(x, **STAMP)
+
+    ms = timed(torch, call, iters=K1_ITERS)
+    gms = timed_graph(torch, call, K1_ITERS)
+    pms = timed(torch, lambda: sm.transform_quantize_plain(x, **STAMP))
+    rows, k = x.shape[0] * x.shape[1], x.shape[2]
+    b = bound(rows * k * x.element_size() + rows * k + rows * 8, 0,
+              INT8_OPS_PER_S)
+    return dict(site=name, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                bound_ms=b[0], bound_by=b[1], library_ms=None, graph_ms=gms)
+
+
+def check_k1(torch, sm, sites, seed=0, spans=SPANS, tag="") -> list:
+    """K1 alone at the K1/K2 sites ``[(name, K, N, dual)]`` over ``spans``
+    spans of C rows (inputs drawn as :func:`check_stamp` draws its
+    activations)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for name, k, _, _ in sites:
+        x = torch.randn((spans, C, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        out.append(k1_row(torch, sm, x, tag + name))
+    return out
+
+
 def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
                 spans=SPANS, tag=""):
     """K1 (codes exact) and K2 (one bf16 step) at prefill linear sites
@@ -218,16 +258,8 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
         w = [prepare_linear(torch.randn((k, n), generator=gen,
                                         device="cuda") / math.sqrt(k))
              for _ in range(2 if dual else 1)]
-        # K1: codes, scales and zero points exactly the plain version's
         qx, sx, zx = sm.stamp_transform_quantize(x, **STAMP)
-        pq, ps, pz = sm.transform_quantize_plain(x, **STAMP)
-        check(torch.equal(qx, pq) and torch.equal(sx, ps) and
-              torch.equal(zx, pz), f"K1 codes differ at {name}")
-        ms1 = timed(torch, lambda: sm.stamp_transform_quantize(x, **STAMP))
-        pms1 = timed(torch, lambda: sm.transform_quantize_plain(x, **STAMP))
-        b1 = bound(rows * k * 2 + rows * k + rows * 8, 0, INT8_OPS_PER_S)
-        k1.append(dict(site=name, max_abs_err=0.0, ms=ms1, plain_ms=pms1,
-                       bound_ms=b1[0], bound_by=b1[1], library_ms=None))
+        k1.append(k1_row(torch, sm, x, name))
 
         wargs = [w[0].qw, w[0].sw, w[0].zw, w[0].qw_sum, None]
         if dual:
@@ -469,24 +501,33 @@ def _sdpa_yardstick(torch, args, n_pf: int, heads: int, hd: int = HD):
     return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def check_grouped(torch, sm, L, token_quantize):
-    """K5 at Arctic's prefill shapes: 2 spans x 128 random tokens routed by
-    ``moe_route`` (group 128, top-2 of 128 experts, capacity 3), their
-    codes gathered into the (2, 128, 3, 7168) dispatch buffer as
-    ``moe_ffn_fused`` does, against random int8 expert stacks with the
-    prepared buffers' layout.  Output exact against the plain version
-    (f32 checked within 1e-5 relative: the same int32 sums and f32
-    epilogue order); times beside the byte bound and a library yardstick:
-    ``torch._int_mm`` for the gate, up and down GEMMs of every occupied
-    expert (rows zero-padded to 32), summed, on the row-major weights and
-    on column-major copies (the faster counts)."""
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    x = torch.randn((SPANS, C, A_D), generator=gen, device="cuda",
+# K5's sites: Arctic-480B's experts (the serve path's) and Kimi-K2's
+# expert widths (configs/kimi_k2_1t_a32b.py: d 7168, moe_d_ff 2048, 384
+# experts, top-8; the capacity factor is ModelConfig's default 1.25), each
+# over 2 spans x 128 routed tokens: (site, d, f, experts, top-k, capacity
+# factor, seed)
+KIMI_D, KIMI_MOE_FF, KIMI_EXPERTS, KIMI_TOPK, KIMI_CF = 7168, 2048, 384, 8, \
+    1.25
+MOE_SHAPES = [("arctic_experts", A_D, A_FF, A_EXPERTS, A_TOPK, A_CF, 4),
+              ("kimi_experts", KIMI_D, KIMI_MOE_FF, KIMI_EXPERTS, KIMI_TOPK,
+               KIMI_CF, 12)]
+
+
+def grouped_case(torch, sm, L, token_quantize, d, f, experts, topk, cf,
+                 seed) -> tuple:
+    """K5's inputs at one of ``MOE_SHAPES``: 2 spans x 128 random tokens
+    routed by ``moe_route`` (group 128, top-``topk`` of ``experts``,
+    capacity from ``cf``), their codes gathered into the (2, E, C, d)
+    dispatch buffer as ``moe_ffn_fused`` does, and random int8 expert
+    stacks with the prepared buffers' layout.  Returns the kernel's
+    arguments."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((SPANS, C, d), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
-    gate_w = torch.randn((A_D, A_EXPERTS), generator=gen, device="cuda") \
-        / math.sqrt(A_D)
+    gate_w = torch.randn((d, experts), generator=gen, device="cuda") \
+        / math.sqrt(d)
     xg, valid, _ = L._moe_fold(x, 1024)
-    combine, dispatch, counts = L.moe_route(xg, gate_w, A_TOPK, A_CF, valid)
+    combine, dispatch, counts = L.moe_route(xg, gate_w, topk, cf, valid)
     b, _, e, cap = combine.shape
     qd, sd, zd = token_quantize(xg)
     idx = dispatch.argmax(dim=1).reshape(b, e * cap, 1)
@@ -503,22 +544,56 @@ def check_grouped(torch, sm, L, token_quantize):
                            device="cuda").float()
         return q, sc + 1e-4, zp
 
-    wg, wu, wd = stack(A_D, A_FF), stack(A_D, A_FF), stack(A_FF, A_D)
-    args = (gather(qd), gather(sd), gather(zd), counts,
+    wg, wu, wd = stack(d, f), stack(d, f), stack(f, d)
+    return (gather(qd), gather(sd), gather(zd), counts,
             *wg, wg[0].sum(dim=1, keepdim=True, dtype=torch.int32),
             *wu, wu[0].sum(dim=1, keepdim=True, dtype=torch.int32),
             *wd, sm.down_slab_sums(wd[0]))
+
+
+def check_grouped(torch, sm, L, token_quantize, site="arctic_experts",
+                  d=A_D, f=A_FF, experts=A_EXPERTS, topk=A_TOPK, cf=A_CF,
+                  seed=4):
+    """K5 at one of ``MOE_SHAPES`` (inputs from :func:`grouped_case`).
+    Output exact against the plain version (f32 checked within 1e-5
+    relative: the same int32 sums and f32 epilogue order); times, eager
+    and replayed from CUDA graphs, beside the byte bound and a library
+    yardstick: ``torch._int_mm`` for the gate, up and down GEMMs of every
+    occupied expert (rows zero-padded to 32), summed, on the row-major
+    weights and on column-major copies (the faster counts), also replayed
+    from graphs."""
+    args = grouped_case(torch, sm, L, token_quantize, d, f, experts, topk,
+                        cf, seed)
+    counts = args[3]
+    wg, wu, wd = args[4:7], args[8:11], args[12:15]
+    b, e, cap = args[0].shape[:3]
     y = sm.stamp_quant_grouped_matmul(*args)
     yp = sm.grouped_matmul_plain(*args)
-    check(bool(torch.isfinite(y).all()), "K5 output not finite")
+    check(bool(torch.isfinite(y).all()), f"K5 output not finite at {site}")
     err = float((y - yp).abs().max())
     rel = err / float(yp.abs().max())
-    check(rel <= 1e-5, f"K5 f32 output off by {rel} (relative)")
-    ms = timed(torch, lambda: sm.stamp_quant_grouped_matmul(*args))
+    check(rel <= 1e-5, f"K5 f32 output off by {rel} (relative) at {site}")
+    del y, yp
+    per_expert = counts.clamp(0, cap).sum(dim=0)
+    if hasattr(sm, "GROUP_ROWS"):
+        # the weight bytes K5 streams: each occupied expert's gate, up and
+        # down codes once for every GROUP_ROWS kept rows
+        nb = torch.zeros(1, dtype=torch.int64, device="cuda")
+        sm.stamp_quant_grouped_matmul(*args, weight_bytes=nb)
+        passes = int((-(-per_expert // sm.GROUP_ROWS)).sum())
+        check(int(nb) == passes * 3 * d * f,
+              f"K5 streamed {int(nb)} weight bytes at {site}, not "
+              f"{passes} x {3 * d * f}")
+
+    def call():
+        return sm.stamp_quant_grouped_matmul(*args)
+
+    ms = timed(torch, call)
+    gms = timed_graph(torch, call, 20, per_graph=2)
     pms = timed(torch, lambda: sm.grouped_matmul_plain(*args), iters=1)
     occupied = torch.nonzero(counts.sum(dim=0) > 0).flatten().tolist()
-    pad = torch.zeros((32, A_D), dtype=torch.int8, device="cuda")
-    pad_f = torch.zeros((32, A_FF), dtype=torch.int8, device="cuda")
+    pad = torch.zeros((32, d), dtype=torch.int8, device="cuda")
+    pad_f = torch.zeros((32, f), dtype=torch.int8, device="cuda")
 
     def library(stacks):
         for ei in occupied:
@@ -530,27 +605,47 @@ def check_grouped(torch, sm, L, token_quantize):
     # column-major copies of the occupied experts' (cuBLASLt's preferred
     # layout), as at K2's and K7's sites; the faster counts
     row_major = (wg[0], wu[0], wd[0])
+    lib_row = timed(torch, lambda: library(row_major), iters=5)
+    lib_row_g = timed_graph(torch, lambda: library(row_major), 3,
+                            per_graph=1)
     col_major = [{ei: t[ei].t().contiguous().t() for ei in occupied}
                  for t in row_major]
-    lib_row = timed(torch, lambda: library(row_major), iters=5)
     lib_col = timed(torch, lambda: library(col_major), iters=5)
+    lib_col_g = timed_graph(torch, lambda: library(col_major), 5,
+                            per_graph=1)
     del col_major
     rows = int(counts.sum())
-    nf = A_FF // sm.grouped_block_f(512, A_FF)
+    nf = f // sm.grouped_block_f(512, f)
     # per occupied expert: its codes, gate/up scale, zero point and column
     # sums, down scale and zero point and slab sums; per kept row: its codes
     # with scale and zero point; the whole f32 output
-    nbytes = (len(occupied) * (3 * A_D * A_FF + 4 * (6 * A_FF + 2 * A_D
-                                                      + nf * A_D))
-              + rows * (A_D + 8) + b * e * cap * A_D * 4 + counts.numel() * 4)
-    b5 = bound(nbytes, 2 * rows * 3 * A_D * A_FF, INT8_OPS_PER_S)
-    print(f"[chip_smoke] K5 routing: {rows} kept rows of {b * C * A_TOPK} "
-          f"choices, {len(occupied)} of {e} experts occupied "
-          f"(per span {(counts > 0).sum(dim=1).tolist()}), capacity {cap}")
-    return [dict(site="arctic_experts", max_abs_err=err, ms=ms, plain_ms=pms,
-                 bound_ms=b5[0], bound_by=b5[1],
+    nbytes = (len(occupied) * (3 * d * f + 4 * (6 * f + 2 * d + nf * d))
+              + rows * (d + 8) + b * e * cap * d * 4 + counts.numel() * 4)
+    b5 = bound(nbytes, 2 * rows * 3 * d * f, INT8_OPS_PER_S)
+    print(f"[chip_smoke] K5 {site} routing: {rows} kept rows of "
+          f"{b * C * topk} choices, {len(occupied)} of {e} experts occupied "
+          f"(per span {(counts > 0).sum(dim=1).tolist()}), capacity {cap}, "
+          f"at most {int(per_expert.max())} rows an expert")
+    return [dict(site=site, max_abs_err=err, ms=ms, plain_ms=pms,
+                 bound_ms=b5[0], bound_by=b5[1], graph_ms=gms,
                  library_ms=min(lib_row, lib_col),
-                 library_row_major_ms=lib_row, library_col_major_ms=lib_col)]
+                 library_row_major_ms=lib_row, library_col_major_ms=lib_col,
+                 library_graph_ms=min(lib_row_g, lib_col_g),
+                 library_row_major_graph_ms=lib_row_g,
+                 library_col_major_graph_ms=lib_col_g)]
+
+
+def check_grouped_all(torch, sm, L, token_quantize) -> list:
+    """K5 at every site of ``MOE_SHAPES``, each site's stacks freed before
+    the next (Arctic's and Kimi-K2's take 13.4 and 16.9 GB of codes, and
+    as much again in the yardstick's column-major copies)."""
+    rows = []
+    for site, d, f, experts, topk, cf, seed in MOE_SHAPES:
+        rows += check_grouped(torch, sm, L, token_quantize, site, d, f,
+                              experts, topk, cf, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
 
 
 # K6 shapes: the bucketed serve path's (4 slots at decode lengths 97..104 of
@@ -738,7 +833,11 @@ def check_standalone(torch, hd, wt, qp, im) -> dict:
         for g, w in zip(qp.quantize_pack(x, bits), qp.quant_pack_plain(x,
                                                                        bits)):
             exact(torch, g, w, f"K8 at {name}")
-        ms = timed(torch, lambda: qp.quantize_pack(x, bits), iters=20)
+        def call(x=x, bits=bits):
+            return qp.quantize_pack(x, bits)
+
+        ms = timed(torch, call, iters=20)
+        gms = timed_graph(torch, call, 20, per_graph=10)
         pms = timed(torch, lambda: qp.quant_pack_plain(x, bits), iters=5)
         n_rows = x.numel() // shape[-1]
         code_bytes = x.numel() // 2 if bits == 4 else x.numel()
@@ -746,7 +845,7 @@ def check_standalone(torch, hd, wt, qp, im) -> dict:
                   F32_FLOPS_PER_S)
         rows["quantize_pack"].append(dict(
             site=name, max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0],
-            bound_by=b[1], library_ms=None))
+            bound_by=b[1], library_ms=None, graph_ms=gms))
     rows["int8_matmul"] = check_int8_gemm(torch, im, gen)
     return rows
 
@@ -1049,7 +1148,7 @@ def main() -> None:
                               prefix="arctic_")
         k4 += check_attention(torch, pa, PKV, KV, heads=KIMI_HEADS,
                               prefix="kimi_", hd=KIMI_HD)
-        k5 = check_grouped(torch, sm, L, token_quantize)
+        k5 = check_grouped_all(torch, sm, L, token_quantize)
         k6 = check_cache_attention(torch, ca, ref, KV)
         k6 += check_cache_attention(torch, ca, ref, KV, heads=KIMI_HEADS,
                                     hd=KIMI_HD, prefix="kimi_")

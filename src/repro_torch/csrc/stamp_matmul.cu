@@ -9,13 +9,12 @@
 //
 // K1 stamp_transform_quantize: the sequence transform runs along rows and is
 //   independent per column, but the quantizer's min/max is per row across
-//   all of K.  So K walks in 32-column slabs: pass 1 transforms each slab in
-//   shared memory and writes per-row partial min/max, a small pass reduces
-//   them to the per-token scale / zero point, and pass 3 RECOMPUTES the
-//   slab's transform and quantizes it.  Recomputing (rather than keeping the
-//   transformed f32 in a scratch buffer) reads the activation twice (2 x
-//   2 bytes per value in bf16) instead of writing and reading 4-byte f32
-//   scratch (8 bytes per value): the transform is a few adds per value.
+//   all of K.  One launch: blocks own a row window of a span (the output
+//   rows a few input rows determine, see the K1 section) over one K range,
+//   the K ranges of a window form a thread block cluster that exchanges
+//   the rows' partial min/max in distributed shared memory, and each block
+//   then quantizes its range, recomputing the window's transform from the
+//   input (an L2 read) rather than holding f32 values.
 // K2 stamp_int_gemm: one block holds ALL rows of one span (<= 128) for a
 //   tile of output columns, so the epilogue, the inverse transform along the
 //   span and the bias (and the dual silu(g)*u) stay on chip: the (C, N) f32
@@ -46,7 +45,8 @@
 // weight byte, just under the card's ~590 int8 ops/byte ridge.  Measured
 // (tools/probe.py k2), the tensor cores and the transpose hide behind the
 // issue of the stage copies, which with the epilogue bound the kernel.  K1
-// is bound by bytes.
+// is bound by bytes, and at the main path's sizes (a few MB) by the
+// latency of its one launch and its passes.
 //
 // Numerics mirror the reference as it runs compiled: true division
 // (__fdiv_rn) by the per-token scale, round half to even (rintf), the 1e-8
@@ -70,156 +70,230 @@ struct SeqT {
   float inv_wht;    // f32 reciprocal of f32(sqrt(p)), p = largest 2^k <= rows
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Sequence transform of the S x W tile `buf` (row stride ld) along rows, in
-// place, with `tmp` as scratch of the same layout.  Every thread of the
-// block calls it.
-__device__ void seq_transform(float* buf, float* tmp, int S, int W, int ld,
-                              const SeqT& t, bool inverse) {
-  const int off = t.skip ? 1 : 0;
-  const int n = S - off;
-  if (n <= 0 || t.kind == 0) return;
-  float* x = buf + off * ld;
-  float* y = tmp + off * ld;
-  if (t.kind == 1) {
-    int sizes[34];
-    int ns = 0, lo = n;
-    sizes[ns++] = lo;
-    for (int l = 0; l < t.levels && lo >= 2; ++l) {
-      lo = (lo + 1) / 2;
-      sizes[ns++] = lo;
-    }
-    for (int i = 0; i < ns - 1; ++i) {
-      const int m = inverse ? sizes[ns - 2 - i] : sizes[i];
-      const int pairs = m / 2;
-      for (int idx = threadIdx.x; idx < 2 * pairs * W; idx += blockDim.x) {
-        const int r = idx / W, c = idx % W;
-        float v;
-        if (!inverse) {
-          const int q = r < pairs ? r : r - pairs;
-          const float a = x[(2 * q) * ld + c], b = x[(2 * q + 1) * ld + c];
-          v = r < pairs ? (a + b) * t.inv_sqrt2 : (a - b) * t.inv_sqrt2;
-        } else {
-          const int q = r / 2;
-          const float a = x[q * ld + c], d = x[(pairs + q) * ld + c];
-          v = (r % 2 == 0) ? (a + d) * t.inv_sqrt2 : (a - d) * t.inv_sqrt2;
-        }
-        y[r * ld + c] = v;
-      }
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < 2 * pairs * W; idx += blockDim.x) {
-        const int r = idx / W, c = idx % W;
-        x[r * ld + c] = y[r * ld + c];
-      }
-      __syncthreads();
-    }
-  } else {
-    int p = 1;
-    while (2 * p <= n) p *= 2;
-    for (int h = 1; h < p; h *= 2) {
-      for (int idx = threadIdx.x; idx < (p / 2) * W; idx += blockDim.x) {
-        const int pr = idx / W, c = idx % W;
-        const int i0 = (pr / h) * 2 * h + pr % h, i1 = i0 + h;
-        const float a = x[i0 * ld + c], b = x[i1 * ld + c];
-        x[i0 * ld + c] = a + b;
-        x[i1 * ld + c] = a - b;
-      }
-      __syncthreads();
-    }
-    for (int idx = threadIdx.x; idx < p * W; idx += blockDim.x) {
-      const int r = idx / W, c = idx % W;
-      x[r * ld + c] = x[r * ld + c] * t.inv_wht;
-    }
-    __syncthreads();
-  }
+// ---------------------------------------------------------------- K1 ----
+//
+// A row window is a set of at most TQ_OUT output rows of a span whose
+// transform needs only a few input rows: under the Haar DWT of `levels`
+// levels an output row depends on at most 2^levels consecutive input rows
+// (and, where a band has odd length, on the pair at the band's start: the
+// reference carries the first detail of an odd band into the next level),
+// under the WHT on the p rows of its block, under none on itself alone.
+// The host works the windows out (kernels/stamp_matmul.py: tq_windows) as
+// a small program each: the input rows it loads into slots, the
+// butterflies on slots in the reference's order (in place: every value is
+// consumed once), and which slot holds which output row.  A block runs one
+// window over one K range of one span; the K ranges of a (window, span)
+// form a thread block cluster of up to 16.  The window's program sits in
+// shared memory; each thread carries TQ_U columns at once (all its input
+// rows' loads in flight together), its slots in shared memory (its own
+// column: no barrier), and keeps the window's per-row min / max in
+// registers; the block reduces them, the cluster exchanges the ranges'
+// partial min / max through distributed shared memory (every rank's read
+// in flight at once), and every block derives the rows' scales and zero
+// points and quantizes its range.  Where a range is one chunk of columns
+// (K up to 16 x 512: every main-path site but the down projection's) the
+// window's outputs wait in registers for the quantize; else 8 ranges make
+// a second pass that recomputes them from the input, read back from L2
+// (measured faster there than 4 columns a thread kept in registers, whose
+// 216 registers left one block an SM).  One launch; no scratch in device
+// memory.
+
+constexpr int TQ_OUT = 16;       // output rows of a window (registers)
+constexpr int TQ_BATCH = 16;     // input rows loaded before they are stored
+constexpr int TQ_HDR = 8;        // ints of a window's program header
+constexpr int TQ_MAX_CL = 16;    // K ranges of a cluster
+constexpr int TQ_U = 2;          // columns a thread carries at once
+constexpr int TQ_SMEM = 200 * 1024;   // dynamic shared memory a block may ask
+
+enum TqOp { TQ_HAAR = 1, TQ_BFLY = 2, TQ_SCALE = 3 };
+
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
 }
 
-// ---------------------------------------------------------------- K1 ----
+// KEEP: the block's K range is one chunk of TQ_U x blockDim columns, so the
+// window's outputs stay in registers from the min / max to the quantize
+// (else the second pass recomputes them from the input, read back from L2).
+// Two blocks an SM (at most 128 registers a thread), so a span's windows
+// and ranges at the main path's sizes start in one wave.
+template <typename T, bool KEEP>
+__global__ void __launch_bounds__(256, 2)
+tq_kernel(const T* __restrict__ x, int S, int K, const int* __restrict__ prog,
+          float inv_sqrt2, float inv_wht, int num_hi, float n_hi, float n_lo,
+          int kc, int room, int8_t* qx, float* sx, float* zx) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int U = TQ_U;
+  // the window's program (room ints), then the slots [slot][U * blockDim.x]
+  extern __shared__ int pg[];
+  float* rf = reinterpret_cast<float*>(pg + room);
+  __shared__ float wmn[8][TQ_OUT], wmx[8][TQ_OUT];
+  __shared__ float bmn[TQ_OUT], bmx[TQ_OUT], sc[TQ_OUT], zp[TQ_OUT];
+  const int nt = blockDim.x, tid = threadIdx.x, ld = U * nt;
+  const int* hdr = prog + TQ_HDR * blockIdx.y;
+  const int ni = hdr[0], nops = hdr[1], nout = hdr[2];
+  const int len = hdr[5] + 2 * nout - hdr[3];     // inputs, ops, outputs
+  for (int i = tid; i < len; i += nt) pg[i] = prog[hdr[3] + i];
+  __syncthreads();
+  const int* in_rows = pg;
+  const int* ops = pg + (hdr[4] - hdr[3]);
+  const int* outs = pg + (hdr[5] - hdr[3]);
+  const int b = blockIdx.z, rank = (int)cluster.block_rank();
+  const int c0 = rank * kc, c1 = min(K, c0 + kc);
+  const T* xs = x + (size_t)b * S * K;
 
-constexpr int TQ_W = 32;         // columns per slab
-constexpr int TQ_LD = TQ_W + 1;  // padded row stride (no bank conflicts)
-constexpr int TQ_THREADS = 256;
+  // the window's transform of columns cb + u * nt + tid into the slots
+  auto transform = [&](int cb) {
+    for (int s0 = 0; s0 < ni; s0 += TQ_BATCH) {
+      float v[TQ_BATCH][U];
+#pragma unroll
+      for (int q = 0; q < TQ_BATCH; ++q)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int col = cb + u * nt + tid;
+          v[q][u] = s0 + q < ni && col < c1
+                        ? ldg_f(xs + (size_t)in_rows[s0 + q] * K + col)
+                        : 0.0f;
+        }
+#pragma unroll
+      for (int q = 0; q < TQ_BATCH; ++q)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (s0 + q < ni) rf[(s0 + q) * ld + u * nt + tid] = v[q][u];
+    }
+    // the ops in order, each in place on its slots
+    for (int o = 0; o < nops; ++o) {
+      const int code = ops[o];
+      const int kind = (unsigned)code >> 28;
+      const int i = (code >> 14) & 0x3fff, j = code & 0x3fff;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float* a = rf + i * ld + u * nt + tid;
+        if (kind == TQ_SCALE) {
+          *a = *a * inv_wht;
+        } else {
+          float* c = rf + j * ld + u * nt + tid;
+          const float va = *a, vc = *c;
+          if (kind == TQ_HAAR) {
+            *a = (va + vc) * inv_sqrt2;
+            *c = (va - vc) * inv_sqrt2;
+          } else {
+            *a = va + vc;
+            *c = va - vc;
+          }
+        }
+      }
+    }
+  };
 
-template <typename T>
-__device__ void load_slab(const T* x, float* buf, int S, int K, int col0) {
-  const int b = blockIdx.y;
-  for (int idx = threadIdx.x; idx < S * TQ_W; idx += blockDim.x) {
-    const int r = idx / TQ_W, c = idx % TQ_W, col = col0 + c;
-    buf[r * TQ_LD + c] =
-        col < K ? load_f(x + ((size_t)b * S + r) * K + col) : 0.0f;
+  float mn[TQ_OUT], mx[TQ_OUT];
+  float keep[KEEP ? TQ_OUT : 1][U];
+#pragma unroll
+  for (int q = 0; q < TQ_OUT; ++q) {
+    mn[q] = INFINITY;
+    mx[q] = -INFINITY;
+  }
+  for (int cb = c0; cb < c1; cb += ld) {
+    transform(cb);
+#pragma unroll
+    for (int q = 0; q < TQ_OUT; ++q) {
+      if (q < nout) {
+        const float* r = rf + outs[2 * q] * ld + tid;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float v = r[u * nt];
+          if (KEEP) keep[KEEP ? q : 0][u] = v;
+          if (cb + u * nt + tid < c1) {
+            mn[q] = fminf(mn[q], v);
+            mx[q] = fmaxf(mx[q], v);
+          }
+        }
+      }
+    }
+  }
+  // the block's min / max of each row, then the cluster's
+  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+#pragma unroll
+  for (int q = 0; q < TQ_OUT; ++q) {
+    float a = mn[q], c = mx[q];
+    for (int o = 16; o > 0; o >>= 1) {
+      a = fminf(a, __shfl_xor_sync(0xffffffffu, a, o));
+      c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, o));
+    }
+    if (lane == 0) {
+      wmn[warp][q] = a;
+      wmx[warp][q] = c;
+    }
   }
   __syncthreads();
-}
-
-template <typename T>
-__global__ void tq_minmax_kernel(const T* x, int S, int K, SeqT t,
-                                 float* pmin, float* pmax, int nslab) {
-  extern __shared__ float smem[];
-  float* buf = smem;
-  float* tmp = smem + S * TQ_LD;
-  const int slab = blockIdx.x, col0 = slab * TQ_W;
-  load_slab(x, buf, S, K, col0);
-  seq_transform(buf, tmp, S, TQ_W, TQ_LD, t, false);
-  const int wcols = min(TQ_W, K - col0);
-  for (int r = threadIdx.x; r < S; r += blockDim.x) {
-    float mn = buf[r * TQ_LD], mx = mn;
-    for (int c = 1; c < wcols; ++c) {
-      const float v = buf[r * TQ_LD + c];
-      mn = fminf(mn, v);
-      mx = fmaxf(mx, v);
+  if (tid < nout) {
+    float a = INFINITY, c = -INFINITY;
+    for (int w = 0; w < nw; ++w) {
+      a = fminf(a, wmn[w][tid]);
+      c = fmaxf(c, wmx[w][tid]);
     }
-    const size_t row = (size_t)blockIdx.y * S + r;
-    pmin[row * nslab + slab] = mn;
-    pmax[row * nslab + slab] = mx;
+    bmn[tid] = a;
+    bmx[tid] = c;
   }
-}
-
-__global__ void tq_scale_kernel(const float* pmin, const float* pmax,
-                                int nslab, int rows, int S, int num_hi,
-                                float n_hi, float n_lo, float* sx,
-                                float* zx) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  float mn = pmin[(size_t)row * nslab], mx = pmax[(size_t)row * nslab];
-  for (int i = 1; i < nslab; ++i) {
-    mn = fminf(mn, pmin[(size_t)row * nslab + i]);
-    mx = fmaxf(mx, pmax[(size_t)row * nslab + i]);
+  cluster.sync();
+  if (tid < nout) {
+    const int ranks = (int)cluster.num_blocks();
+    float pa[TQ_MAX_CL], pc[TQ_MAX_CL];
+#pragma unroll
+    for (int rk = 0; rk < TQ_MAX_CL; ++rk) {   // all ranks' loads in flight
+      pa[rk] = rk < ranks ? *cluster.map_shared_rank(bmn + tid, rk)
+                          : INFINITY;
+      pc[rk] = rk < ranks ? *cluster.map_shared_rank(bmx + tid, rk)
+                          : -INFINITY;
+    }
+    float a = pa[0], c = pc[0];
+#pragma unroll
+    for (int rk = 1; rk < TQ_MAX_CL; ++rk) {
+      a = fminf(a, pa[rk]);
+      c = fmaxf(c, pc[rk]);
+    }
+    const int row = outs[2 * tid + 1];
+    const float n = row < num_hi ? n_hi : n_lo;
+    const float s = fmaxf(__fdiv_rn(c - a, n), 1e-8f);
+    const float z = rintf(__fdiv_rn(-a, s));
+    sc[tid] = s;
+    zp[tid] = z;
+    if (rank == 0) {
+      sx[(size_t)b * S + row] = s;
+      zx[(size_t)b * S + row] = z - 128.0f;   // shifted with the codes
+    }
   }
-  const float n = (row % S) < num_hi ? n_hi : n_lo;
-  const float s = fmaxf(__fdiv_rn(mx - mn, n), 1e-8f);
-  const float z = rintf(__fdiv_rn(-mn, s));
-  sx[row] = s;
-  zx[row] = z - 128.0f;  // shifted with the codes: (q - z) is unchanged
-}
-
-template <typename T>
-__global__ void tq_quant_kernel(const T* x, int S, int K, SeqT t,
-                                const float* sx, const float* zx, int num_hi,
-                                float n_hi, float n_lo, int8_t* qx) {
-  extern __shared__ float smem[];
-  float* buf = smem;
-  float* tmp = smem + S * TQ_LD;
-  const int col0 = blockIdx.x * TQ_W;
-  load_slab(x, buf, S, K, col0);
-  seq_transform(buf, tmp, S, TQ_W, TQ_LD, t, false);
-  for (int idx = threadIdx.x; idx < S * TQ_W; idx += blockDim.x) {
-    const int r = idx / TQ_W, c = idx % TQ_W, col = col0 + c;
-    if (col >= K) continue;
-    const size_t row = (size_t)blockIdx.y * S + r;
-    const float s = sx[row], z = zx[row] + 128.0f;
-    const float n = r < num_hi ? n_hi : n_lo;
-    float q = rintf(__fdiv_rn(buf[r * TQ_LD + c], s)) + z;
-    q = fminf(fmaxf(q, 0.0f), n);
-    qx[row * K + col] = (int8_t)(int)(q - 128.0f);
+  __syncthreads();
+  for (int cb = c0; cb < c1; cb += ld) {
+    if (!KEEP) transform(cb);
+#pragma unroll
+    for (int q = 0; q < TQ_OUT; ++q) {
+      if (q < nout) {
+        const int row = outs[2 * q + 1];
+        const float s = sc[q], z = zp[q];
+        const float n = row < num_hi ? n_hi : n_lo;
+        const float* r = rf + outs[2 * q] * ld + tid;
+        int8_t* o = qx + ((size_t)b * S + row) * K;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int col = cb + u * nt + tid;
+          if (col < c1) {
+            const float v = KEEP ? keep[KEEP ? q : 0][u] : r[u * nt];
+            float qv = rintf(__fdiv_rn(v, s)) + z;
+            qv = fminf(fmaxf(qv, 0.0f), n);
+            o[col] = (int8_t)(int)(qv - 128.0f);
+          }
+        }
+      }
+    }
   }
+  cluster.sync();    // the block's min / max stay until every rank read them
 }
 
 // ---------------------------------------------------------------- K2 ----
@@ -758,49 +832,89 @@ cudaError_t launch_gemm(int B, const int8_t* qx, int S, int K, int N,
                                                qw1, e, t, split_k, o);
 }
 
+template <typename T, bool KEEP>
+cudaError_t launch_tq(const void* x, int B, int S, int K, const int* prog,
+                      int n_win, int cl, int kc, int room, int threads,
+                      size_t smem, float inv_sqrt2, float inv_wht, int num_hi,
+                      float n_hi, float n_lo, int8_t* qx, float* sx,
+                      float* zx, cudaStream_t st) {
+  // the attributes are set once per instantiation and card: bit d of
+  // `sized` for card d
+  static unsigned sized = 0u;
+  int dev = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev); e != cudaSuccess) return e;
+  if (dev >= 32 || !((sized >> dev) & 1u)) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tq_kernel<T, KEEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        TQ_SMEM);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(tq_kernel<T, KEEP>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return e;
+    if (dev < 32) sized |= 1u << dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, n_win, B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, tq_kernel<T, KEEP>,
+                            static_cast<const T*>(x), S, K, prog, inv_sqrt2,
+                            inv_wht, num_hi, n_hi, n_lo, kc, room, qx, sx,
+                            zx);
+}
+
 template <typename T>
-cudaError_t launch_tq(const void* x, int B, int S, int K, SeqT t, int num_hi,
-                      float n_hi, float n_lo, float* pmin, float* pmax,
-                      int8_t* qx, float* sx, float* zx, cudaStream_t st) {
-  const int nslab = (K + TQ_W - 1) / TQ_W;
-  const size_t smem = 2 * (size_t)S * TQ_LD * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      tq_minmax_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(tq_quant_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(nslab, B);
-  tq_minmax_kernel<T><<<grid, TQ_THREADS, smem, st>>>(
-      static_cast<const T*>(x), S, K, t, pmin, pmax, nslab);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const int rows = B * S;
-  tq_scale_kernel<<<(rows + 127) / 128, 128, 0, st>>>(
-      pmin, pmax, nslab, rows, S, num_hi, n_hi, n_lo, sx, zx);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  tq_quant_kernel<T><<<grid, TQ_THREADS, smem, st>>>(
-      static_cast<const T*>(x), S, K, t, sx, zx, num_hi, n_hi, n_lo, qx);
-  return cudaGetLastError();
+cudaError_t launch_tq_keep(int keep, const void* x, int B, int S, int K,
+                           const int* prog, int n_win, int cl, int kc,
+                           int room, int threads, size_t smem,
+                           float inv_sqrt2, float inv_wht, int num_hi,
+                           float n_hi, float n_lo, int8_t* qx, float* sx,
+                           float* zx, cudaStream_t st) {
+  return keep ? launch_tq<T, true>(x, B, S, K, prog, n_win, cl, kc, room,
+                                   threads, smem, inv_sqrt2, inv_wht, num_hi,
+                                   n_hi, n_lo, qx, sx, zx, st)
+              : launch_tq<T, false>(x, B, S, K, prog, n_win, cl, kc, room,
+                                    threads, smem, inv_sqrt2, inv_wht,
+                                    num_hi, n_hi, n_lo, qx, sx, zx, st);
 }
 
 }  // namespace
 
+// prog: the span's row windows (tq_windows), n_win of them; cl: the K
+// ranges of kc columns a window's cluster splits K into; keep: a range is
+// one chunk of TQ_U x threads columns (the outputs stay in registers);
+// room: ints of the longest window program; threads a block and its shared
+// memory (program and slots), smem bytes.
 extern "C" int stamp_transform_quantize(
-    const void* x, int x_bf16, int B, int S, int K, int kind, int levels,
-    int skip, float inv_sqrt2, float inv_wht, int num_hi, float n_hi,
-    float n_lo,
-    float* pmin, float* pmax, void* qx, float* sx, float* zx,
-    void* stream) {
-  const SeqT t{kind, levels, skip, inv_sqrt2, inv_wht};
+    const void* x, int x_bf16, int B, int S, int K, const int* prog,
+    int n_win, int cl, int kc, int keep, int room, int threads, int smem,
+    float inv_sqrt2, float inv_wht, int num_hi, float n_hi, float n_lo,
+    void* qx, float* sx, float* zx, void* stream) {
+  if (cl < 1 || cl > TQ_MAX_CL || n_win < 1 || kc < 1 || threads < 32 ||
+      threads > 256 || threads % 32 || smem > TQ_SMEM || room % 4 ||
+      (keep && kc > TQ_U * threads))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || K == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(qx);
-  return (int)(x_bf16 ? launch_tq<__nv_bfloat16>(x, B, S, K, t, num_hi,
-                                                 n_hi, n_lo, pmin, pmax, q,
-                                                 sx, zx, st)
-                      : launch_tq<float>(x, B, S, K, t, num_hi, n_hi, n_lo,
-                                         pmin, pmax, q, sx, zx, st));
+  return (int)(x_bf16
+                   ? launch_tq_keep<__nv_bfloat16>(
+                         keep, x, B, S, K, prog, n_win, cl, kc, room,
+                         threads, smem, inv_sqrt2, inv_wht, num_hi, n_hi,
+                         n_lo, q, sx, zx, st)
+                   : launch_tq_keep<float>(keep, x, B, S, K, prog, n_win, cl,
+                                           kc, room, threads, smem,
+                                           inv_sqrt2, inv_wht, num_hi, n_hi,
+                                           n_lo, q, sx, zx, st));
 }
 
 extern "C" int stamp_int_gemm(

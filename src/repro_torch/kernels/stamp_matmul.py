@@ -11,9 +11,11 @@ writes the int8 codes and per-token scale / zero point of every span, K2
 reads them with the int8 weights and keeps the int32 product, the epilogue,
 the inverse transform and the bias on chip for one whole span per block.
 
-Bound on the H100: K1 by bytes (it reads the activation twice: the min/max
-pass and the quantize pass recompute the transform instead of spilling f32),
-K2 by integer operations (``wgmma`` on the tensor cores, fed by a
+Bound on the H100: K1 by bytes (one launch over row windows,
+:func:`tq_windows`, in thread block clusters over K, :func:`tq_plan`; it
+reads the activation once, or twice where a K range is longer than a
+chunk and the quantize pass recomputes the transform instead of spilling
+f32), K2 by integer operations (``wgmma`` on the tensor cores, fed by a
 ``cp.async`` ring; :func:`gemm_plan` splits K over a thread block cluster
 where the column tiles and spans give too few blocks).  See the source note
 for the design.
@@ -45,9 +47,10 @@ MAX_SPLITS = 8        # K ranges of one output tile: one thread block cluster
 
 _SIGNATURES = {
     "stamp_transform_quantize": [
-        cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
-        cuda.INT, cuda.FLT, cuda.FLT, cuda.INT, cuda.FLT, cuda.FLT, cuda.VP,
-        cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP],
+        cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.INT,
+        cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.FLT,
+        cuda.FLT, cuda.INT, cuda.FLT, cuda.FLT, cuda.VP, cuda.VP, cuda.VP,
+        cuda.VP],
     "stamp_int_gemm": [
         cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
         cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
@@ -99,6 +102,198 @@ def transform_quantize_plain(x: torch.Tensor, *, transform: str,
     return qx.reshape(b * s, k), sx.reshape(b * s), (zx - 128.0).reshape(b * s)
 
 
+TQ_OUT = 16           # output rows of a K1 row window
+TQ_MAX_IN = 256       # input rows a window may load
+TQ_HDR = 8            # ints of a window's program header
+TQ_HAAR, TQ_BFLY, TQ_SCALE = 1, 2, 3
+MAX_CLUSTER = 16      # K ranges of a window (one thread block cluster)
+TQ_SLOTS = 65536      # shared-memory bytes of a K1 block's slots
+TQ_U = 2              # columns a K1 thread carries at once
+TQ_CLUSTER_PASSES = 8  # K ranges of a window whose outputs are recomputed
+
+
+def _transform_ops(s: int, transform: str, levels: int,
+                   skip_first: bool) -> tuple:
+    """The sequence transform of one column of ``s`` rows run symbolically,
+    in the reference's order (:func:`~repro_torch.core.transforms.haar_dwt`,
+    :func:`~repro_torch.core.transforms.wht`).  Values are nodes: input row
+    ``r`` is node ``r``; an op ``(kind, a, b)`` consumes nodes ``a`` and
+    ``b`` (``b = -1`` for a scale) and makes the next one or two.  Returns
+    ``(ops, made, out)``: the ops in order, the nodes each made, and the
+    node that ends at each output row."""
+    off = int(skip_first) if s else 0
+    cur = list(range(off, s))
+    ops, made = [], []
+    nxt = [s]
+
+    def op(kind, a, b):
+        outs = tuple(range(nxt[0], nxt[0] + (1 if b < 0 else 2)))
+        nxt[0] += len(outs)
+        ops.append((kind, a, b))
+        made.append(outs)
+        return outs
+
+    n = len(cur)
+    if transform == "dwt" and n:
+        for lo in T.haar_band_sizes(n, levels)[:-1]:
+            band, pairs = cur[:lo], lo // 2
+            res = [op(TQ_HAAR, band[2 * i], band[2 * i + 1])
+                   for i in range(pairs)]
+            tail = band[2 * pairs:]
+            cur = [a for a, _ in res] + [d for _, d in res] + tail + cur[lo:]
+    elif transform == "wht" and n:
+        p = T.largest_pow2(n)
+        body = cur[:p]
+        h = 1
+        while h < p:
+            for blk in range(0, p, 2 * h):
+                for j in range(h):
+                    a, b = op(TQ_BFLY, body[blk + j], body[blk + h + j])
+                    body[blk + j], body[blk + h + j] = a, b
+            h *= 2
+        body = [op(TQ_SCALE, v, -1)[0] for v in body]
+        cur = body + cur[p:]
+    elif transform not in _KINDS:
+        raise ValueError(f"transform {transform!r} is not fusable")
+    return ops, made, list(range(off)) + cur
+
+
+def tq_windows(s: int, transform: str, levels: int,
+               skip_first: bool) -> list:
+    """K1's row windows of a span of ``s`` rows: every output row in one
+    window, a window at most ``TQ_OUT`` output rows, each with the program
+    that computes them from its input rows alone.  Output rows whose
+    transforms share an input row stay in one window (split only where such
+    a group outgrows ``TQ_OUT`` rows, each part then recomputing the ops it
+    needs); small groups go into the first window with room.  Returns
+    ``[(in_rows, ops, outs)]``: the input rows loaded into slots 0, 1, ...;
+    the ops ``(kind, slot, slot)`` in the reference's order, each writing
+    its results over its operands' slots; ``(slot, output row)`` pairs."""
+    ops, made, out = _transform_ops(s, transform, levels, skip_first)
+    maker = {v: i for i, vs in enumerate(made) for v in vs}
+
+    def ancestry(nodes):
+        """(op indices, input rows) behind ``nodes``."""
+        seen_ops, rows, todo = set(), set(), list(nodes)
+        while todo:
+            v = todo.pop()
+            if v < s:
+                rows.add(v)
+            elif maker[v] not in seen_ops:
+                seen_ops.add(maker[v])
+                kind, a, b = ops[maker[v]]
+                todo += [a] if b < 0 else [a, b]
+        return seen_ops, rows
+
+    # output rows grouped by shared input rows (union-find over input rows)
+    parent = list(range(s))
+
+    def find(r):
+        while parent[r] != r:
+            parent[r] = parent[parent[r]]
+            r = parent[r]
+        return r
+
+    needs = [sorted(ancestry([out[r]])[1]) for r in range(s)]
+    for r in range(s):
+        for q in needs[r][1:]:
+            parent[find(q)] = find(needs[r][0])
+    groups = {}
+    for r in range(s):
+        groups.setdefault(find(needs[r][0]), []).append(r)
+    chunks = []
+    for rows in sorted(groups.values()):
+        chunks += [rows[i:i + TQ_OUT] for i in range(0, len(rows), TQ_OUT)]
+    packed = []
+    for rows in chunks:              # first fit: fewer windows, fewer blocks
+        for window in packed:
+            if len(window) + len(rows) <= TQ_OUT:
+                window += rows
+                break
+        else:
+            packed.append(list(rows))
+    windows = []
+    for rows in packed:
+        op_ids, ins = ancestry([out[r] for r in rows])
+        ins = sorted(ins)
+        if len(ins) > TQ_MAX_IN:
+            raise ValueError(f"K1: a row window needs {len(ins)} input rows "
+                             f"(at most {TQ_MAX_IN}): {transform} over "
+                             f"{s} rows")
+        slot = {r: i for i, r in enumerate(ins)}
+        home = dict(slot)             # node -> slot it lives in
+        prog = []
+        for i in sorted(op_ids):
+            kind, a, b = ops[i]
+            prog.append((kind, home[a], home[b] if b >= 0 else -1))
+            for v, src in zip(made[i], (a, b)):
+                home[v] = home[src]
+        windows.append((ins, prog, [(home[out[r]], r) for r in rows]))
+    return windows
+
+
+def tq_program(windows: list) -> list:
+    """The windows as the kernel reads them: a header of ``TQ_HDR`` ints a
+    window (inputs, ops and outputs counted, then their offsets), then the
+    input rows, the ops as ``kind << 28 | slot << 14 | slot`` (the second
+    slot 0 for a scale) and the outputs as (slot, row)."""
+    head, data = [], []
+    base = TQ_HDR * len(windows)
+    for ins, prog, outs in windows:
+        at = base + len(data)
+        head += [len(ins), len(prog), len(outs), at, at + len(ins),
+                 at + len(ins) + len(prog), 0, 0]
+        data += list(ins)
+        data += [kind << 28 | i << 14 | max(j, 0) for kind, i, j in prog]
+        data += [v for o in outs for v in o]
+    return head + data
+
+
+def tq_plan(k: int, max_in: int, max_prog: int) -> dict:
+    """K1's launch: each window's K split into ``cl`` ranges of ``kc``
+    columns (one thread block cluster).  A thread carries ``TQ_U`` columns
+    and a block has ``threads`` of them, as many as let its slots
+    (``max_in`` input rows x ``TQ_U`` columns a thread, f32) fit
+    ``TQ_SLOTS``.  Where ``MAX_CLUSTER`` ranges of one chunk (``TQ_U x
+    threads`` columns) cover K, each range is one chunk and the window's
+    outputs stay in registers from the min / max to the quantize
+    (``keep``); else ``TQ_CLUSTER_PASSES`` ranges make a second pass that
+    recomputes them.  ``room``: ints of the longest window program
+    (``max_prog``), kept in shared memory before the slots (``smem``
+    bytes in all)."""
+    threads = 256
+    while threads > 32 and max(max_in, 1) * TQ_U * threads * 4 > TQ_SLOTS:
+        threads //= 2
+    cl = max(-(-k // (TQ_U * threads)), 1)
+    keep = cl <= MAX_CLUSTER
+    if not keep:
+        cl = min(MAX_CLUSTER, TQ_CLUSTER_PASSES)
+    room = -(-max_prog // 4) * 4
+    return dict(cl=cl, kc=-(-k // cl), keep=keep, threads=threads,
+                room=room, smem=4 * room + max(max_in, 1) * TQ_U * threads
+                * 4)
+
+
+_TQ_PROGRAMS: dict = {}
+
+
+def _tq_launch_args(device, s: int, transform: str, levels: int,
+                    skip_first: bool) -> tuple:
+    """The windows' program on ``device`` (built once per span shape and
+    card) with their count, the most input rows a window loads and the
+    longest window's program in ints."""
+    key = (device, s, transform, levels, bool(skip_first))
+    hit = _TQ_PROGRAMS.get(key)
+    if hit is None:
+        windows = tq_windows(s, transform, levels, skip_first)
+        prog = torch.tensor(tq_program(windows), dtype=torch.int32,
+                            device=device)
+        hit = (prog, len(windows), max(len(w[0]) for w in windows),
+               max(len(i) + len(o) + 2 * len(u) for i, o, u in windows))
+        _TQ_PROGRAMS[key] = hit
+    return hit
+
+
 def stamp_transform_quantize(x: torch.Tensor, *, transform: str = "dwt",
                              levels: int = 3, skip_first: bool = True,
                              num_hi: int = 64, hi_bits: int = 8,
@@ -113,18 +308,22 @@ def stamp_transform_quantize(x: torch.Tensor, *, transform: str = "dwt",
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"K1 takes bf16 or f32 activations, got {x.dtype}")
     b, s, k = x.shape
-    nslab = -(-k // 32)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    pmin = torch.empty(b * s * nslab, **f32)
-    pmax = torch.empty(b * s * nslab, **f32)
+    targs = _transform_args(transform, levels, skip_first, s)
     qx = torch.empty((b * s, k), dtype=torch.int8, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
     sx = torch.empty(b * s, **f32)
     zx = torch.empty(b * s, **f32)
+    if b * s == 0 or k == 0:
+        return qx, sx, zx
+    prog, n_win, max_in, max_prog = _tq_launch_args(
+        x.device, s, transform, levels, skip_first)
+    plan = tq_plan(k, max_in, max_prog)
     n_hi, n_lo = _n_levels(hi_bits, lo_bits)
     err = _lib().stamp_transform_quantize(
         x.data_ptr(), int(x.dtype == torch.bfloat16), b, s, k,
-        *_transform_args(transform, levels, skip_first, s), num_hi, n_hi,
-        n_lo, pmin.data_ptr(), pmax.data_ptr(), qx.data_ptr(), sx.data_ptr(),
+        prog.data_ptr(), n_win, plan["cl"], plan["kc"], int(plan["keep"]),
+        plan["room"], plan["threads"], plan["smem"],
+        targs[3], targs[4], num_hi, n_hi, n_lo, qx.data_ptr(), sx.data_ptr(),
         zx.data_ptr(), cuda.stream_ptr(x))
     cuda.check(err, "stamp_transform_quantize")
     stamp_transform_quantize.launches += 1
@@ -294,14 +493,45 @@ stamp_int_gemm.launches = 0
 # ``block_f`` slab, and the down-projection's partial products summed in f32
 # over the slabs in order; rows at or past the bucket's count are exact
 # zeros.  Bound on the H100: bytes — a prefill step's few rows per expert
-# stream every occupied expert's int8 weights once (see the source note).
+# stream every occupied expert's int8 weights once (see the source note:
+# persistent blocks over a work list of (expert, row group, slab or column
+# tile) that the card builds from the counts, ``mma.sync`` on weight tiles
+# held in a ``cp.async`` ring).
 
 _GROUPED_SIGNATURE = {"stamp_grouped_moe": [
     cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT,
     cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
     cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
-    cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.VP]}
+    cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT,
+    cuda.INT, cuda.INT, cuda.VP, cuda.VP]}
 MAX_BLOCK_F = 512     # f-slab columns one K5 block requantizes on chip
+GROUP_ROWS = 32       # kept rows an expert's weights are streamed once for
+MAX_GROUPS = 256      # row groups of one expert the work list encodes
+
+
+def grouped_token_tiles(b: int, cap: int) -> int:
+    """Token tiles of 8 rows K5 multiplies against each weight tile: enough
+    for the most kept rows an expert can have (``b · cap``), 1, 2 or 4."""
+    need = -(-b * cap // 8)
+    return 1 if need <= 1 else 2 if need <= 2 else 4
+
+
+def grouped_work(counts: torch.Tensor, cap: int, nf: int) -> list:
+    """K5's work list as the card builds it: for every occupied expert in
+    order, its row groups of up to ``GROUP_ROWS`` kept rows (the flat
+    ``(b, E, C)`` dispatch rows, bucket by bucket), each with the ``nf``
+    slabs (or column tiles) of one work item apiece.  Returns ``[(expert,
+    [rows])]``, one entry a row group; item ``i`` is entry ``i // nf``,
+    slab ``i % nf``."""
+    b, e = counts.shape
+    kept = counts.clamp(0, cap)
+    out = []
+    for ei in range(e):
+        rows = [(i * e + ei) * cap + c for i in range(b)
+                for c in range(int(kept[i, ei]))]
+        for g0 in range(0, len(rows), GROUP_ROWS):
+            out.append((ei, rows[g0:g0 + GROUP_ROWS]))
+    return out
 
 
 def grouped_block_f(block_f: int, f: int) -> int:
@@ -372,14 +602,17 @@ def stamp_quant_grouped_matmul(qx, sx, zx, counts, qw_gate, sw_gate,
                                zw_gate, qs_gate, qw_up, sw_up, zw_up, qs_up,
                                qw_down, sw_down, zw_down, qs_down, *,
                                block_f: int = 512,
-                               out_dtype=torch.float32) -> torch.Tensor:
+                               out_dtype=torch.float32,
+                               weight_bytes: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """K5 over the gathered dispatch buffer.  ``qx``: (b, E, C, d) int8
     codes with ``sx/zx`` (b, E, C, 1) f32; ``counts``: (b, E) int32 kept
     tokens per bucket (a prefix of ``[0, C)``); ``qw_gate/qw_up``: (E, d, f)
     int8 with ``sw/zw`` (E, 1, f) f32 and ``qs`` (E, 1, f) int32 column
     sums; ``qw_down``: (E, f, d) with ``sw/zw`` (E, 1, d) and ``qs_down``
-    (E, f / bf, d) slab sums (:func:`down_slab_sums`).  Returns (b, E, C,
-    d)."""
+    (E, f / bf, d) slab sums (:func:`down_slab_sums`).  ``weight_bytes``
+    (an int64 counter on the card, optional) gets the expert weight bytes
+    the kernels streamed added to it.  Returns (b, E, C, d)."""
     args = (qx, sx, zx, counts, qw_gate, sw_gate, zw_gate, qs_gate, qw_up,
             sw_up, zw_up, qs_up, qw_down, sw_down, zw_down, qs_down)
     if qx.device.type == "cpu":
@@ -398,10 +631,14 @@ def stamp_quant_grouped_matmul(qx, sx, zx, counts, qw_gate, sw_gate,
         if tuple(got[name]) != shape:
             raise ValueError(f"K5: {name} has shape {tuple(got[name])}, "
                              f"expected {shape}")
-    if d % 4 or bf % 4 or bf > MAX_BLOCK_F:
-        raise ValueError(f"K5 needs d and the slab width multiples of 4 "
-                         f"and a slab of at most {MAX_BLOCK_F}; got d={d}, "
-                         f"bf={bf}")
+    if d % 16 or bf % 32 or bf > MAX_BLOCK_F:
+        raise ValueError(f"K5 needs d a multiple of 16 and the slab width "
+                         f"a multiple of 32 of at most {MAX_BLOCK_F}; got "
+                         f"d={d}, bf={bf}")
+    if not 1 <= cap <= 255 or -(-b * cap // GROUP_ROWS) > MAX_GROUPS:
+        raise ValueError(f"K5 takes 1 to 255 capacity slots and at most "
+                         f"{MAX_GROUPS * GROUP_ROWS} rows a bucket column; "
+                         f"got b={b}, C={cap}")
     if qx.dtype != torch.int8 or counts.dtype != torch.int32 or \
             qs_gate.dtype != torch.int32 or qs_down.dtype != torch.int32:
         raise ValueError("K5 takes int8 codes with int32 counts and sums")
@@ -420,6 +657,10 @@ def stamp_quant_grouped_matmul(qx, sx, zx, counts, qw_gate, sw_gate,
     qas = torch.empty((rows, nf), dtype=torch.int32, device=dev)
     out = torch.empty((b, e, cap, d), dtype=out_dtype, device=dev)
     swg, zwg, swu, zwu, swd, zwd = vecs
+    if weight_bytes is not None:
+        cuda.require_cuda(weight_bytes)
+        if weight_bytes.dtype != torch.int64 or weight_bytes.numel() != 1:
+            raise ValueError("weight_bytes is one int64 counter")
     err = cuda.library("grouped_matmul", _GROUPED_SIGNATURE).stamp_grouped_moe(
         qx.data_ptr(), sx.data_ptr(), zx.data_ptr(), counts.data_ptr(), b, e,
         cap, d, f, bf, qw_gate.data_ptr(), swg.data_ptr(), zwg.data_ptr(),
@@ -427,7 +668,8 @@ def stamp_quant_grouped_matmul(qx, sx, zx, counts, qw_gate, sw_gate,
         qs_up.data_ptr(), qw_down.data_ptr(), swd.data_ptr(), zwd.data_ptr(),
         qs_down.data_ptr(), qa.data_ptr(), sa.data_ptr(), za.data_ptr(),
         qas.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-        cuda.stream_ptr(qx))
+        grouped_token_tiles(b, cap), e * -(-b * cap // GROUP_ROWS),
+        cuda.sm_count(dev), cuda.ptr(weight_bytes), cuda.stream_ptr(qx))
     cuda.check(err, "stamp_quant_grouped_matmul")
     stamp_quant_grouped_matmul.launches += 1
     return out

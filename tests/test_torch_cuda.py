@@ -105,6 +105,52 @@ def test_cuda_stamp_chain_matches_plain(card, transform):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 7, 33, 100, 127, 128])
+@pytest.mark.parametrize("k", [40, 100, 1000, 4100])
+@pytest.mark.parametrize("transform", ["dwt", "wht", "none"])
+def test_cuda_transform_quantize_shapes(card, s, k, transform):
+    """K1's codes, scales and zero points exactly its plain version's: K
+    off multiples of 16 and 32 (40, 100, 1000) and split over clusters of
+    uneven ranges (4100: 8 ranges of 513 columns), odd and
+    non-power-of-two spans, the sink row in and out of the transform, 1, 3
+    and 8 spans, ``num_hi`` below and past the span, bf16 and f32."""
+    gen = torch.Generator(device=card).manual_seed(s * k)
+    for spans in (1, 3, 8):
+        x = torch.randn((spans, s, k), generator=gen, device=card) * 3
+        for dtype in (torch.bfloat16, torch.float32):
+            xt = x.to(dtype)
+            for skip in (True, False):
+                for num_hi in (4, s + 1):
+                    kw = dict(transform=transform, levels=3, skip_first=skip,
+                              num_hi=num_hi, hi_bits=8, lo_bits=4)
+                    got = TSM.stamp_transform_quantize(xt, **kw)
+                    want = TSM.transform_quantize_plain(xt, **kw)
+                    for a, b in zip(got, want):
+                        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_transform_quantize_replays_from_a_graph(card):
+    """K1 counts one launch a call, needs nothing of the host between its
+    passes (a CUDA graph captures a call), and the replay gives the eager
+    call's codes."""
+    x = torch.randn((2, 128, 4096), device=card, dtype=torch.bfloat16)
+    kw = dict(transform="dwt", levels=3, skip_first=True, num_hi=4,
+              hi_bits=8, lo_bits=4)
+    want = TSM.stamp_transform_quantize(x, **kw)   # copies the program
+    torch.cuda.synchronize()
+    before = TSM.stamp_transform_quantize.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = TSM.stamp_transform_quantize(x, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert TSM.stamp_transform_quantize.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_cuda_decode_matmul_matches_plain(card):
     """K3 in f32 within 1e-5 relative: exact int32 sums, same epilogue."""
     gen = torch.Generator(device=card).manual_seed(1)
@@ -379,6 +425,39 @@ def test_cuda_grouped_moe_matches_plain(card, f):
     for i, row in enumerate(counts):
         for e, n in enumerate(row):
             assert bool((got[i, e, n:] == 0).all())
+    bf = TSM.stamp_quant_grouped_matmul(*args, out_dtype=torch.bfloat16)
+    assert _rel(bf.float(), want) <= 2 ** -8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [768, 1024])
+@pytest.mark.parametrize("counts,cap", [
+    ([[9, 0, 4, 0], [0, 0, 7, 0]], 9),       # 9 and 11 rows, 2 empty
+    ([[10, 0, 0, 3], [10, 0, 0, 0]], 10),    # 20 rows in one expert
+    ([[0, 0, 0, 0], [20, 0, 1, 0]], 20),     # 20 rows from one span
+    ([[20, 0, 5, 0], [20, 0, 0, 0]], 20),    # 40 rows: two row groups
+])
+def test_cuda_grouped_moe_reads_each_weight_once(card, f, counts, cap):
+    """K5 past one token tile (9 to 40 kept rows in an expert), with
+    empty experts, at slab widths 256 (f = 768) and 512 (f = 1024): in f32
+    within 1e-5 relative of its plain version (exact int32 sums, the same
+    f32 epilogues in slab order), in bf16 within one bf16 step, rows past
+    each count exactly zero; and the weight bytes it streams are each
+    occupied expert's gate, up and down codes once for every 32 kept rows
+    (``GROUP_ROWS``): once for up to 32."""
+    d = 64
+    args = grouped_case(2, 4, cap, d, f, counts, card)
+    nbytes = torch.zeros(1, dtype=torch.int64, device=card)
+    got = TSM.stamp_quant_grouped_matmul(*args, weight_bytes=nbytes)
+    want = TSM.grouped_matmul_plain(*args)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-5
+    for i, row in enumerate(counts):
+        for e, n in enumerate(row):
+            assert bool((got[i, e, n:] == 0).all())
+    rows = [sum(min(row[e], cap) for row in counts) for e in range(4)]
+    passes = sum(-(-n // TSM.GROUP_ROWS) for n in rows)
+    assert int(nbytes) == passes * 3 * d * f
     bf = TSM.stamp_quant_grouped_matmul(*args, out_dtype=torch.bfloat16)
     assert _rel(bf.float(), want) <= 2 ** -8
 

@@ -921,3 +921,227 @@ def test_k6_ranges_merge_to_the_plain_attention(shape, lengths, sms, shift):
     got = k6_range_run(entry, q, length, sms)
     want = TR.cache_decode_attention_ref(entry, q, length)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K1: STaMP transform + quantize over row windows
+# ---------------------------------------------------------------------------
+
+
+def k1_window_run(x, transform, levels, skip_first, num_hi, hi_bits=8,
+                  lo_bits=4, k_ranges=3):
+    """K1 as the card runs it: every row window's program (input rows into
+    slots, the butterflies in place, the outputs read from their slots)
+    over the columns of ``k_ranges`` K ranges, the ranges' per-row min /
+    max joined, then the scale, zero point and codes of each range from a
+    second run of the program."""
+    b, s, k = x.shape
+    p = TSM.T.largest_pow2(max(s - int(skip_first), 0))
+    inv2 = torch.tensor(TSM.Q.recip32(TSM.T.SQRT2))
+    invw = torch.tensor(TSM.Q.recip32(math.sqrt(p)) if p else 1.0)
+    windows = TSM.tq_windows(s, transform, levels, skip_first)
+
+    def run(ins, prog, outs, cols):
+        slots = [x[:, r, cols].float() for r in ins]
+        for kind, i, j in prog:
+            if kind == TSM.TQ_SCALE:
+                slots[i] = slots[i] * invw
+            else:
+                a, c = slots[i], slots[j]
+                if kind == TSM.TQ_HAAR:
+                    slots[i], slots[j] = (a + c) * inv2, (a - c) * inv2
+                else:
+                    slots[i], slots[j] = a + c, a - c
+        return {r: slots[sl] for sl, r in outs}
+
+    kc = -(-k // k_ranges)
+    ranges = [slice(c0, min(k, c0 + kc)) for c0 in range(0, k, kc)]
+    qx = torch.empty((b, s, k), dtype=torch.int8)
+    sx = torch.empty((b, s))
+    zx = torch.empty((b, s))
+    seen = []
+    for ins, prog, outs in windows:
+        assert len(outs) <= TSM.TQ_OUT and len(ins) <= TSM.TQ_MAX_IN
+        parts = [run(ins, prog, outs, cols) for cols in ranges]
+        for _, r in outs:
+            seen.append(r)
+            mn = torch.stack([pt[r].amin(dim=-1) for pt in parts]).amin(0)
+            mx = torch.stack([pt[r].amax(dim=-1) for pt in parts]).amax(0)
+            n = float(2 ** (hi_bits if r < num_hi else lo_bits) - 1)
+            sc = torch.clamp_min((mx - mn) / n, TSM.Q.EPS)
+            z = torch.round(-mn / sc)
+            sx[:, r], zx[:, r] = sc, z - 128.0
+            for cols, pt in zip(ranges, parts):
+                q = torch.clamp(torch.round(pt[r] / sc[:, None]) + z[:, None],
+                                0.0, n)
+                qx[:, r, cols] = (q - 128.0).to(torch.int8)
+    assert sorted(seen) == list(range(s))      # every row in one window
+    return qx.reshape(b * s, k), sx.reshape(-1), zx.reshape(-1)
+
+
+@pytest.mark.parametrize("s", [1, 2, 7, 16, 33, 100, 127, 128, 129])
+@pytest.mark.parametrize("transform", ["dwt", "wht", "none"])
+@pytest.mark.parametrize("skip_first", [True, False])
+def test_k1_row_windows_are_the_plain_transform_quantize(s, transform,
+                                                         skip_first):
+    """The row windows' programs, run over K ranges whose min / max are
+    joined before the quantize, give K1's plain version's codes, scales
+    and zero points bit for bit: odd and non-power-of-two spans (the DWT's
+    odd bands carry their first detail into the next level, the WHT leaves
+    a tail), the sink row in and out, ``num_hi`` below and past the span."""
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.standard_normal((2, s, 40)).astype(np.float32))
+    for num_hi in (4, s + 1):
+        kw = dict(transform=transform, levels=3, skip_first=skip_first,
+                  num_hi=num_hi, hi_bits=8, lo_bits=4)
+        want = TSM.transform_quantize_plain(x, **kw)
+        got = k1_window_run(x, transform, 3, skip_first, num_hi)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 5])
+def test_k1_row_windows_at_other_levels(levels):
+    """Deeper and shallower Haar DWTs: windows of 2^levels input rows (up
+    to ``TQ_OUT`` outputs each, a deeper tree split over windows that each
+    recompute its ops), still the plain version's codes."""
+    x = torch.from_numpy(np.random.default_rng(levels).standard_normal(
+        (1, 128, 24)).astype(np.float32))
+    kw = dict(transform="dwt", levels=levels, skip_first=True, num_hi=4,
+              hi_bits=8, lo_bits=4)
+    want = TSM.transform_quantize_plain(x, **kw)
+    got = k1_window_run(x, "dwt", levels, True, 4)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k1_windows_of_the_main_path():
+    """At the serve path's span (128 rows, 3-level DWT past the sink row)
+    eight windows each read at most 16 input rows for their 16 outputs, so
+    the transform costs no more than one read of the span; the odd band
+    (127 rows) joins the first and last 8-row groups in one window, which
+    also takes the sink row and the band's pass-through tail."""
+    windows = TSM.tq_windows(128, "dwt", 3, True)
+    assert len(windows) == 8
+    assert sum(len(o) for _, _, o in windows) == 128
+    assert max(len(i) for i, _, _ in windows) <= 16
+    assert sum(len(i) for i, _, _ in windows) == 128
+    joined = [i for i, _, _ in windows if 1 in i and 126 in i]
+    assert len(joined) == 1
+
+
+@pytest.mark.parametrize("k,max_in,cl,keep,threads", [
+    (4096, 16, 8, True, 256), (4864, 16, 10, True, 256),
+    (7168, 16, 14, True, 256), (14336, 16, 8, False, 256),
+    (100, 64, 1, True, 128), (4100, 64, 8, False, 128),
+    (4100, 16, 9, True, 256), (40, 256, 1, True, 32),
+    (20000, 16, 8, False, 256)])
+def test_k1_launch_plan(k, max_in, cl, keep, threads):
+    """K ranges covering K: ranges of one chunk (``keep``: the outputs wait
+    in registers) wherever at most ``MAX_CLUSTER`` of them (one cluster)
+    cover K, else ``TQ_CLUSTER_PASSES`` ranges that recompute; the slots
+    of a block within ``TQ_SLOTS`` of shared memory and the program's room
+    before them."""
+    plan = TSM.tq_plan(k, max_in, 141)
+    assert (plan["cl"], plan["keep"], plan["threads"]) == (cl, keep, threads)
+    assert (plan["cl"] - 1) * plan["kc"] < k <= plan["cl"] * plan["kc"]
+    assert plan["keep"] == (plan["kc"] <= TSM.TQ_U * plan["threads"])
+    assert plan["room"] == 144
+    slots = max_in * TSM.TQ_U * threads * 4
+    assert slots <= TSM.TQ_SLOTS and plan["smem"] == 4 * 144 + slots
+
+
+def test_k1_program_layout():
+    """The program the kernel reads: a header a window, then its input
+    rows, its ops packed one an int and its (slot, row) outputs at the
+    offsets the header names."""
+    windows = TSM.tq_windows(33, "dwt", 3, True)
+    prog = TSM.tq_program(windows)
+    for w, (ins, ops, outs) in enumerate(windows):
+        ni, nops, nout, i0, o0, u0 = prog[TSM.TQ_HDR * w:
+                                          TSM.TQ_HDR * w + 6]
+        assert (ni, nops, nout) == (len(ins), len(ops), len(outs))
+        assert prog[i0:i0 + ni] == list(ins)
+        assert [(c >> 28, (c >> 14) & 0x3fff, c & 0x3fff)
+                for c in prog[o0:o0 + nops]] == \
+            [(k, i, max(j, 0)) for k, i, j in ops]
+        assert prog[u0:u0 + 2 * nout] == [v for o in outs for v in o]
+
+
+# ---------------------------------------------------------------------------
+# K5: grouped MoE expert FFN over its work list
+# ---------------------------------------------------------------------------
+
+
+def k5_work_list_run(args, block_f=512):
+    """K5 as the card walks its work list: each (expert, row group) entry
+    of ``grouped_work`` computes its rows' gate / up products, the slabs'
+    requantize and the down products summed slab by slab, the same
+    operations as the plain version on that group's rows only; rows past
+    the buckets' counts stay zero."""
+    (qx, sx, zx, counts, qwg, swg, zwg, qsg, qwu, swu, zwu, qsu, qwd, swd,
+     zwd, qsd) = args
+    b, e, cap, d = qx.shape
+    f = qwg.shape[-1]
+    bf = TSM.grouped_block_f(block_f, f)
+    flat = qx.reshape(-1, d)
+    out = torch.zeros((b * e * cap, qwd.shape[-1]))
+    for ei, rows in TSM.grouped_work(counts, cap, f // bf):
+        assert len(rows) <= TSM.GROUP_ROWS
+        idx = torch.tensor(rows)
+        x = flat[idx]
+        s, z = sx.reshape(-1)[idx], zx.reshape(-1)[idx]
+        xs = x.sum(dim=1, dtype=torch.int32)
+
+        def up(qw, sw, zw, qs):
+            return TSM._epilogue(TSM.int_matmul(x, qw[ei]), s, z,
+                                 sw[ei].reshape(1, -1).float(),
+                                 zw[ei].reshape(1, -1).float(), xs,
+                                 qs[ei].reshape(-1), d)
+
+        a = TSM.silu(up(qwg, swg, zwg, qsg)) * up(qwu, swu, zwu, qsu)
+        acc = torch.zeros((len(rows), qwd.shape[-1]))
+        for j in range(f // bf):
+            qa, sa, za = TS.token_quantize(a[:, j * bf:(j + 1) * bf])
+            acc = acc + TSM._epilogue(
+                TSM.int_matmul(qa, qwd[ei, j * bf:(j + 1) * bf]), sa[:, 0],
+                za[:, 0], swd[ei].reshape(1, -1).float(),
+                zwd[ei].reshape(1, -1).float(),
+                qa.sum(dim=1, dtype=torch.int32), qsd[ei, j], bf)
+        out[idx] = acc
+    return out.reshape(b, e, cap, -1)
+
+
+@pytest.mark.parametrize("counts,cap", [
+    ([[10, 7, 1, 0], [0, 3, 10, 2]], 10),     # 17 rows in one expert
+    ([[20, 0, 20, 5], [20, 1, 13, 0]], 20),   # 40 rows: two row groups
+    ([[0, 0, 0, 0], [0, 2, 0, 0]], 3),        # one occupied expert
+])
+def test_k5_work_list_is_the_plain_grouped_ffn(counts, cap):
+    """The work list K5 builds on the card from the counts (occupied
+    experts in order, row groups of up to ``GROUP_ROWS`` kept rows, bucket
+    by bucket) covers every kept row once, and the groups' products give
+    the plain version's output: row groups change which rows share a
+    weight pass, never an operation of a row."""
+    from test_torch_cuda import grouped_case
+    args = grouped_case(2, 4, cap, 32, 256, counts, "cpu")
+    want = TSM.grouped_matmul_plain(*args)
+    got = k5_work_list_run(args)
+    assert torch.equal(got, want)
+    work = TSM.grouped_work(args[3], cap, 1)
+    kept = sorted(r for _, rows in work for r in rows)
+    assert kept == sorted((i * 4 + e) * cap + c for i, row in
+                          enumerate(counts) for e, n in enumerate(row)
+                          for c in range(min(n, cap)))
+    assert [e for e, _ in work] == sorted(e for e, _ in work)
+
+
+@pytest.mark.parametrize("b,cap,tiles", [(2, 3, 1), (2, 4, 1), (8, 3, 4),
+                                          (8, 4, 4), (2, 10, 4), (1, 1, 1)])
+def test_k5_token_tiles(b, cap, tiles):
+    """The token tiles K5 multiplies against each weight tile cover the
+    most kept rows an expert can have (``b · cap``) up to a row group:
+    Arctic's 2 x 3 and Kimi-K2's 2 x 4 take one tile of 8, eight prefill
+    chunks four."""
+    assert TSM.grouped_token_tiles(b, cap) == tiles
+    assert 8 * tiles >= min(b * cap, TSM.GROUP_ROWS)

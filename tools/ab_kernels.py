@@ -1,24 +1,25 @@
 #!/usr/bin/env python3
-"""Same-card A/B of two builds of the port's K4 (paged attention), K2
-(STaMP int GEMM), K3 (decode matmul), K5 (grouped MoE GEMM), K6 (decode
+"""Same-card A/B of two builds of the port's K1 (STaMP transform +
+quantize), K4 (paged attention), K2 (STaMP int GEMM), K3 (decode matmul),
+K5 (grouped MoE expert FFN), K6 (decode
 attention over the contiguous packed cache), K7 (standalone int8 GEMM) and
 K10 (Walsh-Hadamard transform) kernels, at every site of theirs that
 ``chip_smoke.py`` times.
 
     python3 tools/ab_kernels.py --old DIR [--new DIR] [--tree NAME=DIR ...]
                                 [--order old,new,new,old]
-                                [--kernels k2,k3,k4,k5,k6,k7,k10]
+                                [--kernels k1,k2,k3,k4,k5,k6,k7,k10]
 
 ``DIR`` is the root of a checkout (or of a ``git archive`` of one) holding
 ``src/repro_torch``; ``--new`` defaults to this checkout, and ``--tree``
 names further trees for the order.  Each run of the order is its own
 process on the one card: it builds that tree's sources of the chosen
 kernels into its own build directory and runs this checkout's
-``chip_smoke.check_stamp``, ``check_decode``, ``check_attention``,
-``check_grouped``, ``check_cache_attention`` (Kimi-K2's head_dim 112 rows
-only where that tree's K6 takes it), ``check_int8_gemm`` and ``check_wht``
-with that tree's modules: the
-same sites, checks against the plain versions and timings as the smoke
+``chip_smoke.check_k1``, ``check_stamp``, ``check_decode``,
+``check_attention``, ``check_grouped_all``, ``check_cache_attention``
+(Kimi-K2's head_dim 112 rows only where that tree's K6 takes it),
+``check_int8_gemm`` and ``check_wht`` with that tree's modules: the same
+sites, checks against the plain versions and timings as the smoke
 (eager and replayed from CUDA graphs, beside the library yardsticks);
 ``--kernels`` keeps a subset.  Prints one ``[ab]`` line a run and site,
 and last a JSON object with every run; needs a CUDA card.
@@ -35,7 +36,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 KEYS = ("ms", "graph_ms", "library_ms", "library_graph_ms",
-        "library_row_major_ms", "library_col_major_ms")
+        "library_row_major_ms", "library_col_major_ms",
+        "library_row_major_graph_ms", "library_col_major_graph_ms")
 
 
 def worker(src: Path, build: Path, kernels: str) -> dict:
@@ -61,13 +63,18 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
         cs.fail("the A/B needs a CUDA card")
     assert Path(pa.__file__).resolve().is_relative_to(src.resolve())
     want = set(kernels.split(","))
-    kcuda.build([n for k, n in (("k2", "stamp_matmul"),
-                                ("k3", "decode_matmul"),
-                                ("k4", "paged_attention"),
-                                ("k5", "grouped_matmul"),
-                                ("k6", "cache_attention"),
-                                ("k7", "int8_matmul"),
-                                ("k10", "wht")) if k in want])
+    kcuda.build(sorted({n for k, n in (("k1", "stamp_matmul"),
+                                       ("k2", "stamp_matmul"),
+                                       ("k3", "decode_matmul"),
+                                       ("k4", "paged_attention"),
+                                       ("k5", "grouped_matmul"),
+                                       ("k6", "cache_attention"),
+                                       ("k7", "int8_matmul"),
+                                       ("k10", "wht")) if k in want}))
+    stamp = [dict(sites=cs.LLAMA_SITES), dict(sites=cs.ARCTIC_SITES,
+                                              seed=5)]
+    stamp += [dict(sites=cs.LLAMA_SITES, seed=7 + s, spans=s,
+                   tag=f"bucketed{s}_") for s in cs.BUCKETED_SPANS]
     rows = {}
     with torch.inference_mode():
         for heads, prefix in ((cs.HEADS, ""), (cs.A_HEADS, "arctic_")) \
@@ -75,10 +82,9 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
             for r in cs.check_attention(torch, pa, PKV, KV, heads=heads,
                                         prefix=prefix):
                 rows[f"K4 {r['site']}"] = r
-        stamp = [dict(sites=cs.LLAMA_SITES), dict(sites=cs.ARCTIC_SITES,
-                                                  seed=5)]
-        stamp += [dict(sites=cs.LLAMA_SITES, seed=7 + s, spans=s,
-                       tag=f"bucketed{s}_") for s in cs.BUCKETED_SPANS]
+        for kw in stamp if "k1" in want else ():
+            for r in cs.check_k1(torch, sm, **kw):
+                rows[f"K1 {r['site']}"] = r
         for kw in stamp if "k2" in want else ():
             _, k2 = cs.check_stamp(torch, sm, ops, prepare_linear, **kw)
             for r in k2:
@@ -92,7 +98,7 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
             for r in cs.check_decode(torch, dm, prepare_linear, **kw):
                 rows[f"K3 {r['site']}"] = r
         if "k5" in want:
-            for r in cs.check_grouped(torch, sm, L, token_quantize):
+            for r in cs.check_grouped_all(torch, sm, L, token_quantize):
                 rows[f"K5 {r['site']}"] = r
             torch.cuda.empty_cache()
         if "k6" in want:

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where K2's (``stamp_int_gemm``), K3's (``stamp_decode_matmul``), K4's
-(``paged_ragged_attention``), K6's (``cache_decode_attention``), K7's
+"""Where K1's (``stamp_transform_quantize``), K2's (``stamp_int_gemm``),
+K3's (``stamp_decode_matmul``), K4's (``paged_ragged_attention``), K5's
+(``stamp_quant_grouped_matmul``), K6's (``cache_decode_attention``), K7's
 (``int8_matmul``) and K10's (``walsh_hadamard``) time goes: each
 timed replayed from CUDA graphs at the serve path's (or the kernel
 library's) shapes, built whole and built with one part taken out, or with
 its launch plan changed.
 
+    python3 tools/probe.py k1 [--src DIR] [--cluster 4,8,16]
     python3 tools/probe.py k2 [--src DIR] [--fill 1,2,3]
     python3 tools/probe.py k3 [--src DIR] [--fill 1,2,3]
     python3 tools/probe.py k4 [--splits 1,2,3,5] [--cuts]
     python3 tools/probe.py k4 --sweep [--splits 1,2,4,8]
+    python3 tools/probe.py k5 [--src DIR]
     python3 tools/probe.py k6 [--src DIR]
     python3 tools/probe.py k7 [--src DIR]
     python3 tools/probe.py k10 [--src DIR]
@@ -31,6 +34,20 @@ paged qkv (2 spans, K split in two), gate_up dual (2 spans) and the bucketed
 engine's gate_up at 8 spans.  ``--fill``: the whole build with the k-split
 plan sized for that many blocks an SM (1 is the plan's own), at the paged
 qkv, down and gate_up and Arctic's wo.
+
+k1: variants without the sequence transform, the input loads (the row
+window design), the reduction of the rows' min / max across the K range
+(the scale launch of the three-launch design; the cluster's exchange of
+the window design), the quantize's division or the code stores.  Sites:
+every K1 site of the smoke (llama3-8b's and Arctic's K at 2 spans, the
+bucketed 4 and 8 spans).  ``--cluster``: the whole build with clusters of
+at most that many K ranges (the window design's ``MAX_CLUSTER``).
+
+k5: variants without the gate/up products or the down products (the dp4a
+design: an XOR keeps every load), the MMAs or the B transpose (the mma
+design), the weight stream past the first step (every step reads the
+first again), the requantize, or one of the two launches.  Sites: the
+smoke's ``MOE_SHAPES`` (Arctic's experts and Kimi-K2's expert widths).
 
 k4: llama3-8b's and Arctic's all-decode and mixed steps from
 ``chip_smoke.py``, with the launch plan's own split and with each count of
@@ -193,6 +210,118 @@ K10_VARIANTS = {
         # the barriers between the register phases (a race: time only)
         "no_sync": {"replace": [("if (!first) __syncthreads();",
                                  "(void)0;")]},
+    },
+}
+# one set of cuts for each design of K1 and K5: the earlier ones (three
+# launches over 32-column slabs; dp4a blocks of 4-byte loads), the later
+# ones (one launch over row windows in clusters; mma.sync over a cp.async
+# ring in persistent blocks)
+K1_VARIANTS = {
+    "three_launches": {
+        "full": (),
+        # the sequence transform, in both passes
+        "no_transform": {"replace": [
+            ("seq_transform(buf, tmp, S, TQ_W, TQ_LD, t, false);",
+             "(void)0;")]},
+        # the launch reducing the slabs' partial min / max
+        "no_scale_pass": ("tq_scale_kernel<<<(rows + 127) / 128, 128, 0, "
+                          "st>>>(",),
+        "no_division": {"replace": [
+            ("float q = rintf(__fdiv_rn(buf[r * TQ_LD + c], s)) + z;",
+             "float q = rintf(buf[r * TQ_LD + c] * s) + z;")]},
+        "no_stores": {"replace": [
+            ("qx[row * K + col] = (int8_t)(int)(q - 128.0f);",
+             "if (q == -1.2345f) qx[row * K + col] = (int8_t)(int)(q - "
+             "128.0f);")]},
+    },
+    "row_windows": {
+        "full": (),
+        # the window's butterflies, in both passes
+        "no_transform": {"replace": [
+            ("for (int o = 0; o < nops; ++o) {",
+             "for (int o = 0; o < 0; ++o) {")]},
+        # the input loads (each slot takes its column's index instead)
+        "no_loads": {"replace": [
+            ("? ldg_f(xs + (size_t)in_rows[s0 + q] * K + col)",
+             "? (float)(col + in_rows[s0 + q])")]},
+        # the cluster's exchange: each range keeps its own min / max
+        "no_exchange": {"replace": [
+            ("*cluster.map_shared_rank(bmn + tid, rk)", "bmn[tid]"),
+            ("*cluster.map_shared_rank(bmx + tid, rk)", "bmx[tid]"),
+            ("  cluster.sync();\n  if (tid < nout) {",
+             "  __syncthreads();\n  if (tid < nout) {"),
+            ("  cluster.sync();    // the block's min / max stay",
+             "  __syncthreads();    // the block's min / max stay")]},
+        "no_division": {"replace": [
+            ("float qv = rintf(__fdiv_rn(v, s)) + z;",
+             "float qv = rintf(v * s) + z;")]},
+        "no_stores": {"replace": [
+            ("o[col] = (int8_t)(int)(qv - 128.0f);",
+             "if (qv == -1.2345f) o[col] = (int8_t)(int)(qv - 128.0f);")]},
+    },
+}
+K5_VARIANTS = {
+    "dp4a_blocks": {
+        "full": (),
+        # the products replaced by an XOR that keeps every load alive
+        "no_gate_up_products": {"replace": [
+            ("g[r][c] = __dp4a(xq, wg[c], g[r][c]);",
+             "g[r][c] = g[r][c] ^ xq ^ wg[c];"),
+            ("u[r][c] = __dp4a(xq, wu[c], u[r][c]);",
+             "u[r][c] = u[r][c] ^ xq ^ wu[c];")]},
+        "no_down_products": {"replace": [
+            ("p[r][k] = __dp4a(xq, wq[k], p[r][k]);",
+             "p[r][k] = p[r][k] ^ xq ^ wq[k];")]},
+        # every k step reads the first step's weight rows (L1 hits)
+        "no_weight_stream": {"replace": [
+            ("const int8_t* pg = qwg + wcol + (size_t)4 * q * F;",
+             "const int8_t* pg = qwg + wcol;"),
+            ("const int8_t* pu = qwu + wcol + (size_t)4 * q * F;",
+             "const int8_t* pu = qwu + wcol;"),
+            ("const int8_t* w = pw + (size_t)4 * q * D;",
+             "const int8_t* w = qwd + (size_t)e * F * D + col;")]},
+        "no_requantize": {"replace": [
+            ("if (warp < nr) {                 // the slab's per-row 8-bit "
+             "requantize",
+             "if (warp < 0) {")]},
+        "no_down_launch": ("moe_down_kernel<float><<<grid_b, DT_THREADS, "
+                           "rows_bytes, st>>>(",),
+    },
+    "mma_persistent": {
+        "full": (),
+        # the MMAs replaced by an XOR that keeps every fragment alive
+        "no_mma": {"replace": [
+            ("mma_s8(acc[0][tt], lo[0], lo[1], hi[0], hi[1], b0, b1);",
+             "acc[0][tt][0] ^= lo[0] ^ lo[1] ^ hi[0] ^ hi[1] ^ b0 ^ b1;"),
+            ("mma_s8(acc[1][tt], lo[2], lo[3], hi[2], hi[3], b0, b1);",
+             "acc[1][tt][0] ^= lo[2] ^ lo[3] ^ hi[2] ^ hi[3] ^ b0 ^ b1;")]},
+        "no_transpose": {"replace": [
+            ("transpose4(w[0], w[1], w[2], w[3], lo);",
+             "lo[0] = w[0]; lo[1] = w[1]; lo[2] = w[2]; lo[3] = w[3];"),
+            ("transpose4(w[4], w[5], w[6], w[7], hi);",
+             "hi[0] = w[4]; hi[1] = w[5]; hi[2] = w[6]; hi[3] = w[7];")]},
+        # every stage copies its item's first rows again (L2 hits)
+        "no_weight_stream": {"replace": [
+            ("(up ? m.qwu : m.qwg) + (ok ? base + cp_src[i] : 0), ok);",
+             "(up ? m.qwu : m.qwg) + cp_src[i], ok);"),
+            ("m.qwd + (ok ? base + cp_src[i] : 0), ok);",
+             "m.qwd + cp_src[i], ok);")]},
+        # the requantize's cross-warp reduction and its division
+        "no_requantize": {"replace": [
+            ("      if (tid < 8) {\n        float mn = INFINITY, mx = "
+             "-INFINITY;",
+             "      if (tid < 0) {\n        float mn = INFINITY, mx = "
+             "-INFINITY;"),
+            ("float qv = rintf(__fdiv_rn(a[h][c], s)) + z;",
+             "float qv = a[h][c] * s + z;")]},
+        "no_gate_up_launch": {"replace": [
+            ("cudaError_t err = launch_gate_up<TT>(m, sms, st);",
+             "cudaError_t err = cudaSuccess;")]},
+        "no_down_launch": {"replace": [
+            ("launch_down<TT, float>(m, sms, st);", "cudaSuccess;")]},
+        # not cuts: the ring one stage shorter or longer
+        "stages2": ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),
+        "stages4": ("constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),
     },
 }
 K4_CUTS = {
@@ -458,6 +587,68 @@ def probe_k10(torch, cs, args) -> None:
         torch.cuda.empty_cache()
 
 
+K1_SITES = [("qkv", 2, 4096), ("down", 2, 14336),
+            ("arctic_qkv", 2, 7168), ("arctic_down", 2, 4864),
+            ("bucketed4_qkv", 4, 4096), ("bucketed8_qkv", 8, 4096),
+            ("bucketed8_down", 8, 14336)]
+
+
+def probe_k1(torch, cs, args) -> None:
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import stamp_matmul as sm
+    configs = [(f"cluster={c}", "MAX_CLUSTER", int(c))
+               for c in args.cluster.split(",") if c]
+    libs = {} if configs else build_variants(
+        cs, kcuda, "stamp_matmul", args.src,
+        variants_of(K1_VARIANTS, args.src, "stamp_matmul"), sm._SIGNATURES)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for site, spans, k in K1_SITES:
+        x = torch.randn((spans, cs.C, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+
+        def call():
+            return sm.stamp_transform_quantize(x, **cs.STAMP)
+
+        want = sm.transform_quantize_plain(x, **cs.STAMP)
+        for label, name, value in configs:
+            own = getattr(sm, name)
+            setattr(sm, name, value)
+            got = call()
+            cs.check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                     f"K1 codes differ at {site} with {label}")
+            ms = cs.timed_graph(torch, call, 200)
+            print(f"[probe] k1 {site} {label}: graph_ms={ms:.4f}")
+            setattr(sm, name, own)
+        for label, lib in libs.items():
+            kcuda._LIBS["stamp_matmul"] = lib
+            ms = cs.timed_graph(torch, call, 200)
+            print(f"[probe] k1 {site} {label}: graph_ms={ms:.4f}")
+
+
+def probe_k5(torch, cs, args) -> None:
+    from repro_torch.core.stamp import token_quantize
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import stamp_matmul as sm
+    from repro_torch.models import layers as L
+    libs = build_variants(cs, kcuda, "grouped_matmul", args.src,
+                          variants_of(K5_VARIANTS, args.src,
+                                      "grouped_matmul"),
+                          sm._GROUPED_SIGNATURE)
+    for site, d, f, experts, topk, cf, seed in cs.MOE_SHAPES:
+        a = cs.grouped_case(torch, sm, L, token_quantize, d, f, experts,
+                            topk, cf, seed)
+
+        def call():
+            return sm.stamp_quant_grouped_matmul(*a)
+
+        for label, lib in libs.items():
+            kcuda._LIBS["grouped_matmul"] = lib
+            ms = cs.timed_graph(torch, call, 10, per_graph=2)
+            print(f"[probe] k5 {site} {label}: graph_ms={ms:.4f}")
+        del a
+        torch.cuda.empty_cache()
+
+
 def probe_k4(torch, cs, args) -> None:
     from repro_torch.kernels import cuda as kcuda
     from repro_torch.kernels import paged_attention as pa
@@ -552,9 +743,11 @@ def sweep_k4(torch, cs, pa, PKV, KV, forced, splits, own_plan) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("k2", "k3", "k4", "k6", "k7", "k10"))
+    ap.add_argument("kernel", choices=("k1", "k2", "k3", "k4", "k5", "k6",
+                                       "k7", "k10"))
     ap.add_argument("--src", type=Path, default=ROOT)
     ap.add_argument("--fill", default="")
+    ap.add_argument("--cluster", default="")
     ap.add_argument("--splits", default="1,2,3,5")
     ap.add_argument("--cuts", action="store_true")
     ap.add_argument("--sweep", action="store_true")
@@ -567,8 +760,9 @@ def main() -> None:
         cs.fail("the probe needs a CUDA card")
     print(cs.nvidia_smi())
     with torch.inference_mode():
-        {"k2": probe_k2, "k3": probe_k3, "k4": probe_k4, "k6": probe_k6,
-         "k7": probe_k7, "k10": probe_k10}[args.kernel](torch, cs, args)
+        {"k1": probe_k1, "k2": probe_k2, "k3": probe_k3, "k4": probe_k4,
+         "k5": probe_k5, "k6": probe_k6, "k7": probe_k7,
+         "k10": probe_k10}[args.kernel](torch, cs, args)
 
 
 if __name__ == "__main__":
