@@ -26,8 +26,14 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    56/8 heads; K5 over 128 experts with the counts of a real routing of 2 x
    128 random tokens, and again at Kimi-K2's expert widths, 384 experts of
    7168 -> 2048 top-8, each beside ``torch._int_mm`` over the occupied
-   experts, replayed from graphs too); K4 at both head counts also over a
-   long all-decode
+   experts, replayed from graphs too); the dense archs served at full
+   width (``DENSE_ARCHS``: deepseek-7b, minicpm-2b, mistral-nemo-12b and
+   qwen2-72b, widths from their configs): K1/K2 at each one's QKV (with
+   qwen2-72b's bias), out-proj (from ``q_dim``), gate/up and down over 2
+   spans, K3 at the same four sites over 8 decode rows, K4's mixed and
+   all-decode steps and K6 at their multi-head widths (32 heads of 128, 36
+   of 64, one query head a kv head); K4 at llama's and Arctic's head counts
+   also over a long all-decode
    step (8 slots of 65 to 32768 cached tokens, split over blocks); K6 (the
    contiguous cache's decode attention) at the bucketed serve shape (4
    slots, cache 136, hi ``NUM_HI``) and at 8 slots x 32768 cached tokens
@@ -40,7 +46,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    its qkv, gate and down shapes and at 8 rows, K8 ``quantize_pack`` at 4
    and 8 bits, K9 ``haar_dwt_seq`` at 3 and 5 levels up to 32768 tokens,
    K10 ``walsh_hadamard`` along the sequence, split and not, and the
-   features);
+   features; K8 also in f32, beside the ``copy_`` ceiling);
 4. drive the kernel library's path through ``repro_torch.kernels.ops``: a
    (1, 2048, 4096) activation through ``haar_dwt_seq`` (3 levels),
    ``quantize_pack`` (8 bits), ``int8_matmul`` against ``prepare_linear``'s
@@ -56,6 +62,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    around its own run; then Arctic-480B at full width, cut to
    ``ARCTIC_LAYERS`` layers (its widths, 128 experts, top-2 and the
    vocabulary as published), the same requests, counts read around its own
+   run; then each of ``DENSE_ARCHS`` through the paged engine (qwen2-72b cut
+   to ``QWEN2_LAYERS`` of its 80 layers, widths as published) and
+   deepseek-7b through the bucketed engine too, counts read around each
    run;
 5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
@@ -89,6 +98,17 @@ C, SPANS, SLOTS, NUM_HI, BLOCK = 128, 2, 8, 4, 4
 A_D, A_FF, A_HEADS, A_QKV = 7168, 4864, 56, 7168 + 2 * 8 * 128
 A_EXPERTS, A_TOPK, A_CF = 128, 2, 1.25
 ARCTIC_LAYERS = 4
+# the dense archs served at full width beside llama3-8b (their widths read
+# from configs/<name>.py): each serve's depth, None for every layer.
+# Qwen2-72B whole would take ~90 GiB, so its serve is cut to QWEN2_LAYERS of
+# 80 layers (widths as published): 40 layers peaked at 41.62 GiB, about
+# 0.82 GiB a layer, so 60 stay near 58 GiB, under 64
+QWEN2_LAYERS = 60
+DENSE_ARCHS = {"deepseek-7b": None, "minicpm-2b": None,
+               "mistral-nemo-12b": None, "qwen2-72b": QWEN2_LAYERS}
+# the multi-head (one query head a kv head) attention widths K4 and K6 are
+# checked at: deepseek-7b's (32 heads of 128) and minicpm-2b's (36 of 64)
+MHA_ARCHS = ("deepseek-7b", "minicpm-2b")
 # Kimi-K2 (configs/kimi_k2_1t_a32b.py): its attention widths only, 64 query
 # heads over 8 kv heads of head_dim 112 (K4 and K6 checks; no Kimi serve)
 KIMI_HEADS, KIMI_HD = 64, 112
@@ -208,6 +228,24 @@ ARCTIC_DECODE_SITES = [("arctic_qkv", A_D, A_QKV), ("arctic_wo", A_D, A_D),
                        ("arctic_gate", A_D, A_FF), ("arctic_down", A_FF, A_D)]
 
 
+def dense_sites(cfg) -> tuple:
+    """One layer's linear sites of the dense ``cfg``: K1/K2's ``(name, K,
+    N, dual, bias)`` (QKV with its bias where the config has one, the
+    out-proj from ``q_dim``, gate/up as one dual call, down) and K3's
+    ``(name, K, N, bias)`` (gate and up one shape)."""
+    tag = cfg.name.split("-")[0] + "_"
+    d, qkv = cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim
+    prefill = [(tag + "qkv", d, qkv, False, cfg.qkv_bias),
+               (tag + "wo", cfg.q_dim, d, False, False),
+               (tag + "gate_up", d, cfg.d_ff, True, False),
+               (tag + "down", cfg.d_ff, d, False, False)]
+    decode = [(tag + "qkv", d, qkv, cfg.qkv_bias),
+              (tag + "wo", cfg.q_dim, d, False),
+              (tag + "gate", d, cfg.d_ff, False),
+              (tag + "down", cfg.d_ff, d, False)]
+    return prefill, decode
+
+
 def k1_row(torch, sm, x, name: str) -> dict:
     """K1 at one site: its codes, scales and zero points exactly the plain
     version's, and its times (eager and replayed from CUDA graphs) beside
@@ -236,7 +274,7 @@ def check_k1(torch, sm, sites, seed=0, spans=SPANS, tag="") -> list:
     activations)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = []
-    for name, k, _, _ in sites:
+    for name, k, *_ in sites:
         x = torch.randn((spans, C, k), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         out.append(k1_row(torch, sm, x, tag + name))
@@ -246,12 +284,13 @@ def check_k1(torch, sm, sites, seed=0, spans=SPANS, tag="") -> list:
 def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
                 spans=SPANS, tag=""):
     """K1 (codes exact) and K2 (one bf16 step) at prefill linear sites
-    ``[(name, K, N, dual)]`` over ``spans`` spans of C rows, and their
-    times; ``tag`` prefixes the rows' site names."""
+    ``[(name, K, N, dual[, bias])]`` over ``spans`` spans of C rows, and
+    their times; ``tag`` prefixes the rows' site names; a site whose
+    ``bias`` is true adds a random bias in K2's epilogue."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = spans * C
     k1, k2 = [], []
-    for name, k, n, dual in sites:
+    for name, k, n, dual, *bias in sites:
         name = tag + name
         x = torch.randn((spans, C, k), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
@@ -261,7 +300,9 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
         qx, sx, zx = sm.stamp_transform_quantize(x, **STAMP)
         k1.append(k1_row(torch, sm, x, name))
 
-        wargs = [w[0].qw, w[0].sw, w[0].zw, w[0].qw_sum, None]
+        wargs = [w[0].qw, w[0].sw, w[0].zw, w[0].qw_sum,
+                 torch.randn(n, generator=gen, device="cuda")
+                 if bias and bias[0] else None]
         if dual:
             wargs += [w[1].qw, w[1].sw, w[1].zw, w[1].qw_sum, None]
         kw = dict(transform="dwt", levels=3, skip_first=True,
@@ -285,14 +326,15 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
         gms2 = timed_graph(torch, lambda: sm.stamp_int_gemm(
             qx, sx, zx, C, *wargs, **kw), K2_ITERS, per_graph=10)
         nw = len(w)
-        b2 = bound(rows * k + rows * 8 + nw * (k * n + 12 * n) + rows * n * 2,
+        b2 = bound(rows * k + rows * 8 + nw * (k * n + 12 * n) + rows * n * 2
+                   + (4 * n if wargs[4] is not None else 0),
                    2 * rows * k * n * nw, INT8_OPS_PER_S)
         k2.append(dict(site=name, max_abs_err=err, ms=ms2, plain_ms=pms2,
                        bound_ms=b2[0], bound_by=b2[1], graph_ms=gms2, **lib))
         # the composed op the model calls is the same chain
         yo = (ops_mod.stamp_quant_dual_matmul(x, *wargs[:4], *wargs[5:9],
                                               **STAMP)
-              if dual else ops_mod.stamp_quant_matmul(x, *wargs[:4],
+              if dual else ops_mod.stamp_quant_matmul(x, *wargs[:5],
                                                       **STAMP))
         check(torch.equal(yo, y), f"ops chain differs from K1→K2 at {name}")
     return k1, k2
@@ -300,15 +342,18 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
 
 def check_decode(torch, dm, prepare_linear, sites, seed=1, rows=SLOTS):
     """K3 (one bf16 step, f32 within 1e-5 relative) over ``rows`` decode
-    rows at the linear sites ``[(name, K, N)]``, and its times."""
+    rows at the linear sites ``[(name, K, N[, bias])]`` (a true ``bias``
+    adds a random one in the epilogue), and its times."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = []
-    for name, k, n in sites:
+    for name, k, n, *bias in sites:
         x = torch.randn((rows, k), generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         p = prepare_linear(torch.randn((k, n), generator=gen, device="cuda")
                            / math.sqrt(k))
-        w = (p.qw, p.sw, p.zw, p.qw_sum)
+        w = (p.qw, p.sw, p.zw, p.qw_sum,
+             torch.randn(n, generator=gen, device="cuda")
+             if bias and bias[0] else None)
         y = dm.stamp_decode_matmul(x, *w, out_dtype=torch.bfloat16)
         yp = dm.decode_matmul_plain(x, *w, out_dtype=torch.bfloat16)
         err = close_bf16(torch, y, yp)
@@ -355,11 +400,12 @@ def int_mm_yardstick(torch, qx, row_major, iters: int,
 
 
 def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
-                    dec_lengths=None, capacity: int = C + 8, hd: int = HD):
+                    dec_lengths=None, capacity: int = C + 8, hd: int = HD,
+                    kv_heads: int = KV_HEADS):
     """Pools holding random K/V for ``n_pf`` prefill spans (start 0, chunk
     C, lengths 96..) and SLOTS decode spans (lengths 97..104, or
     ``dec_lengths``), written through ``write_ragged`` at page size 4;
-    ``heads`` query heads over KV_HEADS; tables mapping ``capacity``
+    ``heads`` query heads over ``kv_heads``; tables mapping ``capacity``
     positions a span (the serve path's 136, or the longest span); head_dim
     ``hd``."""
     gen = torch.Generator(device="cuda").manual_seed(2 + n_pf + heads)
@@ -372,7 +418,7 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
                                 num_lo_blocks=spans * lo_per_seq + 1,
                                 num_hi_blocks=spans + 1,
                                 max_blocks_per_seq=lo_per_seq, quant=quant)
-    entry = PKV.init_pools(KV_HEADS, hd, pcfg, device="cuda")
+    entry = PKV.init_pools(kv_heads, hd, pcfg, device="cuda")
     lengths = [96 + 4 * i for i in range(n_pf)] + list(dec_lengths)
     ht = torch.zeros((spans, 1), dtype=torch.int32)
     lt = torch.zeros((spans, lo_per_seq), dtype=torch.int32)
@@ -389,8 +435,8 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
             offs.append(off)
             ishi.append(is_hi)
     t = len(pages)
-    k = torch.randn((t, KV_HEADS, hd), generator=gen, device="cuda")
-    v = torch.randn((t, KV_HEADS, hd), generator=gen, device="cuda")
+    k = torch.randn((t, kv_heads, hd), generator=gen, device="cuda")
+    v = torch.randn((t, kv_heads, hd), generator=gen, device="cuda")
     PKV.write_ragged(entry, k.to(dtype), v.to(dtype),
                      torch.tensor(pages, device="cuda"),
                      torch.tensor(offs, device="cuda"),
@@ -405,12 +451,13 @@ def _attention_case(torch, PKV, KV, n_pf: int, dtype, heads: int,
     return entry, q_pf, q_dec, starts, lens, ht.cuda(), lt.cuda(), lengths
 
 
-def _attention_work(lengths, n_pf: int, heads: int, hd: int = HD) -> tuple:
+def _attention_work(lengths, n_pf: int, heads: int, hd: int = HD,
+                    kv_heads: int = KV_HEADS) -> tuple:
     """Bytes the spans' pages hold up to each length (K and V codes plus f16
     scale/zp), queries and outputs; and the flops the mask admits."""
     nbytes, flops = 0, 0
-    per_tok_hi = KV_HEADS * (2 * hd + 8)          # k, v codes + 4 f16 params
-    per_tok_lo = KV_HEADS * (hd + 8)
+    per_tok_hi = kv_heads * (2 * hd + 8)          # k, v codes + 4 f16 params
+    per_tok_lo = kv_heads * (hd + 8)
     for i, length in enumerate(lengths):
         pages_tok = -(-length // BLOCK) * BLOCK
         hi = min(pages_tok, NUM_HI)
@@ -431,12 +478,17 @@ ATTENTION_SHAPES = [("mixed", SPANS, None), ("all_decode", 0, None),
                                         4097, 1024, 65])]
 
 
-def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix="", hd=HD):
+def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix="", hd=HD,
+                    kv_heads=KV_HEADS, shapes=ATTENTION_SHAPES):
+    """K4 at ``shapes`` (mixed, all-decode, long all-decode steps) with
+    ``heads`` query heads over ``kv_heads`` of head_dim ``hd``: bf16 within
+    one bf16 step of its plain version, f32 within 1e-4; times beside the
+    bound and an SDPA yardstick, each eager and replayed from graphs."""
     out = []
-    for name, n_pf, dec_lengths in ATTENTION_SHAPES:
+    for name, n_pf, dec_lengths in shapes:
         entry, q_pf, q_dec, starts, lens, ht, lt, lengths = \
             _attention_case(torch, PKV, KV, n_pf, torch.bfloat16, heads,
-                            dec_lengths, hd=hd)
+                            dec_lengths, hd=hd, kv_heads=kv_heads)
         args = (entry, q_pf, q_dec, starts, lens, ht, lt)
         o_pf, o_dec = pa.paged_ragged_attention(*args, BLOCK)
         p_pf, p_dec = pa.paged_attention_plain(*args, BLOCK)
@@ -453,12 +505,12 @@ def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix="", hd=HD):
                    iters=K4_ITERS)
         pms = timed(torch, lambda: pa.paged_attention_plain(*args, BLOCK),
                     iters=1 if dec_lengths else 3)
-        sdpa = _sdpa_yardstick(torch, args, n_pf, heads, hd)
+        sdpa = _sdpa_yardstick(torch, args, n_pf, heads, hd, kv_heads)
         lib = timed(torch, sdpa, iters=K4_ITERS)
         gms = timed_graph(torch, lambda: pa.paged_ragged_attention(
             *args, BLOCK), K4_ITERS)
         glib = timed_graph(torch, sdpa, K4_ITERS)
-        nbytes, flops = _attention_work(lengths, n_pf, heads, hd)
+        nbytes, flops = _attention_work(lengths, n_pf, heads, hd, kv_heads)
         b = bound(nbytes, flops, BF16_FLOPS_PER_S)
         out.append(dict(site=prefix + name, max_abs_err=err, ms=ms,
                         plain_ms=pms,
@@ -469,7 +521,8 @@ def check_attention(torch, pa, PKV, KV, heads=HEADS, prefix="", hd=HD):
     return out
 
 
-def _sdpa_yardstick(torch, args, n_pf: int, heads: int, hd: int = HD):
+def _sdpa_yardstick(torch, args, n_pf: int, heads: int, hd: int = HD,
+                    kv_heads: int = KV_HEADS):
     """One ``scaled_dot_product_attention`` call over the same spans with
     K/V dequantized up front (bf16, padded to the longest span)."""
     from repro_torch.kernels.ref import span_kv
@@ -480,7 +533,7 @@ def _sdpa_yardstick(torch, args, n_pf: int, heads: int, hd: int = HD):
     rows = C if n_pf else 1
     q = torch.zeros((spans, heads, rows, hd), dtype=torch.bfloat16,
                     device="cuda")
-    k = torch.zeros((spans, KV_HEADS, kv_len, hd), dtype=torch.bfloat16,
+    k = torch.zeros((spans, kv_heads, kv_len, hd), dtype=torch.bfloat16,
                     device="cuda")
     v = torch.zeros_like(k)
     mask = torch.zeros((spans, 1, rows, kv_len), dtype=torch.bool,
@@ -656,19 +709,19 @@ CACHE_SHAPES = [("serve", 4, 136, NUM_HI, [97, 99, 102, 104]),
 
 
 def check_cache_attention(torch, ca, ref, KV, heads=HEADS, hd=HD,
-                          prefix=""):
+                          prefix="", kv_heads=KV_HEADS):
     """K6 against its plain version (f32 queries within 1e-5 relative to the
     output's largest magnitude; bf16 within one bf16 step) at
-    ``CACHE_SHAPES``, ``heads`` query heads over 8 of head_dim ``hd``
-    (llama's 32 and 128 unless given), and its times beside the byte bound
-    of the tokens each row's length needs and an SDPA yardstick over
-    pre-dequantized bf16 K/V (one call, boolean length mask), each eager
-    and replayed from CUDA graphs."""
+    ``CACHE_SHAPES``, ``heads`` query heads over ``kv_heads`` of head_dim
+    ``hd`` (llama's 32 over 8 of 128 unless given), and its times beside
+    the byte bound of the tokens each row's length needs and an SDPA
+    yardstick over pre-dequantized bf16 K/V (one call, boolean length
+    mask), each eager and replayed from CUDA graphs."""
     out = []
     for name, b, cap, hi, lengths in CACHE_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(7)
-        k = torch.randn((b, cap, KV_HEADS, hd), generator=gen, device="cuda")
-        v = torch.randn((b, cap, KV_HEADS, hd), generator=gen, device="cuda")
+        k = torch.randn((b, cap, kv_heads, hd), generator=gen, device="cuda")
+        v = torch.randn((b, cap, kv_heads, hd), generator=gen, device="cuda")
         entry = KV.quantize_full(k.bfloat16(), v.bfloat16(),
                                  KV.KVCacheConfig(num_hi=hi))
         del k, v
@@ -707,7 +760,7 @@ def check_cache_attention(torch, ca, ref, KV, heads=HEADS, hd=HD,
         nbytes, flops = 0, 0
         for n in lengths:
             n_hi = min(n, hi)
-            nbytes += KV_HEADS * (n_hi * 2 * hd + (n - n_hi) * hd + n * 8)
+            nbytes += kv_heads * (n_hi * 2 * hd + (n - n_hi) * hd + n * 8)
             flops += 4 * hd * heads * n
         nbytes += 2 * 2 * b * heads * hd
         bd = bound(nbytes, flops, BF16_FLOPS_PER_S)
@@ -727,9 +780,12 @@ DWT_SHAPES = [("b4_s2048_l3", (4, 2048, D), 3),
 WHT_SHAPES = [("seq_b4_s2048", (4, 2048, D), -2),
               ("seq_split_b1_s16384", (1, 16384, 1024), -2),
               ("feature_b4_s2048", (4, 2048, D), -1)]
-PACK_SHAPES = [("b4_s2048_4bit", (4, 2048, D), 4),
-               ("b4_s2048_8bit", (4, 2048, D), 8),
-               ("kv_b8_s4096_4bit", (8, 4096, KV_HEADS * HD), 4)]
+# K8: the library's activation at 4 and 8 bits, the KV shape, and the 4-bit
+# activation in f32
+PACK_SHAPES = [("b4_s2048_4bit", (4, 2048, D), 4, "bfloat16"),
+               ("b4_s2048_8bit", (4, 2048, D), 8, "bfloat16"),
+               ("kv_b8_s4096_4bit", (8, 4096, KV_HEADS * HD), 4, "bfloat16"),
+               ("b4_s2048_4bit_f32", (4, 2048, D), 4, "float32")]
 GEMM_SHAPES = [("qkv_m2048", 2048, D, D + 2 * KV_HEADS * HD),
                ("gate_m2048", 2048, D, D_FF), ("down_m2048", 2048, D_FF, D),
                ("qkv_m8", 8, D, D + 2 * KV_HEADS * HD)]
@@ -804,6 +860,20 @@ def check_wht(torch, wt, gen) -> list:
     return rows
 
 
+def copy_ceiling(torch, x, bits: int):
+    """K8's ceiling: one device-to-device ``copy_`` that reads and writes
+    as many bytes in all as quantizing and packing ``x`` at ``bits`` does
+    (the activation read, the codes and the per-row scale and zero point
+    written).  Not a port of anything: it shows what one bandwidth-bound
+    pass reaches on the card."""
+    rows = x.numel() // x.shape[-1]
+    moved = x.numel() * x.element_size() + rows * 8 + (
+        x.numel() // 2 if bits == 4 else x.numel())
+    src = torch.empty(moved // 2, dtype=torch.uint8, device=x.device)
+    dst = torch.empty_like(src)
+    return lambda: dst.copy_(src)
+
+
 def check_standalone(torch, hd, wt, qp, im) -> dict:
     """K7-K10 against their plain versions at llama3-8b's widths: K7 exact
     (f32 and bf16 outputs), K8's codes, scales and zero points exact, K9
@@ -828,26 +898,43 @@ def check_standalone(torch, hd, wt, qp, im) -> dict:
                 (levels, inverse), 4, dense))
             torch.cuda.empty_cache()
     rows["walsh_hadamard"] = check_wht(torch, wt, gen)
-    for name, shape, bits in PACK_SHAPES:
-        x = (torch.randn(shape, generator=gen, device="cuda") * 3).bfloat16()
+    rows["quantize_pack"] = check_pack(torch, qp, gen)
+    rows["int8_matmul"] = check_int8_gemm(torch, im, gen)
+    return rows
+
+
+def check_pack(torch, qp, gen) -> list:
+    """K8 at ``PACK_SHAPES``: codes, scales and zero points exactly the
+    plain version's; times (eager and replayed from CUDA graphs) beside the
+    byte bound, the plain version and the copy ceiling
+    (:func:`copy_ceiling`, replayed: ``copy_graph_ms``).  No PyTorch call
+    quantizes and packs, so there is no library yardstick."""
+    out = []
+    for name, shape, bits, dtype in PACK_SHAPES:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(
+            getattr(torch, dtype))
         for g, w in zip(qp.quantize_pack(x, bits), qp.quant_pack_plain(x,
                                                                        bits)):
             exact(torch, g, w, f"K8 at {name}")
-        def call(x=x, bits=bits):
+
+        def call():
             return qp.quantize_pack(x, bits)
 
         ms = timed(torch, call, iters=20)
         gms = timed_graph(torch, call, 20, per_graph=10)
+        cms = timed_graph(torch, copy_ceiling(torch, x, bits), 20,
+                          per_graph=10)
         pms = timed(torch, lambda: qp.quant_pack_plain(x, bits), iters=5)
         n_rows = x.numel() // shape[-1]
         code_bytes = x.numel() // 2 if bits == 4 else x.numel()
-        b = bound(x.numel() * 2 + code_bytes + n_rows * 8, 0,
+        b = bound(x.numel() * x.element_size() + code_bytes + n_rows * 8, 0,
                   F32_FLOPS_PER_S)
-        rows["quantize_pack"].append(dict(
-            site=name, max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0],
-            bound_by=b[1], library_ms=None, graph_ms=gms))
-    rows["int8_matmul"] = check_int8_gemm(torch, im, gen)
-    return rows
+        out.append(dict(site=name, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                        bound_ms=b[0], bound_by=b[1], library_ms=None,
+                        graph_ms=gms, copy_graph_ms=cms))
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_int8_gemm(torch, im, gen) -> list:
@@ -1125,6 +1212,7 @@ def main() -> None:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import stamp_matmul as sm
     from repro_torch.kernels import wht as wt
+    from repro_torch import configs
     from repro_torch.models import layers as L
     from repro_torch.serving import kvcache as KV
     from repro_torch.serving import paged_kvcache as PKV
@@ -1148,10 +1236,32 @@ def main() -> None:
                               prefix="arctic_")
         k4 += check_attention(torch, pa, PKV, KV, heads=KIMI_HEADS,
                               prefix="kimi_", hd=KIMI_HD)
+        for i, arch in enumerate(DENSE_ARCHS):
+            prefill, decode = dense_sites(configs.get_config(arch))
+            d1, d2 = check_stamp(torch, sm, ops, prepare_linear, prefill,
+                                 seed=20 + i)
+            k1, k2 = k1 + d1, k2 + d2
+            k3 += check_decode(torch, dm, prepare_linear, decode,
+                               seed=30 + i)
+            torch.cuda.empty_cache()
+        for arch in MHA_ARCHS:
+            cfg = configs.get_config(arch)
+            tag = cfg.name.split("-")[0] + "_"
+            k4 += check_attention(torch, pa, PKV, KV, heads=cfg.num_heads,
+                                  prefix=tag, hd=cfg.resolved_head_dim,
+                                  kv_heads=cfg.num_kv_heads,
+                                  shapes=ATTENTION_SHAPES[:2])
         k5 = check_grouped_all(torch, sm, L, token_quantize)
         k6 = check_cache_attention(torch, ca, ref, KV)
         k6 += check_cache_attention(torch, ca, ref, KV, heads=KIMI_HEADS,
                                     hd=KIMI_HD, prefix="kimi_")
+        for arch in MHA_ARCHS:
+            cfg = configs.get_config(arch)
+            k6 += check_cache_attention(
+                torch, ca, ref, KV, heads=cfg.num_heads,
+                hd=cfg.resolved_head_dim, kv_heads=cfg.num_kv_heads,
+                prefix=cfg.name.split("-")[0] + "_")
+            torch.cuda.empty_cache()
         torch.cuda.empty_cache()
         std = check_standalone(torch, hd, wt, qp, im)
         torch.cuda.empty_cache()
@@ -1159,12 +1269,11 @@ def main() -> None:
         for r in rows:
             print(f"[kernel] {json.dumps(r)}")
 
-    from repro_torch import configs
     from repro_torch.core import ptq
     from repro_torch.data import pipeline
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    for arch in ("llama3-8b", "arctic-480b"):
+    for arch in ("llama3-8b", "arctic-480b", *DENSE_ARCHS):
         with torch.inference_mode():
             step_errs = check_step_against_cpu(torch, lm, configs, ptq,
                                                pipeline, arch)
@@ -1195,6 +1304,15 @@ def main() -> None:
     paths["arctic-480b"] = (serve_phase(torch, serve, ops, "arctic-480b",
                                         arctic_cfg),
                             standalone | {"cache_decode_attention"})
+    for arch, layers in DENSE_ARCHS.items():
+        cfg = None if layers is None else dataclasses.replace(
+            configs.get_config(arch), num_layers=layers)
+        paths[arch] = (serve_phase(torch, serve, ops, arch, cfg),
+                       dense | {"cache_decode_attention"})
+        if arch == "deepseek-7b":
+            paths[arch + ":bucketed"] = (
+                serve_phase(torch, serve, ops, arch, None, kind="bucketed"),
+                dense | {"paged_ragged_attention"})
     for path, (counts, absent) in paths.items():
         for name, n in counts.items():
             if name in absent:
@@ -1229,7 +1347,7 @@ def main() -> None:
     # and quantize of the single and the dual matmul, K2 both GEMM modes
     stamp_rows = ("src/repro/kernels/stamp_matmul.py:222, "
                   "src/repro/kernels/stamp_matmul.py:276")
-    # K4's summary is its prefill-carrying (mixed) step at both head counts
+    # K4's summary is its prefill-carrying (mixed) step at every width
     mixed = [r for r in k4 if r["site"].endswith("mixed")]
     kernels = [
         entry("stamp_transform_quantize", src + "stamp_matmul.cu",
@@ -1293,8 +1411,14 @@ def serve_phase(torch, serve, ops, arch: str, cfg,
     check(res["requests"] == 4 and all(len(t) == 8 for t in
                                        res["outputs"].values()),
           f"{arch} serve phase did not finish 4 requests x 8 tokens")
-    check(all(0 <= t < cfg.vocab_size for toks in res["outputs"].values()
-              for t in toks), f"{arch}: token ids outside the vocabulary")
+    # the reference's greedy pick spans the padded vocabulary (its logits'
+    # pad columns are not masked), so ids up to padded_vocab are its range
+    ids = [t for toks in res["outputs"].values() for t in toks]
+    check(all(0 <= t < cfg.padded_vocab for t in ids),
+          f"{arch}: token ids outside the padded vocabulary")
+    print(f"[serve] {arch} engine={kind} generated ids in the vocabulary's "
+          f"pad: {sum(t >= cfg.vocab_size for t in ids)} of {len(ids)} "
+          f"(vocab {cfg.vocab_size}, padded to {cfg.padded_vocab})")
     check(res["stats"]["nonfinite_logit_rows"] == 0,
           f"{arch}: non-finite logits in the serve phase")
     del engine

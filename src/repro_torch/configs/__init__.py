@@ -1,14 +1,16 @@
 """Architecture registry of the port: ``get_config(arch)`` and
-``get_reduced(arch)``.  Ported so far: the dense llama3-8b and the MoE
-arctic-480b."""
+``get_reduced(arch)``.  Ported so far: the dense llama3-8b, deepseek-7b,
+minicpm-2b, mistral-nemo-12b and qwen2-72b, and the MoE arctic-480b."""
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("llama3_8b", "arctic_480b")
+ARCHS = ("minicpm_2b", "deepseek_7b", "mistral_nemo_12b", "qwen2_72b",
+         "arctic_480b", "llama3_8b")
 
-_ALIASES = {"llama3-8b": "llama3_8b", "arctic-480b": "arctic_480b"}
+# the reference's aliases (``repro.configs``): each name with dashes
+_ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 
 
 def canonical(arch: str) -> str:

@@ -13,7 +13,10 @@ kernel.
 
 ``--arch arctic-480b`` serves the MoE path (128 experts, top-2, dense
 residual); at full width one H100 holds a few of its 35 layers, which a
-caller cuts by passing a config to :func:`build`.
+caller cuts by passing a config to :func:`build`.  ``--arch deepseek-7b``,
+``minicpm-2b``, ``mistral-nemo-12b`` and ``qwen2-72b`` serve the other
+dense architectures; qwen2-72b whole needs about 90 GiB, so one H100
+serves it cut the same way.
 
 The flags are the reference CLI's (``repro.launch.serve``) for this path;
 ``--device`` (default ``cuda``) picks where it runs.

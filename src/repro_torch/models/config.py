@@ -39,6 +39,8 @@ class ModelConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    schedule: str = "cosine"              # 'wsd' for MiniCPM (training only)
+    sub_quadratic: bool = False           # True for ssm/hybrid (long_500k ok)
     source: str = ""
 
     @property

@@ -270,6 +270,16 @@ def test_cuda_paged_attention_tilings(card, hd, rep, block_size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 64])
+@pytest.mark.parametrize("block_size", [4, 16, 5])
+def test_cuda_paged_attention_one_query_head_a_kv_head(card, hd, block_size):
+    """K4 at rep 1 (multi-head attention: deepseek-7b at head_dim 128,
+    minicpm-2b at 64), the same mixed and all-decode steps and tolerances as
+    :func:`test_cuda_paged_attention_tilings`."""
+    _paged_tiling_case(card, hd, 1, block_size)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("block_size", [4, 16, 5])
 def test_cuda_paged_attention_head_dim_112(card, block_size):
     """K4 at Kimi-K2's head_dim 112 with 8 query heads a kv head (its GQA
@@ -663,6 +673,115 @@ def test_cuda_quant_pack_matches_plain(card, bits, shape, dtype):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _pack_exact(x, bits):
+    got = TQP.quantize_pack(x, bits)
+    want = TQP.quant_pack_plain(x, bits)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), float((g.float() - w.float()).abs().max())
+
+
+# (rows, d) of K8's routes: rows in one warp's registers (1024, and 40: five
+# words), over 4 warps (4096, 2304 in bf16) and over 8 (8192 and up; f32
+# from 2304 on, 16 words a lane at 16384 f32 and 32768 bf16), the two
+# passes on rows past 64 KB (40000) or not whole 16-byte words (100, 1000
+# and 6 in bf16 and f16), each with an odd row count (tail rows of a block)
+K8_ROUTES = [(13, 4096), (37, 1024), (9, 2304), (7, 40), (5, 8192),
+             (3, 16384), (3, 32768), (2, 40000), (11, 100), (5, 1000),
+             (17, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("rows_d", K8_ROUTES)
+@pytest.mark.parametrize("bits", [4, 8])
+def test_cuda_quant_pack_routes(card, dtype, rows_d, bits):
+    """K8 exact on every route of ``pack_plan``: rows held in one warp's
+    registers or joined over several warps, and the two passes (16-byte or
+    one value at a time), with tail rows."""
+    rows, d = rows_d
+    gen = torch.Generator(device=card).manual_seed(rows * d + bits)
+    x = (torch.randn((1, rows, d), generator=gen, device=card) * 3 +
+         0.5).to(dtype)
+    _pack_exact(x, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quant_pack_bit_widths(card, bits, dtype):
+    """Every width from 1 to 8 bits (packed only at 4) exact, at a
+    registers-route row and a two-pass row."""
+    gen = torch.Generator(device=card).manual_seed(bits)
+    for d in (4096, 100):
+        x = (torch.randn((2, 16, d), generator=gen, device=card) * 2).to(
+            dtype)
+        _pack_exact(x, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [2, 4, 6])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_cuda_quant_pack_unaligned_input(card, offset, bits):
+    """A contiguous view ``offset`` bf16 values into its buffer (4-byte
+    aligned, not 16) takes the two passes and stays exact; the same values
+    aligned take the registers route and give the same result."""
+    gen = torch.Generator(device=card).manual_seed(offset)
+    buf = torch.randn(offset + 4 * 64 * 1024, generator=gen,
+                      device=card).bfloat16()
+    x = buf[offset:].view(4, 64, 1024)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    assert TQP.pack_plan(1024, 2, x.data_ptr(), 0)["nv"] == 0
+    _pack_exact(x, bits)
+    for g, w in zip(TQP.quantize_pack(x, bits),
+                    TQP.quantize_pack(x.clone(), bits)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8, 3])
+def test_cuda_quant_pack_rounding_boundaries(card, bits):
+    """The registers route's quotient and rounding at the values where they
+    decide a code: f32 rows whose min and max set the scale, the rest at
+    (k + 1/2) * scale for every code step k and 1 to 3 ulps either side, so
+    each ``round(x / scale)`` sits on or next to a half-integer.  Rows with
+    zero points near zero and at about -2^20 (the fast quantizer), and at
+    about -1.5e7 (past 2^21: the per-value division).  Codes exact."""
+    n = 2 ** bits - 1
+    gen = torch.Generator().manual_seed(bits)
+    rows = []
+    for lo_scale in (0.0, 2.0 ** 20, 1.5e7):
+        for _ in range(64):
+            span = float(torch.rand(1, generator=gen)) * 10 + 0.01
+            mn = -span * float(torch.rand(1, generator=gen)) + (
+                lo_scale * span / n)
+            mx = mn + span
+            t_mn, t_mx = (torch.tensor(v, dtype=torch.float32)
+                          for v in (mn, mx))
+            s = torch.clamp_min((t_mx - t_mn) * torch.tensor(
+                np.float32(1) / np.float32(n)), 1e-8).double()
+            ks = torch.arange(-2 * n - 2, 2 * n + 2, dtype=torch.float64)
+            ks = ks + torch.round(t_mn.double() / s)
+            mids = ((ks + 0.5) * s).float()
+            vals = [mids]
+            for step in (1, 2, 3):
+                up, down = mids.clone(), mids.clone()
+                for _ in range(step):
+                    up = torch.nextafter(up, torch.tensor(float("inf")))
+                    down = torch.nextafter(down, torch.tensor(float("-inf")))
+                vals += [up, down]
+            v = torch.cat(vals)
+            v = v[(v > t_mn) & (v < t_mx)]
+            row = torch.full((2048,), float(t_mn))
+            row[1] = t_mx
+            row[2:2 + len(v)] = v
+            rows.append(row)
+    x = torch.stack(rows)[None].to(card)
+    _pack_exact(x, bits)
 
 
 @pytest.mark.cuda

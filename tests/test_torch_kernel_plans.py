@@ -7,7 +7,9 @@ epilogue; K3's row tiles and cluster of K ranges (shared min / max, int32
 products joined, then the epilogue); K7's tiles, k stages, transposed B
 layout and operand sums; K6's tiles and ranges, its factored scores and
 weights merged in order, its MMA fragments' feature order and its
-shared-memory layout.  The CUDA kernels follow these plans
+shared-memory layout; K8's route and the words each lane holds; and every
+plan at the full widths of the dense archs.  The CUDA kernels follow these
+plans
 (``launch_plan``, ``gemm_plan`` and ``decode_plan`` size their launches);
 ``tests/test_torch_cuda.py`` holds the kernels themselves against the plain
 versions on a card."""
@@ -23,6 +25,7 @@ from repro_torch.kernels import cache_attention as TCA
 from repro_torch.kernels import decode_matmul as TDM
 from repro_torch.kernels import int8_gemm as TIM
 from repro_torch.kernels import paged_attention as TPA
+from repro_torch.kernels import quant_pack as TQP
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import stamp_matmul as TSM
 from repro_torch.kernels.ref import span_kv
@@ -1145,3 +1148,118 @@ def test_k5_token_tiles(b, cap, tiles):
     chunks four."""
     assert TSM.grouped_token_tiles(b, cap) == tiles
     assert 8 * tiles >= min(b * cap, TSM.GROUP_ROWS)
+
+
+# ---------------------------------------------------------------------------
+# every plan at the widths of the dense archs served at full width
+# ---------------------------------------------------------------------------
+
+SMEM_OPTIN = 232448        # the H100's opt-in shared memory a block (227 KB)
+DENSE_ARCHS = ("deepseek-7b", "minicpm-2b", "mistral-nemo-12b", "qwen2-72b")
+
+
+def _covers(parts: int, size: int, total: int) -> None:
+    """``parts`` ranges of ``size`` cover ``total`` exactly: none empty."""
+    assert parts >= 1 and size >= 1
+    assert (parts - 1) * size < total <= parts * size
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_plans_at_the_dense_archs_widths(arch):
+    """K1's row windows and launch, K2's, K3's, K4's and K6's plans at the
+    full-width linear and attention shapes of the four dense archs the
+    smoke serves (contraction lengths 2304, 5760, 11008 and 29568, one
+    query head a kv head at 32 and 36 kv heads, the out-proj from
+    ``q_dim``): ranges cover K exactly with no empty one, tiles cover N and
+    the query rows, and K1's shared memory fits the 227 KB opt-in."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    d, qkv = cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim
+    sites = [(d, qkv, False), (cfg.q_dim, d, False), (d, cfg.d_ff, True),
+             (cfg.d_ff, d, False)]
+    windows = TSM.tq_windows(128, "dwt", 3, True)
+    max_in = max(len(w[0]) for w in windows)
+    max_prog = max(len(i) + len(o) + 2 * len(u) for i, o, u in windows)
+    for k, n, dual in sites:
+        plan = TSM.tq_plan(k, max_in, max_prog)
+        _covers(plan["cl"], plan["kc"], k)
+        assert plan["cl"] <= TSM.MAX_CLUSTER
+        assert plan["smem"] <= SMEM_OPTIN
+        for spans in (2, 4, 8):          # paged, bucketed at 4 and 8 spans
+            gp = TSM.gemm_plan(spans, k, n, dual, 132)
+            _covers(gp["col_tiles"], TSM.GEMM_COLS // (2 if dual else 1), n)
+            _covers(gp["n_split"], gp["split_k"], k)
+            assert gp["split_k"] % TSM.GEMM_BK == 0
+            assert gp["n_split"] <= TSM.MAX_SPLITS
+        for m in (4, 8):                 # the bucketed and paged decode rows
+            dp = TDM.decode_plan(m, k, n, 132)
+            _covers(dp["strips"], dp["strip"], n)
+            _covers(dp["n_split"], dp["split_k"], k)
+            assert dp["split_k"] % TDM.STAGE_K == 0
+            assert dp["n_split"] <= TDM.MAX_SPLIT
+    rep, g = cfg.num_heads // cfg.num_kv_heads, cfg.num_kv_heads
+    assert cfg.resolved_head_dim in TPA._HEAD_DIMS
+    assert cfg.resolved_head_dim in TCA._HEAD_DIMS
+    for n_pf, capacity in ((2, 136), (0, 136), (0, 32768)):
+        plan = TPA.launch_plan(n_pf, 8, 128, rep, g, capacity, 132)
+        if n_pf:
+            _covers(plan["row_tiles"], TPA.PF_ROWS, 128 * rep)
+        assert plan["n_split"] >= 1
+        assert 8 * g * plan["n_split"] <= max(TPA.FILL * 132, 8 * g)
+    for b, hi, s in ((4, 4, 136), (8, 64, 32768)):
+        per, n_split = TCA.launch_plan(b, g, hi, s, 132)
+        _covers(n_split, per, len(TCA.tiles(hi, s)))
+
+
+# ---------------------------------------------------------------------------
+# K8: the route of each row and the words a lane holds
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,elem,x_off,g,nv", [
+    (4096, 2, 0, 4, 4),       # the library's rows: 4 warps a row
+    (1024, 2, 0, 1, 4),       # the KV shape: one warp
+    (4096, 4, 0, 8, 4),       # f32
+    (2304, 2, 0, 4, 4),       # minicpm-2b: 288 words, 3 a lane
+    (8192, 4, 0, 8, 8),       # past 8 warps x 4 words
+    (16384, 4, 0, 8, 16),     # 64 KB: the most a block holds
+    (40, 2, 0, 1, 1),         # five words
+    (1008, 2, 0, 1, 4),       # 126 words
+    (16416, 4, 0, 1, 0),      # past 64 KB: the two passes
+    (100, 2, 0, 1, 0),        # not whole words
+    (1024, 2, 4, 1, 0),       # unaligned input
+])
+def test_k8_pack_plan(d, elem, x_off, g, nv):
+    """K8's route: rows of whole, aligned 16-byte words up to 64 KB held in
+    registers by the fewest warps (``g``) whose lanes hold at most
+    ``LANE_TARGET`` words, or all ``WARPS`` past that (``nv``, the
+    smallest template size that holds the row); every other row on the two
+    passes."""
+    plan = TQP.pack_plan(d, elem, 256 + x_off, 512)
+    assert (plan["g"], plan["nv"]) == (g, nv)
+    block = max(g, TQP.ROW_BLOCK) if nv else TQP.WARPS
+    assert plan["rows_per_block"] * plan["g"] == block
+
+
+@pytest.mark.parametrize("d,elem", [(4096, 2), (1024, 2), (4096, 4),
+                                    (2304, 2), (2304, 4), (5760, 2),
+                                    (8192, 2), (32768, 2), (16384, 4),
+                                    (40, 2), (8, 2), (1000, 4)])
+def test_k8_lanes_hold_each_word_once(d, elem):
+    """Under the registers route every 16-byte word of a row sits on
+    exactly one (warp, lane), each warp of the row holds some, a lane at
+    most ``nv``, and each warp's j-th load covers contiguous words (its
+    lanes' words are consecutive)."""
+    plan = TQP.pack_plan(d, elem, 0, 0)
+    assert plan["nv"] > 0
+    held = TQP.lane_words(plan, d, elem)
+    words = d * elem // 16
+    flat = sorted(c for warp in held for lane in warp for c in lane)
+    assert flat == list(range(words))
+    assert all(any(lane for lane in warp) for warp in held)
+    assert all(len(lane) <= plan["nv"] for warp in held for lane in warp)
+    for warp in held:
+        for j in range(plan["nv"]):
+            col = [lane[j] for lane in warp if len(lane) > j]
+            if col:
+                assert col == list(range(col[0], col[0] + len(col)))

@@ -2,13 +2,13 @@
 """Same-card A/B of two builds of the port's K1 (STaMP transform +
 quantize), K4 (paged attention), K2 (STaMP int GEMM), K3 (decode matmul),
 K5 (grouped MoE expert FFN), K6 (decode
-attention over the contiguous packed cache), K7 (standalone int8 GEMM) and
-K10 (Walsh-Hadamard transform) kernels, at every site of theirs that
-``chip_smoke.py`` times.
+attention over the contiguous packed cache), K7 (standalone int8 GEMM), K8
+(quantize + pack) and K10 (Walsh-Hadamard transform) kernels, at every
+site of theirs that ``chip_smoke.py`` times.
 
     python3 tools/ab_kernels.py --old DIR [--new DIR] [--tree NAME=DIR ...]
                                 [--order old,new,new,old]
-                                [--kernels k1,k2,k3,k4,k5,k6,k7,k10]
+                                [--kernels k1,k2,k3,k4,k5,k6,k7,k8,k10]
 
 ``DIR`` is the root of a checkout (or of a ``git archive`` of one) holding
 ``src/repro_torch``; ``--new`` defaults to this checkout, and ``--tree``
@@ -18,8 +18,9 @@ kernels into its own build directory and runs this checkout's
 ``chip_smoke.check_k1``, ``check_stamp``, ``check_decode``,
 ``check_attention``, ``check_grouped_all``, ``check_cache_attention``
 (Kimi-K2's head_dim 112 rows only where that tree's K6 takes it),
-``check_int8_gemm`` and ``check_wht`` with that tree's modules: the same
-sites, checks against the plain versions and timings as the smoke
+``check_int8_gemm``, ``check_pack`` and ``check_wht`` with that tree's
+modules: the same sites, checks against the plain versions and timings as
+the smoke
 (eager and replayed from CUDA graphs, beside the library yardsticks);
 ``--kernels`` keeps a subset.  Prints one ``[ab]`` line a run and site,
 and last a JSON object with every run; needs a CUDA card.
@@ -35,7 +36,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KEYS = ("ms", "graph_ms", "library_ms", "library_graph_ms",
+KEYS = ("ms", "graph_ms", "copy_graph_ms", "library_ms", "library_graph_ms",
         "library_row_major_ms", "library_col_major_ms",
         "library_row_major_graph_ms", "library_col_major_graph_ms")
 
@@ -53,6 +54,7 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
     from repro_torch.kernels import int8_gemm as im
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quant_pack as qp
     from repro_torch.kernels import ref
     from repro_torch.kernels import stamp_matmul as sm
     from repro_torch.kernels import wht as wt
@@ -70,6 +72,7 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
                                        ("k5", "grouped_matmul"),
                                        ("k6", "cache_attention"),
                                        ("k7", "int8_matmul"),
+                                       ("k8", "quant_pack"),
                                        ("k10", "wht")) if k in want}))
     stamp = [dict(sites=cs.LLAMA_SITES), dict(sites=cs.ARCTIC_SITES,
                                               seed=5)]
@@ -114,6 +117,10 @@ def worker(src: Path, build: Path, kernels: str) -> dict:
             gen = torch.Generator(device="cuda").manual_seed(9)
             for r in cs.check_int8_gemm(torch, im, gen):
                 rows[f"K7 {r['site']}"] = r
+        if "k8" in want:
+            gen = torch.Generator(device="cuda").manual_seed(9)
+            for r in cs.check_pack(torch, qp, gen):
+                rows[f"K8 {r['site']}"] = r
         if "k10" in want:
             gen = torch.Generator(device="cuda").manual_seed(9)
             for r in cs.check_wht(torch, wt, gen):

@@ -2,7 +2,8 @@
 """Where K1's (``stamp_transform_quantize``), K2's (``stamp_int_gemm``),
 K3's (``stamp_decode_matmul``), K4's (``paged_ragged_attention``), K5's
 (``stamp_quant_grouped_matmul``), K6's (``cache_decode_attention``), K7's
-(``int8_matmul``) and K10's (``walsh_hadamard``) time goes: each
+(``int8_matmul``), K8's (``quantize_pack``) and K10's
+(``walsh_hadamard``) time goes: each
 timed replayed from CUDA graphs at the serve path's (or the kernel
 library's) shapes, built whole and built with one part taken out, or with
 its launch plan changed.
@@ -15,6 +16,7 @@ its launch plan changed.
     python3 tools/probe.py k5 [--src DIR]
     python3 tools/probe.py k6 [--src DIR]
     python3 tools/probe.py k7 [--src DIR]
+    python3 tools/probe.py k8 [--src DIR] [--warps 1,2,4]
     python3 tools/probe.py k10 [--src DIR]
 
 A cut variant is the kernel's source (``src/repro_torch/csrc``, of this
@@ -81,6 +83,17 @@ piece of the weights instead of three (the statements of each design are
 listed in ``K6_VARIANTS``).
 Sites: the smoke's ``CACHE_SHAPES`` (serve and long) at llama3-8b's and
 Kimi-K2's attention widths, bf16 queries.
+
+k8: (the two-pass design) variants without the second read (values made
+from the index), the min / max pass (a fixed scale), the division,
+``rintf``, the float-to-int conversion or the code stores; (the registers
+design) without the loads, the min / max, Markstein's correction of the
+quotient or the code stores (each word still computed whole), and with
+every row on the per-value ``__fdiv_rn`` and ``rintf`` (``exact_ops``,
+right output).  Sites: the smoke's ``PACK_SHAPES`` (bf16 at 4 and 8 bits,
+the KV shape, f32 at 4 bits), each beside the ``copy_`` ceiling.
+``--warps``: the whole build with each registers-route row spread over
+that many warps (checked exact).
 
 k10: variants without the butterfly stages, the loads or the stores (a
 store that never happens, so nothing is optimised away), and (the
@@ -322,6 +335,91 @@ K5_VARIANTS = {
         # not cuts: the ring one stage shorter or longer
         "stages2": ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;"),
         "stages4": ("constexpr int STAGES = 3;", "constexpr int STAGES = 4;"),
+    },
+}
+# one set of cuts for each design of K8: the earlier one reads a row twice
+# (min / max, then quantize and pack), the later one keeps it in registers
+K8_VARIANTS = {
+    "registers": {
+        "full": (),
+        # the loads (each word made from its index instead: finite values)
+        "no_loads": {"replace": [
+            ("if (live && c < words) w[j] = __ldcs(xr + c);",
+             "if (live && c < words) w[j] = make_uint4(0x3f803f80u ^ (c & "
+             "0x007f007fu), 0x3f803f80u ^ ((c >> 7) & 0x007f007fu), "
+             "0x3c003c00u ^ (c & 0x00ff00ffu), 0x3f003f00u ^ (c & "
+             "0x00ff00ffu));")]},
+        # the rows' min / max (a fixed scale and zero point)
+        "no_minmax": {"replace": [("float mn = acc.lo(), mx = acc.hi();",
+                                   "float mn = -4.0f, mx = 4.0f;")]},
+        # Markstein's correction: the quotient left at v * RN(1/s)
+        "no_division": {"replace": [
+            ("const float t = __fmaf_rn(__fmaf_rn(-q0, s, v), r, q0);",
+             "const float t = q0;")]},
+        # not cuts: every row quantized with __fdiv_rn and rintf per value;
+        # the loads through the read-only path (__ldg) instead of
+        # evict-first; evict-first code stores; registers-route blocks of
+        # at least 8 warps instead of 4
+        "exact_ops": {"replace": [
+            ("if (fabsf(z) <= FAST_ZP && s < CUDART_INF_F)", "if (false)")]},
+        "ldg_loads": {"replace": [
+            ("if (live && c < words) w[j] = __ldcs(xr + c);",
+             "if (live && c < words) w[j] = __ldg(xr + c);")]},
+        "streaming_stores": {"replace": [
+            ("reinterpret_cast<uint32_t*>(qr)[c] = bytes4(p[0], p[1], p[2], "
+             "p[3]);",
+             "__stcs(reinterpret_cast<unsigned*>(qr) + c, bytes4(p[0], p[1], "
+             "p[2], p[3]));"),
+            ("reinterpret_cast<uint2*>(qr)[c] =\n            make_uint2(lo, "
+             "bytes4(k[4], k[5], k[6], k[7]) ^ 0x80808080u);",
+             "__stcs(reinterpret_cast<uint2*>(qr) + c, make_uint2(lo, "
+             "bytes4(k[4], k[5], k[6], k[7]) ^ 0x80808080u));")]},
+        "blocks_of_8_warps": ("constexpr int ROW_BLOCK = 4;",
+                              "constexpr int ROW_BLOCK = 8;"),
+        # the code stores (each still computed whole)
+        "no_stores": {"replace": [
+            ("reinterpret_cast<uint32_t*>(qr)[c] = bytes4(p[0], p[1], p[2], "
+             "p[3]);",
+             "{ const uint32_t o = bytes4(p[0], p[1], p[2], p[3]); if (o == "
+             "0x9e3779b9u) reinterpret_cast<uint32_t*>(qr)[c] = o; }"),
+            ("reinterpret_cast<uint16_t*>(qr)[c] =\n            (uint16_t)"
+             "__byte_perm(p[0], p[1], 0x0040);",
+             "{ const uint32_t o = __byte_perm(p[0], p[1], 0x0040); if (o == "
+             "0x9e3779b9u) reinterpret_cast<uint16_t*>(qr)[c] = o; }"),
+            ("reinterpret_cast<uint2*>(qr)[c] =\n            make_uint2(lo, "
+             "bytes4(k[4], k[5], k[6], k[7]) ^ 0x80808080u);",
+             "{ const uint32_t o = bytes4(k[4], k[5], k[6], k[7]); if ((lo ^ "
+             "o) == 0x9e3779b9u) reinterpret_cast<uint2*>(qr)[c] = "
+             "make_uint2(lo, o); }"),
+            ("reinterpret_cast<uint32_t*>(qr)[c] = lo;",
+             "if (lo == 0x9e3779b9u) reinterpret_cast<uint32_t*>(qr)[c] = "
+             "lo;")]},
+    },
+    "two_pass": {
+        "full": (),
+        # the second pass's loads (its values made from the index instead)
+        "no_second_read": {"replace": [
+            ("ld8(xr + k + 8 * part, v);",
+             "for (int i = 0; i < 8; ++i) v[i] = 1e-3f * (float)(k + 8 * "
+             "part + i);")]},
+        # the first pass (a fixed scale: the row's min / max never read)
+        "no_minmax": ("for (int k = 8 * lane; k < d; k += 8 * 32) {",
+                      "for (int k = 8 * lane; k < 0; k += 8 * 32) {"),
+        "no_division": {"replace": [
+            ("float q = rintf(__fdiv_rn(v, s)) + z;",
+             "float q = rintf(v * s) + z;")]},
+        "no_rint": {"replace": [
+            ("float q = rintf(__fdiv_rn(v, s)) + z;",
+             "float q = __fdiv_rn(v, s) + z;")]},
+        "no_f2i": {"replace": [("return (uint32_t)(int)q;",
+                                "return __float_as_uint(q);")]},
+        "no_stores": {"replace": [
+            ("*reinterpret_cast<uint4*>(qr + k / 2) =",
+             "if (word[0] == 0x9e3779b9u) *reinterpret_cast<uint4*>(qr + "
+             "k / 2) ="),
+            ("*reinterpret_cast<uint4*>(qr + k) =",
+             "if (word[0] == 0x9e3779b9u) *reinterpret_cast<uint4*>(qr + "
+             "k) =")]},
     },
 }
 K4_CUTS = {
@@ -649,6 +747,49 @@ def probe_k5(torch, cs, args) -> None:
         torch.cuda.empty_cache()
 
 
+def probe_k8(torch, cs, args) -> None:
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import quant_pack as qp
+    warps = [int(w) for w in args.warps.split(",") if w]
+    libs = {} if warps else build_variants(
+        cs, kcuda, "quant_pack", args.src,
+        variants_of(K8_VARIANTS, args.src, "quant_pack"), qp._SIGNATURES)
+    own = qp.pack_plan
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for name, shape, bits, dtype in cs.PACK_SHAPES:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(
+            getattr(torch, dtype))
+
+        def call():
+            return qp.quantize_pack(x, bits)
+
+        want = qp.quant_pack_plain(x, bits)
+        for g in warps:              # the registers route at g warps a row
+            def plan(d, elem, *a, g=g):
+                p = own(d, elem, *a)
+                need = -(-(d * elem // 16) // (32 * g))
+                nv = next((v for v in qp.LANE_WORDS if v >= need), 0)
+                block = max(g, getattr(qp, "ROW_BLOCK", qp.WARPS))
+                return dict(p, g=g, nv=nv, rows_per_block=block // g) \
+                    if p["nv"] and nv else p
+
+            qp.pack_plan = plan
+            cs.check(all(torch.equal(a, b) for a, b in zip(call(), want)),
+                     f"K8 differs at {name} with {g} warps a row")
+            ms = cs.timed_graph(torch, call, 20, per_graph=10)
+            print(f"[probe] k8 {name} warps={g}: graph_ms={ms:.4f}")
+            qp.pack_plan = own
+        for label, lib in libs.items():
+            kcuda._LIBS["quant_pack"] = lib
+            ms = cs.timed_graph(torch, call, 20, per_graph=10)
+            print(f"[probe] k8 {name} {label}: graph_ms={ms:.4f}")
+        ms = cs.timed_graph(torch, cs.copy_ceiling(torch, x, bits), 20,
+                            per_graph=10)
+        print(f"[probe] k8 {name} copy_ceiling: graph_ms={ms:.4f}")
+        del x
+        torch.cuda.empty_cache()
+
+
 def probe_k4(torch, cs, args) -> None:
     from repro_torch.kernels import cuda as kcuda
     from repro_torch.kernels import paged_attention as pa
@@ -744,10 +885,11 @@ def sweep_k4(torch, cs, pa, PKV, KV, forced, splits, own_plan) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=("k1", "k2", "k3", "k4", "k5", "k6",
-                                       "k7", "k10"))
+                                       "k7", "k8", "k10"))
     ap.add_argument("--src", type=Path, default=ROOT)
     ap.add_argument("--fill", default="")
     ap.add_argument("--cluster", default="")
+    ap.add_argument("--warps", default="")
     ap.add_argument("--splits", default="1,2,3,5")
     ap.add_argument("--cuts", action="store_true")
     ap.add_argument("--sweep", action="store_true")
@@ -761,7 +903,7 @@ def main() -> None:
     print(cs.nvidia_smi())
     with torch.inference_mode():
         {"k1": probe_k1, "k2": probe_k2, "k3": probe_k3, "k4": probe_k4,
-         "k5": probe_k5, "k6": probe_k6, "k7": probe_k7,
+         "k5": probe_k5, "k6": probe_k6, "k7": probe_k7, "k8": probe_k8,
          "k10": probe_k10}[args.kernel](torch, cs, args)
 
 
