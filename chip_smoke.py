@@ -65,11 +65,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    run; then each of ``DENSE_ARCHS`` through the paged engine (qwen2-72b cut
    to ``QWEN2_LAYERS`` of its 80 layers, widths as published) and
    deepseek-7b through the bucketed engine too, counts read around each
-   run;
+   run; and the engine surface of the serving benchmark: llama3-8b in
+   two-call steps (``two_call_phase``: equal ids to unified steps with
+   plain attention, and K4's ``paged_decode_attention`` entry held to
+   plain attention by teacher forcing), llama3-8b with the serve CLI's
+   chaos plan, numerics guard, bounded queue, deadline and metrics / trace
+   files (``robust_phase``; then a forced NaN row whose demotion must stop
+   K1–K3), and Arctic with quant telemetry (``telemetry_phase``: the same
+   ids and launches as without, its clip rates and router gauges
+   printed); each serve phase prints its step phases' totals;
 5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one or outside a checkout.
+``--serve-only PHASE,...`` runs only llama3-8b's paged phase and the named
+serve phases (no kernels line, no final ok line).
 """
 
 from __future__ import annotations
@@ -1178,6 +1188,14 @@ def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
 
 
 def main() -> None:
+    # ``--serve-only NAME,...`` (for iterating on the card) skips phase 3,
+    # the card-vs-CPU checks and the serve phases not named, and prints no
+    # kernels line and no final ok line
+    only = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-only":
+        only = set(sys.argv[2].split(","))
+    elif len(sys.argv) > 1:
+        fail("usage: chip_smoke.py [--serve-only PHASE,...]")
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("run from the root of a checkout: src/repro_torch is missing")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1216,6 +1234,11 @@ def main() -> None:
     from repro_torch.models import layers as L
     from repro_torch.serving import kvcache as KV
     from repro_torch.serving import paged_kvcache as PKV
+    if only is not None:
+        from repro_torch.launch import serve
+        serve_phases(torch, serve, ops, configs, only, set())
+        print("[chip_smoke] partial run (--serve-only): no kernels line")
+        return
     with torch.inference_mode():
         k1, k2 = check_stamp(torch, sm, ops, prepare_linear, LLAMA_SITES)
         a1, a2 = check_stamp(torch, sm, ops, prepare_linear, ARCTIC_SITES,
@@ -1293,26 +1316,7 @@ def main() -> None:
         paths = {"kernel_library": (library_phase(torch, ops, prepare_linear,
                                                   hd, wt, qp, im), serving)}
     torch.cuda.empty_cache()
-    dense = {"stamp_quant_grouped_matmul"} | standalone
-    paths["llama3-8b"] = (serve_phase(torch, serve, ops, "llama3-8b", None),
-                          dense | {"cache_decode_attention"})
-    paths["llama3-8b:bucketed"] = (serve_phase(torch, serve, ops, "llama3-8b",
-                                               None, kind="bucketed"),
-                                   dense | {"paged_ragged_attention"})
-    arctic_cfg = dataclasses.replace(configs.get_config("arctic-480b"),
-                                     num_layers=ARCTIC_LAYERS)
-    paths["arctic-480b"] = (serve_phase(torch, serve, ops, "arctic-480b",
-                                        arctic_cfg),
-                            standalone | {"cache_decode_attention"})
-    for arch, layers in DENSE_ARCHS.items():
-        cfg = None if layers is None else dataclasses.replace(
-            configs.get_config(arch), num_layers=layers)
-        paths[arch] = (serve_phase(torch, serve, ops, arch, cfg),
-                       dense | {"cache_decode_attention"})
-        if arch == "deepseek-7b":
-            paths[arch + ":bucketed"] = (
-                serve_phase(torch, serve, ops, arch, None, kind="bucketed"),
-                dense | {"paged_ragged_attention"})
+    paths.update(serve_phases(torch, serve, ops, configs, None, standalone))
     for path, (counts, absent) in paths.items():
         for name, n in counts.items():
             if name in absent:
@@ -1356,7 +1360,8 @@ def main() -> None:
         entry("stamp_decode_matmul", src + "decode_matmul.cu",
               "src/repro/kernels/decode_matmul.py:72", k3),
         entry("paged_ragged_attention", src + "paged_attention.cu",
-              "src/repro/kernels/paged_attention.py:311", mixed),
+              "src/repro/kernels/paged_attention.py:311, "
+              "src/repro/kernels/paged_attention.py:141", mixed),
         entry("stamp_quant_grouped_matmul", src + "grouped_matmul.cu",
               "src/repro/kernels/stamp_matmul.py:438", k5),
         entry("cache_decode_attention", src + "cache_attention.cu",
@@ -1378,28 +1383,38 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def serve_phase(torch, serve, ops, arch: str, cfg,
-                kind: str = "paged") -> dict:
+def serve_phase(torch, serve, ops, arch: str, cfg, kind: str = "paged",
+                extra=(), label=None, attention: bool = True,
+                before=None, after=None) -> tuple:
     """Serve ``arch`` (``cfg`` overrides its config) through the serve
     entry point and the ``kind`` of engine: 4 requests x 96 prompt tokens x
-    8 new tokens.  Every kernel's launch count is set to 0 just before the run
-    and read just after; returns those counts."""
+    8 new tokens, unified steps, fused execution and (``attention``) the
+    cache attention kernel, with the CLI flags ``extra`` appended.  Every
+    kernel's launch count is set to 0 just before the run and read just
+    after.  ``before(engine)`` runs before the requests are submitted,
+    ``after(engine, res, sargs)`` after the run.  Returns ``(counts,
+    res)``, ``res`` as ``serve.serve_requests`` returns it."""
+    label = label or arch
     argv = ["--arch", arch, "--engine", kind, "--step-mode", "unified",
-            "--execution", "fused", "--fused-cache-attention", "--device",
-            "cuda", "--requests", "4", "--prompt-len", "96", "--max-new",
-            "8"]
+            "--execution", "fused", "--device", "cuda", "--requests", "4",
+            "--prompt-len", "96", "--max-new", "8",
+            *(["--fused-cache-attention"] if attention else []), *extra]
     sargs = serve.parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine, cfg, report = serve.build(sargs, cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    if before is not None:
+        before(engine)
     ops.reset_launch_counts()
     res = serve.serve_requests(engine, cfg, sargs)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[serve] {arch} engine={kind} layers={cfg.num_layers} "
+    arch = label
+    print(f"[serve] {arch} engine={kind} step={sargs.step_mode} "
+          f"layers={cfg.num_layers} "
           f"d_model={cfg.d_model} "
           f"experts={cfg.num_experts} num_hi={report.num_hi} "
           f"setup={setup_s:.1f}s requests={res['requests']} "
@@ -1408,9 +1423,30 @@ def serve_phase(torch, serve, ops, arch: str, cfg,
           f"ttft_p50={res['ttft_p50_s']:.3f}s steps={res['steps']} "
           f"peak_mem={peak_gb:.2f}GiB launches={json.dumps(counts)}")
     print(f"[serve] {arch} engine={kind} stats {json.dumps(res['stats'])}")
-    check(res["requests"] == 4 and all(len(t) == 8 for t in
-                                       res["outputs"].values()),
-          f"{arch} serve phase did not finish 4 requests x 8 tokens")
+    # the engine's step phases (host clock, each ending in a transfer or
+    # in host work): where a step's time goes
+    phases = engine.metrics.snapshot()["histograms"]
+    print(f"[serve] {arch} engine={kind} step phases (count, total ms): "
+          + json.dumps({k.split('"')[1]: (v["count"],
+                                          round(v["sum"] * 1e3, 3))
+                        for k, v in phases.items()
+                        if k.startswith("step_phase_s")}))
+    if sargs.numerics_guard:
+        # the guard quarantines every non-finite row: only injected ones
+        injected = engine.fault.injected["nan"] if engine.fault else 0
+        check(res["stats"]["nan_quarantines"] == injected,
+              f"{arch}: the numerics guard quarantined "
+              f"{res['stats']['nan_quarantines']} requests for "
+              f"{injected} injected NaN rows")
+    else:
+        check(res["stats"]["nonfinite_logit_rows"] == 0,
+              f"{arch}: non-finite logits in the serve phase")
+    if after is not None:
+        after(engine, res, sargs)
+    else:
+        check(res["requests"] == 4 and all(len(t) == 8 for t in
+                                           res["outputs"].values()),
+              f"{arch} serve phase did not finish 4 requests x 8 tokens")
     # the reference's greedy pick spans the padded vocabulary (its logits'
     # pad columns are not masked), so ids up to padded_vocab are its range
     ids = [t for toks in res["outputs"].values() for t in toks]
@@ -1419,12 +1455,293 @@ def serve_phase(torch, serve, ops, arch: str, cfg,
     print(f"[serve] {arch} engine={kind} generated ids in the vocabulary's "
           f"pad: {sum(t >= cfg.vocab_size for t in ids)} of {len(ids)} "
           f"(vocab {cfg.vocab_size}, padded to {cfg.padded_vocab})")
-    check(res["stats"]["nonfinite_logit_rows"] == 0,
-          f"{arch}: non-finite logits in the serve phase")
     del engine
     gc.collect()       # the engine and its scheduler's callbacks form a cycle
     torch.cuda.empty_cache()
+    return counts, res
+
+
+# --------------------------------------------------------- serve phases --
+
+# the llama3-8b phase of the robustness and observability flags: the
+# serve CLI's seeded chaos plan, the numerics guard, a bounded queue that
+# sheds a third of the 12 requests, a deadline no request should reach,
+# and the three output files
+ROBUST_REQUESTS, ROBUST_WAITING, ROBUST_DEADLINE_S = 12, 8, 600.0
+# teacher-forced rows whose own top-1 / top-2 margin exceeds this must
+# pick the forced token (the engine tests' rule)
+DECISIVE = 0.1
+TERMINAL = ("finished", "failed", "cancelled", "rejected")
+
+
+def serve_phases(torch, serve, ops, configs, only, standalone) -> dict:
+    """Phase 4's serve runs.  Returns ``{path: (counts, kernels the path
+    must not launch)}``; ``only`` (a set of path names) runs llama3-8b's
+    unified phase and those named."""
+    dense = {"stamp_quant_grouped_matmul"} | standalone
+    paged = dense | {"cache_decode_attention"}
+    arctic_cfg = dataclasses.replace(configs.get_config("arctic-480b"),
+                                     num_layers=ARCTIC_LAYERS)
+    paths, runs = {}, {}
+
+    def want(name):
+        return only is None or name in only
+
+    counts, runs["llama3-8b"] = serve_phase(torch, serve, ops, "llama3-8b",
+                                            None)
+    paths["llama3-8b"] = (counts, paged)
+    if want("llama3-8b:bucketed"):
+        paths["llama3-8b:bucketed"] = (serve_phase(
+            torch, serve, ops, "llama3-8b", None, kind="bucketed")[0],
+            dense | {"paged_ragged_attention"})
+    if want("llama3-8b:two_call"):
+        paths.update(two_call_phase(torch, serve, ops, runs["llama3-8b"],
+                                    paged))
+    if want("llama3-8b:robust"):
+        paths["llama3-8b:robust"] = (robust_phase(torch, serve, ops),
+                                     paged)
+    if want("arctic-480b") or want("arctic-480b:telemetry"):
+        counts, runs["arctic"] = serve_phase(torch, serve, ops,
+                                             "arctic-480b", arctic_cfg)
+        paths["arctic-480b"] = (counts, standalone |
+                                {"cache_decode_attention"})
+    if want("arctic-480b:telemetry"):
+        paths["arctic-480b:telemetry"] = (telemetry_phase(
+            torch, serve, ops, arctic_cfg, counts, runs["arctic"]),
+            standalone | {"cache_decode_attention"})
+    for arch, layers in DENSE_ARCHS.items():
+        if not want(arch):
+            continue
+        cfg = None if layers is None else dataclasses.replace(
+            configs.get_config(arch), num_layers=layers)
+        paths[arch] = (serve_phase(torch, serve, ops, arch, cfg)[0], paged)
+        if arch == "deepseek-7b":
+            paths[arch + ":bucketed"] = (
+                serve_phase(torch, serve, ops, arch, None,
+                            kind="bucketed")[0],
+                dense | {"paged_ragged_attention"})
+    return paths
+
+
+def two_call_phase(torch, serve, ops, unified: dict, paged: set) -> dict:
+    """llama3-8b through the two-call step mode at full width.  Without the
+    cache attention kernel both step modes attend a chunk to its raw K/V
+    and the decode slots to the dequantized pages, so two-call and unified
+    must give the same ids.  With the kernel, a unified chunk reads its own
+    quantized pages through K4 where a two-call chunk still attends to its
+    raw K/V (as in the reference: the chunk attention has two references),
+    so its ids are only reported beside the unified phase's; the two-call
+    run with the kernel (K4's ``n_pf = 0`` entry on the decode slots) is
+    held to the two-call run without it by the engine tests' rule:
+    teacher-forced to its tokens, every row whose own top-1 / top-2 margin
+    exceeds ``DECISIVE`` picks the forced token.  Returns the two-call
+    paths' launch counts."""
+    two_call = ["--step-mode", "two_call"]
+    uni_counts, uni = serve_phase(torch, serve, ops, "llama3-8b", None,
+                                  attention=False,
+                                  label="llama3-8b:unified:plain_attention")
+    two_counts, two = serve_phase(torch, serve, ops, "llama3-8b", None,
+                                  extra=two_call, attention=False,
+                                  label="llama3-8b:two_call:plain_attention")
+    check(two["outputs"] == uni["outputs"],
+          f"two-call ids differ from unified ones with plain attention: "
+          f"{two['outputs']} vs {uni['outputs']}")
+    print("[two_call] plain attention: two-call ids equal the unified "
+          "engine's on all 4 requests")
+    counts, free = serve_phase(torch, serve, ops, "llama3-8b", None,
+                               extra=two_call, label="llama3-8b:two_call")
+    for name, other in (("two-call plain-attention", two),
+                        ("unified (attention kernel)", unified)):
+        same = sum(free["outputs"][u] == other["outputs"][u]
+                   for u in other["outputs"])
+        print(f"[two_call] free-running ids equal to the {name} run's: "
+              f"{same} of {len(other['outputs'])} requests")
+    rows = []
+
+    def force(engine):
+        to_host, next_token = engine._to_host, engine._next_token
+
+        def host(logits, telem):
+            engine._top2 = [b.float().topk(2, dim=-1).values.cpu().numpy()
+                            for b in logits]
+            return to_host(logits, telem)
+
+        def pick(sreq, tok, finite):
+            top2 = engine._top2[0]
+            row = 0 if top2.shape[0] == 1 else sreq.slot
+            forced = two["outputs"][sreq.uid][len(sreq.generated)]
+            rows.append((sreq.uid, len(sreq.generated), int(tok), forced,
+                         float(top2[row, 0] - top2[row, 1])))
+            return next_token(sreq, forced, finite)
+
+        engine._to_host, engine._next_token = host, pick
+
+    serve_phase(torch, serve, ops, "llama3-8b", None, extra=two_call,
+                label="llama3-8b:two_call:forced", before=force)
+    parted = [r for r in rows if r[2] != r[3]]
+    decisive = [r for r in rows if r[4] > DECISIVE]
+    print(f"[two_call] attention kernel, teacher-forced to the "
+          f"plain-attention two-call tokens: {len(rows)} rows, "
+          f"{len(decisive)} decisive (own margin > {DECISIVE}), own pick "
+          f"parted on {len(parted)} (uid, index, margin): "
+          f"{[(u, i, round(m, 4)) for u, i, _, _, m in parted]}")
+    check(len(rows) == 32, "the forced two-call run did not pick 32 tokens")
+    check(all(r[2] == r[3] for r in decisive),
+          f"the attention kernel parted from plain attention on a decisive "
+          f"row: {[r for r in decisive if r[2] != r[3]]}")
+    absent = paged | {"paged_ragged_attention"}
+    return {"llama3-8b:two_call": (counts, paged),
+            "llama3-8b:unified:plain_attention": (uni_counts, absent),
+            "llama3-8b:two_call:plain_attention": (two_counts, absent)}
+
+
+def _parse_prometheus(text: str) -> int:
+    """Number of samples in Prometheus text; fails on a malformed line."""
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("# "):
+            continue
+        name, _, value = line.rpartition(" ")
+        try:
+            float(value)
+        except ValueError:
+            name = ""
+        check(bool(name), f"malformed Prometheus sample: {line!r}")
+        n += 1
+    return n
+
+
+def robust_phase(torch, serve, ops) -> dict:
+    """llama3-8b at full width with the serve CLI's robustness and
+    observability flags: ``--chaos 0`` (the CLI's seeded fault plan),
+    ``--numerics-guard``, ``--max-waiting``, ``--deadline-s`` and the
+    metrics / trace files.  Checks the files parse back, every request is
+    terminal, no page or slot leaked, and prints the ``[serve:lifecycle]``
+    line; then forces one NaN row on the same engine and checks the
+    demotion it causes stops K1–K3 launches (the reference's demotion keeps
+    the cache attention as configured, so K4 goes on).  Returns the chaos
+    run's launch counts."""
+    import tempfile
+    from repro_torch.serving.faults import FaultPlan
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {k: str(Path(tmp) / f"robust.{k}")
+                 for k in ("json", "prom", "trace")}
+        extra = ["--chaos", "0", "--numerics-guard", "--requests",
+                 str(ROBUST_REQUESTS), "--max-waiting", str(ROBUST_WAITING),
+                 "--deadline-s", str(ROBUST_DEADLINE_S), "--metrics-json",
+                 files["json"], "--metrics-prom", files["prom"],
+                 "--trace-out", files["trace"]]
+
+        def after(engine, res, sargs):
+            st = res["stats"]
+            print(serve.lifecycle_line(st))
+            for line in serve.write_outputs(engine, sargs):
+                print(line)
+            check(res["requests"] == ROBUST_REQUESTS and all(
+                s in TERMINAL for s in res["status"].values()),
+                "a robust-phase request did not reach one terminal state")
+            check(st["shed"] == ROBUST_REQUESTS - ROBUST_WAITING,
+                  f"expected {ROBUST_REQUESTS - ROBUST_WAITING} requests "
+                  f"shed, got {st['shed']}")
+            check(engine.sched.quiescent(), "pages or slots leaked")
+            with open(files["json"]) as f:
+                snap = json.load(f)
+            check(snap["counters"]["finished"] == st["finished"],
+                  "metrics JSON disagrees with the engine's stats")
+            with open(files["prom"]) as f:
+                n_prom = _parse_prometheus(f.read())
+            with open(files["trace"]) as f:
+                trace = json.load(f)
+            terminals = [e for e in trace["traceEvents"] if e["ph"] == "i"
+                         and e["name"].startswith("terminal")]
+            check(len(terminals) == ROBUST_REQUESTS,
+                  "the trace lacks a terminal mark per request")
+            print(f"[robust] files parse: {len(snap['counters'])} counters, "
+                  f"{n_prom} Prometheus samples, "
+                  f"{len(trace['traceEvents'])} trace events; injected "
+                  f"{json.dumps(engine.fault.injected)}; statuses "
+                  f"{json.dumps(res['status'])}")
+            demotion_run(torch, ops, engine, FaultPlan)
+
+        counts, _ = serve_phase(torch, serve, ops, "llama3-8b", None,
+                                extra=extra, label="llama3-8b:robust",
+                                after=after)
     return counts
+
+
+def demotion_run(torch, ops, engine, FaultPlan) -> None:
+    """Four more requests on the robust engine with a NaN forced into the
+    first one's second token: the guard quarantines it, the engine demotes
+    to reference execution on its kept packed weights, and no K1, K2 or K3
+    launch follows."""
+    uid = engine._uid + 1
+    engine.fault = FaultPlan(seed=0, nan_faults=frozenset({(uid, 1)}))
+    engine.sched.alloc.fault = engine.fault.exhausted
+    at_demotion = {}
+    demote = engine._maybe_demote
+
+    def snapshot():
+        at_demotion.update(ops.launch_counts())
+        demote()
+
+    engine._maybe_demote = snapshot
+    import numpy as np
+    rng = np.random.default_rng(1)
+    ops.reset_launch_counts()
+    for _ in range(4):
+        engine.submit(rng.integers(0, engine.cfg.vocab_size, 96),
+                      max_new_tokens=8)
+    done = engine.run()
+    torch.cuda.synchronize()
+    end = ops.launch_counts()
+    st = engine.stats
+    check(st["demotions"] == 1 and engine.serve.stamp.execution ==
+          "reference", "the forced NaN row did not demote the engine")
+    check(sorted(r.status for r in done).count("failed") == 1,
+          "the demotion run did not fail exactly the poisoned request")
+    moved = {k: end[k] - at_demotion[k] for k in end}
+    print(f"[robust] demotion: launches up to it "
+          f"{json.dumps(at_demotion)}, after it {json.dumps(moved)}")
+    for k in ("stamp_transform_quantize", "stamp_int_gemm",
+              "stamp_decode_matmul"):
+        check(at_demotion[k] > 0 and moved[k] == 0,
+              f"{k} launched after the demotion ({moved[k]})")
+    check(moved["paged_ragged_attention"] > 0,
+          "the cache attention stopped after the demotion")
+    check(engine.sched.quiescent(), "pages or slots leaked (demotion run)")
+
+
+def telemetry_phase(torch, serve, ops, cfg, counts: dict, run: dict) -> dict:
+    """Arctic-480B (``cfg``) with ``--quant-telemetry``: the same ids and
+    the same launches as the Arctic phase (the telemetry's reductions are
+    plain PyTorch beside the kernels), and the per-site clip rates and
+    router gauges printed.  Returns the run's launch counts."""
+
+    def after(engine, res, sargs):
+        snap = engine.metrics.snapshot()
+        g = snap["gauges"]
+        clip = {k: g[k] for k in g if k.startswith("quant_clip_rate")}
+        cov = {k: g[k] for k in g if k.startswith("quant_hi_coverage")}
+        experts = [g[k] for k in g if k.startswith("moe_expert_tokens")]
+        print(f"[obs] arctic-480b quant clip rates {json.dumps(clip)}; hi "
+              f"coverage {json.dumps(cov)}")
+        print(f"[obs] arctic-480b router: occupancy "
+              f"{g['moe_capacity_occupancy']:.4f} drop rate "
+              f"{g['moe_drop_rate']:.4f} dropped (run) "
+              f"{snap['counters']['moe_dropped_tokens']:.0f} expert tokens "
+              f"(last step) min {min(experts):.0f} max {max(experts):.0f} "
+              f"over {len(experts)} experts")
+        check(clip and len(experts) == engine.cfg.num_experts,
+              "quant telemetry published no site or router gauges")
+        check(res["outputs"] == run["outputs"],
+              "quant telemetry changed Arctic's tokens")
+
+    tele, _ = serve_phase(torch, serve, ops, "arctic-480b", cfg,
+                          extra=["--quant-telemetry"],
+                          label="arctic-480b:telemetry", after=after)
+    check(tele == counts, f"quant telemetry changed Arctic's launches: "
+                          f"{tele} vs {counts}")
+    return tele
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import quant as Q
 from repro_torch.core import transforms as T
+from repro_torch.obs import quantstats as QS
 
 # transforms the fused kernels run; the rest stay on the reference path
 FUSABLE_TRANSFORMS = ("none", "dwt", "wht")
@@ -93,24 +94,43 @@ def invert_seq_transform(y: torch.Tensor, cfg: StampConfig,
         skip_first=cfg.skip_first_token)
 
 
-def _reference_quantize(x: torch.Tensor, cfg: StampConfig) -> torch.Tensor:
+def _reference_quantize(x: torch.Tensor, cfg: StampConfig,
+                        site: Optional[str] = None) -> torch.Tensor:
     """Transformed + mixed-precision fake-quantized activation, in f32
-    (bf16 butterflies would move the min/max scales and flip codes)."""
+    (bf16 butterflies would move the min/max scales and flip codes).  With
+    a telemetry scope open, ``site``'s quant-health stats are recorded."""
     tx = apply_seq_transform(x.float(), cfg)
-    return Q.fake_quant(tx, cfg.bits_vector(tx.shape[-2], device=x.device),
-                        axis=-1)
+    bits = cfg.bits_vector(tx.shape[-2], device=x.device)
+    QS.record(site, tx, bits, cfg.hi_bits)
+    return Q.fake_quant(tx, bits, axis=-1)
+
+
+def _record_fused(x: torch.Tensor, cfg: StampConfig,
+                  site: Optional[str]) -> None:
+    """Quant-health telemetry of a fused site: the kernels fuse transform,
+    quantize and GEMM, so the transform and the per-token statistics are
+    recomputed here with plain PyTorch beside them (nothing when no scope
+    is open, so a step without telemetry runs exactly its kernels)."""
+    if not QS.active() or site is None or not cfg.enabled:
+        return
+    tx = apply_seq_transform(x.float(), cfg)
+    QS.record(site, tx, cfg.bits_vector(tx.shape[-2], device=x.device),
+              cfg.hi_bits)
 
 
 def stamp_fake_quant(x: torch.Tensor, cfg: StampConfig,
-                     seg_len: Optional[int] = None) -> torch.Tensor:
+                     seg_len: Optional[int] = None,
+                     site: Optional[str] = None) -> torch.Tensor:
     """Full round trip ``L⁻¹ Q(L X)`` along the sequence axis ``-2``;
-    ``seg_len`` marks a flattened batch of uniform spans along axis 1."""
+    ``seg_len`` marks a flattened batch of uniform spans along axis 1;
+    ``site`` names the telemetry site."""
     if not cfg.enabled:
         return x
     if seg_len is not None and seg_len != x.shape[1]:
         return unfold_segments(
-            stamp_fake_quant(fold_segments(x, seg_len), cfg), x.shape[0])
-    return invert_seq_transform(_reference_quantize(x, cfg),
+            stamp_fake_quant(fold_segments(x, seg_len), cfg, site=site),
+            x.shape[0])
+    return invert_seq_transform(_reference_quantize(x, cfg, site),
                                 cfg).to(x.dtype)
 
 
@@ -202,22 +222,26 @@ def stamp_linear(x: torch.Tensor, w: Optional[torch.Tensor],
                  b: Optional[torch.Tensor], cfg: StampConfig, *,
                  prepared: Optional[PreparedLinear] = None,
                  merge_heads: bool = False,
-                 seg_len: Optional[int] = None) -> torch.Tensor:
+                 seg_len: Optional[int] = None,
+                 site: Optional[str] = None) -> torch.Tensor:
     """STaMP linear layer (Fig. 2a).
 
     ``merge_heads`` marks ``x`` as the raw head-split ``(…, s, nh, hd)``
     attention output (out-proj site).  ``seg_len`` marks a flattened batch
     of uniform ``seg_len``-token spans: the transform applies per span.
     With ``cfg.execution == "fused"`` the chain runs on int8 weights
-    (``prepared``, or prepared on the fly from ``w``)."""
+    (``prepared``, or prepared on the fly from ``w``).  ``site`` names the
+    quant-telemetry site."""
     if seg_len is not None and x.ndim >= 3 and seg_len != x.shape[1]:
         y = stamp_linear(fold_segments(x, seg_len), w, b, cfg,
-                         prepared=prepared, merge_heads=merge_heads)
+                         prepared=prepared, merge_heads=merge_heads,
+                         site=site)
         return unfold_segments(y, x.shape[0])
     if merge_heads:
         x = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
     if fused_eligible(cfg):
         from repro_torch.kernels import ops
+        _record_fused(x, cfg, site)
         prep = prepared if prepared is not None else \
             prepare_linear(w, b, bits=cfg.fused_weight_bits)
         bias = b if b is not None else prep.bias
@@ -233,7 +257,7 @@ def stamp_linear(x: torch.Tensor, w: Optional[torch.Tensor],
     if not cfg.enabled:
         y = x @ w.to(x.dtype)
     else:
-        tq = _reference_quantize(x, cfg)
+        tq = _reference_quantize(x, cfg, site)
         y = invert_seq_transform(tq.to(x.dtype) @ w.to(x.dtype), cfg)
     return y + b.to(y.dtype) if b is not None else y
 
@@ -242,7 +266,8 @@ def stamp_dual_linear(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                       w_up: Optional[torch.Tensor], cfg: StampConfig, *,
                       prepared_gate: Optional[PreparedLinear] = None,
                       prepared_up: Optional[PreparedLinear] = None,
-                      seg_len: Optional[int] = None) -> torch.Tensor:
+                      seg_len: Optional[int] = None,
+                      site: Optional[str] = None) -> torch.Tensor:
     """``silu(x·Wg)·(x·Wu)`` with ONE transform + quantize of ``x`` shared
     by both products (the SwiGLU front half).  The fused path is one
     quantize launch feeding a dual-output GEMM whose epilogue combines the
@@ -250,10 +275,11 @@ def stamp_dual_linear(x: torch.Tensor, w_gate: Optional[torch.Tensor],
     if seg_len is not None and seg_len != x.shape[1]:
         y = stamp_dual_linear(fold_segments(x, seg_len), w_gate, w_up, cfg,
                               prepared_gate=prepared_gate,
-                              prepared_up=prepared_up)
+                              prepared_up=prepared_up, site=site)
         return unfold_segments(y, x.shape[0])
     if fused_eligible(cfg):
         from repro_torch.kernels import ops
+        _record_fused(x, cfg, site)
         pg = prepared_gate if prepared_gate is not None else \
             prepare_linear(w_gate, bits=cfg.fused_weight_bits)
         pu = prepared_up if prepared_up is not None else \
@@ -271,7 +297,7 @@ def stamp_dual_linear(x: torch.Tensor, w_gate: Optional[torch.Tensor],
     if not cfg.enabled:
         g, u = x @ w_gate.to(x.dtype), x @ w_up.to(x.dtype)
     else:
-        tq = _reference_quantize(x, cfg).to(x.dtype)
+        tq = _reference_quantize(x, cfg, site).to(x.dtype)
         g = invert_seq_transform(tq @ w_gate.to(x.dtype), cfg)
         u = invert_seq_transform(tq @ w_up.to(x.dtype), cfg)
     if bg is not None:

@@ -18,6 +18,7 @@ _EXPORTS = {
     "walsh_hadamard": "repro_torch.kernels.ops",
     "cache_decode_attention": "repro_torch.kernels.ops",
     "paged_ragged_attention": "repro_torch.kernels.ops",
+    "paged_decode_attention": "repro_torch.kernels.ops",
 }
 
 __all__ = sorted(_EXPORTS)

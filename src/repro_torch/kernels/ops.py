@@ -17,7 +17,8 @@ from repro_torch.kernels.cache_attention import cache_decode_attention
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
 from repro_torch.kernels.haar_dwt import haar_dwt_seq
 from repro_torch.kernels.int8_gemm import int8_matmul
-from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.kernels.paged_attention import (  # noqa: F401
+    paged_decode_attention, paged_ragged_attention)
 from repro_torch.kernels.quant_pack import quantize_pack
 from repro_torch.kernels import stamp_matmul as SM
 from repro_torch.kernels.stamp_matmul import (stamp_int_gemm,

@@ -7,8 +7,10 @@ tables of ``n_pf`` prefill-chunk spans followed by ``S`` decode spans,
 dequantizes the int8 hi pages and int4-nibble lo pages (f16 scale / zero
 point), and applies the unified mask ``kv_pos <= q_pos AND kv_pos <
 length``.  An all-decode step is the ``n_pf = 0`` case of the same kernel,
-as the reference runs it.  Prefill spans attend to their own chunk through
-the pages the step has just written (``write_ragged`` runs first).
+as the reference runs it, and :func:`paged_decode_attention` is that case
+under the reference's name and signature.  Prefill spans attend to their
+own chunk through the pages the step has just written (``write_ragged``
+runs first).
 
 Bound on the H100: bytes of the pages each span's length needs, but at the
 serve path's sizes the kernel is latency-bound.  Each block gathers tiles of
@@ -259,3 +261,19 @@ def paged_ragged_attention(entry: dict, q_pf: torch.Tensor,
 
 
 paged_ragged_attention.launches = 0
+
+
+def paged_decode_attention(entry: dict, q: torch.Tensor,
+                           lengths: torch.Tensor, hi_table: torch.Tensor,
+                           lo_table: torch.Tensor,
+                           block_size: int) -> torch.Tensor:
+    """Decode attention over one layer's paged pools, with the reference's
+    signature (``repro.kernels.paged_attention.paged_decode_attention``):
+    ``q`` (S, 1, h, hd), ``lengths`` (S,) int32 tokens cached per slot
+    including the new one, tables (S, nh) / (S, nl).  This is K4 with no
+    prefill spans (``n_pf = 0``): a CUDA tensor launches
+    :func:`paged_ragged_attention`, whose count the launch is counted
+    under, and a CPU tensor runs its plain version with no chunk rows."""
+    q_pf = q.new_empty((0, 1, *q.shape[2:]))
+    return paged_ragged_attention(entry, q_pf, q, lengths - 1, lengths,
+                                  hi_table, lo_table, block_size)[1]

@@ -15,6 +15,7 @@ from repro_torch.core.stamp import (PreparedLinear, stamp_dual_linear,
                                     stamp_linear, token_quantize)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.stamp_matmul import silu
+from repro_torch.obs import quantstats as QS
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -53,20 +54,22 @@ def _prepared(w: dict, b=None) -> PreparedLinear:
 
 
 def stamp_fused_linear(x: torch.Tensor, w: dict, b: Optional[torch.Tensor],
-                       stamp_cfg, merge_heads: bool = False) -> torch.Tensor:
+                       stamp_cfg, merge_heads: bool = False,
+                       site: Optional[str] = None) -> torch.Tensor:
     """One STaMP linear over prepared int8 buffers ``{"iq", "isw",
     "izw", "iqsum"}``; ``merge_heads`` marks the raw head-split out-proj
-    input."""
+    input; ``site`` names the quant-telemetry site."""
     return stamp_linear(x, None, None, stamp_cfg, prepared=_prepared(w, b),
-                        merge_heads=merge_heads)
+                        merge_heads=merge_heads, site=site)
 
 
 def stamp_fused_dual_linear(x: torch.Tensor, w_gate: dict, w_up: dict,
-                            stamp_cfg) -> torch.Tensor:
+                            stamp_cfg, site: Optional[str] = None
+                            ) -> torch.Tensor:
     """SwiGLU front half through one shared quantize and the dual GEMM."""
     return stamp_dual_linear(x, None, None, stamp_cfg,
                              prepared_gate=_prepared(w_gate),
-                             prepared_up=_prepared(w_up))
+                             prepared_up=_prepared(w_up), site=site)
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +98,9 @@ def moe_route(x: torch.Tensor, gate_w: torch.Tensor, experts_per_token: int,
     paths: f32 logits and softmax, top-k (lower index first on ties),
     renormalised gates, f32 cumsum capacity positions (top-1 choices
     first).  Returns ``(combine (b, s, E, C) in x.dtype, dispatch, counts
-    (b, E) int32)``; each bucket's kept slots are a prefix of ``[0, C)``."""
+    (b, E) int32)``; each bucket's kept slots are a prefix of ``[0, C)``.
+    With a quant-telemetry scope open, the per-expert load and drop
+    counters are recorded under the ``moe_router`` pseudo-site."""
     b, s, _ = x.shape
     e = gate_w.shape[-1]
     k = experts_per_token
@@ -117,6 +122,12 @@ def moe_route(x: torch.Tensor, gate_w: torch.Tensor, experts_per_token: int,
                            cap_onehot).to(x.dtype)
     dispatch = (combine > 0).to(x.dtype)
     counts = keep.sum(dim=(1, 2)).to(torch.int32)
+    if QS.active():
+        QS.record_extra("moe_router", {
+            "expert_tokens": keep.sum(dim=(0, 1, 2)),           # (E,)
+            "dropped_tokens": onehot.sum() - keep.sum(),
+            "capacity_slots": torch.tensor(float(b * e * cap),
+                                           device=x.device)})
     return combine, dispatch, counts
 
 

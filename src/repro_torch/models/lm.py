@@ -1,7 +1,11 @@
 """Dense GQA and MoE decoders: calibration forward, the paged serving
-steps of the unified engine, and the contiguous-cache ``prefill`` /
+steps (the unified step; the two-call pair ``paged_prefill_chunk`` /
+``paged_decode_step``), and the contiguous-cache ``prefill`` /
 ``decode_step`` of the bucketed engine (the port of those paths of
-``repro.models.lm``).
+``repro.models.lm``).  With ``ServeConfig.quant_telemetry`` the prefill
+entry points also return the per-site quant-health stats
+(`repro_torch.obs.quantstats`); ``fused_site_matrix`` is the per-site
+fused / reference audit the engines publish.
 
 Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
 ``head`` (absent when tied) and ``layers`` — one dict per layer (the
@@ -30,15 +34,18 @@ import numpy as np
 import torch
 
 from repro_torch.core.stamp import (StampConfig, fused_eligible,
-                                    prepare_linear, stamp_fake_quant)
+                                    fused_ineligibility, prepare_linear,
+                                    stamp_fake_quant)
 from repro_torch.core.quant import EPS, fdiv
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cache_attention import cache_decode_attention
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
-from repro_torch.kernels.paged_attention import paged_ragged_attention
+from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                 paged_ragged_attention)
 from repro_torch.kernels.stamp_matmul import down_slab_sums, silu
 from repro_torch.models import layers as L
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.obs import quantstats as QS
 from repro_torch.serving import kvcache as KV
 from repro_torch.serving import paged_kvcache as PKV
 
@@ -57,6 +64,33 @@ class ServeConfig:
     fused_cache_attention: bool = False          # packed-cache attention
     fused_decode_matmul: bool = False            # single-token int8 kernel
     paged: Optional[PKV.PagedCacheConfig] = None
+    # the serving engines check each step's logits for NaN / Inf and
+    # quarantine the request (engine.py)
+    numerics_guard: bool = False
+    # per-STaMP-site quant-health stats (obs/quantstats.py) returned beside
+    # the step outputs; changes the arity of prefill / paged_prefill_chunk
+    # / paged_unified_step's returns
+    quant_telemetry: bool = False
+
+
+def _collect_telemetry(serve: ServeConfig) -> bool:
+    """Whether the entry points collect quant telemetry: only when a STaMP
+    config is quantizing, so default configs keep their return arities."""
+    return (serve.quant_telemetry and serve.stamp is not None
+            and serve.stamp.enabled)
+
+
+def _with_telemetry(collect: bool, fn):
+    """Run ``fn()`` inside a telemetry scope when ``collect``; returns
+    ``(out, stats or None)``."""
+    if not collect:
+        return fn(), None
+    QS.begin()
+    try:
+        out = fn()
+    finally:
+        stats = QS.end()
+    return out, stats
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +195,36 @@ def from_jax_params(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
 
 def _head_weight(params: dict) -> torch.Tensor:
     return params["head"] if "head" in params else params["embed"].T
+
+
+def fused_site_matrix(cfg: ModelConfig, stamp: Optional[StampConfig]
+                      ) -> dict:
+    """Eligibility audit: every STaMP site this architecture instantiates,
+    mapped to ``fused`` or ``reference`` with reason codes (the
+    reference's ``lm.fused_site_matrix``).  Cells: ``{"status", "kernel",
+    "wiring", "layers", "reasons"}`` keyed by the telemetry site label
+    (``qkv`` / ``wo`` / ``gate_up`` / ``wo_mlp`` / ``moe``)."""
+    base = (("stamp_disabled",) if stamp is None
+            else fused_ineligibility(stamp))
+    matrix: dict = {}
+
+    def add(site, kernel, wiring):
+        cell = matrix.setdefault(site, {
+            "status": "fused" if not base else "reference",
+            "kernel": kernel if not base else None,
+            "wiring": wiring, "layers": 0, "reasons": list(base)})
+        cell["layers"] += 1
+
+    for spec in cfg.layer_specs():
+        if spec.mixer == "attn":
+            add("qkv", "stamp_quant_matmul", "merged_wqkv")
+            add("wo", "stamp_quant_matmul", "single_head_merge")
+        if spec.ffn in ("mlp", "moe_dense"):
+            add("gate_up", "stamp_quant_dual_matmul", "pair")
+            add("wo_mlp", "stamp_quant_matmul", "single")
+        if spec.ffn in ("moe", "moe_dense"):
+            add("moe", "stamp_quant_grouped_matmul", "grouped_dispatch")
+    return matrix
 
 
 # ---------------------------------------------------------------------------
@@ -306,10 +370,11 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _maybe_stamp(x: torch.Tensor, stamp: Optional[StampConfig]):
+def _maybe_stamp(x: torch.Tensor, stamp: Optional[StampConfig],
+                 site: Optional[str] = None):
     if stamp is None or not stamp.enabled:
         return x
-    return stamp_fake_quant(x, stamp)
+    return stamp_fake_quant(x, stamp, site=site)
 
 
 def _split_heads(x: torch.Tensor, nh: int, hd: int) -> torch.Tensor:
@@ -327,11 +392,13 @@ def _attn_qkv(p: dict, h: torch.Tensor, cfg: ModelConfig,
     if "wqkv" in p:
         bqkv = p.get("bqkv")
         if _use_fused(stamp, p["wqkv"]):
-            qkv = L.stamp_fused_linear(h, p["wqkv"], bqkv, stamp)
+            qkv = L.stamp_fused_linear(h, p["wqkv"], bqkv, stamp,
+                                       site="qkv")
         else:
-            qkv = _linear(_maybe_stamp(h, stamp), p["wqkv"], bqkv, dm)
+            qkv = _linear(_maybe_stamp(h, stamp, "qkv"), p["wqkv"], bqkv,
+                          dm)
         return torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
-    h = _maybe_stamp(h, stamp)
+    h = _maybe_stamp(h, stamp, "qkv")
     return (_linear(h, p["wq"], p.get("bq"), dm),
             _linear(h, p["wk"], p.get("bk"), dm),
             _linear(h, p["wv"], p.get("bv"), dm))
@@ -342,8 +409,8 @@ def _attn_out(p: dict, attn: torch.Tensor, x: torch.Tensor,
     """Out-projection of the head-split attention output + residual."""
     if _use_fused(stamp, p["wo"]):
         return x + L.stamp_fused_linear(attn, p["wo"], None, stamp,
-                                        merge_heads=True)
-    out = _maybe_stamp(attn.reshape(*attn.shape[:-2], -1), stamp)
+                                        merge_heads=True, site="wo")
+    out = _maybe_stamp(attn.reshape(*attn.shape[:-2], -1), stamp, "wo")
     return x + _linear(out, p["wo"], None, dm)
 
 
@@ -379,7 +446,7 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     hq = None
     out = torch.zeros_like(x)
     if spec.ffn in ("moe", "moe_dense"):
-        hq = _maybe_stamp(h, stamp)
+        hq = _maybe_stamp(h, stamp, "moe")
         route = (cfg.experts_per_token, cfg.capacity_factor,
                  cfg.moe_group_size)
         if all(_use_fused(stamp, p[k]) for k in _EXPERTS):
@@ -392,14 +459,16 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
         pre = "d" if spec.ffn == "moe_dense" else ""
         wg, wu, wo = p[f"{pre}wi_gate"], p[f"{pre}wi_up"], p[f"{pre}wo_mlp"]
         if _use_fused(stamp, wg) and _use_fused(stamp, wu):
-            g = L.stamp_fused_dual_linear(h, wg, wu, stamp)
+            g = L.stamp_fused_dual_linear(h, wg, wu, stamp, site="gate_up")
         else:
-            hq = _maybe_stamp(h, stamp) if hq is None else hq
+            hq = _maybe_stamp(h, stamp, "gate_up") if hq is None else hq
             g = silu(_linear(hq, wg, None, dm)) * _linear(hq, wu, None, dm)
         if _use_fused(stamp, wo):
-            out = out + L.stamp_fused_linear(g, wo, None, stamp)
+            out = out + L.stamp_fused_linear(g, wo, None, stamp,
+                                             site="wo_mlp")
         else:
-            out = out + _linear(_maybe_stamp(g, stamp), wo, None, dm)
+            out = out + _linear(_maybe_stamp(g, stamp, "wo_mlp"), wo, None,
+                                dm)
     return x + out
 
 
@@ -459,11 +528,9 @@ def _decode_attention(entry: dict, q_dec, paged: dict, serve: ServeConfig,
                       dtype) -> torch.Tensor:
     pcfg = serve.paged
     if serve.fused_cache_attention and pcfg.quant.quantized:
-        q_pf = q_dec.new_empty((0, 1, *q_dec.shape[2:]))
-        return paged_ragged_attention(
-            entry, q_pf, q_dec, paged["dec_positions"],
-            paged["dec_lengths"], paged["dec_ht"], paged["dec_lt"],
-            pcfg.block_size)[1]
+        return paged_decode_attention(entry, q_dec, paged["dec_lengths"],
+                                      paged["dec_ht"], paged["dec_lt"],
+                                      pcfg.block_size)
     segs = PKV.gather_segments(entry, paged["dec_ht"], paged["dec_lt"],
                                pcfg, dtype)
     return L.decode_attention_segments(q_dec, segs,
@@ -485,6 +552,31 @@ def attn_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                      paged["offsets"], paged["is_hi"], serve.paged)
     attn = _decode_attention(entry, q, paged, serve, x.dtype)
     return _attn_out(p, attn, x, None, dm)
+
+
+def attn_block_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                     serve: ServeConfig, entry: dict, paged: dict
+                     ) -> torch.Tensor:
+    """One prefill chunk ``(1, C, d)`` of one request into the paged cache
+    (the two-call step): QKV under STaMP, the chunk's K/V written through
+    its block table, then the plain chunked attention over the cached
+    prefix and the raw chunk, as the reference's ``paged_prefill_chunk``
+    runs it whatever ``fused_cache_attention`` says (``start = 0`` masks
+    the cached segments out)."""
+    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    stamp = serve.stamp
+    pos = paged["positions"]
+    h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+    q, k, v = _attn_qkv(p, h, cfg, stamp, False)
+    q = _rope(q, pos, cfg, nh, hd)
+    k = _rope(k, pos, cfg, kvh, hd)
+    v = _split_heads(v, kvh, hd)
+    PKV.write_chunk(entry, k, v, paged["pages"], paged["offsets"],
+                    paged["is_hi"], serve.paged)
+    segs = PKV.gather_segments(entry, paged["hi_table"], paged["lo_table"],
+                               serve.paged, x.dtype)
+    attn = L.chunked_prefill_attention(q, segs, k, v, paged["start"])
+    return _attn_out(p, attn, x, stamp, False)
 
 
 def attn_block_unified(p: dict, x: tuple, cfg: ModelConfig,
@@ -587,21 +679,29 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     logits ``(b, V)`` f32 read at ``last_pos`` (b,) per row (default: the
     last column; right-padded prompts read their true last token), and
     the contiguous mixed-precision cache (one dict per layer) sized
-    ``serve.cache_capacity``."""
+    ``serve.cache_capacity``; with quant telemetry collected, also the
+    site stats."""
     _attention_layers_only(cfg)
-    x = _embed(params, tokens)
-    cache = []
-    for spec, p in zip(cfg.layer_specs(), params["layers"]):
-        x, entry = attn_block_prefill(p, x, cfg, serve.stamp, serve.kv,
-                                      serve.cache_capacity)
-        x = ffn_block(p, x, spec, cfg, serve.stamp, False)
-        cache.append(entry)
+
+    def stack():
+        x = _embed(params, tokens)
+        cache = []
+        for spec, p in zip(cfg.layer_specs(), params["layers"]):
+            x, entry = attn_block_prefill(p, x, cfg, serve.stamp, serve.kv,
+                                          serve.cache_capacity)
+            x = ffn_block(p, x, spec, cfg, serve.stamp, False)
+            cache.append(entry)
+        return x, cache
+
+    collect = _collect_telemetry(serve)
+    (x, cache), telem = _with_telemetry(collect, stack)
     if last_pos is None:
         x_last = x[:, -1]
     else:
         rows = torch.arange(x.shape[0], device=x.device)
         x_last = x[rows, last_pos.to(x.device).long()]
-    return _logits(params, x_last, cfg), cache
+    logits = _logits(params, x_last, cfg)
+    return (logits, cache, telem) if collect else (logits, cache)
 
 
 def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
@@ -654,6 +754,49 @@ def paged_decode_step(params: dict, pools: list, tokens: torch.Tensor,
     return _logits(params, x[:, 0], cfg), pools
 
 
+def paged_prefill_chunk(params: dict, pools: list, tokens: torch.Tensor,
+                        start, hi_table: torch.Tensor,
+                        lo_table: torch.Tensor, pages: torch.Tensor,
+                        offsets: torch.Tensor, is_hi: torch.Tensor,
+                        last_index, cfg: ModelConfig,
+                        serve: ServeConfig) -> tuple:
+    """One prefill chunk of one request into the paged cache: the prefill
+    half of the two-call step (``step_mode="two_call"``), the reference's
+    ``paged_prefill_chunk``.
+
+    ``tokens``: (1, C) right-padded chunk; ``start``: tokens already cached
+    (earlier chunks, a swap-in or a prefix hit); ``hi_table / lo_table``:
+    (1, ·) the request's block tables; ``pages / offsets / is_hi``: (C,)
+    write targets (pads → null page); ``last_index``: the chunk-local row
+    whose logits are the next-token distribution.  The linears run under
+    STaMP (the fused kernels K1 → K2 over prepared weights, never the
+    decode matmul); the attention is the plain chunked attention of
+    :func:`attn_block_chunk`.  The pools update in place.  Returns
+    ``(logits (1, V), pools)``, plus the quant-telemetry site stats when
+    collected."""
+    _attention_layers_only(cfg)
+    c = tokens.shape[1]
+    dev = tokens.device
+    start = torch.as_tensor(start, device=dev).reshape(1).to(torch.int32)
+    paged = {"positions": start[:, None] + torch.arange(c, device=dev),
+             "start": start, "hi_table": hi_table, "lo_table": lo_table,
+             "pages": pages, "offsets": offsets, "is_hi": is_hi}
+
+    def stack():
+        x = _embed(params, tokens)
+        for spec, p, entry in zip(cfg.layer_specs(), params["layers"],
+                                  pools):
+            x = attn_block_chunk(p, x, cfg, serve, entry, paged)
+            x = ffn_block(p, x, spec, cfg, serve.stamp, False)
+        return x
+
+    collect = _collect_telemetry(serve)
+    x, telem = _with_telemetry(collect, stack)
+    li = torch.as_tensor(last_index, device=dev).reshape(1).long()
+    logits = _logits(params, x[0, li], cfg)
+    return (logits, pools, telem) if collect else (logits, pools)
+
+
 def paged_unified_step(params: dict, pools: list, pf_tokens: torch.Tensor,
                        pf_start: torch.Tensor, pf_length: torch.Tensor,
                        pf_last_index: torch.Tensor, dec_tokens: torch.Tensor,
@@ -670,14 +813,18 @@ def paged_unified_step(params: dict, pools: list, pf_tokens: torch.Tensor,
     ``hi_table / lo_table``: (n_pf + S, ·) span-ordered block tables;
     ``pages / offsets / is_hi``: (n_pf·C + S,) write targets.  ``n_pf =
     0`` runs :func:`paged_decode_step`.  The pools update in place.
-    Returns ``(pf_logits (n_pf, V), dec_logits (S, V), pools)``."""
+    Returns ``(pf_logits (n_pf, V), dec_logits (S, V), pools)``, plus the
+    quant-telemetry site stats when collected (empty on an all-decode step:
+    decode runs transform free)."""
     n_pf, c_len = pf_tokens.shape
+    collect = _collect_telemetry(serve)
     if n_pf == 0:
         dec_logits, pools = paged_decode_step(
             params, pools, dec_tokens, dec_positions, hi_table, lo_table,
             pages, offsets, is_hi, cfg, serve)
-        return dec_logits.new_zeros((0, dec_logits.shape[-1])), dec_logits, \
-            pools
+        out = (dec_logits.new_zeros((0, dec_logits.shape[-1])), dec_logits,
+               pools)
+        return out + ({},) if collect else out
     # chunk rows of width 1 would alias decode shapes: keep them on the
     # transform path
     dm = serve.fused_decode_matmul and c_len > 1
@@ -693,12 +840,18 @@ def paged_unified_step(params: dict, pools: list, pf_tokens: torch.Tensor,
              "pf_start": pf_start, "dec_positions": dec_positions,
              "dec_lengths": dec_positions + 1,
              "pages": pages, "offsets": offsets, "is_hi": is_hi}
-    x = (x_pf, x_dec)
-    for spec, p, entry in zip(cfg.layer_specs(), params["layers"], pools):
-        x = attn_block_unified(p, x, cfg, serve, entry, paged, dm)
-        x = (ffn_block(p, x[0], spec, cfg, serve.stamp, dm),
-             ffn_block(p, x[1], spec, cfg, None, dm))
-    x_pf, x_dec = x
+
+    def stack():
+        x = (x_pf, x_dec)
+        for spec, p, entry in zip(cfg.layer_specs(), params["layers"],
+                                  pools):
+            x = attn_block_unified(p, x, cfg, serve, entry, paged, dm)
+            x = (ffn_block(p, x[0], spec, cfg, serve.stamp, dm),
+                 ffn_block(p, x[1], spec, cfg, None, dm))
+        return x
+
+    (x_pf, x_dec), telem = _with_telemetry(collect, stack)
     rows = torch.arange(n_pf, device=x_pf.device)
     pf_logits = _logits(params, x_pf[rows, pf_last_index.long()], cfg)
-    return pf_logits, _logits(params, x_dec[:, 0], cfg), pools
+    out = (pf_logits, _logits(params, x_dec[:, 0], cfg), pools)
+    return out + (telem,) if collect else out

@@ -136,10 +136,16 @@ class BlockAllocator:
     of chain-hashed prompt pages (vLLM-style).  Pages are handed out
     lowest-first so identical request streams get identical placements;
     page 0 is never allocated.  A cached page whose refs drop to zero parks
-    in a per-pool LRU and is evicted only when the free list is empty."""
+    in a per-pool LRU and is evicted only when the free list is empty.
 
-    def __init__(self, cfg: PagedCacheConfig):
+    ``fault`` is the fault-injection hook (`serving/faults.py`): a zero-arg
+    callable; while it returns True, ``can_allocate`` refuses any non-empty
+    request and every allocation raises :class:`OutOfBlocks`, so injected
+    exhaustion runs through the scheduler's real preemption path."""
+
+    def __init__(self, cfg: PagedCacheConfig, fault=None):
         self.cfg = cfg
+        self.fault = fault
         self._free = {"hi": list(range(1, cfg.num_hi_blocks)),
                       "lo": list(range(1, cfg.num_lo_blocks))}
         self._free_set = {p: set(v) for p, v in self._free.items()}
@@ -168,7 +174,12 @@ class BlockAllocator:
     def all_free(self) -> bool:
         return self.available_counts() == self.capacity()
 
+    def _fault_active(self) -> bool:
+        return self.fault is not None and self.fault()
+
     def can_allocate(self, n_hi: int, n_lo: int) -> bool:
+        if (n_hi > 0 or n_lo > 0) and self._fault_active():
+            return False
         avail_hi, avail_lo = self.available_counts()
         return n_hi <= avail_hi and n_lo <= avail_lo
 
@@ -191,6 +202,8 @@ class BlockAllocator:
 
     def _alloc(self, pool: str) -> int:
         heap = self._free[pool]
+        if self._fault_active():
+            raise OutOfBlocks(f"{pool} pool exhausted")
         if not heap and self._evict[pool]:
             self._evict_lru(pool)
         if not heap:
@@ -340,12 +353,31 @@ class BlockAllocator:
         return PrefixMatch(matched=matched, hi_pages=hi_pages,
                            lo_pages=lo_pages, cow=cow)
 
+    def flush_cache(self) -> int:
+        """Drop every prefix-cache registration: zero-ref (evictable) pages
+        return to the free list; pages still referenced by live requests
+        only lose their registration (they free normally on release).
+        Returns the number of registrations dropped (the fault hook for
+        eviction storms)."""
+        dropped = len(self._cache)
+        for pool in ("hi", "lo"):
+            while self._evict[pool]:
+                self._evict_lru(pool)
+        for (pool, page) in list(self._by_page):
+            self._drop_cache_entry(pool, page)
+        return dropped
+
     def cache_stats(self) -> dict:
+        """Live prefix-cache occupancy for the engine's gauges."""
         shared = sum(1 for refs in self._ref.values()
                      for r in refs.values() if r >= 2)
+        pinned_sink = sum(1 for (pool, page) in self._by_page
+                          if pool == "hi"
+                          and self._ref["hi"].get(page, 0) >= 1)
         return {"cached_pages": len(self._by_page),
                 "evictable_pages": sum(len(v) for v in self._evict.values()),
                 "kv_pages_shared": shared,
+                "sink_pages_pinned": pinned_sink,
                 "cache_evictions": self.cache_evictions}
 
 
@@ -412,6 +444,13 @@ def write_tokens(entry: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                         is_hi, cfg)
 
 
+def write_chunk(entry: dict, k: torch.Tensor, v: torch.Tensor,
+                pages, offsets, is_hi, cfg: PagedCacheConfig) -> dict:
+    """Two-call prefill path: one slot's (1, C, kv, hd) K/V chunk; pad
+    tokens past the chunk's valid length arrive with ``pages == 0``."""
+    return write_ragged(entry, k[0], v[0], pages, offsets, is_hi, cfg)
+
+
 def gather_segments(entry: dict, hi_table: torch.Tensor,
                     lo_table: torch.Tensor, cfg: PagedCacheConfig,
                     dtype=torch.bfloat16) -> list:
@@ -473,17 +512,30 @@ def extract_pages(pools: list, hi_ids: list, lo_ids: list) -> dict:
     return swapped
 
 
-def insert_pages(pools: list, swapped: dict, hi_ids: list,
-                 lo_ids: list) -> list:
-    """Swap-in at (possibly different) page ids, in place.  Checksums are
-    verified first: on a mismatch nothing is written."""
+def verify_swapped(swapped: dict) -> None:
+    """Check every saved array against the checksums
+    :func:`extract_pages` recorded; raise :class:`SwapCorruption` on the
+    first mismatch.  A swap dict without checksums passes unverified."""
+    crcs = swapped.get(CRC_KEY)
+    if crcs is None:
+        return
     for i, layer in swapped.items():
         if i == CRC_KEY:
             continue
         for name, arr in layer.items():
-            if _crc(arr) != swapped[CRC_KEY][i][name]:
-                raise SwapCorruption(f"swap-in checksum mismatch at layer "
-                                     f"{i}/{name}")
+            if _crc(np.asarray(arr)) != crcs[i][name]:
+                raise SwapCorruption(
+                    f"swap-in checksum mismatch at {i}/{name}: the host "
+                    f"copy was corrupted while the request was preempted — "
+                    f"refusing to restore it")
+
+
+def insert_pages(pools: list, swapped: dict, hi_ids: list,
+                 lo_ids: list) -> list:
+    """Swap-in at (possibly different) page ids, in place.  Checksums are
+    verified first (:func:`verify_swapped`): on a mismatch nothing is
+    written."""
+    verify_swapped(swapped)
     ids = {"hi": torch.as_tensor(hi_ids, dtype=torch.long),
            "lo": torch.as_tensor(lo_ids, dtype=torch.long)}
     for i, entry in enumerate(pools):
