@@ -6,8 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught and continued):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the ten kernels from the nine sources in ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, started together);
+2. build the eleven kernels from the nine sources in
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
    serve paths' shapes and time kernel, plain version and a library
    yardstick with CUDA events (K4, K3, K1 and K6 over 200 calls, K2 over
@@ -26,13 +26,26 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    56/8 heads; K5 over 128 experts with the counts of a real routing of 2 x
    128 random tokens, and again at Kimi-K2's expert widths, 384 experts of
    7168 -> 2048 top-8, each beside ``torch._int_mm`` over the occupied
-   experts, replayed from graphs too); the dense archs served at full
+   experts, replayed from graphs too, and at Jamba's, 16 experts of 8192
+   -> 24576 top-2); the long-span K1 -> K2 chain (``check_long_spans``:
+   one span of 129 to 2048 rows at llama3-8b's qkv, gate/up and down, for
+   transforms none, dwt and wht, bit-equal to the plain versions; at 1024
+   and 2048 rows the chain through ``ops`` timed beside its bound and
+   ``torch._int_mm``, printed as ``[long_span]`` lines, and the span link
+   ``stamp_span_transform`` alone); the dense archs served at full
    width (``DENSE_ARCHS``: deepseek-7b, minicpm-2b, mistral-nemo-12b and
    qwen2-72b, widths from their configs): K1/K2 at each one's QKV (with
    qwen2-72b's bias), out-proj (from ``q_dim``), gate/up and down over 2
    spans, K3 at the same four sites over 8 decode rows, K4's mixed and
    all-decode steps and K6 at their multi-head widths (32 heads of 128, 36
-   of 64, one query head a kv head); K4 at llama's and Arctic's head counts
+   of 64, one query head a kv head); the MoE, hybrid and SSM archs served
+   at full width (``NEW_ARCHS``, :func:`arch_sites`): K1/K2 and K3 at
+   Kimi-K2's QKV 7168 -> 8960, out-proj and dense first layer (gate/up
+   7168 -> 18432, down), Jamba's QKV 8192 -> 10240, out-proj, Mamba
+   in_proj 8192 -> 33280 and out_proj 16384 -> 8192, gate/up 8192 ->
+   24576 and down, and Mamba2's in_proj 2048 -> 8512 (not a multiple of
+   K2's 128 columns) and out_proj 4096 -> 2048; K4's mixed and all-decode
+   steps at Jamba's 64/8 heads of 128; K4 at llama's and Arctic's head counts
    also over a long all-decode
    step (8 slots of 65 to 32768 cached tokens, split over blocks); K6 (the
    contiguous cache's decode attention) at the bucketed serve shape (4
@@ -40,7 +53,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (hi 64) with ragged lengths; K4 and K6 again at Kimi-K2's attention
    widths (64/8 heads, head_dim 112); then check a prefill, a mixed and an
    all-decode step on the card against the same steps on the CPU at the
-   reduced size of each model, and one ``prefill`` and two ``decode_step``
+   reduced size of each model (Kimi-K2, Jamba and Mamba2 included, their
+   Mamba layers' state in the slot-dense pool), and one ``prefill`` and
+   two ``decode_step``
    s of the bucketed path at reduced llama; then the standalone kernel
    library at llama3-8b's widths (K7 ``int8_matmul`` at 2048 rows through
    its qkv, gate and down shapes and at 8 rows, K8 ``quantize_pack`` at 4
@@ -57,7 +72,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (seeded init, PTQ on the card, paged unified fused engine with the paged
    attention kernel): 4 requests x 96 prompt tokens x 8 new tokens, with
    every kernel's launch count set to 0 before that run and read after;
-   then the same model and requests through the bucketed engine (bucket
+   then the same model at ``--prefill-chunk 256`` with 4 prompts of 400
+   tokens (the long-span chain) and through the bucketed engine at
+   ``--bucket 512`` on the same prompts; then the same model and 96-token
+   requests through the bucketed engine (bucket
    128, contiguous cache, the packed-cache attention kernel), counts read
    around its own run; then Arctic-480B at full width, cut to
    ``ARCTIC_LAYERS`` layers (its widths, 128 experts, top-2 and the
@@ -68,7 +86,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    run; and the engine surface of the serving benchmark: llama3-8b in
    two-call steps (``two_call_phase``: equal ids to unified steps with
    plain attention, and K4's ``paged_decode_attention`` entry held to
-   plain attention by teacher forcing), llama3-8b with the serve CLI's
+   plain attention by teacher forcing), Kimi-K2 (``KIMI_LAYERS`` of 61
+   layers), Jamba-1.5-Large (``JAMBA_LAYERS`` of 72) and Mamba2-1.3B (all
+   48) at full width through the paged engine, llama3-8b with the serve
+   CLI's
    chaos plan, numerics guard, bounded queue, deadline and metrics / trace
    files (``robust_phase``; then a forced NaN row whose demotion must stop
    K1–K3), and Arctic with quant telemetry (``telemetry_phase``: the same
@@ -116,11 +137,24 @@ ARCTIC_LAYERS = 4
 QWEN2_LAYERS = 60
 DENSE_ARCHS = {"deepseek-7b": None, "minicpm-2b": None,
                "mistral-nemo-12b": None, "qwen2-72b": QWEN2_LAYERS}
+# the MoE, hybrid and pure-SSM archs served at full width, each with its
+# depth: Kimi-K2 cut to its dense first layer and 3 MoE layers (16.9 GB of
+# int8 expert codes a layer), Jamba to one period of 8 (1 attention and 7
+# Mamba layers, 4 of them MoE), Mamba2 whole
+KIMI_LAYERS, JAMBA_LAYERS = 4, 8
+NEW_ARCHS = {"kimi-k2-1t-a32b": KIMI_LAYERS,
+             "jamba-1.5-large-398b": JAMBA_LAYERS, "mamba2-1.3b": None}
+# K4 is also checked at Jamba's attention widths, 64 query heads over 8
+# kv heads of 128 (mixed and all-decode steps)
+JAMBA = "jamba-1.5-large-398b"
+# the long-span serve phases' prompts: two chunks of 256 rows, or one
+# bucket of 512
+LONG_PROMPT = 400
 # the multi-head (one query head a kv head) attention widths K4 and K6 are
 # checked at: deepseek-7b's (32 heads of 128) and minicpm-2b's (36 of 64)
 MHA_ARCHS = ("deepseek-7b", "minicpm-2b")
-# Kimi-K2 (configs/kimi_k2_1t_a32b.py): its attention widths only, 64 query
-# heads over 8 kv heads of head_dim 112 (K4 and K6 checks; no Kimi serve)
+# Kimi-K2 (configs/kimi_k2_1t_a32b.py): its attention widths, 64 query
+# heads over 8 kv heads of head_dim 112 (K4 and K6 checks)
 KIMI_HEADS, KIMI_HD = 64, 112
 STAMP = dict(transform="dwt", levels=3, skip_first=True, num_hi=NUM_HI,
              hi_bits=8, lo_bits=4)
@@ -238,21 +272,34 @@ ARCTIC_DECODE_SITES = [("arctic_qkv", A_D, A_QKV), ("arctic_wo", A_D, A_D),
                        ("arctic_gate", A_D, A_FF), ("arctic_down", A_FF, A_D)]
 
 
-def dense_sites(cfg) -> tuple:
-    """One layer's linear sites of the dense ``cfg``: K1/K2's ``(name, K,
-    N, dual, bias)`` (QKV with its bias where the config has one, the
-    out-proj from ``q_dim``, gate/up as one dual call, down) and K3's
-    ``(name, K, N, bias)`` (gate and up one shape)."""
+def arch_sites(cfg) -> tuple:
+    """One of each linear site that ``cfg``'s layers run: K1/K2's ``(name,
+    K, N, dual, bias)`` and K3's ``(name, K, N, bias)``.  Attention: QKV
+    (with its bias where the config has one) and the out-proj from
+    ``q_dim``; Mamba: ``in_proj`` (d to 2·d_inner + 2·state + heads) and
+    ``out_proj``; a dense MLP: gate/up as one dual call (one shape in
+    decode) and down.  The MoE experts are K5's (:func:`check_grouped`)."""
     tag = cfg.name.split("-")[0] + "_"
+    specs = set(cfg.layer_specs())
     d, qkv = cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim
-    prefill = [(tag + "qkv", d, qkv, False, cfg.qkv_bias),
-               (tag + "wo", cfg.q_dim, d, False, False),
-               (tag + "gate_up", d, cfg.d_ff, True, False),
-               (tag + "down", cfg.d_ff, d, False, False)]
-    decode = [(tag + "qkv", d, qkv, cfg.qkv_bias),
-              (tag + "wo", cfg.q_dim, d, False),
-              (tag + "gate", d, cfg.d_ff, False),
-              (tag + "down", cfg.d_ff, d, False)]
+    prefill, decode = [], []
+    if any(s.mixer == "attn" for s in specs):
+        prefill += [(tag + "qkv", d, qkv, False, cfg.qkv_bias),
+                    (tag + "wo", cfg.q_dim, d, False, False)]
+        decode += [(tag + "qkv", d, qkv, cfg.qkv_bias),
+                   (tag + "wo", cfg.q_dim, d, False)]
+    if any(s.mixer == "mamba" for s in specs):
+        di = cfg.d_inner
+        n_in = 2 * di + 2 * cfg.ssm_state + cfg.ssm_heads
+        prefill += [(tag + "in_proj", d, n_in, False, False),
+                    (tag + "out_proj", di, d, False, False)]
+        decode += [(tag + "in_proj", d, n_in, False),
+                   (tag + "out_proj", di, d, False)]
+    if any(s.ffn == "mlp" for s in specs):
+        prefill += [(tag + "gate_up", d, cfg.d_ff, True, False),
+                    (tag + "down", cfg.d_ff, d, False, False)]
+        decode += [(tag + "gate", d, cfg.d_ff, False),
+                   (tag + "down", cfg.d_ff, d, False)]
     return prefill, decode
 
 
@@ -348,6 +395,122 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
                                                       **STAMP))
         check(torch.equal(yo, y), f"ops chain differs from K1→K2 at {name}")
     return k1, k2
+
+
+# the long-span chain (spans over K2's 128-row tile): every span length
+# is checked at llama3-8b's three sites and each transform, bit-equal to
+# the plain version; 1024 and 2048 rows are also timed (one span, dwt)
+LONG_SPANS, LONG_TIMED = (129, 256, 512, 1024, 2048), (1024, 2048)
+LONG_ITERS = 20
+
+
+def check_long_spans(torch, sm, ops_mod, prepare_linear) -> tuple:
+    """The K1 → K2 chain over one span of 129 to 2048 rows at llama3-8b's
+    qkv, gate/up (dual) and down sites, for transforms none, dwt and wht:
+    K1's codes, scales and zero points and K2's bf16 and f32 outputs
+    bit-equal to the plain versions (beyond ``MAX_SPAN`` rows K2 runs
+    without a transform over 128-row tiles and the span link inverts; under
+    the WHT beyond 257 rows the span link also runs the forward transform
+    before K1).  At ``LONG_TIMED`` rows under the Haar DWT: the whole
+    chain through ``ops`` (eager and graph-replayed) beside its bound and
+    ``torch._int_mm`` on the same codes, and the span link alone (the
+    inverse at the site, with the bias and the dual's silu·mul) beside its
+    bound and its plain version.  Returns ``(link rows, chain rows)``."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    weights = {}
+    for name, k, n, dual in LLAMA_SITES:
+        weights[name] = [prepare_linear(torch.randn(
+            (k, n), generator=gen, device="cuda") / math.sqrt(k))
+            for _ in range(2 if dual else 1)]
+    link, chain = [], []
+    for s in LONG_SPANS:
+        for tf in ("none", "dwt", "wht"):
+            st = dict(STAMP, transform=tf)
+            for name, k, n, dual in LLAMA_SITES:
+                w = weights[name]
+                x = torch.randn((1, s, k), generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                q = sm.stamp_transform_quantize(x, **st)
+                qp = sm.transform_quantize_plain(x, **st)
+                check(all(torch.equal(a, b) for a, b in zip(q, qp)),
+                      f"K1 chain codes differ at {name} s={s} {tf}")
+                bias = torch.randn(n, generator=gen, device="cuda")
+                wargs = [w[0].qw, w[0].sw, w[0].zw, w[0].qw_sum, bias]
+                if dual:
+                    wargs += [w[1].qw, w[1].sw, w[1].zw, w[1].qw_sum, None]
+                for dt in (torch.bfloat16, torch.float32):
+                    kw = dict(transform=tf, levels=3, skip_first=True,
+                              out_dtype=dt)
+                    y = sm.stamp_int_gemm(*q, s, *wargs, **kw)
+                    yp = sm.int_gemm_plain(*q, s, *wargs, **kw)
+                    check(bool(torch.isfinite(y).all()) and
+                          torch.equal(y, yp),
+                          f"K2 chain differs from its plain version at "
+                          f"{name} s={s} {tf} {dt}: max err "
+                          f"{float((y.float() - yp.float()).abs().max())}")
+                if s in LONG_TIMED and tf == "dwt":
+                    link.append(_link_row(torch, sm, q, s, wargs, name))
+                    chain.append(_chain_row(torch, sm, ops_mod, x, q, w,
+                                            wargs, name, s))
+                del x, q, qp
+        torch.cuda.empty_cache()
+    return link, chain
+
+
+def _link_row(torch, sm, q, s, wargs, name) -> dict:
+    """The span link alone at a site: the inverse transform of the f32
+    products (gate and up for the dual) with the bias, bf16 out."""
+    pre = dict(transform="none", levels=3, skip_first=True,
+               out_dtype=torch.float32)
+    g = sm.stamp_int_gemm(*q, s, *wargs[:4], **pre)
+    u = sm.stamp_int_gemm(*q, s, *wargs[5:9], **pre) if len(wargs) > 5 \
+        else None
+    kw = dict(transform="dwt", levels=3, skip_first=True, inverse=True,
+              out_dtype=torch.bfloat16)
+
+    def call():
+        return sm.stamp_span_transform(g, u, wargs[4], None, **kw)
+
+    got = call()
+    check(torch.equal(got, sm.span_transform_plain(g, u, wargs[4], None,
+                                                   **kw)),
+          f"span link differs from its plain version at {name} s={s}")
+    ms = timed(torch, call, iters=LONG_ITERS)
+    gms = timed_graph(torch, call, LONG_ITERS, per_graph=10)
+    pms = timed(torch, lambda: sm.span_transform_plain(g, u, wargs[4], None,
+                                                       **kw), iters=3)
+    n_in = 2 if u is not None else 1
+    b = bound(g.numel() * 4 * n_in + got.numel() * 2 + 4 * g.shape[-1], 0,
+              F32_FLOPS_PER_S)
+    return dict(site=f"long_{name}_s{s}", max_abs_err=0.0, ms=ms,
+                plain_ms=pms, bound_ms=b[0], bound_by=b[1], library_ms=None,
+                graph_ms=gms)
+
+
+def _chain_row(torch, sm, ops_mod, x, q, w, wargs, name, s) -> dict:
+    """The whole chain from the bf16 activation through ``ops`` (K1, K2
+    without a transform, the span link), its bound (read the activation
+    and the weights once, write the output; the int8 products at the
+    card's int8 rate) and ``torch._int_mm`` of the same codes."""
+    dual = len(w) > 1
+
+    def call():
+        if dual:
+            return ops_mod.stamp_quant_dual_matmul(x, *wargs[:4],
+                                                   *wargs[5:9], wargs[4],
+                                                   None, **STAMP)
+        return ops_mod.stamp_quant_matmul(x, *wargs[:5], **STAMP)
+
+    ms = timed(torch, call, iters=LONG_ITERS)
+    gms = timed_graph(torch, call, LONG_ITERS, per_graph=10)
+    k, n = w[0].qw.shape
+    b = bound(s * k * 2 + len(w) * (k * n + 12 * n) + 4 * n + s * n * 2,
+              2 * s * k * n * len(w), INT8_OPS_PER_S)
+    lib = int_mm_yardstick(torch, q[0], [wi.qw for wi in w], LONG_ITERS)
+    row = dict(site=f"long_{name}_s{s}", ms=ms, graph_ms=gms, bound_ms=b[0],
+               bound_by=b[1], **lib)
+    print(f"[long_span] {json.dumps(row)}")
+    return row
 
 
 def check_decode(torch, dm, prepare_linear, sites, seed=1, rows=SLOTS):
@@ -571,9 +734,13 @@ def _sdpa_yardstick(torch, args, n_pf: int, heads: int, hd: int = HD,
 # factor, seed)
 KIMI_D, KIMI_MOE_FF, KIMI_EXPERTS, KIMI_TOPK, KIMI_CF = 7168, 2048, 384, 8, \
     1.25
+# Jamba-1.5-Large (configs/jamba_1_5_large_398b.py): 16 experts of
+# 8192 -> 24576, top-2
+J_D, J_FF, J_EXPERTS, J_TOPK, J_CF = 8192, 24576, 16, 2, 1.25
 MOE_SHAPES = [("arctic_experts", A_D, A_FF, A_EXPERTS, A_TOPK, A_CF, 4),
               ("kimi_experts", KIMI_D, KIMI_MOE_FF, KIMI_EXPERTS, KIMI_TOPK,
-               KIMI_CF, 12)]
+               KIMI_CF, 12),
+              ("jamba_experts", J_D, J_FF, J_EXPERTS, J_TOPK, J_CF, 13)]
 
 
 def grouped_case(torch, sm, L, token_quantize, d, f, experts, topk, cf,
@@ -700,8 +867,9 @@ def check_grouped(torch, sm, L, token_quantize, site="arctic_experts",
 
 def check_grouped_all(torch, sm, L, token_quantize) -> list:
     """K5 at every site of ``MOE_SHAPES``, each site's stacks freed before
-    the next (Arctic's and Kimi-K2's take 13.4 and 16.9 GB of codes, and
-    as much again in the yardstick's column-major copies)."""
+    the next (Arctic's, Kimi-K2's and Jamba's take 13.4, 16.9 and 9.7 GB
+    of codes, and as much again in the yardstick's column-major
+    copies)."""
     rows = []
     for site, d, f, experts, topk, cf, seed in MOE_SHAPES:
         rows += check_grouped(torch, sm, L, token_quantize, site, d, f,
@@ -1105,8 +1273,10 @@ def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
     fills its own pools over three steps, as the engine would: prefills of
     requests 0 and 1; prefills of 2 and 3 beside decodes of 0 and 1 (a
     mixed step); and decodes of all four (``n_pf = 0``, which runs
-    ``paged_decode_step``).  Prefill logits and the live decode slots'
-    logits agree within a bf16 tolerance of 5e-2."""
+    ``paged_decode_step``).  A Mamba layer carries each request's state in
+    its slot row of the state pool (``pf_slots``, ``dec_active``).  Prefill
+    logits and the live decode slots' logits agree within a bf16 tolerance
+    of 5e-2."""
     from repro_torch.serving import paged_kvcache as PKV
     cfg, prepared, serve = reduced_fused(lm, cfg_mod, ptq, pipeline, arch)
     bs, c_len, slots, per_seq = serve.kv.num_hi, 32, 4, 16
@@ -1141,6 +1311,9 @@ def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
             pf_tokens[i, :prompt[r]] = tokens[r, :prompt[r]]
         live = torch.tensor([s in dec for s in range(slots)])
         return dict(
+            pf_first=torch.ones(len(pf), dtype=torch.bool),
+            pf_slots=torch.tensor(pf, dtype=torch.int32),
+            dec_active=live,
             pf_tokens=pf_tokens,
             pf_start=torch.zeros(len(pf), dtype=torch.int32),
             pf_length=torch.tensor([prompt[r] for r in pf],
@@ -1163,12 +1336,12 @@ def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
 
     def run(device):
         params, pools, out = to_device(prepared, device), lm.init_paged_cache(
-            cfg, pcfg, device=device), []
+            cfg, pcfg, device=device, num_slots=slots), []
         for inputs in plan:
             pf, dec, pools = lm.paged_unified_step(
                 params, pools, **to_device(inputs, device), cfg=cfg,
                 serve=serve)
-            live = inputs["hi_table"][len(inputs["pf_tokens"]):, 0] > 0
+            live = inputs["dec_active"]
             out.append(torch.cat([pf.cpu(), dec.cpu()[live]]))
         return out
 
@@ -1249,6 +1422,8 @@ def main() -> None:
                                  seed=7 + spans, spans=spans,
                                  tag=f"bucketed{spans}_")
             k1, k2 = k1 + b1, k2 + b2
+        link, chain = check_long_spans(torch, sm, ops, prepare_linear)
+        torch.cuda.empty_cache()
         k3 = check_decode(torch, dm, prepare_linear, LLAMA_DECODE_SITES)
         k3 += check_decode(torch, dm, prepare_linear, ARCTIC_DECODE_SITES,
                            seed=6)
@@ -1259,15 +1434,18 @@ def main() -> None:
                               prefix="arctic_")
         k4 += check_attention(torch, pa, PKV, KV, heads=KIMI_HEADS,
                               prefix="kimi_", hd=KIMI_HD)
-        for i, arch in enumerate(DENSE_ARCHS):
-            prefill, decode = dense_sites(configs.get_config(arch))
+        # every linear site of the dense, MoE, hybrid and SSM archs served
+        # at full width (Mamba2's in_proj N = 8512 is not a multiple of
+        # K2's 128-column tile; Jamba's out_proj K = 16384)
+        for i, arch in enumerate((*DENSE_ARCHS, *NEW_ARCHS)):
+            prefill, decode = arch_sites(configs.get_config(arch))
             d1, d2 = check_stamp(torch, sm, ops, prepare_linear, prefill,
                                  seed=20 + i)
             k1, k2 = k1 + d1, k2 + d2
             k3 += check_decode(torch, dm, prepare_linear, decode,
                                seed=30 + i)
             torch.cuda.empty_cache()
-        for arch in MHA_ARCHS:
+        for arch in (*MHA_ARCHS, JAMBA):
             cfg = configs.get_config(arch)
             tag = cfg.name.split("-")[0] + "_"
             k4 += check_attention(torch, pa, PKV, KV, heads=cfg.num_heads,
@@ -1288,7 +1466,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         std = check_standalone(torch, hd, wt, qp, im)
         torch.cuda.empty_cache()
-    for rows in (k1, k2, k3, k4, k5, k6, *std.values()):
+    for rows in (k1, k2, k3, k4, k5, k6, link, *std.values()):
         for r in rows:
             print(f"[kernel] {json.dumps(r)}")
 
@@ -1296,7 +1474,7 @@ def main() -> None:
     from repro_torch.data import pipeline
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    for arch in ("llama3-8b", "arctic-480b", *DENSE_ARCHS):
+    for arch in ("llama3-8b", "arctic-480b", *DENSE_ARCHS, *NEW_ARCHS):
         with torch.inference_mode():
             step_errs = check_step_against_cpu(torch, lm, configs, ptq,
                                                pipeline, arch)
@@ -1374,6 +1552,10 @@ def main() -> None:
               "src/repro/kernels/haar_dwt.py:63", std["haar_dwt_seq"]),
         entry("walsh_hadamard", src + "wht.cu",
               "src/repro/kernels/wht.py:47", std["walsh_hadamard"]),
+        # the long-span chain's third link: the inverse (and, under long
+        # WHT spans, forward) transform of the two Pallas kernels' spans
+        entry("stamp_span_transform", src + "stamp_matmul.cu", stamp_rows,
+              link),
     ]
     kernels[3]["per_shape"] = k4
     print(json.dumps({"kernels": kernels}))
@@ -1385,10 +1567,11 @@ def main() -> None:
 
 def serve_phase(torch, serve, ops, arch: str, cfg, kind: str = "paged",
                 extra=(), label=None, attention: bool = True,
-                before=None, after=None) -> tuple:
+                before=None, after=None, prompt_len: int = 96) -> tuple:
     """Serve ``arch`` (``cfg`` overrides its config) through the serve
-    entry point and the ``kind`` of engine: 4 requests x 96 prompt tokens x
-    8 new tokens, unified steps, fused execution and (``attention``) the
+    entry point and the ``kind`` of engine: 4 requests x ``prompt_len``
+    prompt tokens x 8 new tokens, unified steps, fused execution and
+    (``attention``) the
     cache attention kernel, with the CLI flags ``extra`` appended.  Every
     kernel's launch count is set to 0 just before the run and read just
     after.  ``before(engine)`` runs before the requests are submitted,
@@ -1397,7 +1580,7 @@ def serve_phase(torch, serve, ops, arch: str, cfg, kind: str = "paged",
     label = label or arch
     argv = ["--arch", arch, "--engine", kind, "--step-mode", "unified",
             "--execution", "fused", "--device", "cuda", "--requests", "4",
-            "--prompt-len", "96", "--max-new", "8",
+            "--prompt-len", str(prompt_len), "--max-new", "8",
             *(["--fused-cache-attention"] if attention else []), *extra]
     sargs = serve.parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
@@ -1478,6 +1661,8 @@ def serve_phases(torch, serve, ops, configs, only, standalone) -> dict:
     """Phase 4's serve runs.  Returns ``{path: (counts, kernels the path
     must not launch)}``; ``only`` (a set of path names) runs llama3-8b's
     unified phase and those named."""
+    # spans of 128 rows never take the long-span link
+    standalone = set(standalone) | {"stamp_span_transform"}
     dense = {"stamp_quant_grouped_matmul"} | standalone
     paged = dense | {"cache_decode_attention"}
     arctic_cfg = dataclasses.replace(configs.get_config("arctic-480b"),
@@ -1490,6 +1675,19 @@ def serve_phases(torch, serve, ops, configs, only, standalone) -> dict:
     counts, runs["llama3-8b"] = serve_phase(torch, serve, ops, "llama3-8b",
                                             None)
     paths["llama3-8b"] = (counts, paged)
+    # prefill spans past K2's 128-row tile: the long-span chain
+    long_span = {"stamp_span_transform"}
+    if want("llama3-8b:chunk256"):
+        paths["llama3-8b:chunk256"] = (serve_phase(
+            torch, serve, ops, "llama3-8b", None, label="llama3-8b:chunk256",
+            extra=["--prefill-chunk", "256"], prompt_len=LONG_PROMPT)[0],
+            paged - long_span)
+    if want("llama3-8b:bucket512"):
+        paths["llama3-8b:bucket512"] = (serve_phase(
+            torch, serve, ops, "llama3-8b", None, kind="bucketed",
+            label="llama3-8b:bucket512", extra=["--bucket", "512"],
+            prompt_len=LONG_PROMPT)[0],
+            (dense | {"paged_ragged_attention"}) - long_span)
     if want("llama3-8b:bucketed"):
         paths["llama3-8b:bucketed"] = (serve_phase(
             torch, serve, ops, "llama3-8b", None, kind="bucketed")[0],
@@ -1520,6 +1718,18 @@ def serve_phases(torch, serve, ops, configs, only, standalone) -> dict:
                 serve_phase(torch, serve, ops, arch, None,
                             kind="bucketed")[0],
                 dense | {"paged_ragged_attention"})
+    # Kimi-K2 and Jamba run K1-K5 (MoE, K4 in their attention layers),
+    # Mamba2 K1-K3 only (no attention, no MoE)
+    for arch, layers in NEW_ARCHS.items():
+        if not want(arch):
+            continue
+        cfg = None if layers is None else dataclasses.replace(
+            configs.get_config(arch), num_layers=layers)
+        absent = standalone | {"cache_decode_attention"}
+        if arch == "mamba2-1.3b":
+            absent |= {"paged_ragged_attention",
+                       "stamp_quant_grouped_matmul"}
+        paths[arch] = (serve_phase(torch, serve, ops, arch, cfg)[0], absent)
     return paths
 
 

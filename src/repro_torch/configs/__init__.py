@@ -1,16 +1,22 @@
 """Architecture registry of the port: ``get_config(arch)`` and
 ``get_reduced(arch)``.  Ported so far: the dense llama3-8b, deepseek-7b,
-minicpm-2b, mistral-nemo-12b and qwen2-72b, and the MoE arctic-480b."""
+minicpm-2b, mistral-nemo-12b and qwen2-72b, the MoE arctic-480b and
+kimi-k2-1t-a32b, the hybrid jamba-1.5-large-398b and the pure-SSM
+mamba2-1.3b."""
 
 from __future__ import annotations
 
 import importlib
 
 ARCHS = ("minicpm_2b", "deepseek_7b", "mistral_nemo_12b", "qwen2_72b",
-         "arctic_480b", "llama3_8b")
+         "jamba_1_5_large_398b", "kimi_k2_1t_a32b", "arctic_480b",
+         "mamba2_1_3b", "llama3_8b")
 
-# the reference's aliases (``repro.configs``): each name with dashes
+# the reference's aliases (``repro.configs``): each name with dashes, and
+# the dotted versions' names
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+_ALIASES.update({"jamba-1.5-large-398b": "jamba_1_5_large_398b",
+                 "mamba2-1.3b": "mamba2_1_3b"})
 
 
 def canonical(arch: str) -> str:

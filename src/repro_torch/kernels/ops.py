@@ -1,5 +1,6 @@
 """Public entry points of the port's kernels (the twin of
-``repro.kernels.ops``).  The fused STaMP linears are the K1 → K2 chain, the
+``repro.kernels.ops``).  The fused STaMP linears are the K1 → K2 chain
+(with the span link ``stamp_span_transform`` over long spans), the
 grouped MoE expert FFN is K5, the contiguous cache's decode attention K6;
 the standalone kernel library is ``int8_matmul`` (K7), ``quantize_pack``
 (K8), ``haar_dwt_seq`` (K9) and ``walsh_hadamard`` (K10), with the
@@ -22,6 +23,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: F401
 from repro_torch.kernels.quant_pack import quantize_pack
 from repro_torch.kernels import stamp_matmul as SM
 from repro_torch.kernels.stamp_matmul import (stamp_int_gemm,
+                                              stamp_span_transform,
                                               stamp_transform_quantize)
 from repro_torch.kernels.wht import walsh_hadamard
 
@@ -30,7 +32,7 @@ from repro_torch.kernels.wht import walsh_hadamard
 KERNELS = (stamp_transform_quantize, stamp_int_gemm, stamp_decode_matmul,
            paged_ragged_attention, SM.stamp_quant_grouped_matmul,
            cache_decode_attention, int8_matmul, quantize_pack, haar_dwt_seq,
-           walsh_hadamard)
+           walsh_hadamard, stamp_span_transform)
 
 
 def reset_launch_counts() -> None:

@@ -20,6 +20,15 @@ f32), K2 by integer operations (``wgmma`` on the tensor cores, fed by a
 where the column tiles and spans give too few blocks).  See the source note
 for the design.
 
+A span longer than K2's ``MAX_SPAN`` rows (or, under the WHT, one whose
+power-of-two block exceeds K1's ``TQ_MAX_IN`` window rows) takes a longer
+chain of the same arithmetic: :func:`stamp_span_transform` writes the
+forward transform in f32 for K1 to quantize with transform none, and K2
+with transform none over tiles of ``MAX_SPAN`` rows writes the f32 products
+that the inverse :func:`stamp_span_transform` turns into the output, with
+the bias and the dual ``silu(g)·u``.  So both wrappers take any span the
+reference takes.
+
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 plain PyTorch version for a CPU tensor; ``launches`` counts kernel launches.
 The plain versions repeat the Pallas kernel's arithmetic: int32-exact
@@ -28,6 +37,7 @@ integer product, f32 epilogue in the same order.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -39,7 +49,7 @@ from repro_torch.core.stamp import token_quantize
 from repro_torch.kernels import cuda
 
 _KINDS = {"none": 0, "dwt": 1, "wht": 2}
-MAX_SPAN = 128        # rows K2 keeps on chip: one whole span per block
+MAX_SPAN = 128        # rows K2 keeps on chip: one whole span (or tile)
 GEMM_COLS = 128       # B columns a K2 block multiplies (dual: 64 + 64)
 GEMM_BK = 64          # k per pipeline step
 MIN_SPLIT_STEPS = 8   # steps a K range holds at least
@@ -56,6 +66,10 @@ _SIGNATURES = {
         cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
         cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.FLT,
         cuda.FLT, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP],
+    "stamp_span_transform": [
+        cuda.VP, cuda.VP, cuda.INT, cuda.VP, cuda.VP, cuda.INT, cuda.INT,
+        cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.FLT, cuda.FLT, cuda.INT,
+        cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.INT, cuda.VP],
 }
 
 
@@ -294,14 +308,36 @@ def _tq_launch_args(device, s: int, transform: str, levels: int,
     return hit
 
 
+@functools.lru_cache(maxsize=None)
+def tq_fits(s: int, transform: str, levels: int, skip_first: bool) -> bool:
+    """Whether K1's row windows of a span of ``s`` rows load at most
+    ``TQ_MAX_IN`` input rows each.  Under the WHT a window loads the whole
+    power-of-two block; otherwise the windows are planned to find out."""
+    if transform == "wht":
+        return T.largest_pow2(max(s - int(skip_first), 0)) <= TQ_MAX_IN
+    try:
+        tq_windows(s, transform, levels, skip_first)
+    except ValueError:
+        return False
+    return True
+
+
 def stamp_transform_quantize(x: torch.Tensor, *, transform: str = "dwt",
                              levels: int = 3, skip_first: bool = True,
                              num_hi: int = 64, hi_bits: int = 8,
                              lo_bits: int = 4) -> tuple:
     """K1.  ``x``: (b, s, K) bf16 or f32 (a head-split out-proj input is
-    passed as its contiguous (b, s, nh·hd) view)."""
+    passed as its contiguous (b, s, nh·hd) view).  Where K1's windows
+    cannot hold the transform (:func:`tq_fits`), the forward
+    :func:`stamp_span_transform` runs first and K1 quantizes its f32 rows
+    with transform none."""
     kw = dict(transform=transform, levels=levels, skip_first=skip_first,
               num_hi=num_hi, hi_bits=hi_bits, lo_bits=lo_bits)
+    if transform in _KINDS and not tq_fits(x.shape[1], transform, levels,
+                                           skip_first):
+        tx = stamp_span_transform(x, transform=transform, levels=levels,
+                                  skip_first=skip_first)
+        return stamp_transform_quantize(tx, **dict(kw, transform="none"))
     if x.device.type == "cpu":
         return transform_quantize_plain(x, **kw)
     cuda.require_cuda(x)
@@ -434,18 +470,26 @@ def stamp_int_gemm(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
     """K2 over K1's outputs.  ``qx``: (spans·span_len, K) int8 codes;
     ``qw``: (K, N) int8; ``sw/zw``: (1, N) f32; ``qw_sum``: (1, N) int32
     column sums of ``qw`` (``PreparedLinear.qw_sum``); with ``qw_up`` the
-    dual gate/up kernel returning ``silu(g)·u``.  Returns (spans, span_len,
+    dual gate/up kernel returning ``silu(g)·u``.  Spans over ``MAX_SPAN``
+    rows run the long-span chain (module note).  Returns (spans, span_len,
     N)."""
     kw = dict(transform=transform, levels=levels, skip_first=skip_first,
               out_dtype=out_dtype)
+    if span_len > MAX_SPAN and transform != "none":
+        # the long-span chain: the products without a transform, in f32,
+        # then the inverse transform with the bias (and silu(g)·u)
+        pre = dict(kw, transform="none", out_dtype=torch.float32)
+        g = stamp_int_gemm(qx, sx, zx, span_len, qw, sw, zw, qw_sum, **pre)
+        u = None if qw_up is None else stamp_int_gemm(
+            qx, sx, zx, span_len, qw_up, sw_up, zw_up, qw_sum_up, **pre)
+        return stamp_span_transform(g, u, bias, bias_up, transform=transform,
+                                    levels=levels, skip_first=skip_first,
+                                    inverse=True, out_dtype=out_dtype)
     if qx.device.type == "cpu":
         return int_gemm_plain(qx, sx, zx, span_len, qw, sw, zw, qw_sum, bias,
                               qw_up, sw_up, zw_up, qw_sum_up, bias_up, **kw)
     rows, k = qx.shape
     n = qw.shape[1]
-    if span_len > MAX_SPAN:
-        raise ValueError(f"K2 keeps one span on chip: span_len {span_len} > "
-                         f"{MAX_SPAN}")
     if k % 4 or n % 4 or qw.shape[0] != k:
         raise ValueError(f"K2 needs K and N multiples of 4 and a (K, N) "
                          f"weight; got qx {tuple(qx.shape)}, qw "
@@ -462,19 +506,24 @@ def stamp_int_gemm(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
     if dual and (qw_up.shape != qw.shape or qw_sum_up is None):
         raise ValueError("the dual GEMM needs an up weight of the gate's "
                          "shape with its column sums")
+    if rows % span_len:
+        raise ValueError(f"K2 takes whole spans: {rows} rows in spans of "
+                         f"{span_len}")
     b = rows // span_len
+    # without a transform a long span runs as tiles of MAX_SPAN rows
+    tile = min(span_len, MAX_SPAN)
     dev = qx.device
-    plan = gemm_plan(b, k, n, dual, cuda.sm_count(dev))
+    plan = gemm_plan(-(-rows // tile), k, n, dual, cuda.sm_count(dev))
     # 16-byte copies where rows and pointers allow, else 4-byte ones
     vec = int(k % 16 == 0 and n % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (qx, qw, qw_up) if t is not None))
     out = torch.empty((b, span_len, n), dtype=out_dtype, device=dev)
     err = _lib().stamp_int_gemm(
-        qx.data_ptr(), sx.data_ptr(), zx.data_ptr(), b, span_len, k, n,
+        qx.data_ptr(), sx.data_ptr(), zx.data_ptr(), rows, tile, k, n,
         qw.data_ptr(), sw.data_ptr(), zw.data_ptr(), qw_sum.data_ptr(),
         cuda.ptr(bias), cuda.ptr(qw_up), cuda.ptr(sw_up), cuda.ptr(zw_up),
         cuda.ptr(qw_sum_up), cuda.ptr(bias_up),
-        *_transform_args(transform, levels, skip_first, span_len),
+        *_transform_args(transform, levels, skip_first, tile),
         out.data_ptr(), int(out_dtype == torch.bfloat16), plan["n_split"],
         plan["split_k"], vec, cuda.stream_ptr(qx))
     cuda.check(err, "stamp_int_gemm")
@@ -483,6 +532,109 @@ def stamp_int_gemm(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
 
 
 stamp_int_gemm.launches = 0
+
+
+# ------------------------------------------------------- long-span link --
+#
+# Replaces no TPU kernel of its own: it is the third link of the chain that
+# replaces ``stamp_quant_matmul_pallas`` / ``stamp_quant_dual_matmul_pallas``
+# over spans longer than K2's tile (module note; CUDA source note
+# "long spans").  Bound on the H100: bytes, one read and one write of the
+# activation (forward) or of the f32 products (inverse).
+
+SPAN_SMEM = 112 * 1024   # a block's tiles in shared memory: two blocks an SM
+SPAN_MAX_W = 32          # columns a block transforms
+SPAN_THREADS = 256
+
+
+def span_plan(s: int, n: int, bufs: int) -> dict:
+    """The span link's launch over spans of ``s`` rows and ``n`` columns,
+    ``bufs`` f32 tiles of ``s x W`` a block (the dual's two, the Haar
+    levels' scratch): the widest power-of-two ``W`` up to ``SPAN_MAX_W``
+    whose tiles fit ``SPAN_SMEM``.  A span whose one-column tiles do not
+    fit (past 9557 rows for the dual under the Haar DWT, 28672 for one WHT
+    tile) is refused: the reference's kernel holds a whole span in VMEM
+    and is budgeted at s = 4k."""
+    per_col = s * bufs * 4
+    if per_col > SPAN_SMEM:
+        raise ValueError(f"the span link holds at most "
+                         f"{SPAN_SMEM // (4 * bufs)} rows a span in "
+                         f"{bufs} tile(s), got {s}")
+    w = SPAN_MAX_W
+    while w * per_col > SPAN_SMEM:
+        w //= 2
+    return dict(lw=w.bit_length() - 1, threads=SPAN_THREADS,
+                smem=w * per_col, groups=-(-n // w))
+
+
+def span_transform_plain(x, x_up=None, bias=None, bias_up=None, *,
+                         transform: str, levels: int, skip_first: bool,
+                         inverse: bool = False,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the span link: the sequence transform (or its
+    inverse) of ``x.float()`` per span, then the bias, and with ``x_up``
+    ``silu(g)·u`` of the two (each with its bias): :func:`int_gemm_plain`'s
+    steps after the epilogue."""
+    fn = T.inverse_sequence_transform if inverse else T.sequence_transform
+
+    def one(v, b):
+        y = fn(v.float(), transform, axis=-2, levels=levels,
+               skip_first=skip_first)
+        return y if b is None else y + b.reshape(1, -1).float()
+
+    y = one(x, bias)
+    if x_up is not None:
+        y = silu(y) * one(x_up, bias_up)
+    return y.to(out_dtype)
+
+
+def stamp_span_transform(x: torch.Tensor, x_up=None, bias=None,
+                         bias_up=None, *, transform: str = "dwt",
+                         levels: int = 3, skip_first: bool = True,
+                         inverse: bool = False,
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """The long-span link.  ``x`` (and ``x_up``, the dual's up products):
+    (b, s, N) f32 or bf16; ``bias``/``bias_up``: (N,) or (1, N).  Forward:
+    the f32 sequence transform of ``x``; inverse: the inverse transform,
+    the bias and (dual) ``silu(g)·u``, in ``out_dtype``.  Returns (b, s,
+    N)."""
+    kw = dict(transform=transform, levels=levels, skip_first=skip_first,
+              inverse=inverse, out_dtype=out_dtype)
+    if x.device.type == "cpu":
+        return span_transform_plain(x, x_up, bias, bias_up, **kw)
+    if transform not in ("dwt", "wht"):
+        raise ValueError(f"the span link transforms dwt or wht, not "
+                         f"{transform!r}")
+    if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the span link takes (b, s, N) bf16 or f32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the span link writes bf16 or f32, not {out_dtype}")
+    if x_up is not None and (x_up.shape != x.shape or
+                             x_up.dtype != x.dtype):
+        raise ValueError("the dual's up products must match the gate's")
+    bias, bias_up = _f32_vec(bias), _f32_vec(bias_up)
+    cuda.require_cuda(x, x_up, bias, bias_up)
+    b, s, n = x.shape
+    dev = x.device
+    out = torch.empty((b, s, n), dtype=out_dtype, device=dev)
+    if not out.numel():
+        return out
+    bufs = (2 if x_up is not None else 1) + (transform == "dwt")
+    plan = span_plan(s, n, bufs)
+    err = _lib().stamp_span_transform(
+        x.data_ptr(), cuda.ptr(x_up), int(x.dtype == torch.bfloat16),
+        cuda.ptr(bias), cuda.ptr(bias_up), b, s, n,
+        *_transform_args(transform, levels, skip_first, s), int(inverse),
+        plan["lw"], plan["threads"], plan["smem"],
+        out.data_ptr(), int(out_dtype == torch.bfloat16),
+        cuda.stream_ptr(x))
+    cuda.check(err, "stamp_span_transform")
+    stamp_span_transform.launches += 1
+    return out
+
+
+stamp_span_transform.launches = 0
 
 
 # --------------------------------------------------------------------- K5 --

@@ -7,9 +7,12 @@ batched requests through the paged unified engine or the bucketed one.
         --requests 4 --prompt-len 96 --max-new 8
 
 ``--engine bucketed`` serves the same requests through the lockstep engine
-over the contiguous cache (bucket 128, cache ``128 + --max-new`` tokens);
-with ``--fused-cache-attention`` its decode attention is the packed-cache
-kernel.
+over the contiguous cache (prompts right-padded to ``--bucket`` tokens,
+default 128); with ``--fused-cache-attention`` its decode attention is the
+packed-cache kernel.  Either engine caps a request at ``max(128, --bucket,
+--prompt-len) + --max-new`` tokens (the reference's ``128 + --max-new``
+for prompts of up to 128 tokens); prefill spans of any length
+(``--prefill-chunk``, ``--bucket``) run the fused kernels on the card.
 
 ``--step-mode two_call`` runs each paged step as one prefill chunk
 (``lm.paged_prefill_chunk``) and then the decode slots
@@ -23,7 +26,12 @@ event ring when the run ends.
 
 ``--arch arctic-480b`` serves the MoE path (128 experts, top-2, dense
 residual); at full width one H100 holds a few of its 35 layers, which a
-caller cuts by passing a config to :func:`build`.  ``--arch deepseek-7b``,
+caller cuts by passing a config to :func:`build`; ``kimi-k2-1t-a32b``
+(384 experts top-8 after a dense first layer) the same way.
+``--arch jamba-1.5-large-398b`` serves the hybrid stack (paged K/V for its
+attention layers, the slot-dense SSM state pool for its Mamba layers;
+prefix caching is off with Mamba layers), ``mamba2-1.3b`` the pure-SSM
+stack pageless (slots are its only capacity).  ``--arch deepseek-7b``,
 ``minicpm-2b``, ``mistral-nemo-12b`` and ``qwen2-72b`` serve the other
 dense architectures; qwen2-72b whole needs about 90 GiB, so one H100
 serves it cut the same way.
@@ -62,7 +70,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--no-stamp", action="store_true")
     ap.add_argument("--engine", choices=("paged", "bucketed"),
-                    default="paged")
+                    default="paged",
+                    help="paged = continuous batching over the block-paged "
+                         "cache and the slot-dense SSM state pool (dense, "
+                         "MoE, hybrid and pure-SSM stacks); bucketed = "
+                         "lockstep slot batching over the contiguous cache")
     ap.add_argument("--execution", choices=("reference", "fused"),
                     default="reference",
                     help="STaMP linear path: plain PyTorch or the fused "
@@ -72,6 +84,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "packed contiguous) cache attention kernel")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=128)
+    ap.add_argument("--bucket", type=int, default=128,
+                    help="prompt bucket length of the bucketed engine")
     ap.add_argument("--step-mode", choices=("unified", "two_call"),
                     default="unified",
                     help="unified = one forward a step (prefill chunks + "
@@ -153,10 +167,10 @@ def build(args: argparse.Namespace, cfg=None) -> tuple:
         numerics_guard=args.numerics_guard,
         quant_telemetry=args.quant_telemetry)
     sparams["layers"] = _hand_over(sparams["layers"])
-    max_seq = 128 + args.max_new
+    max_seq = max(128, args.bucket, args.prompt_len) + args.max_new
     if args.engine == "bucketed":
         engine = BucketedEngine(sparams, cfg, serve,
-                                EngineConfig(max_batch=8, bucket=128,
+                                EngineConfig(max_batch=8, bucket=args.bucket,
                                              max_seq=max_seq), device=dev)
         return engine, cfg, report
     bs = args.block_size

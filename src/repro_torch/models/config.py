@@ -1,6 +1,6 @@
-"""Model configuration for the decoders the port serves: dense GQA and
-capacity-routed MoE stacks (a copy of that subset of
-``repro.models.config``)."""
+"""Model configuration for the decoders the port serves: dense GQA,
+capacity-routed MoE, hybrid Mamba + attention (Jamba) and pure Mamba2 / SSD
+stacks (a copy of that subset of ``repro.models.config``)."""
 
 from __future__ import annotations
 
@@ -10,14 +10,14 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str = "attn"        # attn (the port's only mixer so far)
-    ffn: str = "mlp"           # mlp | moe | moe_dense (Arctic residual)
+    mixer: str = "attn"        # attn | mamba
+    ffn: str = "mlp"           # mlp | moe | moe_dense (Arctic residual) | none
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe (the port's families so far)
+    family: str                 # dense | moe | hybrid | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,6 +35,12 @@ class ModelConfig:
     first_layer_dense: bool = False       # Kimi-K2: layer 0 is dense MLP
     capacity_factor: float = 1.25
     moe_group_size: int = 1024            # routing group (GShard-style)
+    # --- hybrid / ssm ---
+    attn_period: int = 0                  # Jamba: 1 attention per 8 layers
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
     # --- misc ---
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
@@ -66,13 +72,38 @@ class ModelConfig:
     def expert_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def layer_plan(self) -> tuple[Tuple[LayerSpec, ...],
                                   Tuple[LayerSpec, ...], int]:
         """Returns (prologue, period_pattern, num_periods).  Dense stacks
         are one attention + MLP layer per period; MoE stacks one attention
         + MoE layer (``moe_dense`` with the dense residual), after a dense
-        first layer when ``first_layer_dense``."""
+        first layer when ``first_layer_dense``; pure SSM stacks one Mamba
+        layer without an FFN; hybrid stacks a period of ``attn_period``
+        layers with attention at ``p // 2`` and Mamba elsewhere, MoE every
+        ``moe_period``-th layer."""
         n = self.num_layers
+        if self.family == "ssm":
+            return (), (LayerSpec("mamba", "none"),), n
+        if self.family == "hybrid":
+            period = []
+            p = self.attn_period or 8
+            for i in range(p):
+                mixer = "attn" if i == (p // 2) else "mamba"
+                ffn = "moe" if (self.num_experts and i % self.moe_period ==
+                                (self.moe_period - 1)) else "mlp"
+                period.append(LayerSpec(mixer, ffn))
+            if n % p:
+                raise ValueError(
+                    f"{self.name}: {n} layers not divisible by period {p}")
+            return (), tuple(period), n // p
         if self.family == "moe":
             spec = LayerSpec("attn",
                              "moe_dense" if self.dense_residual else "moe")
@@ -81,8 +112,8 @@ class ModelConfig:
             return (), (spec,), n
         if self.family != "dense":
             raise NotImplementedError(
-                f"{self.name}: the port serves dense and MoE stacks only "
-                f"(family={self.family!r})")
+                f"{self.name}: the port serves dense, MoE, hybrid and SSM "
+                f"stacks only (family={self.family!r})")
         return (), (LayerSpec("attn", "mlp"),), n
 
     def layer_specs(self) -> Tuple[LayerSpec, ...]:

@@ -1,7 +1,8 @@
-"""Model building blocks (the port of the dense and MoE pieces of
+"""Model building blocks (the port of the dense, MoE and Mamba2 pieces of
 ``repro.models.layers``): RMSNorm, RoPE, the plain attention variants, the
-fused STaMP linear sites and capacity-routed MoE (routing, the reference
-expert FFN and the grouped-kernel one)."""
+fused STaMP linear sites, capacity-routed MoE (routing, the reference
+expert FFN and the grouped-kernel one), and the Mamba2 / SSD chunked scan
+with its causal depthwise conv."""
 
 from __future__ import annotations
 
@@ -330,3 +331,79 @@ def chunked_prefill_attention(q: torch.Tensor, segments: list,
     o_tot, l_tot = _merge_parts(parts)
     out = o_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, c, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD (chunked, state-passing scan)
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int = 256,
+                init_state: Optional[torch.Tensor] = None) -> tuple:
+    """State Space Duality (Mamba2 §6), chunked: within a chunk the
+    recurrence in its quadratic 'attention' form, across chunks the ``(b,
+    h, p, n)`` f32 state carried.  ``x``: (b, s, h, p); ``dt``: (b, s, h)
+    softplus'd steps; ``a_log``: (h,) (A = −exp(a_log)); ``b_mat`` /
+    ``c_mat``: (b, s, n), one group.  Each step in the reference's dtypes:
+    ``C·B`` in the inputs' dtype, the decays and the state in f32.  Returns
+    ``(y in x's dtype, final state)``."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    a = -torch.exp(a_log.float())
+    dta = dt.float() * a[None, None, :]
+    dtf = dt.float()
+    state = init_state if init_state is not None else torch.zeros(
+        (bsz, h, p, n), dtype=torch.float32, device=x.device)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        xk, dtak, dtk = x[:, sl], dta[:, sl], dtf[:, sl]
+        bk, ck = b_mat[:, sl], c_mat[:, sl]
+        xf = xk.float()
+        cum = torch.cumsum(dtak, dim=1)                      # (b, c, h)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]        # (b, c, c, h)
+        lmat = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        cb = torch.einsum("bin,bjn->bij", ck, bk)            # inputs' dtype
+        w = cb[..., None] * lmat * dtk[:, None, :, :]
+        y_intra = torch.einsum("bijh,bjhp->bihp", w, xf)
+        decay_in = torch.exp(cum)
+        y_inter = torch.einsum("bin,bhpn,bih->bihp", ck.float(), state,
+                               decay_in)
+        decay_out = torch.exp(cum[:, -1:, :] - cum)
+        state = (state * torch.exp(cum[:, -1])[:, :, None, None]
+                 + torch.einsum("bjn,bjhp,bjh,bjh->bhpn", bk.float(), xf,
+                                decay_out, dtk))
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  cache: Optional[torch.Tensor] = None,
+                  lengths: Optional[torch.Tensor] = None) -> tuple:
+    """Depthwise causal conv along the sequence, then silu.  ``x``: (b, s,
+    d); ``w``: (width, d); ``cache``: the (b, width − 1, d) inputs before
+    ``x``.  Returns ``(silu(y), new cache)``: the last ``width − 1`` inputs,
+    or with ``lengths`` (b,) the ``width − 1`` inputs ending at each row's
+    valid boundary (the conv state a decode step continues from)."""
+    width = w.shape[0]
+    if cache is None:
+        cache = torch.zeros((x.shape[0], width - 1, x.shape[-1]),
+                            dtype=x.dtype, device=x.device)
+    xp = torch.cat([cache, x], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s] * w[i][None, None] for i in range(width))
+    if width <= 1:
+        new_cache = cache
+    elif lengths is None:
+        new_cache = xp[:, -(width - 1):]
+    else:
+        idx = lengths.long()[:, None] + torch.arange(width - 1,
+                                                     device=x.device)
+        new_cache = torch.gather(
+            xp, 1, idx[:, :, None].expand(-1, -1, xp.shape[-1]))
+    return silu(y), new_cache

@@ -1,4 +1,5 @@
-"""Dense GQA and MoE decoders: calibration forward, the paged serving
+"""Dense GQA, MoE, hybrid (Jamba) and pure-SSM (Mamba2) decoders:
+calibration forward, the paged serving
 steps (the unified step; the two-call pair ``paged_prefill_chunk`` /
 ``paged_decode_step``), and the contiguous-cache ``prefill`` /
 ``decode_step`` of the bucketed engine (the port of those paths of
@@ -12,7 +13,10 @@ Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
 reference's prologue and scanned ``period`` stack unrolled; each layer's
 ``LayerSpec`` comes from ``cfg.layer_specs()``).  Stored f32 or bf16 and
 cast to bf16 at use; serving params hold packed-int4 or prepared-int8 dicts
-for the large matmuls.  MoE layers hold the router ``gate_w`` and the
+for the large matmuls.  Mamba layers hold ``in_proj`` / ``out_proj``,
+``conv_w``, ``a_log``, ``dt_bias``, ``d_skip`` and ``ssm_norm``; their
+cache entry is the recurrent state (``{"state", "conv"}``, slot-dense in
+the paged pools).  MoE layers hold the router ``gate_w`` and the
 stacked ``(E, ·, ·)`` expert weights ``we_gate / we_up / we_down``; Arctic's
 dense residual MLP is ``dwi_gate / dwi_up / dwo_mlp``.  Setup at full width
 streams: expert stacks are drawn, packed and prepared one expert at a time,
@@ -120,16 +124,31 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen, dev, dtype) -> dict:
     def ones(n):
         return torch.ones(n, device=dev, dtype=dtype)
 
-    p = {"ln1": ones(d),
-         "wq": _dense(gen, d, cfg.q_dim, dev, dtype),
-         "wk": _dense(gen, d, cfg.kv_dim, dev, dtype),
-         "wv": _dense(gen, d, cfg.kv_dim, dev, dtype),
-         "wo": _dense(gen, cfg.q_dim, d, dev, dtype)}
-    if cfg.qkv_bias:
-        p["bq"] = torch.zeros(cfg.q_dim, device=dev, dtype=dtype)
-        p["bk"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
-        p["bv"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
-    p["ln2"] = ones(d)
+    p = {"ln1": ones(d)}
+    if spec.mixer == "attn":
+        p["wq"] = _dense(gen, d, cfg.q_dim, dev, dtype)
+        p["wk"] = _dense(gen, d, cfg.kv_dim, dev, dtype)
+        p["wv"] = _dense(gen, d, cfg.kv_dim, dev, dtype)
+        p["wo"] = _dense(gen, cfg.q_dim, d, dev, dtype)
+        if cfg.qkv_bias:
+            p["bq"] = torch.zeros(cfg.q_dim, device=dev, dtype=dtype)
+            p["bk"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
+            p["bv"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
+    elif spec.mixer == "mamba":
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        f32 = dict(device=dev, dtype=torch.float32)
+        p["in_proj"] = _dense(gen, d, 2 * di + 2 * n + h, dev, dtype)
+        p["conv_w"] = (torch.randn((cfg.conv_width, di + 2 * n),
+                                   generator=gen, device=dev)
+                       * 0.1).to(dtype)
+        # the SSM's per-head parameters stay f32, as the reference's
+        p["a_log"] = torch.zeros(h, **f32)
+        p["dt_bias"] = torch.full((h,), -2.0, **f32)
+        p["d_skip"] = torch.ones(h, **f32)
+        p["ssm_norm"] = ones(di)
+        p["out_proj"] = _dense(gen, di, d, dev, dtype)
+    if spec.ffn != "none":
+        p["ln2"] = ones(d)
     if spec.ffn in ("mlp", "moe_dense"):
         pre = "d" if spec.ffn == "moe_dense" else ""
         p[f"{pre}wi_gate"] = _dense(gen, d, cfg.d_ff, dev, dtype)
@@ -203,7 +222,8 @@ def fused_site_matrix(cfg: ModelConfig, stamp: Optional[StampConfig]
     mapped to ``fused`` or ``reference`` with reason codes (the
     reference's ``lm.fused_site_matrix``).  Cells: ``{"status", "kernel",
     "wiring", "layers", "reasons"}`` keyed by the telemetry site label
-    (``qkv`` / ``wo`` / ``gate_up`` / ``wo_mlp`` / ``moe``)."""
+    (``qkv`` / ``wo`` / ``gate_up`` / ``wo_mlp`` / ``moe`` / ``in_proj`` /
+    ``out_proj``)."""
     base = (("stamp_disabled",) if stamp is None
             else fused_ineligibility(stamp))
     matrix: dict = {}
@@ -219,6 +239,9 @@ def fused_site_matrix(cfg: ModelConfig, stamp: Optional[StampConfig]
         if spec.mixer == "attn":
             add("qkv", "stamp_quant_matmul", "merged_wqkv")
             add("wo", "stamp_quant_matmul", "single_head_merge")
+        elif spec.mixer == "mamba":
+            add("in_proj", "stamp_quant_matmul", "single")
+            add("out_proj", "stamp_quant_matmul", "single")
         if spec.ffn in ("mlp", "moe_dense"):
             add("gate_up", "stamp_quant_dual_matmul", "pair")
             add("wo_mlp", "stamp_quant_matmul", "single")
@@ -284,7 +307,8 @@ def pack_weight(w: torch.Tensor, bits: int = 4) -> dict:
 
 
 _BIG = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_mlp", "dwi_gate",
-        "dwi_up", "dwo_mlp", "we_gate", "we_up", "we_down")
+        "dwi_up", "dwo_mlp", "we_gate", "we_up", "we_down", "in_proj",
+        "out_proj")
 _EXPERTS = ("we_gate", "we_up", "we_down")
 
 
@@ -332,8 +356,8 @@ def _prep_down_expert(w, bits: int) -> dict:
 def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
     """Hoist every fused site's weights into int8 buffers ``{"iq", "isw",
     "izw", "iqsum"}``, one layer at a time: wq/wk/wv merge into ``wqkv``
-    (biases into ``bqkv``), gate/up and the out-projections prepare per
-    site, expert stacks one expert at a time (``we_down`` also keeps its
+    (biases into ``bqkv``), gate/up, the out-projections and the Mamba
+    in/out projections prepare per site, expert stacks one expert at a time (``we_down`` also keeps its
     per-slab sums ``iqslab``).  Packed int4 weights are dequantized and
     re-coded at ``stamp.fused_weight_bits``.  ``params["layers"]`` may be
     an iterator: a layer handed over that way is dropped as soon as it is
@@ -345,15 +369,16 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
     for p in params["layers"]:
         out = {k: v for k, v in p.items()
                if k not in _BIG and k not in ("bq", "bk", "bv")}
-        raws = [_dequant_packed(p[k], torch.float32)
-                if isinstance(p[k], dict) else p[k].float()
-                for k in ("wq", "wk", "wv")]
-        out["wqkv"] = _prep(torch.cat(raws, dim=-1), bits)
-        del raws
+        if "wq" in p:
+            raws = [_dequant_packed(p[k], torch.float32)
+                    if isinstance(p[k], dict) else p[k].float()
+                    for k in ("wq", "wk", "wv")]
+            out["wqkv"] = _prep(torch.cat(raws, dim=-1), bits)
+            del raws
         if all(k in p for k in ("bq", "bk", "bv")):
             out["bqkv"] = torch.cat([p["bq"], p["bk"], p["bv"]], dim=-1)
         for k in ("wo", "wi_gate", "wi_up", "wo_mlp", "dwi_gate", "dwi_up",
-                  "dwo_mlp"):
+                  "dwo_mlp", "in_proj", "out_proj"):
             if k in p:
                 out[k] = _prep(p[k], bits)
         for k in _EXPERTS:
@@ -441,7 +466,10 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     one call for the down-projection; the fused MoE routes on the stamped
     round trip and runs the expert stack through the grouped kernel.
     Without fused weights or STaMP (the decode region, calibration) the
-    MoE runs the reference FFN over the routed experts only."""
+    MoE runs the reference FFN over the routed experts only.  A pure-SSM
+    layer has no FFN (``none``)."""
+    if spec.ffn == "none":
+        return x
     h = L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
     hq = None
     out = torch.zeros_like(x)
@@ -626,6 +654,217 @@ def attn_block_unified(p: dict, x: tuple, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Mamba2 / SSD blocks
+# ---------------------------------------------------------------------------
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``log(1 + exp(x))`` as ``max(x, 0) + log1p(
+    exp(−|x|))`` (PyTorch's own switches to ``x`` past a threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _mamba_in(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              stamp: Optional[StampConfig], dm: bool) -> tuple:
+    """Norm + in-projection + split, shared by every path: the fused STaMP
+    linear (K1 → K2) over prepared weights under fused STaMP, else the
+    reference linear (the decode kernel K3 for decode-shaped input when
+    ``dm``).  Returns ``(z, xbc, dt f32)``."""
+    di, n = cfg.d_inner, cfg.ssm_state
+    h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+    if _use_fused(stamp, p["in_proj"]):
+        proj = L.stamp_fused_linear(h, p["in_proj"], None, stamp,
+                                    site="in_proj")
+    else:
+        proj = _linear(_maybe_stamp(h, stamp, "in_proj"), p["in_proj"],
+                       None, dm)
+    z, xbc, dt_raw = torch.split(
+        proj, [di, di + 2 * n, proj.shape[-1] - 2 * di - 2 * n], dim=-1)
+    return z, xbc, _softplus(dt_raw.float() + p["dt_bias"])
+
+
+def _mamba_out(p: dict, yh: torch.Tensor, z: torch.Tensor,
+               x: torch.Tensor, cfg: ModelConfig,
+               stamp: Optional[StampConfig], dm: bool) -> torch.Tensor:
+    """Gate + norm + out-projection + residual (decode passes ``stamp =
+    None``: no transform, the decode kernel when ``dm``)."""
+    y = yh.reshape(*yh.shape[:-2], cfg.d_inner).to(x.dtype)
+    y = y * silu(z)
+    y = L.rms_norm(y, p["ssm_norm"].to(x.dtype), cfg.norm_eps)
+    if _use_fused(stamp, p["out_proj"]):
+        return x + L.stamp_fused_linear(y, p["out_proj"], None, stamp,
+                                        site="out_proj")
+    return x + _linear(_maybe_stamp(y, stamp, "out_proj"), p["out_proj"],
+                       None, dm)
+
+
+def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig) -> tuple:
+    di, n = cfg.d_inner, cfg.ssm_state
+    x_ssm, b_mat, c_mat = torch.split(xbc, [di, n, n], dim=-1)
+    return (x_ssm.reshape(*x_ssm.shape[:-1], cfg.ssm_heads,
+                          cfg.ssm_head_dim), b_mat, c_mat)
+
+
+def _mamba_step(p: dict, xbc: torch.Tensor, dt: torch.Tensor,
+                state: torch.Tensor, conv_cache: torch.Tensor,
+                cfg: ModelConfig, dtype) -> tuple:
+    """One-token recurrence: ``xbc`` (b, 1, conv_dim), ``dt`` (b, 1, h),
+    ``state`` (b, h, p, n) f32, ``conv_cache`` (b, width − 1, conv_dim).
+    Returns ``(yh (b, 1, h, p) f32, new state, new conv)``."""
+    xp = torch.cat([conv_cache.to(dtype), xbc], dim=1)
+    w = p["conv_w"].to(dtype)
+    y = sum(xp[:, i:i + 1] * w[i][None, None] for i in range(w.shape[0]))
+    xh, b_mat, c_mat = _split_xbc(silu(y), cfg)
+    a = -torch.exp(p["a_log"])
+    da = torch.exp(dt[:, 0] * a[None])                       # (b, h)
+    upd = torch.einsum("bhp,bn,bh->bhpn", xh[:, 0].float(),
+                       b_mat[:, 0].float(), dt[:, 0])
+    state = state * da[..., None, None] + upd
+    yh = torch.einsum("bn,bhpn->bhp", c_mat[:, 0].float(), state)
+    yh = yh[:, None] + p["d_skip"][None, None, :, None] * xh.float()
+    return yh, state, xp[:, 1:]
+
+
+def _mamba_masked_step(p: dict, xbc, dt, state_all, conv_all,
+                       active: torch.Tensor, cfg: ModelConfig,
+                       dtype) -> tuple:
+    """The one-token recurrence over the slot array (rows ``[0, S)`` of the
+    pool, the null slot excluded), inactive slots keeping their state bit
+    for bit: a slot without a running request must not advance."""
+    s_slots = active.shape[0]
+    state, conv = state_all[:s_slots], conv_all[:s_slots]
+    yh, state_new, conv_new = _mamba_step(p, xbc, dt, state, conv, cfg,
+                                          dtype)
+    state_new = torch.where(active[:, None, None, None], state_new, state)
+    conv_new = torch.where(active[:, None, None], conv_new, conv.to(dtype))
+    return yh, state_new, conv_new
+
+
+def _mamba_scan(p: dict, xbc: torch.Tensor, dt: torch.Tensor,
+                cfg: ModelConfig, conv_cache, init_state, lengths,
+                dtype) -> tuple:
+    """Multi-token conv + SSD over a (possibly right-padded) span, carrying
+    ``conv_cache`` / ``init_state`` in from an earlier chunk.  ``lengths``
+    (b,) masks ``dt`` to zero past each row's valid tokens, so pads never
+    advance the recurrence (decay ``exp(0·a) = 1``, update 0), and cuts the
+    conv tail at the valid boundary.  Returns ``(yh f32, state, conv
+    tail)``."""
+    if lengths is not None:
+        mask = torch.arange(xbc.shape[1], device=xbc.device)[None, :] < \
+            lengths[:, None]
+        dt = dt * mask[..., None].to(dt.dtype)
+    xbc_c, conv_tail = L.causal_conv1d(xbc, p["conv_w"].to(dtype),
+                                       cache=conv_cache, lengths=lengths)
+    xh, b_mat, c_mat = _split_xbc(xbc_c, cfg)
+    yh, state = L.ssd_chunked(xh, dt, p["a_log"], b_mat, c_mat,
+                              init_state=init_state)
+    yh = yh.float() + p["d_skip"][None, None, :, None] * xh.float()
+    return yh, state, conv_tail
+
+
+def mamba_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        stamp: Optional[StampConfig],
+                        seq_lengths: Optional[torch.Tensor] = None) -> tuple:
+    """Whole sequences from a zero state (the calibration forward and the
+    bucketed prefill): returns ``(x, {"state", "conv"})``, the state after
+    each row's last valid token (``seq_lengths``)."""
+    z, xbc, dt = _mamba_in(p, x, cfg, stamp, False)
+    yh, state, conv_tail = _mamba_scan(p, xbc, dt, cfg, None, None,
+                                       seq_lengths, x.dtype)
+    return (_mamba_out(p, yh, z, x, cfg, stamp, False),
+            {"state": state, "conv": conv_tail.to(torch.bfloat16)})
+
+
+def mamba_block_cached_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                              entry: dict, dm: bool) -> torch.Tensor:
+    """One token per row against the contiguous cache; the entry updates
+    in place."""
+    z, xbc, dt = _mamba_in(p, x, cfg, None, dm)
+    yh, state, conv = _mamba_step(p, xbc, dt, entry["state"],
+                                  entry["conv"], cfg, x.dtype)
+    entry["state"] = state
+    entry["conv"] = conv.to(entry["conv"].dtype)
+    return _mamba_out(p, yh, z, x, cfg, None, dm)
+
+
+def mamba_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       entry: dict, active: torch.Tensor,
+                       dm: bool) -> torch.Tensor:
+    """The slot array against the slot-dense pool (inactive slots masked);
+    rows ``[0, S)`` update in place."""
+    z, xbc, dt = _mamba_in(p, x, cfg, None, dm)
+    yh, state, conv = _mamba_masked_step(p, xbc, dt, entry["state"],
+                                         entry["conv"], active, cfg,
+                                         x.dtype)
+    s_slots = active.shape[0]
+    entry["state"][:s_slots] = state
+    entry["conv"][:s_slots] = conv.to(entry["conv"].dtype)
+    return _mamba_out(p, yh, z, x, cfg, None, dm)
+
+
+def mamba_block_chunk(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      stamp: Optional[StampConfig], entry: dict,
+                      paged: dict) -> torch.Tensor:
+    """One prefill chunk of one request (the two-call step): the scan
+    carries the conv tail and state of the request's slot row across chunk
+    boundaries (zeros on its first chunk) and writes the chunk's final
+    ones back to that row."""
+    z, xbc, dt = _mamba_in(p, x, cfg, stamp, False)
+    state_all, conv_all = entry["state"], entry["conv"]
+    slot = int(paged["slot"])
+    if paged["first"]:
+        conv0 = torch.zeros((1, *conv_all.shape[1:]), dtype=x.dtype,
+                            device=x.device)
+        state0 = torch.zeros((1, *state_all.shape[1:]),
+                             dtype=torch.float32, device=x.device)
+    else:
+        conv0 = conv_all[slot][None].to(x.dtype)
+        state0 = state_all[slot][None]
+    yh, state_f, conv_tail = _mamba_scan(p, xbc, dt, cfg, conv0, state0,
+                                         paged["valid"].reshape(1),
+                                         x.dtype)
+    state_all[slot] = state_f[0]
+    conv_all[slot] = conv_tail[0].to(conv_all.dtype)
+    return _mamba_out(p, yh, z, x, cfg, stamp, False)
+
+
+def mamba_block_unified(p: dict, x: tuple, cfg: ModelConfig,
+                        serve: ServeConfig, entry: dict, paged: dict,
+                        dm: bool) -> tuple:
+    """One Mamba block of the unified ragged step over the slot-dense
+    pool: the chunk rows ``(n_pf, C, d)`` run the stateful scan (each
+    span's conv tail and state gathered from its slot row, zeros on a
+    first chunk, ``dt`` masked past the valid length) under STaMP, the
+    decode slots ``(S, 1, d)`` the masked one-token recurrence transform
+    free.  Then the two state writes, in the reference's order: the masked
+    decode update over rows ``[0, S)``, then each chunk row's final state
+    at its slot (dummy rows at the null slot ``S``)."""
+    x_pf, x_dec = x
+    state_all, conv_all = entry["state"], entry["conv"]
+    stamp = serve.stamp
+    z_pf, xbc_pf, dt_pf = _mamba_in(p, x_pf, cfg, stamp, dm)
+    slots = paged["pf_slots"].long()
+    first = paged["pf_first"]
+    conv0 = torch.where(first[:, None, None], 0.0,
+                        conv_all[slots].to(x_pf.dtype)).to(x_pf.dtype)
+    state0 = torch.where(first[:, None, None, None], 0.0, state_all[slots])
+    yh_pf, state_f, conv_tail = _mamba_scan(
+        p, xbc_pf, dt_pf, cfg, conv0, state0, paged["pf_valid"],
+        x_pf.dtype)
+    z_dec, xbc_dec, dt_dec = _mamba_in(p, x_dec, cfg, None, dm)
+    yh_dec, state_new, conv_new = _mamba_masked_step(
+        p, xbc_dec, dt_dec, state_all, conv_all, paged["dec_active"], cfg,
+        x_dec.dtype)
+    s_slots = x_dec.shape[0]
+    state_all[:s_slots] = state_new
+    state_all[slots] = state_f
+    conv_all[:s_slots] = conv_new.to(conv_all.dtype)
+    conv_all[slots] = conv_tail.to(conv_all.dtype)
+    return (_mamba_out(p, yh_pf, z_pf, x_pf, cfg, stamp, dm),
+            _mamba_out(p, yh_dec, z_dec, x_dec, cfg, None, dm))
+
+
+# ---------------------------------------------------------------------------
 # forward entry points
 # ---------------------------------------------------------------------------
 
@@ -637,7 +876,10 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 def hidden_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """One layer of the full-sequence forward without STaMP."""
-    x, _ = attn_block_prefill(p, x, cfg, None)
+    if spec.mixer == "mamba":
+        x, _ = mamba_block_prefill(p, x, cfg, None)
+    else:
+        x, _ = attn_block_prefill(p, x, cfg, None)
     return ffn_block(p, x, spec, cfg, None, False)
 
 
@@ -656,20 +898,27 @@ def model_hidden(params: dict, tokens: torch.Tensor,
     return final_hidden(params, x, cfg)
 
 
-def _attention_layers_only(cfg: ModelConfig) -> None:
-    if any(spec.mixer != "attn" for spec in cfg.layer_specs()):
-        raise NotImplementedError("the port's caches hold attention layers "
-                                  "only (no Mamba state yet)")
+def _ssm_entry(cfg: ModelConfig, batch: int, device) -> dict:
+    """A zero contiguous Mamba cache entry: ``state`` (b, h, p, n) f32 and
+    the conv tail (b, width − 1, conv_dim) bf16."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {"state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state), dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim),
+                                dtype=torch.bfloat16, device=device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, serve: ServeConfig,
                device=None) -> list:
-    """Zero contiguous decode cache, one dict per attention layer."""
-    _attention_layers_only(cfg)
+    """Zero contiguous decode cache, one dict per layer: an attention
+    layer's K/V, a Mamba layer's recurrent state."""
     dev = resolve_device(device)
-    return [KV.init_layer_cache(batch, seq, cfg.num_kv_heads,
-                                cfg.resolved_head_dim, serve.kv, device=dev)
-            for _ in range(cfg.num_layers)]
+    return [_ssm_entry(cfg, batch, dev) if spec.mixer == "mamba"
+            else KV.init_layer_cache(batch, seq, cfg.num_kv_heads,
+                                     cfg.resolved_head_dim, serve.kv,
+                                     device=dev)
+            for spec in cfg.layer_specs()]
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -680,15 +929,23 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     last column; right-padded prompts read their true last token), and
     the contiguous mixed-precision cache (one dict per layer) sized
     ``serve.cache_capacity``; with quant telemetry collected, also the
-    site stats."""
-    _attention_layers_only(cfg)
+    site stats.  Mamba layers stop their recurrence at each row's
+    ``last_pos``: attention never reads a right pad (causal), but a
+    recurrent state would keep absorbing them."""
+    seq_lengths = None if last_pos is None else \
+        last_pos.to(tokens.device).to(torch.int32) + 1
 
     def stack():
         x = _embed(params, tokens)
         cache = []
         for spec, p in zip(cfg.layer_specs(), params["layers"]):
-            x, entry = attn_block_prefill(p, x, cfg, serve.stamp, serve.kv,
-                                          serve.cache_capacity)
+            if spec.mixer == "mamba":
+                x, entry = mamba_block_prefill(p, x, cfg, serve.stamp,
+                                               seq_lengths)
+            else:
+                x, entry = attn_block_prefill(p, x, cfg, serve.stamp,
+                                              serve.kv,
+                                              serve.cache_capacity)
             x = ffn_block(p, x, spec, cfg, serve.stamp, False)
             cache.append(entry)
         return x, cache
@@ -716,18 +973,34 @@ def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
     x = _embed(params, tokens[:, None])
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     for spec, p, entry in zip(cfg.layer_specs(), params["layers"], cache):
-        x = attn_block_cached_decode(p, x, cfg, serve, entry, pos, dm)
+        if spec.mixer == "mamba":
+            x = mamba_block_cached_decode(p, x, cfg, entry, dm)
+        else:
+            x = attn_block_cached_decode(p, x, cfg, serve, entry, pos, dm)
         x = ffn_block(p, x, spec, cfg, None, dm)
     return _logits(params, x[:, 0], cfg), cache
 
 
 def init_paged_cache(cfg: ModelConfig, pcfg: PKV.PagedCacheConfig,
-                     device=None) -> list:
-    """Zero page pools, one dict per attention layer (block ids are shared
-    across layers: one allocation covers the whole stack)."""
+                     device=None, num_slots: Optional[int] = None) -> list:
+    """Zero cache state, one dict per layer: page pools for an attention
+    layer (block ids are shared across layers: one allocation covers the
+    whole stack), and for a Mamba layer the slot-dense state of
+    ``num_slots`` slots (the engine's decode slots) plus the null slot."""
     dev = resolve_device(device)
-    return [PKV.init_pools(cfg.num_kv_heads, cfg.resolved_head_dim, pcfg,
-                           device=dev) for _ in range(cfg.num_layers)]
+    specs = cfg.layer_specs()
+    if any(s.mixer == "mamba" for s in specs) and num_slots is None:
+        raise ValueError(
+            "hybrid/SSM stacks hold slot-dense SSM state: init_paged_cache "
+            "needs num_slots (the engine's max_slots) to size the per-slot "
+            "state pool")
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return [PKV.init_ssm_slots(num_slots, cfg.conv_width, conv_dim,
+                               cfg.ssm_heads, cfg.ssm_head_dim,
+                               cfg.ssm_state, device=dev)
+            if spec.mixer == "mamba"
+            else PKV.init_pools(cfg.num_kv_heads, cfg.resolved_head_dim,
+                                pcfg, device=dev) for spec in specs]
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -738,18 +1011,27 @@ def paged_decode_step(params: dict, pools: list, tokens: torch.Tensor,
                       positions: torch.Tensor, hi_table: torch.Tensor,
                       lo_table: torch.Tensor, pages: torch.Tensor,
                       offsets: torch.Tensor, is_hi: torch.Tensor,
-                      cfg: ModelConfig, serve: ServeConfig) -> tuple:
+                      cfg: ModelConfig, serve: ServeConfig,
+                      active: Optional[torch.Tensor] = None) -> tuple:
     """One decode step for the whole slot array (also the unified step's
     all-decode case).  ``tokens`` / ``positions``: (S,); ``pages /
-    offsets / is_hi``: (S,) write targets (inactive slots → null page).
-    The pools update in place.  Returns ``(logits (S, V), pools)``."""
+    offsets / is_hi``: (S,) write targets (inactive slots → null page);
+    ``active``: (S,) bool, the slots whose Mamba state may advance (default
+    all: a Mamba recurrence has no null page to hide a pad behind).  The
+    pools update in place.  Returns ``(logits (S, V), pools)``."""
     dm = serve.fused_decode_matmul
     x = _embed(params, tokens[:, None])
+    if active is None:
+        active = torch.ones(tokens.shape, dtype=torch.bool,
+                            device=tokens.device)
     paged = {"dec_ht": hi_table, "dec_lt": lo_table,
              "dec_positions": positions, "dec_lengths": positions + 1,
              "pages": pages, "offsets": offsets, "is_hi": is_hi}
     for spec, p, entry in zip(cfg.layer_specs(), params["layers"], pools):
-        x = attn_block_decode(p, x, cfg, serve, entry, paged, dm)
+        if spec.mixer == "mamba":
+            x = mamba_block_decode(p, x, cfg, entry, active, dm)
+        else:
+            x = attn_block_decode(p, x, cfg, serve, entry, paged, dm)
         x = ffn_block(p, x, spec, cfg, None, dm)
     return _logits(params, x[:, 0], cfg), pools
 
@@ -759,7 +1041,8 @@ def paged_prefill_chunk(params: dict, pools: list, tokens: torch.Tensor,
                         lo_table: torch.Tensor, pages: torch.Tensor,
                         offsets: torch.Tensor, is_hi: torch.Tensor,
                         last_index, cfg: ModelConfig,
-                        serve: ServeConfig) -> tuple:
+                        serve: ServeConfig, first: bool = True,
+                        slot: Optional[int] = None) -> tuple:
     """One prefill chunk of one request into the paged cache: the prefill
     half of the two-call step (``step_mode="two_call"``), the reference's
     ``paged_prefill_chunk``.
@@ -771,29 +1054,36 @@ def paged_prefill_chunk(params: dict, pools: list, tokens: torch.Tensor,
     whose logits are the next-token distribution.  The linears run under
     STaMP (the fused kernels K1 → K2 over prepared weights, never the
     decode matmul); the attention is the plain chunked attention of
-    :func:`attn_block_chunk`.  The pools update in place.  Returns
-    ``(logits (1, V), pools)``, plus the quant-telemetry site stats when
-    collected."""
-    _attention_layers_only(cfg)
+    :func:`attn_block_chunk`.  Mamba layers carry their state across
+    chunks through the request's ``slot`` row of the state pool (zeros
+    when ``first``), over the chunk's ``last_index + 1`` valid tokens.
+    The pools update in place.  Returns ``(logits (1, V), pools)``, plus
+    the quant-telemetry site stats when collected."""
     c = tokens.shape[1]
     dev = tokens.device
     start = torch.as_tensor(start, device=dev).reshape(1).to(torch.int32)
+    li = torch.as_tensor(last_index, device=dev).reshape(1)
+    if slot is None and any(s.mixer == "mamba" for s in cfg.layer_specs()):
+        raise ValueError("a Mamba layer's chunk needs the request's slot")
     paged = {"positions": start[:, None] + torch.arange(c, device=dev),
              "start": start, "hi_table": hi_table, "lo_table": lo_table,
-             "pages": pages, "offsets": offsets, "is_hi": is_hi}
+             "pages": pages, "offsets": offsets, "is_hi": is_hi,
+             "first": first, "slot": slot, "valid": li + 1}
 
     def stack():
         x = _embed(params, tokens)
         for spec, p, entry in zip(cfg.layer_specs(), params["layers"],
                                   pools):
-            x = attn_block_chunk(p, x, cfg, serve, entry, paged)
+            if spec.mixer == "mamba":
+                x = mamba_block_chunk(p, x, cfg, serve.stamp, entry, paged)
+            else:
+                x = attn_block_chunk(p, x, cfg, serve, entry, paged)
             x = ffn_block(p, x, spec, cfg, serve.stamp, False)
         return x
 
     collect = _collect_telemetry(serve)
     x, telem = _with_telemetry(collect, stack)
-    li = torch.as_tensor(last_index, device=dev).reshape(1).long()
-    logits = _logits(params, x[0, li], cfg)
+    logits = _logits(params, x[0, li.long()], cfg)
     return (logits, pools, telem) if collect else (logits, pools)
 
 
@@ -803,7 +1093,10 @@ def paged_unified_step(params: dict, pools: list, pf_tokens: torch.Tensor,
                        dec_positions: torch.Tensor, hi_table: torch.Tensor,
                        lo_table: torch.Tensor, pages: torch.Tensor,
                        offsets: torch.Tensor, is_hi: torch.Tensor,
-                       cfg: ModelConfig, serve: ServeConfig) -> tuple:
+                       cfg: ModelConfig, serve: ServeConfig,
+                       pf_first: Optional[torch.Tensor] = None,
+                       pf_slots: Optional[torch.Tensor] = None,
+                       dec_active: Optional[torch.Tensor] = None) -> tuple:
     """ONE forward per engine step: ``n_pf`` prefill chunk spans (rows of
     ``pf_tokens`` (n_pf, C), right-padded) and the decode slot array.
 
@@ -811,17 +1104,23 @@ def paged_unified_step(params: dict, pools: list, pf_tokens: torch.Tensor,
     chunk; ``pf_last_index``: (n_pf,) chunk-local row whose logits are the
     next-token distribution; ``dec_tokens / dec_positions``: (S,);
     ``hi_table / lo_table``: (n_pf + S, ·) span-ordered block tables;
-    ``pages / offsets / is_hi``: (n_pf·C + S,) write targets.  ``n_pf =
-    0`` runs :func:`paged_decode_step`.  The pools update in place.
+    ``pages / offsets / is_hi``: (n_pf·C + S,) write targets.  Mamba
+    layers read ``pf_first`` (n_pf,) bool (the chunk starts its request:
+    zero state), ``pf_slots`` (n_pf,) the chunk's slot row (dummy rows: the
+    null slot S) and ``dec_active`` (S,) bool (slots whose state may
+    advance; default all).  ``n_pf = 0`` runs :func:`paged_decode_step`.  The pools update in place.
     Returns ``(pf_logits (n_pf, V), dec_logits (S, V), pools)``, plus the
     quant-telemetry site stats when collected (empty on an all-decode step:
     decode runs transform free)."""
     n_pf, c_len = pf_tokens.shape
     collect = _collect_telemetry(serve)
+    if dec_active is None:
+        dec_active = torch.ones(dec_tokens.shape, dtype=torch.bool,
+                                device=dec_tokens.device)
     if n_pf == 0:
         dec_logits, pools = paged_decode_step(
             params, pools, dec_tokens, dec_positions, hi_table, lo_table,
-            pages, offsets, is_hi, cfg, serve)
+            pages, offsets, is_hi, cfg, serve, dec_active)
         out = (dec_logits.new_zeros((0, dec_logits.shape[-1])), dec_logits,
                pools)
         return out + ({},) if collect else out
@@ -839,13 +1138,18 @@ def paged_unified_step(params: dict, pools: list, pf_tokens: torch.Tensor,
              "pf_positions": pf_start[:, None] + ar[None, :],
              "pf_start": pf_start, "dec_positions": dec_positions,
              "dec_lengths": dec_positions + 1,
-             "pages": pages, "offsets": offsets, "is_hi": is_hi}
+             "pages": pages, "offsets": offsets, "is_hi": is_hi,
+             "pf_first": pf_first, "pf_slots": pf_slots,
+             "pf_valid": pf_length - pf_start, "dec_active": dec_active}
 
     def stack():
         x = (x_pf, x_dec)
         for spec, p, entry in zip(cfg.layer_specs(), params["layers"],
                                   pools):
-            x = attn_block_unified(p, x, cfg, serve, entry, paged, dm)
+            if spec.mixer == "mamba":
+                x = mamba_block_unified(p, x, cfg, serve, entry, paged, dm)
+            else:
+                x = attn_block_unified(p, x, cfg, serve, entry, paged, dm)
             x = (ffn_block(p, x[0], spec, cfg, serve.stamp, dm),
                  ffn_block(p, x[1], spec, cfg, None, dm))
         return x

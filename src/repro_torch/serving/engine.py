@@ -24,7 +24,12 @@ with up to ``max_prefills`` chunk rows bucketed to 0, 1, 2, 4, …
 ``max_prefills``; in ``"two_call"`` it runs one chunk through
 `lm.paged_prefill_chunk` and then the decode slots through
 `lm.paged_decode_step`, scheduling exactly as the reference's two-call
-engine (one chunk a step, no transform-window alignment).  Around the step:
+engine (one chunk a step, no transform-window alignment).  A hybrid or
+pure-SSM stack's Mamba layers keep their state in a slot-dense pool beside
+the pages: chunks carry it across their boundaries through the request's
+slot row, decode advances only the running slots, a preempted request's
+state swaps out with its pages, a stack without attention takes no pages
+at all, and prefix caching is off with Mamba layers.  Around the step:
 deadlines, bounded-queue shedding, cancellation, a no-progress watchdog,
 the NaN/Inf numerics guard with fused → reference demotion, and the
 fault-injection hooks of `serving/faults.py`.  Greedy sampling: each step
@@ -520,16 +525,30 @@ class PagedServingEngine(_EngineBase):
             num_hi_blocks=max(n_hi, 1), max_blocks_per_seq=lo_per_seq,
             quant=quant)
         self.serve = dataclasses.replace(self.serve, paged=self.pcfg)
-        self.pools = lm.init_paged_cache(cfg, self.pcfg, device=self.device)
+        # attention layers read and write the page pools, Mamba layers the
+        # slot-dense SSM state pool (its null slot is row max_slots)
+        specs = cfg.layer_specs()
+        self._has_attn = any(s.mixer == "attn" for s in specs)
+        self._has_mamba = any(s.mixer == "mamba" for s in specs)
+        self.pools = lm.init_paged_cache(cfg, self.pcfg, device=self.device,
+                                         num_slots=e.max_slots)
         unified = e.step_mode == "unified"
+        # prefix reuse skips prefill for cached tokens, which a Mamba
+        # layer cannot (its state must advance through every token); a
+        # pure-SSM stack has no pages to share at all
+        self._prefix_on = bool(e.prefix_caching and self._has_attn
+                               and not self._has_mamba)
         self.sched = Scheduler(
             SchedulerConfig(
                 max_slots=e.max_slots, prefill_chunk=e.prefill_chunk,
                 max_prefills=max(e.max_prefills, 1) if unified else 1,
                 transform_window=_transform_window(
                     self.serve.stamp, e.prefill_chunk) if unified else 1,
+                state_bytes_per_slot=PKV.ssm_state_bytes_per_slot(
+                    self.pools),
+                needs_kv_pages=self._has_attn,
                 preempt_watermark=e.preempt_watermark,
-                prefix_caching=e.prefix_caching),
+                prefix_caching=self._prefix_on),
             self.pcfg, swap_out=self._swap_out, swap_in=self._swap_in,
             cow=self._cow_copy, on_prefix=self._on_prefix_lookup)
         if fault is not None:
@@ -623,6 +642,8 @@ class PagedServingEngine(_EngineBase):
         why not: its page demand at the deepest position the scheduler
         reserves (``prompt_len + gen - 1``), less the fully shared pages of
         a cached prefix, against the whole pools."""
+        if not self._has_attn:
+            return None              # pure SSM: slots are the only capacity
         plen = int(req.prompt.shape[0])
         gen = min(req.max_new_tokens, self.ecfg.max_seq - plen)
         nh, nl = PKV.pages_needed(plen + gen - 1, self.pcfg)
@@ -698,8 +719,10 @@ class PagedServingEngine(_EngineBase):
         self._terminal_done.append(req)
 
     def _swap_out(self, sreq: SchedRequest) -> None:
+        # the slot is still assigned (the scheduler swaps before it frees
+        # it), so a Mamba layer's state rides along with the pages
         sreq.swapped = PKV.extract_pages(self.pools, sreq.hi_pages,
-                                         sreq.lo_pages)
+                                         sreq.lo_pages, slot=sreq.slot)
         self._event("preempt", uid=sreq.uid)
         self._inc("preemptions")
         self._inc("swap_bytes", PKV.swapped_bytes(sreq.swapped))
@@ -710,8 +733,9 @@ class PagedServingEngine(_EngineBase):
             swapped = corrupt_swapped(swapped, self.fault.seed)
             self._event("fault_corrupt", uid=sreq.uid)
         try:
+            # sreq.slot is the new placement: the SSM state restores there
             PKV.insert_pages(self.pools, swapped, sreq.hi_pages,
-                             sreq.lo_pages)
+                             sreq.lo_pages, slot=sreq.slot)
         except PKV.SwapCorruption as exc:
             # verified before anything was written: the scheduler finishes
             # placing the request and _step fails it right after planning
@@ -955,6 +979,9 @@ class PagedServingEngine(_EngineBase):
             pf_start = np.zeros((n_pf,), np.int32)
             pf_length = np.zeros((n_pf,), np.int32)
             pf_last = np.zeros((n_pf,), np.int32)
+            pf_first = np.zeros((n_pf,), bool)
+            # dummy chunk rows scatter their SSM state to the null slot
+            pf_slots = np.full((n_pf,), s, np.int32)
             pages = np.zeros((n_pf * c_len + s,), np.int32)
             offs = np.zeros((n_pf * c_len + s,), np.int32)
             ishi = np.zeros((n_pf * c_len + s,), bool)
@@ -963,19 +990,24 @@ class PagedServingEngine(_EngineBase):
                 pf_tokens[i, :valid] = w.sreq.prompt[w.start:w.end]
                 pf_start[i], pf_length[i] = w.start, w.end
                 pf_last[i] = valid - 1
-                for t in range(valid):
+                pf_first[i] = w.start == 0
+                pf_slots[i] = w.sreq.slot
+                for t in range(valid if self._has_attn else 0):
                     pages[i * c_len + t], offs[i * c_len + t], \
                         ishi[i * c_len + t] = self._write_target(
                             w.sreq, w.start + t)
             dec_tokens = np.zeros((s,), np.int32)
             dec_pos = np.zeros((s,), np.int32)
+            dec_active = np.zeros((s,), bool)
             base = n_pf * c_len
             for sreq in plan.decode:
                 dec_tokens[sreq.slot] = sreq.generated[-1]
                 dec_pos[sreq.slot] = sreq.pos
-                pages[base + sreq.slot], offs[base + sreq.slot], \
-                    ishi[base + sreq.slot] = self._write_target(sreq,
-                                                                sreq.pos)
+                dec_active[sreq.slot] = True
+                if self._has_attn:
+                    pages[base + sreq.slot], offs[base + sreq.slot], \
+                        ishi[base + sreq.slot] = self._write_target(
+                            sreq, sreq.pos)
             ht_np, lt_np = self._tables_np([w.sreq for w in works]
                                            + plan.decode)
             pf_ht = np.zeros((n_pf, ht_np.shape[1]), np.int32)
@@ -991,7 +1023,8 @@ class PagedServingEngine(_EngineBase):
                 dev(pf_length), dev(pf_last), dev(dec_tokens), dev(dec_pos),
                 dev(np.concatenate([pf_ht, ht_np])),
                 dev(np.concatenate([pf_lt, lt_np])), dev(pages), dev(offs),
-                dev(ishi), self.cfg, self.serve)
+                dev(ishi), self.cfg, self.serve, pf_first=dev(pf_first),
+                pf_slots=dev(pf_slots), dec_active=dev(dec_active))
             self._inc("device_dispatches")
             ((pf_next, pf_ok), (dec_next, dec_ok)), telem = self._to_host(
                 out[:2], out[3] if self._collect else None)
@@ -1042,7 +1075,7 @@ class PagedServingEngine(_EngineBase):
             pages = np.zeros((e.prefill_chunk,), np.int32)
             offs = np.zeros((e.prefill_chunk,), np.int32)
             ishi = np.zeros((e.prefill_chunk,), bool)
-            for i in range(valid):
+            for i in range(valid if self._has_attn else 0):
                 pages[i], offs[i], ishi[i] = self._write_target(sreq,
                                                                 start + i)
             ht, lt = self._tables_np([sreq])
@@ -1051,7 +1084,7 @@ class PagedServingEngine(_EngineBase):
                 self.params, self.pools, self._dev(chunk), start,
                 self._dev(ht[slot]), self._dev(lt[slot]), self._dev(pages),
                 self._dev(offs), self._dev(ishi), valid - 1, self.cfg,
-                self.serve)
+                self.serve, first=start == 0, slot=sreq.slot)
             self._inc("device_dispatches")
             ((nxt, ok),), telem = self._to_host(
                 out[:1], out[2] if self._collect else None)
@@ -1075,17 +1108,20 @@ class PagedServingEngine(_EngineBase):
             pages = np.zeros((s,), np.int32)
             offs = np.zeros((s,), np.int32)
             ishi = np.zeros((s,), bool)
+            active = np.zeros((s,), bool)
             for sreq in running:
                 tokens[sreq.slot] = sreq.generated[-1]
                 positions[sreq.slot] = sreq.pos
-                pages[sreq.slot], offs[sreq.slot], ishi[sreq.slot] = \
-                    self._write_target(sreq, sreq.pos)
+                active[sreq.slot] = True
+                if self._has_attn:
+                    pages[sreq.slot], offs[sreq.slot], ishi[sreq.slot] = \
+                        self._write_target(sreq, sreq.pos)
             ht, lt = self._tables_np(running)
             dev = self._dev
             logits, _ = lm.paged_decode_step(
                 self.params, self.pools, dev(tokens), dev(positions),
                 dev(ht), dev(lt), dev(pages), dev(offs), dev(ishi), self.cfg,
-                self.serve)
+                self.serve, dev(active))
             self._inc("device_dispatches")
             ((nxt, ok),), _ = self._to_host((logits,), None)
         with self._timer.phase("post"):

@@ -1,5 +1,6 @@
 """Block-paged mixed-precision KV cache (the port of
-``repro.serving.paged_kvcache`` for attention stacks).
+``repro.serving.paged_kvcache``), with the slot-dense SSM state pool of
+hybrid and pure-SSM stacks.
 
 Per attention layer, two page pools shared by all requests:
 
@@ -12,6 +13,10 @@ Per attention layer, two page pools shared by all requests:
 
 An unquantized cache is one bf16 pool, ``k / v``: ``(NL, bs, kv, hd)``,
 addressed through the lo tables (no hi region).
+
+A Mamba layer's entry is instead its slot-dense recurrent state
+(:func:`init_ssm_slots`): ``state`` ``(S + 1, h, p, n)`` f32 and ``conv``
+``(S + 1, w - 1, conv_dim)`` bf16, row ``S`` the null slot.
 
 Page 0 of each pool is the **null page**: never allocated; block tables
 hold 0 for unmapped blocks and masked / pad writes land there, so every
@@ -91,6 +96,39 @@ def pool_bytes(entry: dict) -> int:
 # ---------------------------------------------------------------------------
 # host-side page allocator (ref-counted, hash-addressed prefix store)
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# slot-dense SSM state pool (hybrid / pure-SSM stacks)
+# ---------------------------------------------------------------------------
+
+
+def init_ssm_slots(num_slots: int, conv_width: int, conv_dim: int,
+                   heads: int, head_dim: int, state: int,
+                   device=None) -> dict:
+    """One Mamba layer's per-slot recurrent state: a ``(heads, head_dim,
+    state)`` f32 matrix and a ``(conv_width - 1, conv_dim)`` bf16 conv tail
+    per slot, fixed-size per request, so slot-dense rather than paged.
+    Row ``num_slots`` is the **null slot**: never assigned, it absorbs the
+    state scatter of unused prefill chunk rows as the null page absorbs
+    masked K/V writes."""
+    return {
+        "state": torch.zeros((num_slots + 1, heads, head_dim, state),
+                             dtype=torch.float32, device=device),
+        "conv": torch.zeros((num_slots + 1, conv_width - 1, conv_dim),
+                            dtype=torch.bfloat16, device=device),
+    }
+
+
+def is_ssm_entry(entry: dict) -> bool:
+    return "state" in entry
+
+
+def ssm_state_bytes_per_slot(pools: list) -> int:
+    """Device bytes ONE slot pins across every Mamba layer: a hybrid
+    request's admission cost, independent of its length."""
+    return sum(t[0].numel() * t.element_size() for entry in pools
+               if is_ssm_entry(entry) for t in entry.values())
 
 
 class OutOfBlocks(Exception):
@@ -498,14 +536,37 @@ def _pool_of(name: str) -> str:
     return "lo" if "_lo" in name or name in ("k", "v") else "hi"
 
 
-def extract_pages(pools: list, hi_ids: list, lo_ids: list) -> dict:
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device array as numpy (bf16 as its int16 bits: numpy has no
+    bf16)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    t = torch.from_numpy(np.asarray(a)).to(like.device)
+    return t.view(torch.bfloat16) if like.dtype == torch.bfloat16 else t
+
+
+def extract_pages(pools: list, hi_ids: list, lo_ids: list,
+                  slot: Optional[int] = None) -> dict:
     """Copy a request's pages of every layer to host memory (swap-out),
-    with a CRC32 per array that :func:`insert_pages` verifies."""
+    and for a Mamba layer its ``slot`` row of the SSM state pool (required
+    when the pools hold one), with a CRC32 per array that
+    :func:`insert_pages` verifies."""
     ids = {"hi": torch.as_tensor(hi_ids, dtype=torch.long),
            "lo": torch.as_tensor(lo_ids, dtype=torch.long)}
     swapped = {}
     for i, entry in enumerate(pools):
-        swapped[i] = {name: t[ids[_pool_of(name)].to(t.device)].cpu().numpy()
+        if is_ssm_entry(entry):
+            if slot is None:
+                raise ValueError("pools hold slot-dense SSM state; "
+                                 "extract_pages needs the request's slot")
+            swapped[i] = {name: _to_host(t[slot])
+                          for name, t in entry.items()}
+            continue
+        swapped[i] = {name: _to_host(t[ids[_pool_of(name)].to(t.device)])
                       for name, t in entry.items()}
     swapped[CRC_KEY] = {i: {n: _crc(a) for n, a in layer.items()}
                         for i, layer in swapped.items()}
@@ -531,26 +592,36 @@ def verify_swapped(swapped: dict) -> None:
 
 
 def insert_pages(pools: list, swapped: dict, hi_ids: list,
-                 lo_ids: list) -> list:
-    """Swap-in at (possibly different) page ids, in place.  Checksums are
-    verified first (:func:`verify_swapped`): on a mismatch nothing is
-    written."""
+                 lo_ids: list, slot: Optional[int] = None) -> list:
+    """Swap-in at (possibly different) page ids, and a Mamba layer's state
+    at the (possibly different) ``slot`` the request was re-admitted into,
+    in place.  Checksums are verified first (:func:`verify_swapped`): on a
+    mismatch nothing is written."""
     verify_swapped(swapped)
     ids = {"hi": torch.as_tensor(hi_ids, dtype=torch.long),
            "lo": torch.as_tensor(lo_ids, dtype=torch.long)}
     for i, entry in enumerate(pools):
+        if is_ssm_entry(entry):
+            if slot is None:
+                raise ValueError("pools hold slot-dense SSM state; "
+                                 "insert_pages needs the request's slot")
+            for name, t in entry.items():
+                t[slot] = _from_host(swapped[i][name], t)
+            continue
         for name, t in entry.items():
             sel = ids[_pool_of(name)]
             if sel.numel():
-                t[sel.to(t.device)] = torch.from_numpy(
-                    swapped[i][name]).to(t.device)
+                t[sel.to(t.device)] = _from_host(swapped[i][name], t)
     return pools
 
 
 def copy_page(pools: list, pool: str, src: int, dst: int) -> list:
     """Copy-on-write: duplicate one physical page (codes + scale/zp) of
-    ``pool`` from ``src`` to ``dst`` in every layer, in place."""
+    ``pool`` from ``src`` to ``dst`` in every attention layer, in place
+    (SSM state is per request, never shared)."""
     for entry in pools:
+        if is_ssm_entry(entry):
+            continue
         for name, t in entry.items():
             if _pool_of(name) == pool:
                 t[dst] = t[src]

@@ -373,6 +373,75 @@ def test_cuda_stamp_int_gemm_tilings(card, span, transform, dual):
                 _close_bf16(y, yp)
 
 
+# llama3-8b's prefill sites: qkv and down single, gate/up dual
+LONG_SITES = {False: [(4096, 6144), (14336, 4096)], True: [(4096, 14336)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [129, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("transform", ["none", "dwt", "wht"])
+@pytest.mark.parametrize("dual", [False, True])
+def test_cuda_long_span_chain(card, span, transform, dual):
+    """The K1 → K2 chain over spans longer than K2's 128-row tile, at
+    llama3-8b's widths over 2 spans: K1's codes, scales and zero points
+    and K2's f32 and bf16 outputs bit-equal to the plain versions.  Past
+    ``MAX_SPAN`` rows K2 runs without a transform over 128-row tiles (the
+    last one ragged) and the span link inverts with the bias and the dual's
+    silu·mul; under the WHT past 257 rows the span link also runs the
+    forward transform for K1."""
+    gen = torch.Generator(device=card).manual_seed(span)
+    kw = dict(transform=transform, levels=3, skip_first=True)
+    qkw = dict(num_hi=4, hi_bits=8, lo_bits=4, **kw)
+    for k, n in LONG_SITES[dual]:
+        x = torch.randn((2, span, k), generator=gen, device=card,
+                        dtype=torch.bfloat16)
+        TSM.stamp_span_transform.launches = 0
+        q = TSM.stamp_transform_quantize(x, **qkw)
+        forward = TSM.stamp_span_transform.launches
+        assert forward == int(not TSM.tq_fits(span, transform, 3, True))
+        for got, want in zip(q, TSM.transform_quantize_plain(x, **qkw)):
+            assert torch.equal(got, want)
+        w = _gemm_weights(gen, k, n, dual, card)
+        for dtype in (torch.float32, torch.bfloat16):
+            y = TSM.stamp_int_gemm(*q, span, *w, out_dtype=dtype, **kw)
+            yp = TSM.int_gemm_plain(*q, span, *w, out_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            assert y.shape == (2, span, n) and y.dtype == dtype
+            assert torch.equal(y, yp), float((y.float() - yp.float())
+                                             .abs().max())
+        assert TSM.stamp_span_transform.launches == forward + \
+            (0 if transform == "none" else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [129, 300, 5000])
+def test_cuda_span_link_shapes(card, span):
+    """The span link alone: shared-memory tiles of 32 down to 1 column
+    (2 spans of 129 to 5000 rows, and the longest dual dwt span whose
+    three one-column tiles fit, 9557 rows); forward and inverse, bit-equal
+    to the plain version.  One row more is refused."""
+    gen = torch.Generator(device=card).manual_seed(span)
+    longest = TSM.SPAN_SMEM // (4 * 3)
+    for s, n, dual in ((span, 200, False), (span, 72, True),
+                       (longest, 40, True)):
+        x = torch.randn((2, s, n), generator=gen, device=card)
+        u = torch.randn((2, s, n), generator=gen, device=card) \
+            if dual else None
+        b = torch.randn(n, generator=gen, device=card)
+        for tf in ("dwt", "wht"):
+            for inverse in (False, True):
+                kw = dict(transform=tf, levels=3, skip_first=True,
+                          inverse=inverse, out_dtype=torch.bfloat16)
+                args = (x, u, b, b) if inverse else (x,)
+                got = TSM.stamp_span_transform(*args, **kw)
+                want = TSM.span_transform_plain(*args, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+    x = torch.randn((1, longest + 1, 40), generator=gen, device=card)
+    with pytest.raises(ValueError, match="at most 9557 rows"):
+        TSM.stamp_span_transform(x, x, transform="dwt", inverse=True)
+
+
 @pytest.mark.cuda
 def test_cuda_stamp_int_gemm_accumulates_in_int32(card):
     """|codes| = 128 over K = 14336: row 0 against column 0 sums 7112

@@ -353,4 +353,4 @@ def test_plain_versions_do_not_count_launches():
         "stamp_decode_matmul": 0, "paged_ragged_attention": 0,
         "stamp_quant_grouped_matmul": 0, "cache_decode_attention": 0,
         "int8_matmul": 0, "quantize_pack": 0, "haar_dwt_seq": 0,
-        "walsh_hadamard": 0}
+        "walsh_hadamard": 0, "stamp_span_transform": 0}
