@@ -51,12 +51,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    contiguous cache's decode attention) at the bucketed serve shape (4
    slots, cache 136, hi ``NUM_HI``) and at 8 slots x 32768 cached tokens
    (hi 64) with ragged lengths; K4 and K6 again at Kimi-K2's attention
-   widths (64/8 heads, head_dim 112); then check a prefill, a mixed and an
-   all-decode step on the card against the same steps on the CPU at the
-   reduced size of each model (Kimi-K2, Jamba and Mamba2 included, their
-   Mamba layers' state in the slot-dense pool), and one ``prefill`` and
-   two ``decode_step``
-   s of the bucketed path at reduced llama; then the standalone kernel
+   widths (64/8 heads, head_dim 112); the multimodal stacks' kernels:
+   K1/K2 and K3 at seamless-m4t-large-v2's decoder sites (1024 -> 3072,
+   gate/up 1024 -> 8192, down 8192 -> 1024) and pixart-sigma's (1152 ->
+   3456, gate/up 1152 -> 4608, down 4608 -> 1152), K4's mixed and
+   all-decode steps and K6 (serve shape and 8 x 32768 cached tokens) at
+   pixart's 16/16 heads of head_dim 72 beside SDPA, the long-span chain
+   at llava-next-mistral-7b's prefill (4 spans of 576 patch rows and 64
+   tokens at its qkv, gate/up and down, bit-equal, timed,
+   ``check_patch_spans``) and ``stamp_quant_segment_matmul`` against its
+   per-span calls (``check_segment``); then check a prefill, a mixed and
+   an all-decode step on the card against the same steps on the CPU at the
+   reduced size of each model (Kimi-K2, Jamba, Mamba2 and pixart
+   included, the Mamba layers' state in the slot-dense pool), one
+   ``prefill`` and two ``decode_step`` s of the bucketed path at reduced
+   llama, and the same through the model API at reduced llava (patches)
+   and seamless (frames, PTQ'd with them) over three seeds: every prefill
+   and decode sub-block teacher-forced at the served 8/4 mix, the whole
+   steps at 8 bits, seamless's encoder layer by layer
+   (``check_model_api_against_cpu``); then the standalone kernel
    library at llama3-8b's widths (K7 ``int8_matmul`` at 2048 rows through
    its qkv, gate and down shapes and at 8 rows, K8 ``quantize_pack`` at 4
    and 8 bits, K9 ``haar_dwt_seq`` at 3 and 5 levels up to 32768 tokens,
@@ -94,7 +107,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    files (``robust_phase``; then a forced NaN row whose demotion must stop
    K1–K3), and Arctic with quant telemetry (``telemetry_phase``: the same
    ids and launches as without, its clip rates and router gauges
-   printed); each serve phase prints its step phases' totals;
+   printed); each serve phase prints its step phases' totals; then
+   pixart-sigma whole (28 layers, head_dim 72) through the paged engine
+   (K1–K4) and the bucketed one (K6), and llava-next-mistral-7b whole (32
+   layers) and seamless-m4t-large-v2 whole (24 + 24 layers) through the
+   model API (``model_api_phase``: seeded init, int4 weights, llava's
+   config by hand as the reference's PTQ refuses its patch batch,
+   seamless PTQ'd on 2 batches of 128 tokens and 32 frames; the prefill
+   of 4 rows — 576 patch rows and 64 tokens, or 128 tokens beside 32
+   frames — and 8 decode steps, counts read around them, printed as
+   ``[model_api]`` lines with tokens/s, prefill seconds and peak memory);
 5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -156,6 +178,26 @@ MHA_ARCHS = ("deepseek-7b", "minicpm-2b")
 # Kimi-K2 (configs/kimi_k2_1t_a32b.py): its attention widths, 64 query
 # heads over 8 kv heads of head_dim 112 (K4 and K6 checks)
 KIMI_HEADS, KIMI_HD = 64, 112
+# the reference's multimodal stacks, all three whole: llava (32 layers,
+# mistral-7b's widths) and seamless (24 decoder and 24 encoder layers)
+# through the model API (``lm.prefill`` on a batch dict, then
+# ``lm.decode_step``: no engine takes patches or frames), pixart (28
+# layers, 16 heads of head_dim 72) through the paged and bucketed engines
+LLAVA, SEAMLESS, PIXART = ("llava-next-mistral-7b", "seamless-m4t-large-v2",
+                           "pixart-sigma")
+MM_REQUESTS, MM_STEPS = 4, 8
+# prompt tokens beside llava's 576 patch rows and beside seamless's frames
+# (128 // frame_ratio = 32); llava's STaMP is set by hand (its PTQ raises
+# on a patch batch, as the reference's does): 64 rows at 8 bits
+LLAVA_PROMPT, SEAMLESS_PROMPT, LLAVA_NUM_HI = 64, 128, 64
+# the batches of the model API's card-vs-CPU checks at reduced size
+API_SEEDS = (5, 6, 7)
+# llava's prefill spans, 576 + 64 rows (five K2 tiles: the long-span
+# chain), under the DWT at the levels StampConfig resolves for 640 rows
+# over 64 at 8 bits: ceil(log2(640 / 64)) = 4
+PATCH_SPAN = 640
+PATCH_STAMP = dict(transform="dwt", levels=4, skip_first=True, num_hi=64,
+                   hi_bits=8, lo_bits=4)
 STAMP = dict(transform="dwt", levels=3, skip_first=True, num_hi=NUM_HI,
              hi_bits=8, lo_bits=4)
 # timed calls: launches under 0.13 ms spread up to 1.5x between calls, so
@@ -457,15 +499,15 @@ def check_long_spans(torch, sm, ops_mod, prepare_linear) -> tuple:
     return link, chain
 
 
-def _link_row(torch, sm, q, s, wargs, name) -> dict:
+def _link_row(torch, sm, q, s, wargs, name, levels: int = 3) -> dict:
     """The span link alone at a site: the inverse transform of the f32
     products (gate and up for the dual) with the bias, bf16 out."""
-    pre = dict(transform="none", levels=3, skip_first=True,
+    pre = dict(transform="none", levels=levels, skip_first=True,
                out_dtype=torch.float32)
     g = sm.stamp_int_gemm(*q, s, *wargs[:4], **pre)
     u = sm.stamp_int_gemm(*q, s, *wargs[5:9], **pre) if len(wargs) > 5 \
         else None
-    kw = dict(transform="dwt", levels=3, skip_first=True, inverse=True,
+    kw = dict(transform="dwt", levels=levels, skip_first=True, inverse=True,
               out_dtype=torch.bfloat16)
 
     def call():
@@ -480,37 +522,142 @@ def _link_row(torch, sm, q, s, wargs, name) -> dict:
     pms = timed(torch, lambda: sm.span_transform_plain(g, u, wargs[4], None,
                                                        **kw), iters=3)
     n_in = 2 if u is not None else 1
-    b = bound(g.numel() * 4 * n_in + got.numel() * 2 + 4 * g.shape[-1], 0,
+    b = bound(g.numel() * 4 * n_in + got.numel() * 2 +
+              (4 * g.shape[-1] if wargs[4] is not None else 0), 0,
               F32_FLOPS_PER_S)
     return dict(site=f"long_{name}_s{s}", max_abs_err=0.0, ms=ms,
                 plain_ms=pms, bound_ms=b[0], bound_by=b[1], library_ms=None,
                 graph_ms=gms)
 
 
-def _chain_row(torch, sm, ops_mod, x, q, w, wargs, name, s) -> dict:
-    """The whole chain from the bf16 activation through ``ops`` (K1, K2
-    without a transform, the span link), its bound (read the activation
-    and the weights once, write the output; the int8 products at the
-    card's int8 rate) and ``torch._int_mm`` of the same codes."""
+def _chain_row(torch, sm, ops_mod, x, q, w, wargs, name, s,
+               st=STAMP) -> dict:
+    """The whole chain from the bf16 activation (its spans of ``s`` rows)
+    through ``ops`` (K1, K2 without a transform, the span link) under the
+    STaMP settings ``st``, its bound (read the activation and the weights
+    once, write the output; the int8 products at the card's int8 rate) and
+    ``torch._int_mm`` of the same codes."""
     dual = len(w) > 1
 
     def call():
         if dual:
             return ops_mod.stamp_quant_dual_matmul(x, *wargs[:4],
                                                    *wargs[5:9], wargs[4],
-                                                   None, **STAMP)
-        return ops_mod.stamp_quant_matmul(x, *wargs[:5], **STAMP)
+                                                   None, **st)
+        return ops_mod.stamp_quant_matmul(x, *wargs[:5], **st)
 
     ms = timed(torch, call, iters=LONG_ITERS)
     gms = timed_graph(torch, call, LONG_ITERS, per_graph=10)
     k, n = w[0].qw.shape
-    b = bound(s * k * 2 + len(w) * (k * n + 12 * n) + 4 * n + s * n * 2,
-              2 * s * k * n * len(w), INT8_OPS_PER_S)
+    rows = x.shape[0] * x.shape[1]
+    b = bound(rows * k * 2 + len(w) * (k * n + 12 * n) +
+              (4 * n if wargs[4] is not None else 0) + rows * n * 2,
+              2 * rows * k * n * len(w), INT8_OPS_PER_S)
     lib = int_mm_yardstick(torch, q[0], [wi.qw for wi in w], LONG_ITERS)
     row = dict(site=f"long_{name}_s{s}", ms=ms, graph_ms=gms, bound_ms=b[0],
                bound_by=b[1], **lib)
     print(f"[long_span] {json.dumps(row)}")
     return row
+
+
+def check_patch_spans(torch, sm, ops_mod, prepare_linear) -> tuple:
+    """The long-span chain at llava's prefill: ``MM_REQUESTS`` spans of
+    ``PATCH_SPAN`` rows (576 patch rows and a 64-token prompt: five K2
+    tiles, not a power of two) at its qkv, gate/up and down (mistral-7b's
+    widths, which are llama3-8b's), under ``PATCH_STAMP``: K1's codes,
+    scales and zero points and K2's bf16 and f32 outputs bit-equal to the
+    plain versions; then the chain through ``ops`` and the span link alone
+    timed as :func:`check_long_spans` times them.  Returns ``(link rows,
+    chain rows)``."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    st, s = PATCH_STAMP, PATCH_SPAN
+    link, chain = [], []
+    for name, k, n, dual in LLAMA_SITES:
+        w = [prepare_linear(torch.randn((k, n), generator=gen,
+                                        device="cuda") / math.sqrt(k))
+             for _ in range(2 if dual else 1)]
+        x = torch.randn((MM_REQUESTS, s, k), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        q = sm.stamp_transform_quantize(x, **st)
+        qp = sm.transform_quantize_plain(x, **st)
+        check(all(torch.equal(a, b) for a, b in zip(q, qp)),
+              f"K1 codes differ at llava's {name} ({MM_REQUESTS} x {s})")
+        wargs = [w[0].qw, w[0].sw, w[0].zw, w[0].qw_sum, None]
+        if dual:
+            wargs += [w[1].qw, w[1].sw, w[1].zw, w[1].qw_sum, None]
+        for dt in (torch.bfloat16, torch.float32):
+            kw = dict(transform="dwt", levels=st["levels"], skip_first=True,
+                      out_dtype=dt)
+            y = sm.stamp_int_gemm(*q, s, *wargs, **kw)
+            yp = sm.int_gemm_plain(*q, s, *wargs, **kw)
+            check(bool(torch.isfinite(y).all()) and torch.equal(y, yp),
+                  f"the chain differs from its plain version at llava's "
+                  f"{name} ({dt}): max err "
+                  f"{float((y.float() - yp.float()).abs().max())}")
+        link.append(_link_row(torch, sm, q, s, wargs, "llava_" + name,
+                              levels=st["levels"]))
+        chain.append(_chain_row(torch, sm, ops_mod, x, q, w, wargs,
+                                "llava_" + name, s, st=st))
+        del x, q, qp
+        torch.cuda.empty_cache()
+    return link, chain
+
+
+def check_segment(torch, sm, ops_mod, prepare_linear) -> None:
+    """``stamp_quant_segment_matmul``, the twin of
+    ``stamp_quant_segment_matmul_pallas``
+    (src/repro/kernels/stamp_matmul.py:345): a flattened batch of 2 rows x
+    ``SPANS`` spans of C rows at pixart-sigma's qkv (1152 -> 3456) through
+    K1 -> K2, bit-equal to one call per span and, in bf16, within one bf16
+    step of its plain version; a length that is not whole spans raises.
+    Timed (eager and replayed from graphs) beside its bound (the
+    function's bytes: read the activation and the weights with their
+    scales once, write the output; its int8 operations), its plain version
+    and ``torch._int_mm`` on its codes, printed as a ``[segment]`` line."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    k, n = 1152, 3456
+    x = torch.randn((2, SPANS * C, k), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    p = prepare_linear(torch.randn((k, n), generator=gen, device="cuda")
+                       / math.sqrt(k))
+    w = (p.qw, p.sw, p.zw, p.qw_sum, None)
+    got = ops_mod.stamp_quant_segment_matmul(x, *w, seg_len=C, **STAMP)
+    per = torch.cat([ops_mod.stamp_quant_segment_matmul(
+        x[:, i:i + C], *w, seg_len=C, **STAMP)
+        for i in range(0, SPANS * C, C)], dim=1)
+    check(torch.equal(got, per),
+          "the segment matmul differs from its per-span calls")
+    plain = ops_mod.stamp_quant_segment_matmul(
+        x.cpu(), *(t.cpu() if t is not None else None for t in w),
+        seg_len=C, **STAMP)
+    err = close_bf16(torch, got.cpu(), plain)
+    try:
+        ops_mod.stamp_quant_segment_matmul(x, *w, seg_len=C + 1, **STAMP)
+        fail("the segment matmul took a length of no whole spans")
+    except ValueError:
+        pass
+
+    def call():
+        return ops_mod.stamp_quant_segment_matmul(x, *w, seg_len=C, **STAMP)
+
+    def plain_call():
+        # the plain versions of K1 and K2 on the card, spans folded
+        q = sm.transform_quantize_plain(x.reshape(-1, C, k), **STAMP)
+        return sm.int_gemm_plain(*q, C, *w, transform="dwt", levels=3,
+                                 skip_first=True, out_dtype=torch.bfloat16)
+
+    rows = x.shape[0] * x.shape[1]
+    b = bound(rows * k * 2 + k * n + 12 * n + rows * n * 2,
+              2 * rows * k * n, INT8_OPS_PER_S)
+    qx = sm.stamp_transform_quantize(x.reshape(-1, C, k), **STAMP)[0]
+    row = dict(site="segment_pixart_qkv", max_abs_err=err,
+               ms=timed(torch, call, iters=K2_ITERS),
+               graph_ms=timed_graph(torch, call, K2_ITERS, per_graph=10),
+               plain_ms=timed(torch, plain_call, iters=3),
+               bound_ms=b[0], bound_by=b[1],
+               **int_mm_yardstick(torch, qx, [p.qw], K2_ITERS))
+    print(f"[segment] pixart qkv 2 x {SPANS} x {C} rows, per-span "
+          f"bit-equal: {json.dumps(row)}")
 
 
 def check_decode(torch, dm, prepare_linear, sites, seed=1, rows=SLOTS):
@@ -1357,6 +1504,353 @@ def check_step_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch):
     return errs
 
 
+# ------------------------------------------- the multimodal model API --
+
+
+def multimodal_batch(torch, cfg, rows: int, prompt: int, seed: int) -> dict:
+    """A CPU batch as the reference's entry points take it: ``prompt``
+    seeded tokens a row and the config's stub frontend, unit-normal bf16
+    embeddings at ``d_model`` — ``num_patches`` patch rows (put before the
+    tokens), or ``prompt // frame_ratio`` frames for the encoder."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, prompt),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.frontend == "patch":
+        batch["patches"] = torch.randn((rows, cfg.num_patches, cfg.d_model),
+                                       generator=gen).to(torch.bfloat16)
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(
+            (rows, max(prompt // cfg.frame_ratio, 1), cfg.d_model),
+            generator=gen).to(torch.bfloat16)
+    return batch
+
+
+def multimodal_serving(torch, lm, ptq, pipeline, cfg, device,
+                       num_hi: int) -> tuple:
+    """Seeded bf16 init on ``device`` (layers drawn as they are reached),
+    int4 weights and a fused ServeConfig with both kernel switches on.  An
+    encoder-decoder stack is PTQ'd as the serve CLI does (2 calibration
+    batches of 4 x 128 tokens) with 32 seeded frames a row beside them;
+    a patch stack, whose PTQ raises on its batch as the reference's does,
+    gets its config by hand, as the reference's model tests build one:
+    ``num_hi`` rows at 8 bits, the rest and the lo cache at 4.  Returns
+    ``(prepared params, serve config)``."""
+    from repro_torch.core.stamp import StampConfig
+    from repro_torch.serving.kvcache import KVCacheConfig
+    params = lm.init_params(cfg, seed=0, device=device,
+                            dtype=torch.bfloat16, lazy=True)
+    if cfg.encoder_layers:
+        calib = pipeline.calibration_batches(pipeline.DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=128, global_batch=4), 2)
+        gen = torch.Generator().manual_seed(1)
+        for b in calib:
+            b["frames"] = torch.randn((4, 128 // cfg.frame_ratio,
+                                       cfg.d_model), generator=gen).numpy()
+        sparams, serve, _ = ptq.calibrate_and_quantize(params, calib, cfg,
+                                                       device=device)
+    else:
+        layers = params.pop("layers")
+        sparams = dict(params, layers=(lm.quantize_weights_for_serving(p)
+                                       for p in layers))
+        serve = lm.ServeConfig(
+            stamp=StampConfig(num_hi_tokens=num_hi),
+            kv=KVCacheConfig(quantized=True, num_hi=num_hi), weight_bits=4)
+    del params
+    serve = dataclasses.replace(
+        serve, stamp=dataclasses.replace(serve.stamp, execution="fused"),
+        fused_cache_attention=True, fused_decode_matmul=True)
+    return lm.prepare_fused_weights(sparams, serve.stamp), serve
+
+
+def model_api_run(torch, lm, params, cfg, serve, batch, steps: int,
+                  feed=None, enc_out=None) -> list:
+    """``lm.prefill`` of ``batch`` (on the encoder output ``enc_out`` where
+    given) and ``steps`` ``lm.decode_step`` s at the positions after the
+    prompt's rows (patch rows included), each fed the last logits' argmax
+    or ``feed[n]``.  Returns every step's logits on the CPU."""
+    logits, cache = lm.prefill(params, batch, cfg, serve, enc_out=enc_out)
+    out = [logits.cpu()]
+    rows = batch["tokens"].shape[1] + (cfg.num_patches
+                                       if cfg.frontend == "patch" else 0)
+    for n in range(steps):
+        tok = out[-1].argmax(dim=-1).to(torch.int32) if feed is None \
+            else feed[n]
+        logits, cache = lm.decode_step(params, cache, tok.to(logits.device),
+                                       rows + n, cfg, serve)
+        out.append(logits.cpu())
+    return out
+
+
+def _rel(torch, got, want, base) -> float:
+    """``|got - want| / |base|`` in the 2-norm, on the CPU in f32."""
+    d = (got.cpu().float() - want.float()).norm()
+    return float(d / torch.clamp_min(base.float().norm(), 1e-30))
+
+
+def _prefill_blocks(lm, cfg, spec, p, stamp, kv, cap, enc) -> list:
+    """A decoder layer's prefill as its sub-blocks ``[(name, fn(x) -> (y,
+    cache entry or None))]``: self-attention (with the layer's quantized
+    K/V), cross-attention over the encoder output ``enc`` (its bf16 ``xk``
+    / ``xv``), the FFN."""
+    blocks = [("attn", lambda x: lm.attn_block_prefill(p, x, cfg, stamp, kv,
+                                                       cap))]
+    if enc is not None and "xwq" in p:
+        def cross(x):
+            entry = {}
+            return lm.cross_attn_block(p, x, enc, cfg, stamp, entry), entry
+        blocks.append(("cross", cross))
+    blocks.append(("ffn", lambda x: (lm.ffn_block(p, x, spec, cfg, stamp,
+                                                  False), None)))
+    return blocks
+
+
+def prefill_blocks_against_cpu(torch, lm, cfg, cpu, card, serve, x, enc,
+                               dev="cuda") -> list:
+    """Every sub-block of every decoder layer's prefill under ``serve`` run
+    on ``dev`` (kernels) and on the CPU (plain versions), both fed the
+    CPU's input to it (teacher forcing: a code flipped upstream does not
+    carry).  Per block: ``dev``, the distance between the two outputs over
+    the block's update (``|y_card - y_cpu| / |y_cpu - x|``); ``ratio``,
+    that distance over what activation quantization does to the block
+    (``|y_card - y_cpu| / |y_cpu - y_plain|``, ``y_plain`` the block on
+    the CPU without STaMP); ``quant``, that quantization's distance over
+    the update (``|y_plain - y_cpu| / |y_cpu - x|``); ``codes``, the
+    share of the K/V cache's code
+    bytes that differ; ``xkv``, ``xk`` / ``xv``'s distance over their
+    norm."""
+    rows = []
+    enc_d = None if enc is None else enc.to(dev)
+    for i, (spec, p, pd) in enumerate(zip(cfg.layer_specs(), cpu["layers"],
+                                          card["layers"])):
+        args = (serve.kv, serve.cache_capacity)
+        host = _prefill_blocks(lm, cfg, spec, p, serve.stamp, *args, enc)
+        on = _prefill_blocks(lm, cfg, spec, pd, serve.stamp, *args, enc_d)
+        plain = _prefill_blocks(lm, cfg, spec, p, None, None, None, enc)
+        for (name, f), (_, g), (_, h) in zip(host, on, plain):
+            y, e = f(x)
+            yd, ed = g(x.to(dev))
+            yp = h(x)[0]
+            row = dict(block=f"{name}{i}", dev=_rel(torch, yd, y, y - x),
+                       ratio=_rel(torch, yd, y, y - yp),
+                       quant=_rel(torch, yp, y, y - x))
+            if e is not None and "k_hi" in e:
+                codes = [(ed[k].cpu() != e[k]).sum().item() / e[k].numel()
+                         for k in ("k_hi", "v_hi", "k_lo", "v_lo")]
+                row["codes"] = max(codes)
+            if e is not None and "xk" in e:
+                row["xkv"] = max(_rel(torch, ed[k], e[k], e[k])
+                                 for k in ("xk", "xv"))
+            rows.append(row)
+            x = y
+    return rows
+
+
+def decode_blocks_against_cpu(torch, lm, cfg, cpu, card, serve, x, cache,
+                              pos: int, dev="cuda") -> list:
+    """One decode step's sub-blocks (attention over the cache, the FFN) of
+    every layer on ``dev`` and on the CPU, both fed the CPU's input and a
+    copy of the CPU's prefill cache entry (teacher forcing): per block
+    ``dev``, the distance over the block's update, as in
+    :func:`prefill_blocks_against_cpu`."""
+    dm = serve.fused_decode_matmul
+    rows = []
+    for i, (spec, p, pd, e) in enumerate(zip(cfg.layer_specs(),
+                                             cpu["layers"], card["layers"],
+                                             cache)):
+        blocks = (
+            ("attn", lambda q, z, ent, at: lm.attn_block_cached_decode(
+                q, z, cfg, serve, ent, torch.tensor(pos, dtype=torch.int32,
+                                                     device=at), dm)),
+            ("ffn", lambda q, z, ent, at: lm.ffn_block(q, z, spec, cfg,
+                                                       None, dm)))
+        for name, f in blocks:
+            # the CPU's pad leaves some buffers strided; K6 takes dense ones
+            ed = {k: v.to(dev).contiguous() for k, v in e.items()}
+            y = f(p, x, {k: v.clone() for k, v in e.items()}, "cpu")
+            yd = f(pd, x.to(dev), ed, dev)
+            rows.append(dict(block=f"{name}{i}",
+                             dev=_rel(torch, yd, y, y - x)))
+            x = y
+    return rows
+
+
+def encoder_against_cpu(torch, lm, cfg, cpu, card, frames,
+                        dev="cuda") -> tuple:
+    """The encoder (plain PyTorch: no kernel) layer by layer on ``dev``
+    and on the CPU, both fed the CPU's input to each layer and to the
+    final norm: each output's distance over its norm.  Returns ``(the
+    CPU's encoder output, the distances)``."""
+    x, errs = frames.to(torch.bfloat16), []
+    for p, pd in zip(cpu["encoder"]["layers"], card["encoder"]["layers"]):
+        y = lm.encoder_layer(p, x, cfg)
+        errs.append(_rel(torch, lm.encoder_layer(pd, x.to(dev), cfg), y, y))
+        x = y
+    def norm(t, w):
+        return lm.L.rms_norm(t, w.to(t.dtype), cfg.norm_eps)
+
+    y = norm(x, cpu["encoder"]["final_norm"])
+    errs.append(_rel(torch, norm(x.to(dev), card["encoder"]["final_norm"]),
+                     y, y))
+    return y, errs
+
+
+def check_model_api_against_cpu(torch, lm, cfg_mod, ptq, pipeline, arch,
+                                dev="cuda") -> dict:
+    """llava's or seamless's model API at its reduced size on ``dev``
+    (kernels) against the CPU (plain versions), over the batches of seeds
+    ``API_SEEDS`` (3 rows; llava: 16 patch rows and 16 tokens; seamless:
+    32 tokens beside 8 frames).
+
+    At the served mix (llava: 8 rows at 8 bits, the rest and the cache's
+    lo rows at 4; seamless: its PTQ'd config), teacher-forced: every
+    prefill sub-block within a quarter of what activation quantization
+    does to it (``ratio`` ≤ 1/4), its K/V code bytes equal but for 1% at
+    most, ``xk`` / ``xv`` within 2^-7 of their norm, and every decode
+    sub-block within 2^-6 of its update (:func:`prefill_blocks_against_cpu`,
+    :func:`decode_blocks_against_cpu`).  Whole steps are not compared at
+    4 bits: a last-bit difference of the card's own cos or exp flips a
+    4-bit code now and then, and flips carried through every later layer
+    moved llava's reduced prefill logits by 0.68 (measured).
+
+    At 8-bit activations and cache rows (``num_hi`` 32, every prompt row),
+    whole: the prefill and two decode steps, both fed the CPU run's
+    tokens, logits within 5e-2; the same sub-block readings are printed
+    beside them.  Seamless's encoder is held layer by layer, teacher-
+    forced, each output within 2^-7 of its norm
+    (:func:`encoder_against_cpu`), and both devices' prefills take the
+    CPU's encoder output (``lm.prefill``'s ``enc_out``).  Returns every
+    reading."""
+    cfg = cfg_mod.get_reduced(arch)
+    prepared, served = multimodal_serving(torch, lm, ptq, pipeline, cfg,
+                                          "cpu", num_hi=8)
+    prompt = 32 - cfg.num_patches if cfg.frontend == "patch" else 32
+    served = dataclasses.replace(served, cache_capacity=32 + 2)
+    eight = dataclasses.replace(
+        served, stamp=dataclasses.replace(served.stamp, num_hi_tokens=32,
+                                          lo_bits=8),
+        kv=dataclasses.replace(served.kv, num_hi=32))
+    check(eight.kv.num_hi < eight.cache_capacity,
+          f"{arch}: the cache's hi region fills it")
+    card = to_device(prepared, dev)
+    out = {}
+    for seed in API_SEEDS:
+        batch = multimodal_batch(torch, cfg, 3, prompt, seed=seed)
+        x, enc = lm.embed_inputs(prepared, batch, cfg, encoder=False)
+        read = {}
+        if cfg.encoder_layers:
+            enc, read["encoder"] = encoder_against_cpu(
+                torch, lm, cfg, prepared, card, batch["frames"], dev)
+            check(max(read["encoder"]) <= 2 ** -7,
+                  f"{arch} seed {seed}: the encoder on the card is "
+                  f"{read['encoder']} of its norm away from the CPU")
+        for mix, serve in (("served", served), ("8bit", eight)):
+            blocks = prefill_blocks_against_cpu(torch, lm, cfg, prepared,
+                                                card, serve, x, enc, dev)
+            logits, cache = lm.prefill(prepared, batch, cfg, serve,
+                                       enc_out=enc)
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            blocks += decode_blocks_against_cpu(
+                torch, lm, cfg, prepared, card, serve, lm._embed(
+                    prepared, tok[:, None]), cache, x.shape[1], dev)
+            read[mix] = blocks
+        for r in read["served"]:
+            ok = r["ratio"] <= 0.25 if "ratio" in r else r["dev"] <= 2 ** -6
+            ok &= r.get("codes", 0.0) <= 0.01 and r.get("xkv", 0.0) <= 2 ** -7
+            check(ok, f"{arch} seed {seed}: served-mix block {r} on the card "
+                      f"is too far from the CPU")
+        ref = model_api_run(torch, lm, prepared, cfg, eight, batch, 2,
+                            enc_out=enc)
+        feed = [r.argmax(dim=-1).to(torch.int32) for r in ref[:2]]
+        got = model_api_run(torch, lm, card, cfg, eight,
+                            to_device(batch, dev), 2, feed,
+                            enc_out=None if enc is None else enc.to(dev))
+        read["logits"] = []
+        for n, (want, have) in enumerate(zip(ref, got)):
+            check(bool(torch.isfinite(have).all()),
+                  f"{arch} seed {seed} step {n}: logits on the card not "
+                  f"finite")
+            read["logits"].append(float((have - want).abs().max()))
+            check(read["logits"][-1] <= 5e-2,
+                  f"{arch} seed {seed} step {n} on the card is "
+                  f"{read['logits'][-1]} away from the CPU")
+        out[seed] = read
+    return out
+
+
+def model_api_phase(torch, lm, ptq, pipeline, ops, cfg_mod, arch) -> dict:
+    """``arch`` whole at full width through the model API, as the
+    reference's entry points serve it: seeded init, int4 weights and the
+    fused config (:func:`multimodal_serving`), then ``lm.prefill`` of
+    ``MM_REQUESTS`` rows (llava: 576 patch rows and ``LLAVA_PROMPT`` tokens;
+    seamless: ``SEAMLESS_PROMPT`` tokens beside 32 frames) and
+    ``MM_STEPS`` ``lm.decode_step`` s over the contiguous packed cache.
+    Every kernel's launch count is set to 0 just before the prefill and
+    read just after the last step.  Prints tokens/s (the first token from
+    the prefill and one a step, a row, over prefill and decode seconds),
+    the prefill's seconds, peak memory and the launches; returns the
+    counts."""
+    cfg = cfg_mod.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, serve = multimodal_serving(torch, lm, ptq, pipeline, cfg, "cuda",
+                                       LLAVA_NUM_HI)
+    patch = cfg.frontend == "patch"
+    prompt = LLAVA_PROMPT if patch else SEAMLESS_PROMPT
+    rows = prompt + (cfg.num_patches if patch else 0)
+    serve = dataclasses.replace(serve, cache_capacity=rows + MM_STEPS)
+    batch = to_device(multimodal_batch(torch, cfg, MM_REQUESTS, prompt,
+                                       seed=0), "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if patch:
+        check(serve.stamp.resolved_levels(rows) == PATCH_STAMP["levels"],
+              "llava's DWT levels are not the ones check_patch_spans holds")
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    logits, cache = lm.prefill(params, batch, cfg, serve)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    finite = torch.isfinite(logits).all()
+    ids = [logits.argmax(dim=-1).to(torch.int32)]
+    t2 = time.perf_counter()
+    for n in range(MM_STEPS):
+        logits, cache = lm.decode_step(params, cache, ids[-1], rows + n, cfg,
+                                       serve)
+        finite &= torch.isfinite(logits).all()
+        ids.append(logits.argmax(dim=-1).to(torch.int32))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t2
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(finite), f"{arch}: non-finite logits")
+    check(logits.shape == (MM_REQUESTS, cfg.padded_vocab),
+          f"{arch}: logits of shape {tuple(logits.shape)}")
+    ids = torch.stack(ids).cpu()
+    check(bool(((ids >= 0) & (ids < cfg.padded_vocab)).all()),
+          f"{arch}: token ids outside the padded vocabulary")
+    if cfg.encoder_layers:
+        want = (MM_REQUESTS, max(prompt // cfg.frame_ratio, 1),
+                cfg.num_kv_heads, cfg.resolved_head_dim)
+        check(all(tuple(e["xk"].shape) == want and
+                  e["xk"].dtype == torch.bfloat16 for e in cache),
+              f"{arch}: the cross-attention cache is not {want} bf16")
+    tokens = MM_REQUESTS * (MM_STEPS + 1)
+    print(f"[model_api] {arch} layers={cfg.num_layers} "
+          f"encoder_layers={cfg.encoder_layers} d_model={cfg.d_model} "
+          f"rows={rows} num_hi={serve.stamp.num_hi_tokens} "
+          f"setup={setup_s:.1f}s prefill_s={prefill_s:.3f} "
+          f"decode_s={decode_s:.3f} tokens={tokens} "
+          f"tok/s={tokens / (prefill_s + decode_s):.2f} "
+          f"decode_tok/s={MM_REQUESTS * MM_STEPS / decode_s:.2f} "
+          f"peak_mem={peak_gb:.2f}GiB launches={json.dumps(counts)}")
+    print(f"[model_api] {arch} ids in the vocabulary's pad: "
+          f"{int((ids >= cfg.vocab_size).sum())} of {ids.numel()}")
+    del params, cache, batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # --------------------------------------------------------------- main -----
 
 
@@ -1424,6 +1918,10 @@ def main() -> None:
             k1, k2 = k1 + b1, k2 + b2
         link, chain = check_long_spans(torch, sm, ops, prepare_linear)
         torch.cuda.empty_cache()
+        plink, pchain = check_patch_spans(torch, sm, ops, prepare_linear)
+        link += plink
+        check_segment(torch, sm, ops, prepare_linear)
+        torch.cuda.empty_cache()
         k3 = check_decode(torch, dm, prepare_linear, LLAMA_DECODE_SITES)
         k3 += check_decode(torch, dm, prepare_linear, ARCTIC_DECODE_SITES,
                            seed=6)
@@ -1436,8 +1934,11 @@ def main() -> None:
                               prefix="kimi_", hd=KIMI_HD)
         # every linear site of the dense, MoE, hybrid and SSM archs served
         # at full width (Mamba2's in_proj N = 8512 is not a multiple of
-        # K2's 128-column tile; Jamba's out_proj K = 16384)
-        for i, arch in enumerate((*DENSE_ARCHS, *NEW_ARCHS)):
+        # K2's 128-column tile; Jamba's out_proj K = 16384), and of
+        # seamless's decoder and pixart's (llava's are llama3-8b's widths;
+        # seamless's cross-attention and encoder run no kernel)
+        for i, arch in enumerate((*DENSE_ARCHS, *NEW_ARCHS, SEAMLESS,
+                                  PIXART)):
             prefill, decode = arch_sites(configs.get_config(arch))
             d1, d2 = check_stamp(torch, sm, ops, prepare_linear, prefill,
                                  seed=20 + i)
@@ -1445,7 +1946,7 @@ def main() -> None:
             k3 += check_decode(torch, dm, prepare_linear, decode,
                                seed=30 + i)
             torch.cuda.empty_cache()
-        for arch in (*MHA_ARCHS, JAMBA):
+        for arch in (*MHA_ARCHS, JAMBA, PIXART):
             cfg = configs.get_config(arch)
             tag = cfg.name.split("-")[0] + "_"
             k4 += check_attention(torch, pa, PKV, KV, heads=cfg.num_heads,
@@ -1456,7 +1957,7 @@ def main() -> None:
         k6 = check_cache_attention(torch, ca, ref, KV)
         k6 += check_cache_attention(torch, ca, ref, KV, heads=KIMI_HEADS,
                                     hd=KIMI_HD, prefix="kimi_")
-        for arch in MHA_ARCHS:
+        for arch in (*MHA_ARCHS, PIXART):
             cfg = configs.get_config(arch)
             k6 += check_cache_attention(
                 torch, ca, ref, KV, heads=cfg.num_heads,
@@ -1474,7 +1975,8 @@ def main() -> None:
     from repro_torch.data import pipeline
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    for arch in ("llama3-8b", "arctic-480b", *DENSE_ARCHS, *NEW_ARCHS):
+    for arch in ("llama3-8b", "arctic-480b", *DENSE_ARCHS, *NEW_ARCHS,
+                 PIXART):
         with torch.inference_mode():
             step_errs = check_step_against_cpu(torch, lm, configs, ptq,
                                                pipeline, arch)
@@ -1485,6 +1987,18 @@ def main() -> None:
         errs = check_bucketed_against_cpu(torch, lm, configs, ptq, pipeline)
     print(f"[chip_smoke] llama3-8b (reduced) bucketed prefill + 2 decode "
           f"steps card vs CPU: max |logit diff| {errs} (bound 5e-2)")
+    for arch in (LLAVA, SEAMLESS):
+        with torch.inference_mode():
+            read = check_model_api_against_cpu(torch, lm, configs, ptq,
+                                               pipeline, arch)
+        for seed, r in read.items():
+            print(f"[chip_smoke] {arch} (reduced) seed {seed} card vs CPU: "
+                  f"8-bit prefill + 2 decode steps max |logit diff| "
+                  f"{r['logits']} (bound 5e-2); encoder per layer "
+                  f"{r.get('encoder')} (bound 2^-7 of its norm)")
+            for mix in ("served", "8bit"):
+                blocks = dict(arch=arch, seed=seed, mix=mix, blocks=r[mix])
+                print(f"[api_blocks] {json.dumps(blocks)}")
 
     # which kernels each path must launch, and which it must not: the
     # library path runs only the standalone kernels, the serve paths none
@@ -1527,8 +2041,10 @@ def main() -> None:
     src = "src/repro_torch/csrc/"
     # K1 and K2 each do one half of both Pallas kernels: K1 the transform
     # and quantize of the single and the dual matmul, K2 both GEMM modes
+    # (and the segment matmul's, which runs the single kernel per span)
     stamp_rows = ("src/repro/kernels/stamp_matmul.py:222, "
-                  "src/repro/kernels/stamp_matmul.py:276")
+                  "src/repro/kernels/stamp_matmul.py:276, "
+                  "src/repro/kernels/stamp_matmul.py:345")
     # K4's summary is its prefill-carrying (mixed) step at every width
     mixed = [r for r in k4 if r["site"].endswith("mixed")]
     kernels = [
@@ -1730,6 +2246,30 @@ def serve_phases(torch, serve, ops, configs, only, standalone) -> dict:
             absent |= {"paged_ragged_attention",
                        "stamp_quant_grouped_matmul"}
         paths[arch] = (serve_phase(torch, serve, ops, arch, cfg)[0], absent)
+    # pixart-sigma (head_dim 72) through both engines; llava and seamless
+    # through the model API (their batches carry patches or frames): llava
+    # runs the long-span chain (640-row spans), seamless spans of 128 rows
+    if want(PIXART):
+        paths[PIXART] = (serve_phase(torch, serve, ops, PIXART, None)[0],
+                         paged)
+    if want(PIXART + ":bucketed"):
+        paths[PIXART + ":bucketed"] = (
+            serve_phase(torch, serve, ops, PIXART, None, kind="bucketed",
+                        label=PIXART + ":bucketed")[0],
+            dense | {"paged_ragged_attention"})
+    from repro_torch.core import ptq
+    from repro_torch.data import pipeline
+    from repro_torch.models import lm
+    no_paging = (standalone - long_span) | {"paged_ragged_attention",
+                                            "stamp_quant_grouped_matmul"}
+    for arch in (LLAVA, SEAMLESS):
+        if not want(arch):
+            continue
+        with torch.inference_mode():
+            counts = model_api_phase(torch, lm, ptq, pipeline, ops, configs,
+                                     arch)
+        paths[arch] = (counts, no_paging | (long_span if arch == SEAMLESS
+                                            else set()))
     return paths
 
 

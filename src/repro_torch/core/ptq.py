@@ -13,6 +13,7 @@ from repro_torch.core import bitalloc
 from repro_torch.core.calibration import SiteStats, toeplitz_fraction
 from repro_torch.core.stamp import StampConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.kvcache import KVCacheConfig
@@ -40,8 +41,15 @@ def calibrate_and_quantize(params: dict, calib_batches: list,
                            ) -> tuple[dict, lm.ServeConfig, PTQReport]:
     """Tap the embedding output and the final hidden states of each
     calibration batch, pick ``num_hi`` for the bit budget, and return
-    serving params (bf16, large matmuls packed to int4) with the matching
-    ``ServeConfig``.
+    serving params (bf16, large matmuls packed to int4, the encoder's
+    too) with the matching ``ServeConfig``.
+
+    A batch is a dict as the reference's: ``tokens``, plus ``frames``
+    for an encoder-decoder stack or ``patches`` for a patch frontend (a
+    batch without them raises the reference's ``KeyError``).  The
+    embedding tap is the token embeddings alone, as the reference takes
+    it, so a patch frontend's taps differ in length and the statistics
+    raise the reference's broadcast ``ValueError``.
 
     Calibration runs layer-major: every batch through layer ``l``, then
     layer ``l`` is packed and released, so ``params["layers"]`` may be an
@@ -51,18 +59,40 @@ def calibrate_and_quantize(params: dict, calib_batches: list,
     batch-major forward.  ``params`` must lie on ``device`` (``cuda``
     unless given)."""
     dev = resolve_device(device)
-    tokens = [torch.as_tensor(b["tokens"], device=dev) for b in calib_batches]
-    if not tokens:
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+               for b in calib_batches]
+    if not batches:
         raise ValueError("no calibration data")
-    xs = [lm._embed(params, t) for t in tokens]
-    emb_taps = [x.float().cpu().numpy() for x in xs]
+    emb_taps = [lm._embed(params, b["tokens"]).float().cpu().numpy()
+                for b in batches]
+    xs = [lm.embed_inputs(params, b, cfg, encoder=False)[0]
+          for b in batches]
+    enc_outs = [None] * len(batches)
+    sparams = {k: _bf16(v) for k, v in params.items()
+               if k not in ("layers", "encoder")}
+    if cfg.encoder_layers:
+        # the encoder first, layer-major as the decoder below, each layer
+        # packed once every batch has passed it
+        enc = params["encoder"]
+        es = [b["frames"].to(lm.COMPUTE_DTYPE) for b in batches]
+        enc_packed = []
+        for layer in enc["layers"]:
+            es = [lm.encoder_layer(layer, e, cfg) for e in es]
+            layer = {k: _bf16(v) for k, v in layer.items()}
+            enc_packed.append(lm.quantize_weights_for_serving(
+                layer, weight_bits) if weight_bits else layer)
+        enc_outs = [L.rms_norm(e, enc["final_norm"].to(e.dtype),
+                               cfg.norm_eps) for e in es]
+        sparams["encoder"] = {"layers": enc_packed,
+                              "final_norm": _bf16(enc["final_norm"])}
     packed = []
     # next() by hand: a zip over the layers would keep the previous layer
     # in its result tuple while the iterator draws the next one
     layers = iter(params["layers"])
     for spec in cfg.layer_specs():
         layer = next(layers)
-        xs = [lm.hidden_layer(layer, spec, x, cfg) for x in xs]
+        xs = [lm.hidden_layer(layer, spec, x, cfg, e)
+              for x, e in zip(xs, enc_outs)]
         layer = {k: _bf16(v) for k, v in layer.items()}
         packed.append(lm.quantize_weights_for_serving(layer, weight_bits)
                       if weight_bits else layer)
@@ -90,7 +120,6 @@ def calibrate_and_quantize(params: dict, calib_batches: list,
         kv=KVCacheConfig(quantized=True, num_hi=num_hi, hi_bits=hi_bits,
                          lo_bits=lo_bits),
         weight_bits=weight_bits)
-    sparams = {k: _bf16(v) for k, v in params.items() if k != "layers"}
     sparams["layers"] = packed
     seq = stats.autocorr.shape[0]
     report = PTQReport(

@@ -62,16 +62,23 @@ def _align_token_axis(v: torch.Tensor, ndim: int,
     return v.reshape(shape)
 
 
-def minmax_scale_offset(x: torch.Tensor, bits: Bits, axis: int = -1
+def minmax_scale_offset(x: torch.Tensor, bits: Bits, axis: int = -1,
+                        compiled: bool = False
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Asymmetric min-max ``(scale, zero_point)`` with ``axis`` kept."""
+    """Asymmetric min-max ``(scale, zero_point)`` with ``axis`` kept.  The
+    range divides by the level count truly; with ``compiled`` (a constant
+    int ``bits``) by its f32 reciprocal's product (:func:`div_const`)."""
     xf = x.float()
     mn = xf.amin(dim=axis, keepdim=True)
     mx = xf.amax(dim=axis, keepdim=True)
-    n = levels(bits, device=x.device)
-    if n.ndim:
-        n = _align_token_axis(n, mn.ndim, axis)
-    scale = torch.clamp_min((mx - mn) / n, EPS)
+    if compiled:
+        scale = div_const(mx - mn, float(2 ** bits - 1))
+    else:
+        n = levels(bits, device=x.device)
+        if n.ndim:
+            n = _align_token_axis(n, mn.ndim, axis)
+        scale = (mx - mn) / n
+    scale = torch.clamp_min(scale, EPS)
     zero_point = torch.round(-mn / scale)
     return scale, zero_point
 
@@ -92,9 +99,17 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
 
 
 def fake_quant(x: torch.Tensor, bits: Bits, axis: int = -1,
-               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Quantize-dequantize with per-``axis`` min-max scales."""
-    scale, zp = minmax_scale_offset(x, bits, axis=axis)
+               out_dtype: Optional[torch.dtype] = None,
+               compiled: bool = False) -> torch.Tensor:
+    """Quantize-dequantize with per-``axis`` min-max scales.  Each site
+    takes the form its twin in the reference computes: STaMP's per-token
+    bit vector (``stamp_fake_quant``, the kernels' plain versions) divides
+    the range by the level count truly; ``compiled`` is for a constant int
+    ``bits`` inside one of the reference's compiled programs (the
+    cross-attention's per-token ``lo_bits``), where XLA folds that
+    division into a product with the reciprocal (:func:`div_const`) — a
+    true division there flips a code on a tie now and then."""
+    scale, zp = minmax_scale_offset(x, bits, axis=axis, compiled=compiled)
     out = dequantize(quantize(x, scale, zp, bits), scale, zp)
     return out.to(out_dtype or x.dtype)
 

@@ -43,8 +43,11 @@
 // lane's words (the same way for codes and queries) so that a lane reads
 // whole words: 16 bytes of a lo row for the scores, 8 bytes of each of 4
 // rows for the values, from rows laid out in shared memory so that neither
-// read has a bank conflict.  head_dim 112 runs as 128 with the queries'
-// extra features zero.  Positions at or past length[b] are never read: a
+// read has a bank conflict.  head_dim 112 and 72 run as 128 with the
+// queries' extra features zero (the codes there are whatever the stage
+// held: finite, times a zero query, and their value sums are never
+// written); a head_dim-72 row is not whole 16-byte chunks (72 bytes hi, 36
+// lo), so its copies take 8-byte (hi) and 4-byte (lo) chunks.  Positions at or past length[b] are never read: a
 // range that starts past it writes an empty partial (m = -1e30, l = 0) and
 // reads nothing, the walk stops at the tile holding the last valid
 // position, and a masked position's weight is zero whatever its scale.
@@ -147,11 +150,12 @@ __device__ __forceinline__ void split3(float x, float (&p)[3]) {
   p[2] = r1 - p[1];
 }
 
-// Layout of a head dim.  HDP: features the MMAs run over (112 padded to
-// 128); KS: k-steps of the scores and m-tiles of the values (both HDP/16).
+// Layout of a head dim.  HDP: features the MMAs run over (112 and 72
+// padded to 128); KS: k-steps of the scores and m-tiles of the values (both
+// HDP/16).
 template <int HD>
 struct Dims {
-  static constexpr int HDP = HD == 112 ? 128 : HD;
+  static constexpr int HDP = (HD == 112 || HD == 72) ? 128 : HD;
   static constexpr int KS = HDP / 16;
   static constexpr int LO_ROW = HDP / 2;    // shared-memory row, lo tile
   static constexpr int HI_ROW = HDP;        // hi tile
@@ -395,25 +399,32 @@ cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
     const int n = min(hi ? min(TILE_HI, hi_len - start)
                          : min(TILE_LO, S - start), len - start);
     if (hi) {
-      constexpr int CH = HD / 16;            // 16-byte chunks a hi row
+      // a hi row in the largest chunks that divide it (and so keep every
+      // row's chunks aligned): 16 bytes, or 8 at head_dim 72
+      constexpr int CB = HD % 16 == 0 ? 16 : 8;
+      constexpr int CH = HD / CB;            // chunks a hi row
       for (int i = tid; i < 2 * n * CH; i += THREADS) {
         const int kv = i / (n * CH), rc = i % (n * CH);
         const int r = rc / CH, c = rc % CH;
         const int8_t* src = (kv ? C.v_hi : C.k_hi) +
-            (((size_t)bi * hi_len + start + r) * g + kvh) * HD + 16 * c;
-        cp_async<16>(base + kv * D::CODE_BYTES + r * D::HI_ROW + 16 * c, src);
+            (((size_t)bi * hi_len + start + r) * g + kvh) * HD + CB * c;
+        cp_async<CB>(base + kv * D::CODE_BYTES + r * D::HI_ROW + CB * c, src);
       }
     } else {
-      constexpr int CB = (HD / 2) % 16 == 0 ? 16 : 8;
-      constexpr int CH = HD / 2 / CB;        // chunks a lo row
+      // a lo row: 16-byte chunks, 8 at head_dim 16 and 112, 4 at 72
+      constexpr int RB = HD / 2;
+      constexpr int CB = RB % 16 == 0 ? 16 : RB % 8 == 0 ? 8 : 4;
+      constexpr int CH = RB / CB;            // chunks a lo row
+      static_assert(RB % 4 == 0, "head_dim is a multiple of 8");
       for (int i = tid; i < 2 * n * CH; i += THREADS) {
         const int kv = i / (n * CH), rc = i % (n * CH);
         const int r = rc / CH, c = rc % CH;
         const uint8_t* src = (kv ? C.v_lo : C.k_lo) +
-            (((size_t)bi * s_lo + start - hi_len + r) * g + kvh) * (HD / 2) +
+            (((size_t)bi * s_lo + start - hi_len + r) * g + kvh) * RB +
             CB * c;
+        // the chunk's byte offset in the row, through the 8-byte swizzle
         cp_async<CB>(base + kv * D::CODE_BYTES +
-                         lo_off<HDP>(r, c * (CB / 8)), src);
+                         lo_off<HDP>(r, CB * c / 8) + CB * c % 8, src);
       }
     }
   };
@@ -663,6 +674,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const Cache& C,
     case 16: return launch<16, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
     case 32: return launch<32, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
     case 64: return launch<64, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
+    case 72: return launch<72, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
     case 112: return launch<112, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
     case 128: return launch<128, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
     default: return cudaErrorInvalidValue;

@@ -34,9 +34,11 @@
 //
 // KV tiles.  A block walks its positions in tiles of 32 (8 pages at page
 // size 4): the tile's K and V code rows are gathered through the block table
-// with cp.async (16-byte chunks; each token's four f16 scale / zero-point
-// values as the 4-byte pair that holds them), two stages deep, so the next
-// tile's gather is in flight while this one is computed.  One pass then
+// with cp.async (16-byte chunks, or 8 and 4 where a row is not whole
+// 16-byte chunks: 72 bytes hi and 36 lo at head_dim 72; each token's four
+// f16 scale / zero-point values as the 4-byte pair that holds them), two
+// stages deep, so the next tile's gather is in flight while this one is
+// computed.  One pass then
 // dequantizes the tile to f32 in shared memory, each thread a quarter of one
 // K or V row with its scale and zero point read once, codes read as words
 // (hi) or half-words (lo: both nibbles of a byte from one load), the chunk
@@ -176,20 +178,23 @@ __device__ __forceinline__ void issue_tile(const Args& a, int span, int kvh,
   uint8_t* kdst = raw + j * HD;
   uint8_t* vdst = raw + TILE * HD + j * HD;
   if (hi) {
-    constexpr int N = HD / 16;
+    // a hi row of HD bytes in 16-byte chunks, or 8 at head_dim 72
+    constexpr int CH = HD % 16 == 0 ? 16 : 8;
+    constexpr int N = HD / CH;
     const int8_t* ks = a.P.k_hi + tok * HD;
     const int8_t* vs = a.P.v_hi + tok * HD;
     for (int c = sub; c < 2 * N; c += 8) {
-      if (c < N) cp_async(kdst + 16 * c, ks + 16 * c, 16);
-      else cp_async(vdst + 16 * (c - N), vs + 16 * (c - N), 16);
+      if (c < N) cp_async(kdst + CH * c, ks + CH * c, CH);
+      else cp_async(vdst + CH * (c - N), vs + CH * (c - N), CH);
     }
   } else {
     // a lo row of HD / 2 bytes in the largest chunks that divide it (and so
-    // keep every row's chunks aligned): 16 bytes, or 8 at head_dim 16 and 112
+    // keep every row's chunks aligned): 16 bytes, 8 at head_dim 16 and 112,
+    // 4 at 72
     constexpr int RB = HD / 2;
-    constexpr int CH = RB % 16 == 0 ? 16 : 8;
+    constexpr int CH = RB % 16 == 0 ? 16 : RB % 8 == 0 ? 8 : 4;
     constexpr int N = RB / CH;
-    static_assert(RB % 8 == 0, "head_dim is a multiple of 16");
+    static_assert(RB % 4 == 0, "head_dim is a multiple of 8");
     const uint8_t* ks = a.P.k_lo + tok * RB;
     const uint8_t* vs = a.P.v_lo + tok * RB;
     for (int c = sub; c < 2 * N; c += 8) {
@@ -216,12 +221,15 @@ __device__ __forceinline__ void issue_tile(const Args& a, int span, int kvh,
 // Dequantize a raw stage into the f32 tiles: thread tid takes a quarter of
 // K (even tid / 4) or V (odd) row tid / 8, a 16-byte chunk of every four;
 // which chunk of the four a step takes rotates with the row, so a warp's
-// eight rows read and write distinct banks.  Rows past n_valid are zeros.
+// eight rows read and write distinct banks.  A row of HD / 4 chunks that is
+// not whole groups of four (head_dim 72: 18) ends with its first R parts
+// taking one chunk more.  Rows past n_valid are zeros.
 template <int HD>
 __device__ __forceinline__ void dequant_tile(const uint8_t* raw, int t0,
                                              int n_valid, int num_hi,
                                              float* Ks, float* Vs) {
-  constexpr int LD = HD + 4, G = HD / 16;   // steps: groups of 4 chunks
+  constexpr int LD = HD + 4;
+  constexpr int G = HD / 16, R = HD / 4 % 4;   // groups of 4 chunks; rest
   const int row = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int j = row >> 1;
   const bool isv = row & 1;
@@ -230,6 +238,7 @@ __device__ __forceinline__ void dequant_tile(const uint8_t* raw, int t0,
 #pragma unroll
     for (int i = 0; i < G; ++i)
       dst[4 * ((i + row) % G) + part] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (R && part < R) dst[4 * G + part] = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
   const uint32_t* pw = reinterpret_cast<const uint32_t*>(raw + 2 * TILE * HD)
@@ -240,9 +249,8 @@ __device__ __forceinline__ void dequant_tile(const uint8_t* raw, int t0,
   const float zp = __half2float(__ushort_as_half((unsigned short)(pw[1] >> sh)));
   const uint8_t* codes = raw + (isv ? TILE * HD : 0) + j * HD;
   const bool hi = t0 + j < num_hi;
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    const int c = 4 * ((i + row) % G) + part;   // features 4c .. 4c + 3
+  // features 4c .. 4c + 3
+  auto chunk = [&](int c) {
     if (hi) {
       const uint32_t u = reinterpret_cast<const uint32_t*>(codes)[c];
       dst[c] = make_float4(((float)(int8_t)(u & 0xFFu) - zp) * sc,
@@ -258,7 +266,10 @@ __device__ __forceinline__ void dequant_tile(const uint8_t* raw, int t0,
                            ((float)(b1 >> 4) - zp) * sc,
                            ((float)(b1 & 0xFu) - zp) * sc);
     }
-  }
+  };
+#pragma unroll
+  for (int i = 0; i < G; ++i) chunk(4 * ((i + row) % G) + part);
+  if (R && part < R) chunk(4 * G + part);
 }
 
 // Walk positions [kv0, kv1) tile by tile: gather (two stages), dequantize,
@@ -776,6 +787,7 @@ cudaError_t dispatch_hd(int hd, const Args& a, int S, cudaStream_t st) {
     case 16: return launch<16, T>(a, S, st);
     case 32: return launch<32, T>(a, S, st);
     case 64: return launch<64, T>(a, S, st);
+    case 72: return launch<72, T>(a, S, st);
     case 112: return launch<112, T>(a, S, st);
     case 128: return launch<128, T>(a, S, st);
     default: return cudaErrorInvalidValue;
@@ -791,6 +803,7 @@ extern "C" int paged_attention_smem_bytes(int hd) {
     case 16: return Layout<16>::BYTES;
     case 32: return Layout<32>::BYTES;
     case 64: return Layout<64>::BYTES;
+    case 72: return Layout<72>::BYTES;
     case 112: return Layout<112>::BYTES;
     case 128: return Layout<128>::BYTES;
     default: return -1;

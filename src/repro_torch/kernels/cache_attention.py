@@ -24,7 +24,8 @@ import torch
 from repro_torch.kernels import cuda
 from repro_torch.kernels.ref import cache_decode_attention_ref
 
-_HEAD_DIMS = (16, 32, 64, 112, 128)   # every config's (Kimi-K2: 112)
+# every config's head_dim (Kimi-K2: 112, PixArt-Σ: 72)
+_HEAD_DIMS = (16, 32, 64, 72, 112, 128)
 _MAX_REP = 8
 _CODES = ("k_hi", "v_hi", "k_lo", "v_lo")
 _PARAMS = ("k_scale", "k_zp", "v_scale", "v_zp")

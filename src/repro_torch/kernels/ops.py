@@ -1,6 +1,7 @@
 """Public entry points of the port's kernels (the twin of
 ``repro.kernels.ops``).  The fused STaMP linears are the K1 → K2 chain
-(with the span link ``stamp_span_transform`` over long spans), the
+(with the span link ``stamp_span_transform`` over long spans; over a
+flattened batch of uniform spans, ``stamp_quant_segment_matmul``), the
 grouped MoE expert FFN is K5, the contiguous cache's decode attention K6;
 the standalone kernel library is ``int8_matmul`` (K7), ``quantize_pack``
 (K8), ``haar_dwt_seq`` (K9) and ``walsh_hadamard`` (K10), with the
@@ -66,6 +67,25 @@ def stamp_quant_matmul(x: torch.Tensor, qw, sw, zw, qw_sum,
                           transform=transform, levels=levels,
                           skip_first=skip_first,
                           out_dtype=out_dtype or x.dtype)
+
+
+def stamp_quant_segment_matmul(x: torch.Tensor, qw, sw, zw, qw_sum,
+                               bias: Optional[torch.Tensor] = None, *,
+                               seg_len: int, **kw) -> torch.Tensor:
+    """The twin of ``stamp_quant_segment_matmul_pallas``: the fused STaMP
+    linear over a flattened batch of uniform ``seg_len``-token spans ``x``
+    (b, n·seg_len, K) (or head-split (b, n·seg_len, nh, hd)).  The
+    transform runs per span, never across the flattened batch: the spans
+    fold onto the batch axis through :func:`stamp_quant_matmul` (``kw``:
+    its STaMP settings) and unfold to (b, n·seg_len, N) — the same numbers
+    as one call per span."""
+    b, t = x.shape[0], x.shape[1]
+    if t % seg_len:
+        raise ValueError(f"flattened length {t} is not a whole number of "
+                         f"{seg_len}-token segments")
+    y = stamp_quant_matmul(x.reshape(b * (t // seg_len), seg_len, -1), qw,
+                           sw, zw, qw_sum, bias, **kw)
+    return y.reshape(b, t, y.shape[-1])
 
 
 def stamp_quant_dual_matmul(x: torch.Tensor, qw_g, sw_g, zw_g, qw_sum_g,

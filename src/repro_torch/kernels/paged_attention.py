@@ -34,7 +34,8 @@ from repro_torch.serving import kvcache as KV
 _POOL_KEYS = ("k_hi", "v_hi", "k_hi_scale", "k_hi_zp", "v_hi_scale",
               "v_hi_zp", "k_lo", "v_lo", "k_lo_scale", "k_lo_zp",
               "v_lo_scale", "v_lo_zp")
-_HEAD_DIMS = (16, 32, 64, 112, 128)   # every config's (Kimi-K2: 112)
+# every config's head_dim (Kimi-K2: 112, PixArt-Σ: 72)
+_HEAD_DIMS = (16, 32, 64, 72, 112, 128)
 KV_TILE = 32          # positions a block gathers and scores per tile
 PF_ROWS = 64          # query rows of a prefill block
 MAX_REP = 8           # query heads per kv head (a decode block's rows)

@@ -34,7 +34,14 @@ prefix caching is off with Mamba layers), ``mamba2-1.3b`` the pure-SSM
 stack pageless (slots are its only capacity).  ``--arch deepseek-7b``,
 ``minicpm-2b``, ``mistral-nemo-12b`` and ``qwen2-72b`` serve the other
 dense architectures; qwen2-72b whole needs about 90 GiB, so one H100
-serves it cut the same way.
+serves it cut the same way.  ``--arch pixart-sigma`` serves the DiT
+backbone (head_dim 72, a stub vocabulary of 8) through either engine.
+``llava-next-mistral-7b`` and ``seamless-m4t-large-v2`` take patches or
+frames beside their tokens, which neither the calibration batches nor
+the engines carry: PTQ raises the reference's ``KeyError``, and an
+enc-dec arch with ``--engine paged`` is an argument error naming
+``--engine bucketed``.  Their entry points are the model API,
+``lm.prefill`` on a batch dict and then ``lm.decode_step``.
 
 The flags are the reference CLI's (``repro.launch.serve``) for this path;
 ``--device`` (default ``cuda``) picks where it runs.
@@ -128,7 +135,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--quant-telemetry", action="store_true",
                     help="collect per-STaMP-site quant-health stats with "
                          "each step")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.engine == "paged":
+        cfg = get_reduced(args.arch) if args.reduced \
+            else get_config(args.arch)
+        if cfg.encoder_layers:
+            # fail at the CLI boundary with the fix in hand: an enc-dec
+            # stack's cross-attention K/V is held dense per request
+            ap.error(f"--engine paged does not support encoder-decoder "
+                     f"stacks ({cfg.name}: encoder_layers="
+                     f"{cfg.encoder_layers}); run with --engine bucketed")
+    return args
 
 
 def _hand_over(layers: list):

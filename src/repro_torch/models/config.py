@@ -1,6 +1,8 @@
-"""Model configuration for the decoders the port serves: dense GQA,
-capacity-routed MoE, hybrid Mamba + attention (Jamba) and pure Mamba2 / SSD
-stacks (a copy of that subset of ``repro.models.config``)."""
+"""Model configuration for the stacks the port serves: dense GQA,
+capacity-routed MoE, hybrid Mamba + attention (Jamba), pure Mamba2 / SSD,
+encoder-decoder (Seamless) and backbones behind a stubbed modality frontend
+(LLaVA's patches, Seamless's frames) — a copy of ``repro.models.config``
+less the training-shape cells."""
 
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | hybrid | ssm
+    family: str                 # dense | moe | hybrid | ssm | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -41,6 +43,12 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     conv_width: int = 4
+    # --- encoder-decoder ---
+    encoder_layers: int = 0               # >0 => enc-dec (Seamless)
+    # --- modality frontend stubs ---
+    frontend: Optional[str] = None        # 'patch' (VLM) | 'frames' (audio)
+    num_patches: int = 576                # LLaVA anyres merged patches
+    frame_ratio: int = 4                  # audio frames = seq // frame_ratio
     # --- misc ---
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
@@ -88,7 +96,9 @@ class ModelConfig:
         first layer when ``first_layer_dense``; pure SSM stacks one Mamba
         layer without an FFN; hybrid stacks a period of ``attn_period``
         layers with attention at ``p // 2`` and Mamba elsewhere, MoE every
-        ``moe_period``-th layer."""
+        ``moe_period``-th layer; dense, VLM and audio backbones one
+        attention + MLP layer (an encoder's layers are the same spec, held
+        apart: ``encoder_layers``)."""
         n = self.num_layers
         if self.family == "ssm":
             return (), (LayerSpec("mamba", "none"),), n
@@ -110,10 +120,6 @@ class ModelConfig:
             if self.first_layer_dense:
                 return (LayerSpec("attn", "mlp"),), (spec,), n - 1
             return (), (spec,), n
-        if self.family != "dense":
-            raise NotImplementedError(
-                f"{self.name}: the port serves dense, MoE, hybrid and SSM "
-                f"stacks only (family={self.family!r})")
         return (), (LayerSpec("attn", "mlp"),), n
 
     def layer_specs(self) -> Tuple[LayerSpec, ...]:

@@ -1,5 +1,6 @@
-"""Dense GQA, MoE, hybrid (Jamba) and pure-SSM (Mamba2) decoders:
-calibration forward, the paged serving
+"""Dense GQA, MoE, hybrid (Jamba) and pure-SSM (Mamba2) decoders, and the
+multimodal stacks (LLaVA's patch frontend, Seamless's encoder and
+cross-attention): calibration forward, the paged serving
 steps (the unified step; the two-call pair ``paged_prefill_chunk`` /
 ``paged_decode_step``), and the contiguous-cache ``prefill`` /
 ``decode_step`` of the bucketed engine (the port of those paths of
@@ -16,7 +17,15 @@ cast to bf16 at use; serving params hold packed-int4 or prepared-int8 dicts
 for the large matmuls.  Mamba layers hold ``in_proj`` / ``out_proj``,
 ``conv_w``, ``a_log``, ``dt_bias``, ``d_skip`` and ``ssm_norm``; their
 cache entry is the recurrent state (``{"state", "conv"}``, slot-dense in
-the paged pools).  MoE layers hold the router ``gate_w`` and the
+the paged pools).  An encoder-decoder stack's decoder attention layers
+also hold the cross-attention ``lnx`` / ``xwq`` / ``xwk`` / ``xwv`` /
+``xwo`` (their contiguous cache entry adds the encoder output's bf16
+``xk`` / ``xv``), and ``params["encoder"]`` holds the encoder's
+``layers`` (attention + MLP, no cross-attention) and ``final_norm``.  The
+multimodal entry points (``model_hidden``, ``prefill``) take a batch dict
+as the reference's do — ``tokens`` plus ``patches`` (b, num_patches, d)
+or ``frames`` (b, s_enc, d) — and a bare tensor as tokens.  MoE layers
+hold the router ``gate_w`` and the
 stacked ``(E, ·, ·)`` expert weights ``we_gate / we_up / we_down``; Arctic's
 dense residual MLP is ``dwi_gate / dwi_up / dwo_mlp``.  Setup at full width
 streams: expert stacks are drawn, packed and prepared one expert at a time,
@@ -40,7 +49,7 @@ import torch
 from repro_torch.core.stamp import (StampConfig, fused_eligible,
                                     fused_ineligibility, prepare_linear,
                                     stamp_fake_quant)
-from repro_torch.core.quant import EPS, fdiv
+from repro_torch.core.quant import EPS, fake_quant, fdiv
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cache_attention import cache_decode_attention
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
@@ -134,6 +143,12 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen, dev, dtype) -> dict:
             p["bq"] = torch.zeros(cfg.q_dim, device=dev, dtype=dtype)
             p["bk"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
             p["bv"] = torch.zeros(cfg.kv_dim, device=dev, dtype=dtype)
+        if cfg.encoder_layers:       # decoder layers carry cross-attention
+            p["lnx"] = ones(d)
+            p["xwq"] = _dense(gen, d, cfg.q_dim, dev, dtype)
+            p["xwk"] = _dense(gen, d, cfg.kv_dim, dev, dtype)
+            p["xwv"] = _dense(gen, d, cfg.kv_dim, dev, dtype)
+            p["xwo"] = _dense(gen, cfg.q_dim, d, dev, dtype)
     elif spec.mixer == "mamba":
         di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         f32 = dict(device=dev, dtype=torch.float32)
@@ -170,7 +185,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     """Random parameters from ``seed`` (a ``torch.Generator`` on the
     target device), with the reference's shapes and scales, drawn in f32
     and stored in ``dtype`` (a bf16 model equals the f32 one cast; MoE
-    routers stay f32).  With
+    routers stay f32).  An encoder-decoder stack's ``encoder`` (its layers
+    without cross-attention, and its ``final_norm``) is drawn before the
+    decoder layers.  With
     ``lazy``, ``layers`` is an iterator that draws each layer when it is
     reached, with the same numbers: a full-width MoE stack is set up one
     layer at a time.  Runs on ``cuda`` unless ``device`` says otherwise."""
@@ -186,6 +203,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     }
     if not cfg.tie_embeddings:
         params["head"] = _dense(gen, d, cfg.padded_vocab, dev, dtype)
+    if cfg.encoder_layers:
+        enc_cfg = dataclasses.replace(cfg, encoder_layers=0)
+        params["encoder"] = {
+            "layers": [_init_layer(enc_cfg, _ENCODER_SPEC, gen, dev, dtype)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": torch.ones(d, device=dev, dtype=dtype)}
     layers = (_init_layer(cfg, spec, gen, dev, dtype) for spec in specs)
     params["layers"] = layers if lazy else list(layers)
     return params
@@ -196,7 +219,9 @@ def from_jax_params(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
     the port's params: the prologue layers, then the stacked ``period``
     axis unrolled into ``layers`` (expert leaves keep their ``(E, ·, ·)``
     stack); ``head`` is kept when present (tied models read ``embed.T`` at
-    use, as the reference's ``_head_weight`` does)."""
+    use, as the reference's ``_head_weight`` does); an ``encoder`` subtree
+    (its stacked ``period`` of one layer, and ``final_norm``) becomes
+    ``{"layers", "final_norm"}``."""
     pro, period, nper = cfg.layer_plan()
 
     def t(a):
@@ -204,6 +229,13 @@ def from_jax_params(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
 
     params = {k: t(tree[k]) for k in ("embed", "final_norm", "head")
               if k in tree}
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": [{k: t(np.asarray(v)[i])
+                        for k, v in enc["period"][0].items()}
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": t(enc["final_norm"])}
     params["layers"] = [{k: t(v) for k, v in tree["prologue"][i].items()}
                         for i in range(len(pro))]
     params["layers"] += [
@@ -223,16 +255,19 @@ def fused_site_matrix(cfg: ModelConfig, stamp: Optional[StampConfig]
     reference's ``lm.fused_site_matrix``).  Cells: ``{"status", "kernel",
     "wiring", "layers", "reasons"}`` keyed by the telemetry site label
     (``qkv`` / ``wo`` / ``gate_up`` / ``wo_mlp`` / ``moe`` / ``in_proj`` /
-    ``out_proj``)."""
+    ``out_proj`` / ``cross_attn`` / ``encoder``).  Cross-attention and the
+    encoder never run the fused kernels, whatever the config: a site
+    reason replaces the config's."""
     base = (("stamp_disabled",) if stamp is None
             else fused_ineligibility(stamp))
     matrix: dict = {}
 
-    def add(site, kernel, wiring):
+    def add(site, kernel, wiring, site_reasons=()):
+        reasons = tuple(site_reasons) or base
         cell = matrix.setdefault(site, {
-            "status": "fused" if not base else "reference",
-            "kernel": kernel if not base else None,
-            "wiring": wiring, "layers": 0, "reasons": list(base)})
+            "status": "fused" if not reasons else "reference",
+            "kernel": kernel if not reasons else None,
+            "wiring": wiring, "layers": 0, "reasons": list(reasons)})
         cell["layers"] += 1
 
     for spec in cfg.layer_specs():
@@ -247,6 +282,15 @@ def fused_site_matrix(cfg: ModelConfig, stamp: Optional[StampConfig]
             add("wo_mlp", "stamp_quant_matmul", "single")
         if spec.ffn in ("moe", "moe_dense"):
             add("moe", "stamp_quant_grouped_matmul", "grouped_dispatch")
+    if cfg.encoder_layers:
+        # pooled conditioning carries no sequence transform (the paper's
+        # Table 4), and the encoder runs unquantized
+        for _ in cfg.layer_specs():
+            add("cross_attn", None, "reference_xattn",
+                ("site_cross_attn_no_seq_transform",))
+        for _ in range(cfg.encoder_layers):
+            add("encoder", None, "reference_encoder",
+                ("site_encoder_unstamped",))
     return matrix
 
 
@@ -261,27 +305,40 @@ def _dequant_packed(w: dict, dtype) -> torch.Tensor:
     return (q - w["zp"].to(dtype)) * w["scale"].to(dtype)
 
 
-def _linear(x: torch.Tensor, w, b=None,
-            decode_matmul: bool = False) -> torch.Tensor:
-    """Matmul over a plain tensor, a packed-int4 dict ``{"q", "scale",
-    "zp"}`` or a prepared int8 dict ``{"iq", "isw", "izw", "iqsum"}``.  With
-    ``decode_matmul``, decode-shaped input (one token per slot) over
-    prepared weights runs the decode kernel on the int8 codes."""
+def _weight(w, dtype) -> torch.Tensor:
+    """A plain tensor, a packed-int4 dict ``{"q", "scale", "zp"}`` or a
+    prepared int8 dict ``{"iq", "isw", "izw", "iqsum"}`` as a dense
+    ``(din, dout)`` weight in ``dtype``."""
     if isinstance(w, dict) and "iq" in w:
-        if decode_matmul and x.ndim >= 2 and x.shape[-2] == 1:
-            lead = x.shape[:-1]
-            y = stamp_decode_matmul(x.reshape(-1, x.shape[-1]), w["iq"],
-                                    w["isw"], w["izw"], w["iqsum"], b,
-                                    out_dtype=x.dtype)
-            return y.reshape(*lead, y.shape[-1])
         # codes and zero points are small integers: exact in bf16
-        wd = (w["iq"].to(x.dtype) - w["izw"].to(x.dtype)) * \
-            w["isw"].to(x.dtype)
-    elif isinstance(w, dict):
-        wd = _dequant_packed(w, x.dtype)
+        return (w["iq"].to(dtype) - w["izw"].to(dtype)) * w["isw"].to(dtype)
+    if isinstance(w, dict):
+        return _dequant_packed(w, dtype)
+    return w.to(dtype)
+
+
+def _linear(x: torch.Tensor, w, b=None, decode_matmul: bool = False,
+            f32_sum: bool = False) -> torch.Tensor:
+    """Matmul over a plain tensor, a packed-int4 dict or a prepared int8
+    dict (:func:`_weight`).  With ``decode_matmul``, decode-shaped input
+    (one token per slot) over prepared weights runs the decode kernel on
+    the int8 codes.  With ``f32_sum`` the product is taken as the
+    reference's compiled programs take a bf16 one: f32 sums of the bf16
+    operands, rounded once to ``x``'s dtype (a bf16 matmul on the CPU sums
+    in its own order, and on the card may reduce in bf16, moving a value
+    by a bf16 step now and then) — the encoder's and the cross-attention's
+    plain linears, whose outputs are held bit for bit."""
+    if isinstance(w, dict) and "iq" in w and decode_matmul and \
+            x.ndim >= 2 and x.shape[-2] == 1:
+        lead = x.shape[:-1]
+        y = stamp_decode_matmul(x.reshape(-1, x.shape[-1]), w["iq"],
+                                w["isw"], w["izw"], w["iqsum"], b,
+                                out_dtype=x.dtype)
+        return y.reshape(*lead, y.shape[-1])
+    if f32_sum:
+        y = (x.float() @ _weight(w, x.dtype).float()).to(x.dtype)
     else:
-        wd = w.to(x.dtype)
-    y = x @ wd
+        y = x @ _weight(w, x.dtype)
     return y + b.to(x.dtype) if b is not None else y
 
 
@@ -306,10 +363,14 @@ def pack_weight(w: torch.Tensor, bits: int = 4) -> dict:
             "zp": zp}
 
 
-_BIG = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_mlp", "dwi_gate",
-        "dwi_up", "dwo_mlp", "we_gate", "we_up", "we_down", "in_proj",
-        "out_proj")
+_BIG = ("wq", "wk", "wv", "wo", "xwq", "xwk", "xwv", "xwo", "wi_gate",
+        "wi_up", "wo_mlp", "dwi_gate", "dwi_up", "dwo_mlp", "we_gate",
+        "we_up", "we_down", "in_proj", "out_proj")
 _EXPERTS = ("we_gate", "we_up", "we_down")
+# the sites prepare_fused_weights codes one by one (wq / wk / wv merge)
+_SINGLE = ("wo", "wi_gate", "wi_up", "wo_mlp", "dwi_gate", "dwi_up",
+           "dwo_mlp", "in_proj", "out_proj")
+_ENCODER_SPEC = LayerSpec("attn", "mlp")
 
 
 def _one_expert(w, e: int):
@@ -359,16 +420,19 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
     (biases into ``bqkv``), gate/up, the out-projections and the Mamba
     in/out projections prepare per site, expert stacks one expert at a time (``we_down`` also keeps its
     per-slab sums ``iqslab``).  Packed int4 weights are dequantized and
-    re-coded at ``stamp.fused_weight_bits``.  ``params["layers"]`` may be
+    re-coded at ``stamp.fused_weight_bits``.  The cross-attention weights
+    ``xw*`` and the encoder stay as they are: no sequence transform runs
+    at those sites, and the encoder runs unquantized.
+    ``params["layers"]`` may be
     an iterator: a layer handed over that way is dropped as soon as it is
     prepared.  No-op when the config cannot run the fused kernels."""
     if not fused_eligible(stamp):
         return params
     bits = stamp.fused_weight_bits
     layers = []
+    coded = ("wq", "wk", "wv", "bq", "bk", "bv") + _SINGLE + _EXPERTS
     for p in params["layers"]:
-        out = {k: v for k, v in p.items()
-               if k not in _BIG and k not in ("bq", "bk", "bv")}
+        out = {k: v for k, v in p.items() if k not in coded}
         if "wq" in p:
             raws = [_dequant_packed(p[k], torch.float32)
                     if isinstance(p[k], dict) else p[k].float()
@@ -377,8 +441,7 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
             del raws
         if all(k in p for k in ("bq", "bk", "bv")):
             out["bqkv"] = torch.cat([p["bq"], p["bk"], p["bv"]], dim=-1)
-        for k in ("wo", "wi_gate", "wi_up", "wo_mlp", "dwi_gate", "dwi_up",
-                  "dwo_mlp", "in_proj", "out_proj"):
+        for k in _SINGLE:
             if k in p:
                 out[k] = _prep(p[k], bits)
         for k in _EXPERTS:
@@ -449,14 +512,7 @@ class _ExpertStack:
         self.w, self.dtype = w, dtype
 
     def __getitem__(self, e: int) -> torch.Tensor:
-        w, dt = _one_expert(self.w, e), self.dtype
-        if isinstance(w, dict) and "iq" in w:
-            # codes and zero points are integers in [-128, 127]: exact in
-            # bf16
-            return (w["iq"].to(dt) - w["izw"].to(dt)) * w["isw"].to(dt)
-        if isinstance(w, dict):
-            return _dequant_packed(w, dt)
-        return w.to(dt)
+        return _weight(_one_expert(self.w, e), self.dtype)
 
 
 def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
@@ -503,13 +559,16 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
 def attn_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
                        stamp: Optional[StampConfig],
                        kv: Optional[KV.KVCacheConfig] = None,
-                       capacity: Optional[int] = None) -> tuple:
+                       capacity: Optional[int] = None,
+                       enc_out: Optional[torch.Tensor] = None) -> tuple:
     """Causal self-attention over whole sequences: QKV (the fused STaMP
     linear over prepared weights, or the reference path), RoPE, attention,
-    out-projection.  With ``kv`` it also returns the layer's contiguous
-    cache, quantized from the RoPE'd K and V with room for ``capacity``
-    tokens (the bucketed engine's prefill); without, ``None`` (the
-    calibration forward)."""
+    out-projection; then, given the encoder output ``enc_out``, the
+    layer's cross-attention.  With ``kv`` it also returns the layer's
+    contiguous cache, quantized from the RoPE'd K and V with room for
+    ``capacity`` tokens (the bucketed engine's prefill), with the
+    cross-attention's bf16 ``xk`` / ``xv`` beside them; without, ``None``
+    (the calibration forward)."""
     hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
@@ -520,7 +579,40 @@ def attn_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     attn = L.flash_attention(q, k, v, causal=True)
     entry = None if kv is None else KV.quantize_full(k, v, kv,
                                                      capacity=capacity)
-    return _attn_out(p, attn, x, stamp, False), entry
+    x = _attn_out(p, attn, x, stamp, False)
+    if enc_out is not None and "xwq" in p:
+        x = cross_attn_block(p, x, enc_out, cfg, stamp, entry)
+    return x, entry
+
+
+def cross_attn_block(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
+                     cfg: ModelConfig, stamp: Optional[StampConfig],
+                     entry: Optional[dict] = None) -> torch.Tensor:
+    """Cross-attention + residual (the reference's enc-dec branch of
+    ``attn_block``): queries from the ``lnx``-normed ``x``, keys and values
+    from the encoder output, no mask and no RoPE, the projections plain
+    linears over their (packed) weights.  Under STaMP the output takes a
+    per-token ``lo_bits`` fake quantize and no sequence transform (pooled
+    conditioning breaks the Toeplitz structure: the paper's Fig. 5 / Table
+    4).  ``entry`` (a prefill's cache entry) receives the bf16 ``xk`` /
+    ``xv``.  Its projections take f32 sums of bf16 operands rounded once
+    (:func:`_linear`'s ``f32_sum``), so ``xk`` / ``xv`` are the
+    reference's bit for bit.  The reference's decode step runs no
+    cross-attention (its ``decode_step`` passes no encoder output), so the
+    cached ``xk`` / ``xv`` are written here and carried, never read."""
+    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    hx = L.rms_norm(x, p["lnx"].to(x.dtype), cfg.norm_eps)
+    qx = _split_heads(_linear(hx, p["xwq"], f32_sum=True), nh, hd)
+    kx = _split_heads(_linear(enc_out, p["xwk"], f32_sum=True), kvh, hd)
+    vx = _split_heads(_linear(enc_out, p["xwv"], f32_sum=True), kvh, hd)
+    ax = L.flash_attention(qx, kx, vx, causal=False)
+    if entry is not None:
+        entry["xk"] = kx.to(torch.bfloat16)
+        entry["xv"] = vx.to(torch.bfloat16)
+    ox = ax.reshape(*ax.shape[:-2], -1)
+    if stamp is not None and stamp.enabled:
+        ox = fake_quant(ox, stamp.lo_bits, compiled=True)
+    return x + _linear(ox, p["xwo"], f32_sum=True)
 
 
 def attn_block_cached_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -530,7 +622,9 @@ def attn_block_cached_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     K/V at ``pos`` (scalar or (b,)), then attend over ``pos + 1`` tokens —
     through the packed-cache attention kernel K6 when
     ``fused_cache_attention`` is set, else over the dequantized hi and lo
-    segments (or the dense bf16 cache)."""
+    segments (or the dense bf16 cache).  An enc-dec entry's ``xk`` /
+    ``xv`` stay as they are (no cross-attention at decode, as in the
+    reference: :func:`cross_attn_block`)."""
     hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     kv = serve.kv
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1)
@@ -874,12 +968,14 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def hidden_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """One layer of the full-sequence forward without STaMP."""
+                 cfg: ModelConfig,
+                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer of the full-sequence forward without STaMP (with the
+    encoder output, its cross-attention too)."""
     if spec.mixer == "mamba":
         x, _ = mamba_block_prefill(p, x, cfg, None)
     else:
-        x, _ = attn_block_prefill(p, x, cfg, None)
+        x, _ = attn_block_prefill(p, x, cfg, None, enc_out=enc_out)
     return ffn_block(p, x, spec, cfg, None, False)
 
 
@@ -888,13 +984,78 @@ def final_hidden(params: dict, x: torch.Tensor,
     return L.rms_norm(x, params["final_norm"].to(x.dtype), cfg.norm_eps)
 
 
-def model_hidden(params: dict, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence forward without STaMP (the calibration pass): final
-    normed hidden states ``(b, s, d)`` in bf16."""
-    x = _embed(params, tokens)
+def as_batch(batch) -> dict:
+    """A batch dict as the reference's entry points take it; a bare tensor
+    is the ``tokens``."""
+    return batch if isinstance(batch, dict) else {"tokens": batch}
+
+
+def encoder_layer(p: dict, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """One encoder layer (the reference's ``_encoder_forward`` body, its
+    ``attn_block`` and ``ffn_block`` without STaMP): RoPE'd non-causal
+    self-attention and the SwiGLU MLP, each with its residual, no cache.
+    The encoder runs unquantized on its (packed) weights, so its linears
+    are plain products with f32 sums (:func:`_linear`'s ``f32_sum``)."""
+    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+    q, k, v = (_linear(h, p[w], p.get(b), f32_sum=True) for w, b in
+               (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+    attn = L.flash_attention(_rope(q, positions, cfg, nh, hd),
+                             _rope(k, positions, cfg, kvh, hd),
+                             _split_heads(v, kvh, hd), causal=False)
+    x = x + _linear(attn.reshape(*attn.shape[:-2], -1), p["wo"],
+                    f32_sum=True)
+    h = L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
+    g = silu(_linear(h, p["wi_gate"], f32_sum=True)) * \
+        _linear(h, p["wi_up"], f32_sum=True)
+    return x + _linear(g, p["wo_mlp"], f32_sum=True)
+
+
+def encoder_forward(params: dict, frames: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over the frame embeddings ``(b, s_enc, d)`` (cast to
+    bf16), then its final RMSNorm: the cross-attention's memory."""
+    x = frames.to(COMPUTE_DTYPE)
+    for p in params["encoder"]["layers"]:
+        x = encoder_layer(p, x, cfg)
+    return L.rms_norm(x, params["encoder"]["final_norm"].to(x.dtype),
+                      cfg.norm_eps)
+
+
+def embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
+                 encoder: bool = True) -> tuple:
+    """The decoder's input and the encoder output, as the reference's
+    ``model_hidden`` builds them: an enc-dec (or frames) stack embeds the
+    tokens and runs ``frames`` through the encoder; a patch frontend puts
+    ``patches`` before the token embeddings; else the token embeddings.
+    A batch without the frontend's key raises its ``KeyError``.  Returns
+    ``(x, enc_out or None)``; ``encoder=False`` leaves ``enc_out`` None
+    for a caller that runs the encoder itself."""
+    enc_out = None
+    if cfg.frontend == "frames" or cfg.encoder_layers:
+        frames = batch["frames"]
+        if encoder:
+            enc_out = encoder_forward(params, frames, cfg)
+        x = _embed(params, batch["tokens"])
+    elif cfg.frontend == "patch":
+        tok = _embed(params, batch["tokens"])
+        x = torch.cat([batch["patches"].to(COMPUTE_DTYPE).to(tok.device),
+                       tok], dim=1)
+    else:
+        x = _embed(params, batch["tokens"])
+    return x, enc_out
+
+
+def model_hidden(params: dict, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence forward without STaMP (the calibration pass, the
+    reference's ``model_hidden(mode="train")``): final normed hidden
+    states ``(b, s, d)`` in bf16.  ``batch``: a dict as the reference's
+    (``tokens``, and ``patches`` or ``frames``), or the tokens."""
+    x, enc_out = embed_inputs(params, as_batch(batch), cfg)
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
-        x = hidden_layer(p, spec, x, cfg)
+        x = hidden_layer(p, spec, x, cfg, enc_out)
     return final_hidden(params, x, cfg)
 
 
@@ -912,31 +1073,49 @@ def _ssm_entry(cfg: ModelConfig, batch: int, device) -> dict:
 def init_cache(cfg: ModelConfig, batch: int, seq: int, serve: ServeConfig,
                device=None) -> list:
     """Zero contiguous decode cache, one dict per layer: an attention
-    layer's K/V, a Mamba layer's recurrent state."""
+    layer's K/V (an enc-dec stack's with the cross-attention's bf16 ``xk``
+    / ``xv`` of ``max(seq // frame_ratio, 1)`` positions), a Mamba layer's
+    recurrent state."""
     dev = resolve_device(device)
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
+
+    def attn_entry():
+        entry = KV.init_layer_cache(batch, seq, kvh, hd, serve.kv,
+                                    device=dev)
+        if cfg.encoder_layers:
+            shape = (batch, max(seq // cfg.frame_ratio, 1), kvh, hd)
+            for k in ("xk", "xv"):
+                entry[k] = torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=dev)
+        return entry
+
     return [_ssm_entry(cfg, batch, dev) if spec.mixer == "mamba"
-            else KV.init_layer_cache(batch, seq, cfg.num_kv_heads,
-                                     cfg.resolved_head_dim, serve.kv,
-                                     device=dev)
-            for spec in cfg.layer_specs()]
+            else attn_entry() for spec in cfg.layer_specs()]
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-            serve: ServeConfig,
-            last_pos: Optional[torch.Tensor] = None) -> tuple:
+def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
+            last_pos: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None) -> tuple:
     """Whole-prompt forward with STaMP activation quantization: next-token
     logits ``(b, V)`` f32 read at ``last_pos`` (b,) per row (default: the
     last column; right-padded prompts read their true last token), and
     the contiguous mixed-precision cache (one dict per layer) sized
     ``serve.cache_capacity``; with quant telemetry collected, also the
-    site stats.  Mamba layers stop their recurrence at each row's
-    ``last_pos``: attention never reads a right pad (causal), but a
-    recurrent state would keep absorbing them."""
+    site stats.  ``batch``: the tokens, or a dict as the reference's
+    (``tokens`` with ``patches`` — put before the tokens, so positions
+    and ``last_pos`` count them — or ``frames`` for the encoder; a given
+    ``enc_out``, the encoder's output for those frames, is taken as it is
+    and the encoder does not run).  Mamba layers stop their recurrence at
+    each row's ``last_pos``: attention never reads a right pad (causal),
+    but a recurrent state would keep absorbing them."""
+    batch = as_batch(batch)
+    dev = batch["tokens"].device
     seq_lengths = None if last_pos is None else \
-        last_pos.to(tokens.device).to(torch.int32) + 1
+        last_pos.to(dev).to(torch.int32) + 1
 
     def stack():
-        x = _embed(params, tokens)
+        x, enc = embed_inputs(params, batch, cfg, encoder=enc_out is None)
+        enc = enc_out if enc is None else enc
         cache = []
         for spec, p in zip(cfg.layer_specs(), params["layers"]):
             if spec.mixer == "mamba":
@@ -945,7 +1124,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
             else:
                 x, entry = attn_block_prefill(p, x, cfg, serve.stamp,
                                               serve.kv,
-                                              serve.cache_capacity)
+                                              serve.cache_capacity, enc)
             x = ffn_block(p, x, spec, cfg, serve.stamp, False)
             cache.append(entry)
         return x, cache
@@ -967,8 +1146,9 @@ def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
     ``pos``: a scalar (every slot at the same length) or (b,) per-slot
     positions, where each new token's K/V is written.  Decode runs
     transform free; with ``fused_decode_matmul`` its linears over prepared
-    weights take the decode kernel K3.  The cache updates in place.
-    Returns ``(logits (b, V) f32, cache)``."""
+    weights take the decode kernel K3.  The cache updates in place (an
+    enc-dec entry's ``xk`` / ``xv`` are carried: the reference's decode
+    runs no cross-attention).  Returns ``(logits (b, V) f32, cache)``."""
     dm = serve.fused_decode_matmul
     x = _embed(params, tokens[:, None])
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
@@ -981,12 +1161,26 @@ def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
     return _logits(params, x[:, 0], cfg), cache
 
 
+def refuse_paged(cfg: ModelConfig) -> None:
+    """Raise for an encoder-decoder stack, which paged serving does not
+    cover (the reference's refusal in ``init_paged_cache``)."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            "paged serving does not cover encoder-decoder stacks: the "
+            "cross-attention K/V is computed once from the encoder output "
+            "and held dense per request — serve these through "
+            "BucketedEngine (--engine bucketed)")
+
+
 def init_paged_cache(cfg: ModelConfig, pcfg: PKV.PagedCacheConfig,
                      device=None, num_slots: Optional[int] = None) -> list:
     """Zero cache state, one dict per layer: page pools for an attention
     layer (block ids are shared across layers: one allocation covers the
     whole stack), and for a Mamba layer the slot-dense state of
-    ``num_slots`` slots (the engine's decode slots) plus the null slot."""
+    ``num_slots`` slots (the engine's decode slots) plus the null slot.
+    An encoder-decoder stack raises ``NotImplementedError``
+    (:func:`refuse_paged`)."""
+    refuse_paged(cfg)
     dev = resolve_device(device)
     specs = cfg.layer_specs()
     if any(s.mixer == "mamba" for s in specs) and num_slots is None:

@@ -498,6 +498,9 @@ class PagedServingEngine(_EngineBase):
                  fault: Optional[FaultPlan] = None,
                  clock: Optional[Callable[[], float]] = None,
                  obs_clock: Optional[Callable[[], float]] = None):
+        # an enc-dec stack is refused before anything is prepared or
+        # allocated (the reference's refusal comes from init_paged_cache)
+        lm.refuse_paged(cfg)
         e = ecfg if ecfg is not None else PagedEngineConfig()
         if e.shed_policy not in ("reject_newest", "shed_oldest"):
             raise ValueError(f"unknown shed_policy {e.shed_policy!r}")

@@ -1,7 +1,9 @@
 """The dense architectures the port serves beside llama3-8b — deepseek-7b
 (multi-head attention), minicpm-2b (36 heads at full width, tied head),
-mistral-nemo-12b (``q_dim != d_model``) and qwen2-72b (QKV bias) — against
-the JAX reference on the CPU, each at its reduced config.
+mistral-nemo-12b (``q_dim != d_model``), qwen2-72b (QKV bias) and
+pixart-sigma (the DiT backbone: head_dim 72 at full width, a stub
+vocabulary of 8 padded to 128) — against the JAX reference on the CPU,
+each at its reduced config.
 
 Both sides run the reference's weights (``from_jax_params``) on the same
 numpy-seeded inputs: the reference with its Pallas kernels in interpret
@@ -15,8 +17,9 @@ arch's first test: with XLA's excess precision on, its compiled STaMP round trip
 bf16 chains in f32 and the 4-bit codes carry the remainder (``ROADMAP.md``
 §3, open item 2; here deepseek-7b's second request picks another first
 token on a 0.047 race, and prefill rows of mistral-nemo-12b and minicpm-2b
-move by 0.8 to 1.0), while without it all four archs' runs were measured
-bit-equal to the port's.  Last, the padded vocabulary: neither side masks
+move by 0.8 to 1.0), while without it the first four archs' runs were
+measured bit-equal to the port's (pixart-sigma is held by the same tests).
+Last, the padded vocabulary: neither side masks
 the logits of the pad ids (``padded_vocab`` rounds up to 128), so both can
 pick one, and they pick the same.
 """
@@ -52,7 +55,8 @@ from repro_torch.serving.engine import PagedServingEngine as TEngine
 
 from test_torch_model import LOGIT_TOL, _Seqs, _serve_pair
 
-ARCHS = ("deepseek-7b", "minicpm-2b", "mistral-nemo-12b", "qwen2-72b")
+ARCHS = ("deepseek-7b", "minicpm-2b", "mistral-nemo-12b", "qwen2-72b",
+         "pixart-sigma")
 PROMPT_LENS = (20, 33, 12)
 MAX_NEW = (5, 3, 4)
 ENGINE = dict(max_slots=2, prefill_chunk=16, max_seq=64, block_size=16)

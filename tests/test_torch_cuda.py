@@ -19,6 +19,7 @@ from repro_torch.kernels import cache_attention as TCA
 from repro_torch.kernels import decode_matmul as TDM
 from repro_torch.kernels import haar_dwt as THD
 from repro_torch.kernels import int8_gemm as TIM
+from repro_torch.kernels import ops as TO
 from repro_torch.kernels import quant_pack as TQP
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import paged_attention as TPA
@@ -290,6 +291,19 @@ def test_cuda_paged_attention_head_dim_112(card, block_size):
     _paged_tiling_case(card, 112, 8, block_size)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("block_size", [4, 16, 5])
+def test_cuda_paged_attention_head_dim_72(card, rep, block_size):
+    """K4 at PixArt-Σ's head_dim 72, one query head a kv head (its
+    multi-head attention) and a GQA group of 8: the same steps and
+    tolerances as the tilings above.  72 is not a multiple of 16: a hi row
+    is 9 eight-byte chunks, a lo row 36 bytes in 4-byte chunks, a row's 18
+    float4 chunks dequantize as 4 rotated groups of 4 and a tail of 2, and
+    the decode p.v runs three key groups of 72 threads (40 idle)."""
+    _paged_tiling_case(card, 72, rep, block_size)
+
+
 def _paged_tiling_case(card, hd, rep, block_size):
     g, c_len = 2, 128
     spans = K4_PREFILL + K4_DECODE
@@ -336,6 +350,37 @@ def _gemm_weights(gen, k, n, dual, card):
         out += [w.qw, w.sw, w.zw, w.qw_sum,
                 torch.randn(n, generator=gen, device=card)]
     return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_len", [8, 128, 200])
+def test_cuda_stamp_quant_segment_matmul_is_per_span(card, seg_len):
+    """K1 → K2 over a flattened batch of three uniform spans (the twin of
+    ``stamp_quant_segment_matmul_pallas``; 200 rows take the long-span
+    chain) equals one call per span bit for bit (the spans fold onto the
+    batch axis; K2's products are exact in int32 and its epilogue runs per
+    element), and its plain version within 1e-5 relative; a length that
+    is not whole spans raises."""
+    gen = torch.Generator(device=card).manual_seed(seg_len)
+    x = torch.randn((2, 3 * seg_len, 256), generator=gen, device=card)
+    p = TS.prepare_linear(torch.randn((256, 96), generator=gen, device=card)
+                          / 16.0)
+    bias = torch.randn(96, generator=gen, device=card)
+    kw = dict(transform="dwt", levels=3, skip_first=True, num_hi=4,
+              out_dtype=torch.float32)
+    w = (p.qw, p.sw, p.zw, p.qw_sum, bias)
+    got = TO.stamp_quant_segment_matmul(x, *w, seg_len=seg_len, **kw)
+    per = torch.cat([TO.stamp_quant_segment_matmul(
+        x[:, i:i + seg_len], *w, seg_len=seg_len, **kw)
+        for i in range(0, 3 * seg_len, seg_len)], dim=1)
+    plain = TO.stamp_quant_segment_matmul(
+        x.cpu(), *(t.cpu() for t in w), seg_len=seg_len, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 3 * seg_len, 96)
+    assert torch.equal(got, per)
+    assert _rel(got.cpu(), plain) <= 1e-5
+    with pytest.raises(ValueError):
+        TO.stamp_quant_segment_matmul(x, *w, seg_len=seg_len + 1, **kw)
 
 
 @pytest.mark.cuda
@@ -603,7 +648,22 @@ def test_cuda_cache_attention_head_dim_112(card, shape, lengths):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("shape,lengths", [
+    # PixArt-Σ's multi-head attention (16 heads of 72) at the bucketed
+    # serve shape, and a GQA group of 8 with ragged lengths across the hi
+    # region and the ranges
+    ((4, 136, 16, 72, 16, 4), (97, 98, 99, 100)),
+    ((3, 2000, 2, 72, 16, 64), (5, 130, 2000)),
+])
+def test_cuda_cache_attention_head_dim_72(card, shape, lengths):
+    """K6 at head_dim 72, run as 128 with the queries' last 56 features
+    zero, held as above: a hi row of 72 bytes copied in 8-byte chunks, a
+    lo row of 36 bytes in 4-byte chunks through the 128 layout's swizzle."""
+    _cache_case_matches(card, shape, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 72, 112, 128])
 @pytest.mark.parametrize("rep", [1, 4, 8])
 def test_cuda_cache_attention_head_dims_and_groups(card, hd, rep):
     """K6 at every head_dim and 1, 4 or 8 query heads a kv head, held as
@@ -615,7 +675,7 @@ def test_cuda_cache_attention_head_dims_and_groups(card, hd, rep):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,rep", [(128, 4), (112, 8)])
+@pytest.mark.parametrize("hd,rep", [(128, 4), (112, 8), (72, 1)])
 def test_cuda_cache_attention_far_zero_points(card, hd, rep):
     """K6 where every K token lies near 50, so its zero points (about
     -140 at 4 bits, -2500 at 8) fall outside the [-128, 127] the kernel

@@ -228,7 +228,8 @@ def test_configs_and_layer_plans_equal_the_reference(arch):
 def test_hybrid_layer_plan_places_attention_and_moe():
     """Jamba's period: attention at position 4, Mamba elsewhere, MoE at
     the odd positions; a depth that is not a whole number of periods
-    raises, as in the reference; enc-dec families still raise."""
+    raises, as in the reference; an audio (enc-dec) or VLM backbone's
+    plan is the dense one, as the reference's is."""
     cfg = TCONFIGS.get_config(JAMBA)
     _, period, nper = cfg.layer_plan()
     assert nper == 9 and len(period) == 8
@@ -239,8 +240,13 @@ def test_hybrid_layer_plan_places_attention_and_moe():
         dataclasses.replace(cfg, num_layers=12).layer_plan()
     assert TCONFIGS.get_config(MAMBA2).layer_specs() == \
         (LayerSpec("mamba", "none"),) * 48
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(cfg, family="audio").layer_plan()
+    for family in ("audio", "vlm"):
+        tplan = dataclasses.replace(cfg, family=family).layer_plan()
+        jplan = dataclasses.replace(JCONFIGS.get_config(JAMBA),
+                                    family=family).layer_plan()
+        assert tplan == ((), (LayerSpec("attn", "mlp"),), 72)
+        assert [(s.mixer, s.ffn) for s in jplan[1]] == [("attn", "mlp")]
+        assert jplan[0] == () and jplan[2] == 72
 
 
 # ---------------------------------------------------------------------------

@@ -177,12 +177,11 @@ def test_k4_tile_gather_reads_the_plain_pages(block_size):
 
 def issue_chunks(hd: int, hi: bool) -> tuple:
     """K4's gather of one token's K or V code row (``issue_tile``): ``(chunk
-    bytes, chunks)`` — 16-byte chunks of a hi row of ``hd`` bytes, and the
-    largest of 16 or 8 bytes that divides a lo row of ``hd / 2``."""
-    if hi:
-        return 16, hd // 16
-    rb = hd // 2
-    ch = 16 if rb % 16 == 0 else 8
+    bytes, chunks)`` — the largest of 16 or 8 bytes that divides a hi row
+    of ``hd`` bytes, and of 16, 8 or 4 bytes that divides a lo row of ``hd
+    / 2``."""
+    rb = hd if hi else hd // 2
+    ch = next(c for c in (16, 8, 4) if rb % c == 0)
     return ch, rb // ch
 
 
@@ -231,6 +230,91 @@ def test_k4_tile_gather_at_head_dim_112(block_size):
                                 112)
             assert torch.equal(k, kd[:length, kvh])
             assert torch.equal(v, vd[:length, kvh])
+
+
+@pytest.mark.parametrize("block_size", [4, 16, 5])
+def test_k4_tile_gather_at_head_dim_72(block_size):
+    """At PixArt-Σ's head_dim 72 a hi row is 72 bytes, 9 chunks of 8, and a
+    lo row 36 bytes, 9 chunks of 4 (8-byte chunks would misalign every odd
+    row): the rows K4 copies chunk by chunk through the block table
+    dequantize to the plain version's K and V, 4 kv heads."""
+    assert issue_chunks(72, True) == (8, 9)
+    assert issue_chunks(72, False) == (4, 9)
+    spans = [(0, 70), (16, 27), (0, 9)]
+    entry, ht, lt = paged_pools(block_size, hi_tokens(block_size), spans,
+                                g=4, hd=72, seed=7)
+    ht, lt = torch.from_numpy(ht), torch.from_numpy(lt)
+    for span, (_, length) in enumerate(spans):
+        kd, vd = span_kv(entry, ht[span], lt[span])
+        for kvh in (0, 3):
+            k, v = _gather_rows(entry, span, length, kvh, ht, lt, block_size,
+                                72)
+            assert torch.equal(k, kd[:length, kvh])
+            assert torch.equal(v, vd[:length, kvh])
+
+
+def dequant_chunks(hd: int, row: int, part: int) -> list:
+    """The float4 chunks (features 4c .. 4c + 3) thread ``part`` of a K4
+    dequantize row takes (``dequant_tile``): one of every group of four,
+    rotated by the row, then one of the tail where ``hd / 4`` is not whole
+    groups (head_dim 72: 18 chunks, a tail of 2)."""
+    g, r = hd // 16, hd // 4 % 4
+    out = [4 * ((i + row) % g) + part for i in range(g)]
+    return out + ([4 * g + part] if part < r else [])
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 72, 112, 128])
+def test_k4_dequant_covers_every_feature_once(hd):
+    """Every row's four threads dequantize each of its ``hd / 4`` float4
+    chunks exactly once, at every rotation, head_dim 72's tail included."""
+    for row in range(64):
+        got = sorted(c for part in range(4)
+                     for c in dequant_chunks(hd, row, part))
+        assert got == list(range(hd // 4))
+
+
+def k6_copies(hd: int, hi: bool) -> tuple:
+    """K6's stage copies of one code row (``fetch``): ``(chunk bytes,
+    chunks)``, the largest of 16, 8 or 4 bytes that divides the row."""
+    rb = hd if hi else hd // 2
+    cb = next(c for c in (16, 8, 4) if rb % c == 0)
+    return cb, rb // cb
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 72, 112, 128])
+def test_k6_copies_put_every_byte_where_the_reads_find_it(hd):
+    """K6's copies of a code row into a stage, chunk by chunk, aligned to
+    their size in the cache (rows start at multiples of their length): a hi
+    row's byte b lands at ``r · HDP + b``, a lo row's at the lo layout's
+    place for it (at a padded width of 128 — head_dim 72 and 112 — the
+    swizzled 8-byte chunks of ``lo_off<128>``), which is where the score and
+    value reads look; no two bytes share a place."""
+    hdp = 128 if hd in (72, 112) else hd
+    for hi in (True, False):
+        cb, n = k6_copies(hd, hi)
+        rb = hd if hi else hd // 2
+        assert cb * n == rb
+        for r in range(0, 128, 7):
+            assert (r * rb) % cb == 0            # every copy aligned
+            placed = {}
+            for c in range(n):
+                for i in range(cb):
+                    b = cb * c + i
+                    if hi:
+                        dst = r * hdp + b
+                    elif hdp == 128:
+                        dst = k6_lo_off(r, cb * c // 8) + cb * c % 8 + i
+                    else:
+                        dst = r * (hdp // 2) + b
+                    placed[b] = dst
+            if hi:
+                want = {b: r * hdp + b for b in range(rb)}
+            elif hdp == 128:
+                want = {b: k6_lo_off(r, b // 8) + b % 8 for b in range(rb)}
+            else:
+                want = {b: r * (hdp // 2) + b for b in range(rb)}
+            assert placed == want
+            assert len(set(placed.values())) == rb
 
 
 @pytest.mark.parametrize("block_size", [4, 16])
@@ -901,6 +985,7 @@ def k6_range_run(entry, q, length, sms=132):
     ((4, 136, 8, 32, 32, 4), (97, 98, 99, 100), 132, 0.0),
     ((2, 600, 2, 16, 8, 70), (1, 600), 132, 0.0),
     ((3, 400, 2, 112, 16, 64), (64, 65, 300), 2, 0.0),
+    ((2, 300, 4, 72, 4, 8), (9, 300), 132, 0.0),
     ((1, 300, 1, 64, 4, 1), (300,), 1, 0.0),
     # zero points far outside [-128, 127]: K and V all near 200
     ((2, 200, 2, 32, 8, 8), (9, 200), 132, 200.0)])
