@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught and continued):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the eleven kernels from the nine sources in
+2. build the eleven kernels from the ten sources in
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, started together);
 3. hold every kernel against its plain PyTorch version on the card at the
    serve paths' shapes and time kernel, plain version and a library
@@ -32,7 +32,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    transforms none, dwt and wht, bit-equal to the plain versions; at 1024
    and 2048 rows the chain through ``ops`` timed beside its bound and
    ``torch._int_mm``, printed as ``[long_span]`` lines, and the span link
-   ``stamp_span_transform`` alone); the dense archs served at full
+   ``stamp_span_transform`` alone: the inverse Haar DWT at 3 levels and at
+   the serve path's resolved levels, the inverse and forward WHT, beside
+   the dense transform matmul, printed as ``[span_link]`` lines; and the
+   dual chain over one span of ``PAST_LIMIT`` rows, bit-equal); the dense
+   archs served at full
    width (``DENSE_ARCHS``: deepseek-7b, minicpm-2b, mistral-nemo-12b and
    qwen2-72b, widths from their configs): K1/K2 at each one's QKV (with
    qwen2-72b's bias), out-proj (from ``q_dim``), gate/up and down over 2
@@ -444,6 +448,9 @@ def check_stamp(torch, sm, ops_mod, prepare_linear, sites, seed=0,
 # the plain version; 1024 and 2048 rows are also timed (one span, dwt)
 LONG_SPANS, LONG_TIMED = (129, 256, 512, 1024, 2048), (1024, 2048)
 LONG_ITERS = 20
+# one span past the 9557 rows the span link's first design refused (its
+# whole span in shared memory), checked through the dual chain
+PAST_LIMIT = 9558
 
 
 def check_long_spans(torch, sm, ops_mod, prepare_linear) -> tuple:
@@ -455,9 +462,11 @@ def check_long_spans(torch, sm, ops_mod, prepare_linear) -> tuple:
     the WHT beyond 257 rows the span link also runs the forward transform
     before K1).  At ``LONG_TIMED`` rows under the Haar DWT: the whole
     chain through ``ops`` (eager and graph-replayed) beside its bound and
-    ``torch._int_mm`` on the same codes, and the span link alone (the
-    inverse at the site, with the bias and the dual's silu·mul) beside its
-    bound and its plain version.  Returns ``(link rows, chain rows)``."""
+    ``torch._int_mm`` on the same codes, and the span link alone
+    (:func:`_link_rows`) beside its bound, its plain version and the dense
+    transform matmul.  Then one span past the old limit
+    (:func:`check_past_old_limit`).  Returns ``(link rows, chain
+    rows)``."""
     gen = torch.Generator(device="cuda").manual_seed(40)
     weights = {}
     for name, k, n, dual in LLAMA_SITES:
@@ -491,43 +500,140 @@ def check_long_spans(torch, sm, ops_mod, prepare_linear) -> tuple:
                           f"{name} s={s} {tf} {dt}: max err "
                           f"{float((y.float() - yp.float()).abs().max())}")
                 if s in LONG_TIMED and tf == "dwt":
-                    link.append(_link_row(torch, sm, q, s, wargs, name))
+                    link += _link_rows(torch, sm, q, x, s, wargs, name,
+                                       (3, _resolved_levels(s, NUM_HI)))
                     chain.append(_chain_row(torch, sm, ops_mod, x, q, w,
                                             wargs, name, s))
                 del x, q, qp
         torch.cuda.empty_cache()
+    check_past_old_limit(torch, sm, weights["gate_up"], gen)
     return link, chain
 
 
-def _link_row(torch, sm, q, s, wargs, name, levels: int = 3) -> dict:
-    """The span link alone at a site: the inverse transform of the f32
-    products (gate and up for the dual) with the bias, bf16 out."""
-    pre = dict(transform="none", levels=levels, skip_first=True,
+def check_past_old_limit(torch, sm, w, gen) -> None:
+    """The dual chain over one span of ``PAST_LIMIT`` rows (past the 9557
+    rows the span link once held for the dual under the DWT) at llama3-8b's
+    gate/up, at the levels the serve path resolves for it (so the forward
+    link runs before K1 too, its levels over several launches): K1's codes
+    and the bf16 output bit-equal to the plain versions."""
+    s = PAST_LIMIT
+    st = dict(STAMP, levels=_resolved_levels(s, NUM_HI))
+    x = torch.randn((1, s, D), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    sm.stamp_span_transform.launches = 0
+    q = sm.stamp_transform_quantize(x, **st)
+    forward = sm.stamp_span_transform.launches
+    check(forward > 0 and all(torch.equal(a, b) for a, b in zip(
+        q, sm.transform_quantize_plain(x, **st))),
+          f"K1 codes differ past the old limit ({s} rows)")
+    bias = torch.randn(D_FF, generator=gen, device="cuda")
+    wargs = [w[0].qw, w[0].sw, w[0].zw, w[0].qw_sum, bias,
+             w[1].qw, w[1].sw, w[1].zw, w[1].qw_sum, None]
+    kw = dict(transform="dwt", levels=st["levels"], skip_first=True,
+              out_dtype=torch.bfloat16)
+    y = sm.stamp_int_gemm(*q, s, *wargs, **kw)
+    yp = sm.int_gemm_plain(*q, s, *wargs, **kw)
+    check(bool(torch.isfinite(y).all()) and torch.equal(y, yp),
+          f"the dual chain differs from its plain version at {s} rows")
+    print(f"[long_span] past the old limit: {s} rows, levels "
+          f"{st['levels']}, forward link launches {forward}, bit-equal")
+    del x, q, y, yp
+    torch.cuda.empty_cache()
+
+
+def _resolved_levels(s: int, num_hi: int) -> int:
+    """The levels ``StampConfig`` resolves for spans of ``s`` rows over
+    ``num_hi`` rows at 8 bits: ``ceil(log2(s / num_hi))``."""
+    return max(1, math.ceil(math.log2(max(s / max(num_hi, 1), 2))))
+
+
+def _link_case(torch, sm, name, args, kw, dense, flops) -> dict:
+    """One span link call: bit-equal to its plain version, timed eager and
+    replayed from CUDA graphs beside its plain version, the dense transform
+    ``torch.matmul`` (``dense()``: the (s, s) matrix and its operand, the
+    same values) and its byte bound (each input read once, the output
+    written once)."""
+    def call():
+        return sm.stamp_span_transform(*args, **kw)
+
+    got = call()
+    want = sm.span_transform_plain(*args, **kw)
+    check(torch.equal(got, want),
+          f"span link differs from its plain version at {name}: max err "
+          f"{float((got.float() - want.float()).abs().max())}")
+    ms = timed(torch, call, iters=LONG_ITERS)
+    gms = timed_graph(torch, call, LONG_ITERS, per_graph=10)
+    pms = timed(torch, lambda: sm.span_transform_plain(*args, **kw),
+                iters=3)
+    mat, operand = dense()
+
+    def library():
+        return torch.matmul(mat, operand)
+
+    lib = timed(torch, library, iters=5)
+    lib_gms = timed_graph(torch, library, 10, per_graph=5)
+    del mat, operand
+    ins = [a for a in args[:2] if a is not None]
+    nbytes = sum(a.numel() * a.element_size() for a in ins) + \
+        got.numel() * got.element_size() + \
+        sum(4 * a.numel() for a in args[2:] if a is not None)
+    b = bound(nbytes, flops * got.numel() * len(ins), F32_FLOPS_PER_S)
+    row = dict(site=name, max_abs_err=0.0, ms=ms, plain_ms=pms,
+               bound_ms=b[0], bound_by=b[1], library_ms=lib, graph_ms=gms,
+               library_graph_ms=lib_gms,
+               launches_a_call=None)
+    sm.stamp_span_transform.launches = 0
+    call()
+    row["launches_a_call"] = sm.stamp_span_transform.launches
+    print(f"[span_link] {json.dumps(row)}")
+    return row
+
+
+def _link_rows(torch, sm, q, x, s, wargs, name, levels) -> list:
+    """The span link alone at a site: the inverse transform of K2's f32
+    products (gate and up for the dual) with the bias, bf16 out, under the
+    Haar DWT at each of ``levels`` and under the WHT; and at single sites
+    the forward WHT of the bf16 activation ``x`` into f32 (K1's input).
+    The library yardstick is the dense (s, s) transform ``torch.matmul``
+    on the same f32 products (the gate's and up's side by side), or on the
+    bf16 activation for the forward: it computes the transform only, not
+    the bias, ``silu(g)·u`` or the cast."""
+    pre = dict(transform="none", levels=3, skip_first=True,
                out_dtype=torch.float32)
     g = sm.stamp_int_gemm(*q, s, *wargs[:4], **pre)
     u = sm.stamp_int_gemm(*q, s, *wargs[5:9], **pre) if len(wargs) > 5 \
         else None
-    kw = dict(transform="dwt", levels=levels, skip_first=True, inverse=True,
-              out_dtype=torch.bfloat16)
+    both = g if u is None else torch.cat([g, u], dim=-1)
+    T = sm.T
+    rows = []
+    for tf, lv in [("dwt", lv) for lv in levels] + [("wht", 3)]:
+        kw = dict(transform=tf, levels=lv, skip_first=True, inverse=True,
+                  out_dtype=torch.bfloat16)
 
-    def call():
-        return sm.stamp_span_transform(g, u, wargs[4], None, **kw)
+        def dense(tf=tf, lv=lv):
+            mat = _dense(torch, lambda e: T.inverse_sequence_transform(
+                e, tf, axis=-2, levels=lv, skip_first=True), s,
+                torch.float32)
+            return mat, both
 
-    got = call()
-    check(torch.equal(got, sm.span_transform_plain(g, u, wargs[4], None,
-                                                   **kw)),
-          f"span link differs from its plain version at {name} s={s}")
-    ms = timed(torch, call, iters=LONG_ITERS)
-    gms = timed_graph(torch, call, LONG_ITERS, per_graph=10)
-    pms = timed(torch, lambda: sm.span_transform_plain(g, u, wargs[4], None,
-                                                       **kw), iters=3)
-    n_in = 2 if u is not None else 1
-    b = bound(g.numel() * 4 * n_in + got.numel() * 2 +
-              (4 * g.shape[-1] if wargs[4] is not None else 0), 0,
-              F32_FLOPS_PER_S)
-    return dict(site=f"long_{name}_s{s}", max_abs_err=0.0, ms=ms,
-                plain_ms=pms, bound_ms=b[0], bound_by=b[1], library_ms=None,
-                graph_ms=gms)
+        tag = f"dwt{lv}" if tf == "dwt" else tf
+        rows.append(_link_case(torch, sm, f"long_{name}_s{s}_{tag}_inverse",
+                               (g, u, wargs[4], None), kw, dense,
+                               4 if tf == "dwt" else
+                               int(math.log2(s)) + 1))
+    if u is None:
+        kw = dict(transform="wht", levels=3, skip_first=True,
+                  out_dtype=torch.float32)
+
+        def dense_fwd():
+            return _dense(torch, lambda e: T.sequence_transform(
+                e, "wht", axis=-2, skip_first=True), s, torch.bfloat16), x
+
+        rows.append(_link_case(torch, sm, f"long_{name}_s{s}_wht_forward",
+                               (x,), kw, dense_fwd, int(math.log2(s)) + 1))
+    del g, u, both
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _chain_row(torch, sm, ops_mod, x, q, w, wargs, name, s,
@@ -594,8 +700,8 @@ def check_patch_spans(torch, sm, ops_mod, prepare_linear) -> tuple:
                   f"the chain differs from its plain version at llava's "
                   f"{name} ({dt}): max err "
                   f"{float((y.float() - yp.float()).abs().max())}")
-        link.append(_link_row(torch, sm, q, s, wargs, "llava_" + name,
-                              levels=st["levels"]))
+        link += _link_rows(torch, sm, q, x, s, wargs, "llava_" + name,
+                           (3, _resolved_levels(s, st["num_hi"])))
         chain.append(_chain_row(torch, sm, ops_mod, x, q, w, wargs,
                                 "llava_" + name, s, st=st))
         del x, q, qp
@@ -2070,7 +2176,7 @@ def main() -> None:
               "src/repro/kernels/wht.py:47", std["walsh_hadamard"]),
         # the long-span chain's third link: the inverse (and, under long
         # WHT spans, forward) transform of the two Pallas kernels' spans
-        entry("stamp_span_transform", src + "stamp_matmul.cu", stamp_rows,
+        entry("stamp_span_transform", src + "span_link.cu", stamp_rows,
               link),
     ]
     kernels[3]["per_shape"] = k4

@@ -897,167 +897,11 @@ cudaError_t launch_tq_keep(int keep, const void* x, int B, int S, int K,
 // A span longer than RM rows does not fit K2's on-chip tile, and under the
 // WHT a span whose power-of-two block exceeds K1's 256 window rows does not
 // fit K1's windows either.  There the chain takes a third link,
-// stamp_span_transform: the sequence transform of whole spans along their
-// rows, W = 1 << lw columns a block.  Forward, it writes the f32 transform
-// that K1 then quantizes with transform none (whose windows need one row
-// each); inverse, it reads K2's f32 products (K2 with transform none over
-// tiles of RM rows, after the zero-point epilogue) and adds the bias, the
-// dual silu(g)*u and the cast to the output type.  A block's S x W tile
-// (two for the dual, and the Haar levels' scratch) sits in shared memory
-// (kernels/stamp_matmul.py: span_plan, which refuses a span whose one-column
-// tiles do not fit); the stages are the plain version's
-// operations in its order, so the result is the same bits.  Bound: bytes,
-// one read and one write of the activation or of the products; the
-// butterflies run in shared memory between them.
-
-constexpr int ST_MAX_THREADS = 256;
-
-// The sequence transform (t.kind 1 Haar DWT, 2 WHT) of the S x W tile `x`
-// (W = 1 << lw columns, row stride W) along its rows, in place, with `y`
-// the Haar levels' scratch: core/transforms.py's haar_dwt / haar_idwt / wht
-// (the WHT is its own inverse), the same operations in the same order.
-__device__ void span_rows(float* x, float* y, int S, int lw, const SeqT& t,
-                          bool inverse) {
-  const int W = 1 << lw, off = t.skip ? 1 : 0, n = S - off, nt = blockDim.x;
-  if (n <= 0 || t.kind == 0) return;
-  x += (size_t)off * W;
-  y += (size_t)off * W;
-  if (t.kind == 2) {
-    int p = 1;
-    while (2 * p <= n) p *= 2;
-    for (int h = 1; h < p; h *= 2) {
-      for (int idx = threadIdx.x; idx < (p / 2) * W; idx += nt) {
-        const int pr = idx >> lw, c = idx & (W - 1);
-        const int i0 = (pr / h) * 2 * h + pr % h, i1 = i0 + h;
-        const float a = x[(size_t)i0 * W + c], b = x[(size_t)i1 * W + c];
-        x[(size_t)i0 * W + c] = a + b;
-        x[(size_t)i1 * W + c] = a - b;
-      }
-      __syncthreads();
-    }
-    for (int idx = threadIdx.x; idx < p * W; idx += nt)
-      x[idx] = x[idx] * t.inv_wht;
-    __syncthreads();
-    return;
-  }
-  int sizes[34];     // the low-pass band before each level
-  int ns = 0, lo = n;
-  sizes[ns++] = lo;
-  for (int l = 0; l < t.levels && lo >= 2; ++l) {
-    lo = (lo + 1) / 2;
-    sizes[ns++] = lo;
-  }
-  for (int i = 0; i < ns - 1; ++i) {
-    const int pairs = sizes[inverse ? ns - 2 - i : i] / 2;
-    for (int idx = threadIdx.x; idx < 2 * pairs * W; idx += nt) {
-      const int r = idx >> lw, c = idx & (W - 1);
-      float v;
-      if (inverse) {   // rows 2q, 2q + 1 from approximation q, detail q
-        const int q = r / 2;
-        const float a = x[(size_t)q * W + c];
-        const float d = x[(size_t)(pairs + q) * W + c];
-        v = (r % 2 == 0) ? (a + d) * t.inv_sqrt2 : (a - d) * t.inv_sqrt2;
-      } else {         // approximations, then details, of rows 2q, 2q + 1
-        const int q = r < pairs ? r : r - pairs;
-        const float e = x[(size_t)(2 * q) * W + c];
-        const float o = x[(size_t)(2 * q + 1) * W + c];
-        v = r < pairs ? (e + o) * t.inv_sqrt2 : (e - o) * t.inv_sqrt2;
-      }
-      y[idx] = v;
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < 2 * pairs * W; idx += nt) x[idx] = y[idx];
-    __syncthreads();
-  }
-}
-
-// Block (span, column group): load the S x W tile(s), transform, then
-// (inverse) the bias and the dual silu(g)*u, and store in TO.
-template <typename TI, typename TO, bool DUAL>
-__global__ void __launch_bounds__(ST_MAX_THREADS)
-span_kernel(const TI* __restrict__ x0, const TI* __restrict__ x1,
-            const float* __restrict__ b0, const float* __restrict__ b1, int S,
-            int N, int lw, SeqT t, int inverse, TO* out) {
-  extern __shared__ __align__(16) float stile[];
-  const int W = 1 << lw, nt = blockDim.x, n0 = blockIdx.y * W;
-  const size_t tile = (size_t)S * W;
-  float* X0 = stile;
-  float* X1 = X0 + tile;
-  float* Y = X0 + (DUAL ? 2 : 1) * tile;
-  const size_t base = (size_t)blockIdx.x * S * N;
-  for (size_t idx = threadIdx.x; idx < tile; idx += nt) {
-    const int r = (int)(idx >> lw), n = n0 + (int)(idx & (W - 1));
-    const size_t g = base + (size_t)r * N + n;
-    X0[idx] = n < N ? ldg_f(x0 + g) : 0.0f;
-    if (DUAL) X1[idx] = n < N ? ldg_f(x1 + g) : 0.0f;
-  }
-  __syncthreads();
-  span_rows(X0, Y, S, lw, t, inverse);
-  if (DUAL) span_rows(X1, Y, S, lw, t, inverse);
-  for (size_t idx = threadIdx.x; idx < tile; idx += nt) {
-    const int r = (int)(idx >> lw), n = n0 + (int)(idx & (W - 1));
-    if (n >= N) continue;
-    float v = X0[idx];
-    if (b0) v = v + b0[n];
-    if (DUAL) {
-      float u = X1[idx];
-      if (b1) u = u + b1[n];
-      v = (v * (1.0f / (1.0f + expf(-v)))) * u;  // jax.nn.silu's steps
-    }
-    store_f(out + base + (size_t)r * N + n, v);
-  }
-}
-
-template <typename TI, typename TO, bool DUAL>
-cudaError_t launch_span(int B, int S, int N, int lw, int threads, int smem,
-                        const void* x0, const void* x1, const float* b0,
-                        const float* b1, const SeqT& t, int inverse,
-                        void* out, cudaStream_t st) {
-  // the card's whole opt-in shared memory, set once per instantiation and
-  // card: bit d of `sized` for card d
-  static unsigned sized = 0u;
-  int dev = 0;
-  if (cudaError_t e = cudaGetDevice(&dev); e != cudaSuccess) return e;
-  if (dev >= 32 || !((sized >> dev) & 1u)) {
-    int optin = 0;
-    cudaError_t e = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(span_kernel<TI, TO, DUAL>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-    if (e != cudaSuccess) return e;
-    if (dev < 32) sized |= 1u << dev;
-  }
-  const dim3 grid(B, (N + (1 << lw) - 1) >> lw);
-  span_kernel<TI, TO, DUAL><<<grid, threads, smem, st>>>(
-      static_cast<const TI*>(x0), static_cast<const TI*>(x1), b0, b1, S, N,
-      lw, t, inverse, static_cast<TO*>(out));
-  return cudaGetLastError();
-}
-
-template <typename TI>
-cudaError_t launch_span_out(int out_bf16, int dual, int B, int S, int N,
-                            int lw, int threads, int smem, const void* x0,
-                            const void* x1, const float* b0, const float* b1,
-                            const SeqT& t, int inverse, void* out,
-                            cudaStream_t st) {
-  if (dual)
-    return out_bf16
-               ? launch_span<TI, __nv_bfloat16, true>(
-                     B, S, N, lw, threads, smem, x0, x1, b0, b1, t, inverse,
-                     out, st)
-               : launch_span<TI, float, true>(B, S, N, lw, threads, smem, x0,
-                                              x1, b0, b1, t, inverse, out,
-                                              st);
-  return out_bf16
-             ? launch_span<TI, __nv_bfloat16, false>(B, S, N, lw, threads,
-                                                     smem, x0, x1, b0, b1, t,
-                                                     inverse, out, st)
-             : launch_span<TI, float, false>(B, S, N, lw, threads, smem, x0,
-                                             x1, b0, b1, t, inverse, out,
-                                             st);
-}
+// stamp_span_transform (csrc/span_link.cu): forward, the f32 sequence
+// transform that K1 then quantizes with transform none (whose windows need
+// one row each); inverse, the transform of K2's f32 products (K2 with
+// transform none over tiles of RM rows, after the zero-point epilogue) with
+// the bias, the dual silu(g)*u and the cast to the output type.
 
 }  // namespace
 
@@ -1125,28 +969,4 @@ extern "C" int stamp_int_gemm(
               : launch_gemm<false, float>(rows, a, S, K, N, w0, w1, e, t,
                                           n_split, split_k, vec, out, st);
   return (int)err;
-}
-
-// x0 (x1: the dual's up products): B spans of S rows x N columns, f32 or
-// (x_bf16) bf16; b0 / b1 optional f32 biases; 1 << lw columns a block of
-// `threads`, `smem` bytes of tiles in shared memory.
-extern "C" int stamp_span_transform(
-    const void* x0, const void* x1, int x_bf16, const float* b0,
-    const float* b1, int B, int S, int N, int kind, int levels, int skip,
-    float inv_sqrt2, float inv_wht, int inverse, int lw, int threads,
-    int smem, void* out, int out_bf16, void* stream) {
-  if (kind < 1 || kind > 2 || lw < 0 || lw > 5 || threads < 32 ||
-      threads > ST_MAX_THREADS || threads % 32 || smem < 1 || S < 1 ||
-      levels > 32)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || N == 0) return 0;
-  const SeqT t{kind, levels, skip, inv_sqrt2, inv_wht};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dual = x1 != nullptr;
-  return (int)(x_bf16 ? launch_span_out<__nv_bfloat16>(
-                            out_bf16, dual, B, S, N, lw, threads, smem, x0,
-                            x1, b0, b1, t, inverse, out, st)
-                      : launch_span_out<float>(out_bf16, dual, B, S, N, lw,
-                                               threads, smem, x0, x1, b0, b1,
-                                               t, inverse, out, st));
 }

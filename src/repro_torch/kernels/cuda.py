@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``,
+with the device code they share in ``csrc/*.cuh``).
 
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded through ``ctypes`` (no PyTorch headers, so a build takes
@@ -24,19 +25,20 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("stamp_matmul", "decode_matmul", "paged_attention",
            "grouped_matmul", "cache_attention", "int8_matmul", "quant_pack",
-           "haar_dwt", "wht")
+           "haar_dwt", "wht", "span_link")
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-lineinfo"]
-# the GEMM epilogues and the multi-level Haar DWT (whose levels sum the
-# previous level's products) evaluate in the plain versions' order: no FMA
-# contraction (the quantizers and the WHT need none — they use no
-# multiply-add)
+# the GEMM epilogues, the multi-level Haar DWT (whose levels sum the
+# previous level's products) and the span link (whose WHT scale meets the
+# bias) evaluate in the plain versions' order: no FMA contraction (the
+# quantizers and K10 need none — they use no multiply-add)
 _FLAGS = {"stamp_matmul": ["-fmad=false"], "decode_matmul": ["-fmad=false"],
           "paged_attention": [], "grouped_matmul": ["-fmad=false"],
           "cache_attention": [], "int8_matmul": ["-fmad=false"],
-          "quant_pack": [], "haar_dwt": ["-fmad=false"], "wht": []}
+          "quant_pack": [], "haar_dwt": ["-fmad=false"], "wht": [],
+          "span_link": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -70,7 +72,9 @@ def _command(name: str, out: Path) -> list:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers a source may include count as part of it
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(_ARCH + _COMMON + _FLAGS[name])
                          .encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{key}.so"

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,6 +47,7 @@ from repro_torch.core import quant as Q
 from repro_torch.core import transforms as T
 from repro_torch.core.stamp import token_quantize
 from repro_torch.kernels import cuda
+from repro_torch.kernels import wht as W
 
 _KINDS = {"none": 0, "dwt": 1, "wht": 2}
 MAX_SPAN = 128        # rows K2 keeps on chip: one whole span (or tile)
@@ -66,10 +67,17 @@ _SIGNATURES = {
         cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
         cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.FLT,
         cuda.FLT, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP],
-    "stamp_span_transform": [
-        cuda.VP, cuda.VP, cuda.INT, cuda.VP, cuda.VP, cuda.INT, cuda.INT,
-        cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.FLT, cuda.FLT, cuda.INT,
-        cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.INT, cuda.VP],
+}
+_SPAN_SIGNATURES = {
+    "span_windows": [
+        cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP,
+        cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.FLT, cuda.VP, cuda.VP,
+        cuda.VP, cuda.INT, cuda.INT, cuda.VP, cuda.VP, cuda.INT, cuda.VP],
+    "span_wht": [
+        cuda.VP, cuda.VP, cuda.INT, cuda.LL, cuda.VP, cuda.VP, cuda.INT,
+        cuda.LL, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.LL,
+        cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.FLT, cuda.VP, cuda.VP,
+        cuda.VP, cuda.LL, cuda.INT, cuda.INT, cuda.INT, cuda.VP],
 }
 
 
@@ -126,6 +134,34 @@ TQ_U = 2              # columns a K1 thread carries at once
 TQ_CLUSTER_PASSES = 8  # K ranges of a window whose outputs are recomputed
 
 
+def _haar_ops(s: int, levels: int, skip_first: bool,
+              inverse: bool = False) -> tuple:
+    """The Haar DWT (or, ``inverse``, its inverse) of one column of ``s``
+    rows run symbolically in the reference's order
+    (:func:`~repro_torch.core.transforms.haar_dwt`, ``haar_idwt``), each
+    butterfly ``(a, b) -> ((a + b)·r, (a - b)·r)`` on approximation and
+    detail (forward: even and odd row).  Node numbering and the returned
+    ``(ops, made, out)`` as in :func:`_transform_ops`."""
+    off = int(skip_first) if s else 0
+    cur = list(range(off, s))
+    ops, made = [], []
+    sizes = T.haar_band_sizes(len(cur), levels)[:-1]
+    for lo in (sizes[::-1] if inverse else sizes):
+        band, pairs = cur[:lo], lo // 2
+        a_in = band[:pairs] if inverse else band[0:2 * pairs:2]
+        b_in = band[pairs:2 * pairs] if inverse else band[1:2 * pairs:2]
+        res = []
+        for a, b in zip(a_in, b_in):
+            nxt = s + 2 * len(ops)
+            ops.append((TQ_HAAR, a, b))
+            made.append((nxt, nxt + 1))
+            res.append((nxt, nxt + 1))
+        new = [v for pair in res for v in pair] if inverse else \
+            [a for a, _ in res] + [d for _, d in res]
+        cur = new + band[2 * pairs:] + cur[lo:]
+    return ops, made, list(range(off)) + cur
+
+
 def _transform_ops(s: int, transform: str, levels: int,
                    skip_first: bool) -> tuple:
     """The sequence transform of one column of ``s`` rows run symbolically,
@@ -135,6 +171,8 @@ def _transform_ops(s: int, transform: str, levels: int,
     ``b`` (``b = -1`` for a scale) and makes the next one or two.  Returns
     ``(ops, made, out)``: the ops in order, the nodes each made, and the
     node that ends at each output row."""
+    if transform == "dwt":
+        return _haar_ops(s, levels, skip_first)
     off = int(skip_first) if s else 0
     cur = list(range(off, s))
     ops, made = [], []
@@ -148,14 +186,7 @@ def _transform_ops(s: int, transform: str, levels: int,
         return outs
 
     n = len(cur)
-    if transform == "dwt" and n:
-        for lo in T.haar_band_sizes(n, levels)[:-1]:
-            band, pairs = cur[:lo], lo // 2
-            res = [op(TQ_HAAR, band[2 * i], band[2 * i + 1])
-                   for i in range(pairs)]
-            tail = band[2 * pairs:]
-            cur = [a for a, _ in res] + [d for _, d in res] + tail + cur[lo:]
-    elif transform == "wht" and n:
+    if transform == "wht" and n:
         p = T.largest_pow2(n)
         body = cur[:p]
         h = 1
@@ -176,14 +207,25 @@ def tq_windows(s: int, transform: str, levels: int,
                skip_first: bool) -> list:
     """K1's row windows of a span of ``s`` rows: every output row in one
     window, a window at most ``TQ_OUT`` output rows, each with the program
-    that computes them from its input rows alone.  Output rows whose
-    transforms share an input row stay in one window (split only where such
-    a group outgrows ``TQ_OUT`` rows, each part then recomputing the ops it
-    needs); small groups go into the first window with room.  Returns
-    ``[(in_rows, ops, outs)]``: the input rows loaded into slots 0, 1, ...;
-    the ops ``(kind, slot, slot)`` in the reference's order, each writing
-    its results over its operands' slots; ``(slot, output row)`` pairs."""
+    that computes them from its input rows alone (:func:`row_windows`)."""
     ops, made, out = _transform_ops(s, transform, levels, skip_first)
+    return row_windows(s, ops, made, out, TQ_OUT, TQ_MAX_IN,
+                       f"K1: {transform} over {s} rows")
+
+
+def row_windows(s: int, ops: list, made: list, out: list, max_out: int,
+                max_in: int, what: str) -> list:
+    """Row windows of the symbolic transform ``(ops, made, out)`` of ``s``
+    rows: every output row in one window, a window at most ``max_out``
+    output rows, each with the program that computes them from its input
+    rows alone.  Output rows whose transforms share an input row stay in
+    one window (split only where such a group outgrows ``max_out`` rows,
+    each part then recomputing the ops it needs); small groups go into the
+    first window with room.  Returns ``[(in_rows, ops, outs)]``: the input
+    rows loaded into slots 0, 1, ...; the ops ``(kind, slot, slot)`` in the
+    reference's order, each writing its results over its operands' slots;
+    ``(slot, output row)`` pairs.  Raises where a window needs more than
+    ``max_in`` input rows."""
     maker = {v: i for i, vs in enumerate(made) for v in vs}
 
     def ancestry(nodes):
@@ -217,11 +259,11 @@ def tq_windows(s: int, transform: str, levels: int,
         groups.setdefault(find(needs[r][0]), []).append(r)
     chunks = []
     for rows in sorted(groups.values()):
-        chunks += [rows[i:i + TQ_OUT] for i in range(0, len(rows), TQ_OUT)]
+        chunks += [rows[i:i + max_out] for i in range(0, len(rows), max_out)]
     packed = []
     for rows in chunks:              # first fit: fewer windows, fewer blocks
         for window in packed:
-            if len(window) + len(rows) <= TQ_OUT:
+            if len(window) + len(rows) <= max_out:
                 window += rows
                 break
         else:
@@ -230,10 +272,9 @@ def tq_windows(s: int, transform: str, levels: int,
     for rows in packed:
         op_ids, ins = ancestry([out[r] for r in rows])
         ins = sorted(ins)
-        if len(ins) > TQ_MAX_IN:
-            raise ValueError(f"K1: a row window needs {len(ins)} input rows "
-                             f"(at most {TQ_MAX_IN}): {transform} over "
-                             f"{s} rows")
+        if len(ins) > max_in:
+            raise ValueError(f"{what}: a row window needs {len(ins)} input "
+                             f"rows (at most {max_in})")
         slot = {r: i for i, r in enumerate(ins)}
         home = dict(slot)             # node -> slot it lives in
         prog = []
@@ -288,24 +329,31 @@ def tq_plan(k: int, max_in: int, max_prog: int) -> dict:
                 * 4)
 
 
-_TQ_PROGRAMS: dict = {}
+_PROGRAMS: dict = {}
 
 
-def _tq_launch_args(device, s: int, transform: str, levels: int,
-                    skip_first: bool) -> tuple:
-    """The windows' program on ``device`` (built once per span shape and
-    card) with their count, the most input rows a window loads and the
-    longest window's program in ints."""
-    key = (device, s, transform, levels, bool(skip_first))
-    hit = _TQ_PROGRAMS.get(key)
+def _window_programs(device, key, make) -> tuple:
+    """A window launch's program (:func:`tq_program` of the windows
+    ``make()`` plans) on ``device``, built once per ``key`` and card, with
+    the window count, the most input rows a window loads and the longest
+    window's program in ints."""
+    hit = _PROGRAMS.get((device, key))
     if hit is None:
-        windows = tq_windows(s, transform, levels, skip_first)
+        windows = make()
         prog = torch.tensor(tq_program(windows), dtype=torch.int32,
                             device=device)
         hit = (prog, len(windows), max(len(w[0]) for w in windows),
                max(len(i) + len(o) + 2 * len(u) for i, o, u in windows))
-        _TQ_PROGRAMS[key] = hit
+        _PROGRAMS[(device, key)] = hit
     return hit
+
+
+def _tq_launch_args(device, s: int, transform: str, levels: int,
+                    skip_first: bool) -> tuple:
+    """K1's windows' program on ``device`` (:func:`_window_programs`)."""
+    return _window_programs(
+        device, ("K1", s, transform, levels, bool(skip_first)),
+        lambda: tq_windows(s, transform, levels, skip_first))
 
 
 @functools.lru_cache(maxsize=None)
@@ -538,33 +586,148 @@ stamp_int_gemm.launches = 0
 #
 # Replaces no TPU kernel of its own: it is the third link of the chain that
 # replaces ``stamp_quant_matmul_pallas`` / ``stamp_quant_dual_matmul_pallas``
-# over spans longer than K2's tile (module note; CUDA source note
-# "long spans").  Bound on the H100: bytes, one read and one write of the
-# activation (forward) or of the f32 products (inverse).
+# over spans longer than K2's tile (module note; CUDA source
+# ``csrc/span_link.cu``).  Bound on the H100: bytes, one read and one write
+# of the activation (forward) or of the f32 products (inverse).  Under the
+# Haar DWT it runs row windows planned here (:func:`span_passes`), under
+# the WHT K10's tiles over each span's power-of-two block
+# (:func:`span_wht_plan`), whose first launch also writes the rows around
+# the block.
 
-SPAN_SMEM = 112 * 1024   # a block's tiles in shared memory: two blocks an SM
-SPAN_MAX_W = 32          # columns a block transforms
-SPAN_THREADS = 256
+SL_OUT = 32           # output rows of a forward link window
+SL_OUT_INVERSE = 16   # ... of an inverse one
+SL_MAX_IN = 64        # input rows a link window may load
+SL_COLS = 256         # columns of a window block's strip
+SL_SMEM = 64 * 1024   # bytes of a window block's slots, at most
 
 
-def span_plan(s: int, n: int, bufs: int) -> dict:
-    """The span link's launch over spans of ``s`` rows and ``n`` columns,
-    ``bufs`` f32 tiles of ``s x W`` a block (the dual's two, the Haar
-    levels' scratch): the widest power-of-two ``W`` up to ``SPAN_MAX_W``
-    whose tiles fit ``SPAN_SMEM``.  A span whose one-column tiles do not
-    fit (past 9557 rows for the dual under the Haar DWT, 28672 for one WHT
-    tile) is refused: the reference's kernel holds a whole span in VMEM
-    and is budgeted at s = 4k."""
-    per_col = s * bufs * 4
-    if per_col > SPAN_SMEM:
-        raise ValueError(f"the span link holds at most "
-                         f"{SPAN_SMEM // (4 * bufs)} rows a span in "
-                         f"{bufs} tile(s), got {s}")
-    w = SPAN_MAX_W
-    while w * per_col > SPAN_SMEM:
-        w //= 2
-    return dict(lw=w.bit_length() - 1, threads=SPAN_THREADS,
-                smem=w * per_col, groups=-(-n // w))
+@functools.lru_cache(maxsize=64)
+def span_passes(s: int, levels: int, skip_first: bool,
+                inverse: bool) -> tuple:
+    """The Haar link's launches over spans of ``s`` rows: row windows
+    (:func:`row_windows`, at most ``SL_OUT`` output rows, ``SL_OUT_INVERSE``
+    for the inverse, and ``SL_MAX_IN`` input rows each) of a range of levels
+    each.  An inverse output row needs one detail row a level and one
+    approximation, so the inverse is one launch.  A forward approximation
+    row needs 2^levels input rows, so the forward takes as many levels a
+    launch as its windows hold, and the low-pass band left for the next
+    levels (at the front of the span, after the sink row) goes to an f32
+    scratch that the next launch reads as its span; every value still
+    meets the same operations in the same order.
+    Returns ``((windows, band), ...)``: an output ``(slot, row)`` is final
+    output row ``row`` or, for ``row < 0``, row ``-1 - row`` of the
+    ``band`` scratch rows; launch 0 reads the input, launch ``k`` the
+    scratch of launch ``k - 1``."""
+    what = f"span link: {'inverse ' if inverse else ''}dwt over {s} rows"
+    if inverse:
+        # windows of 16 rows: smaller blocks, more of them in flight
+        # (measured faster than 32 at 3 and 8 levels, about even at 9)
+        ops, made, out = _haar_ops(s, levels, skip_first, True)
+        return ((row_windows(s, ops, made, out, SL_OUT_INVERSE, SL_MAX_IN,
+                             what), 0),)
+    off = int(skip_first) if s else 0
+    sizes = T.haar_band_sizes(s - off, levels)
+    total, done, passes = len(sizes) - 1, 0, []
+    while True:
+        rows, skip = (s, skip_first) if not passes else (sizes[done], False)
+        first = off if not passes else 0   # the band's first row here
+        base = 0 if not passes else off     # output row of this row 0
+        # a window's 2^k-row groups hold SL_OUT outputs; fewer levels
+        # where the odd-band carries join groups past SL_MAX_IN rows
+        k = min(total - done, SL_OUT.bit_length() - 1)
+        while True:
+            ops, made, out = _haar_ops(rows, k, skip)
+            try:
+                windows = row_windows(rows, ops, made, out, SL_OUT,
+                                      SL_MAX_IN, what)
+                break
+            except ValueError:
+                if k <= 1:
+                    raise
+                k -= 1
+        done += k
+        band = sizes[done] if done < total else 0
+
+        def dest(r):
+            return first - 1 - r if first <= r < first + band else base + r
+
+        passes.append(([(ins, prog, [(sl, dest(r)) for sl, r in outs])
+                        for ins, prog, outs in windows], band))
+        if done >= total:
+            return tuple(passes)
+
+
+def span_window_plan(n: int, max_in: int, max_prog: int, dual: bool
+                     ) -> dict:
+    """A window launch's blocks: a strip of ``cols`` columns, one a thread
+    (a multiple of 32, up to ``SL_COLS`` and no wider than N needs), about
+    halved until the slots (``max_in`` rows of the strip, two sets for the
+    dual, f32) fit ``SL_SMEM``; ``room`` ints of the longest window program
+    before them, ``smem`` bytes in all."""
+    cols = min(SL_COLS, -(-n // 32) * 32)
+    sets = 2 if dual else 1
+    while cols > 32 and max_in * cols * 4 * sets > SL_SMEM:
+        cols = max(32, cols // 64 * 32)
+    room = -(-max_prog // 4) * 4
+    return dict(cols=cols, room=room,
+                smem=4 * room + max(max_in, 1) * cols * 4 * sets)
+
+
+class WhtLaunch(NamedTuple):
+    """One launch of the WHT link over the ``p``-row block of each span: a
+    range of its stages, as tiles of ``T`` positions (element ``j`` of
+    tile ``t`` of group ``z`` at block position ``z·p / groups + t·tmul +
+    j·istride``; a middle launch's groups are its high position bits), ``w``
+    columns a block.  ``first`` reads the input, ``last``
+    scales, adds the bias, combines the dual and writes the output; the
+    others read and write f32 scratch."""
+    T: int
+    tiles: int
+    tmul: int
+    istride: int
+    groups: int
+    w: int
+    first: bool
+    last: bool
+
+
+def span_wht_plan(s: int, n: int, skip_first: bool, dual: bool,
+                  itemsize: int, out_itemsize: int) -> list:
+    """The WHT link's launches for spans of ``s`` rows of ``n`` columns
+    (``itemsize``-byte inputs, ``out_itemsize``-byte outputs): K10's
+    sequence tiles (``wht._width``, rows of a whole sector of the narrower
+    of what a launch reads and writes, but of what the dual's last launch
+    reads) over the power-of-two block ``p``, one launch where a block
+    holds all ``p`` positions (the dual's last launch keeps two tiles),
+    else the stages in ranges of bits, each launch's tile as long as a
+    block holds."""
+    p = T.largest_pow2(max(s - int(skip_first), 0))
+    if not p:
+        return []
+
+    def bits(isz, two):
+        """log2 of the longest tile (K10's ``longest``)."""
+        t = W.MAX_SMEM_BYTES // (4 * max(W.SECTOR // isz, 4) * (2 if two
+                                                                 else 1))
+        return t.bit_length() - 1
+
+    lp = p.bit_length() - 1
+    out, lo = [], 0
+    while lo < lp or not out:
+        isz = itemsize if lo == 0 else 4
+        # (the dual's two tiles at the output's width would hold an SM)
+        last_isz = isz if dual else min(isz, out_itemsize)
+        if lp - lo <= bits(last_isz, dual):
+            k, isz = lp - lo, last_isz
+        else:
+            k = min(bits(isz, False), lp - lo - 1)
+        t = 1 << k
+        geo = (p // t, t, 1, 1) if lo == 0 else \
+            (1 << lo, 1, 1 << lo, p >> (lo + k))
+        out.append(WhtLaunch(t, *geo, W._width(t, n, True, isz), lo == 0,
+                             lo + k == lp))
+        lo += k
+    return out
 
 
 def span_transform_plain(x, x_up=None, bias=None, bias_up=None, *,
@@ -596,8 +759,8 @@ def stamp_span_transform(x: torch.Tensor, x_up=None, bias=None,
     """The long-span link.  ``x`` (and ``x_up``, the dual's up products):
     (b, s, N) f32 or bf16; ``bias``/``bias_up``: (N,) or (1, N).  Forward:
     the f32 sequence transform of ``x``; inverse: the inverse transform,
-    the bias and (dual) ``silu(g)·u``, in ``out_dtype``.  Returns (b, s,
-    N)."""
+    the bias and (dual) ``silu(g)·u``, in ``out_dtype``.  Any span length;
+    under the WHT N must be a multiple of 4.  Returns (b, s, N)."""
     kw = dict(transform=transform, levels=levels, skip_first=skip_first,
               inverse=inverse, out_dtype=out_dtype)
     if x.device.type == "cpu":
@@ -613,24 +776,84 @@ def stamp_span_transform(x: torch.Tensor, x_up=None, bias=None,
     if x_up is not None and (x_up.shape != x.shape or
                              x_up.dtype != x.dtype):
         raise ValueError("the dual's up products must match the gate's")
+    b, s, n = x.shape
+    if transform == "wht" and n % 4:
+        raise ValueError(f"the span link's WHT takes N a multiple of 4, "
+                         f"got {n}")
     bias, bias_up = _f32_vec(bias), _f32_vec(bias_up)
     cuda.require_cuda(x, x_up, bias, bias_up)
-    b, s, n = x.shape
     dev = x.device
     out = torch.empty((b, s, n), dtype=out_dtype, device=dev)
     if not out.numel():
         return out
-    bufs = (2 if x_up is not None else 1) + (transform == "dwt")
-    plan = span_plan(s, n, bufs)
-    err = _lib().stamp_span_transform(
-        x.data_ptr(), cuda.ptr(x_up), int(x.dtype == torch.bfloat16),
-        cuda.ptr(bias), cuda.ptr(bias_up), b, s, n,
-        *_transform_args(transform, levels, skip_first, s), int(inverse),
-        plan["lw"], plan["threads"], plan["smem"],
-        out.data_ptr(), int(out_dtype == torch.bfloat16),
-        cuda.stream_ptr(x))
-    cuda.check(err, "stamp_span_transform")
-    stamp_span_transform.launches += 1
+    lib = cuda.library("span_link", _SPAN_SIGNATURES)
+    in_bf16, out_bf16 = int(x.dtype == torch.bfloat16), \
+        int(out_dtype == torch.bfloat16)
+    f32 = dict(dtype=torch.float32, device=dev)
+    targs = _transform_args(transform, levels, skip_first, s)
+    dual = x_up is not None
+
+    def windows(key, wins, src, src_bf16, rows, band):
+        """One window launch from ``src`` (spans of ``rows`` rows) into
+        ``out`` and, where ``band``, a new f32 scratch of ``band`` rows."""
+        prog, n_win, max_in, max_prog = _window_programs(dev, key,
+                                                         lambda: wins)
+        plan = span_window_plan(n, max_in, max_prog, dual)
+        scr = torch.empty((2 if dual else 1, b, band, n), **f32) \
+            if band else None
+        err = lib.span_windows(
+            src[0].data_ptr(), cuda.ptr(src[1] if dual else None), src_bf16,
+            rows, b, n, prog.data_ptr(), n_win, plan["room"],
+            plan["cols"], plan["smem"], targs[3], cuda.ptr(bias),
+            cuda.ptr(bias_up), out.data_ptr(), out_bf16, s,
+            cuda.ptr(None if scr is None else scr[0]),
+            cuda.ptr(scr[1] if scr is not None and dual else None), band,
+            cuda.stream_ptr(x))
+        cuda.check(err, "stamp_span_transform")
+        stamp_span_transform.launches += 1
+        return scr
+
+    src = (x, x_up)
+    off = int(skip_first)
+    p = T.largest_pow2(s - off)
+    if transform == "dwt" or not p:
+        # (a span of only the sink row: the WHT is the identity windows of
+        # a DWT of no levels)
+        levels = levels if p else 0
+        src_bf16, rows = in_bf16, s
+        for i, (wins, band) in enumerate(span_passes(s, levels, skip_first,
+                                                     inverse)):
+            src = windows(("link", s, levels, skip_first, inverse, i), wins,
+                          src, src_bf16, rows, band)
+            src_bf16, rows = 0, band
+        return out
+    if x.data_ptr() % 16 or (dual and x_up.data_ptr() % 16):
+        src = tuple(None if v is None else v.clone() for v in src)
+    at = off * n                    # the block's first element of a span
+    scr = None
+    for st in span_wht_plan(s, n, skip_first, dual, x.element_size(),
+                            out.element_size()):
+        dst = None if st.last else torch.empty(
+            (2 if dual else 1, b, p, n), **f32)
+        y0 = out.data_ptr() + at * out.element_size() if st.last \
+            else dst[0].data_ptr()
+        y1 = None if st.last or not dual else dst[1].data_ptr()
+        if st.first:
+            x0 = src[0].data_ptr() + at * x.element_size()
+            x1 = src[1].data_ptr() + at * x.element_size() if dual else None
+        else:
+            x0, x1 = scr[0].data_ptr(), scr[1].data_ptr() if dual else None
+        err = lib.span_wht(
+            x0, x1, in_bf16 if st.first else 0,
+            s * n if st.first else p * n // st.groups, y0, y1, out_bf16,
+            s * n if st.last else p * n // st.groups, b * st.groups, st.T,
+            st.tiles, st.tmul, st.istride, n, n, st.w, int(st.first),
+            int(st.last), targs[4], cuda.ptr(bias), cuda.ptr(bias_up),
+            out.data_ptr() + at * out.element_size(), s * n, s - p, off, p,
+            cuda.stream_ptr(x))
+        cuda.check(err, "stamp_span_transform")
+        stamp_span_transform.launches += 1
+        scr = dst
     return out
 
 

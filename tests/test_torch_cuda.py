@@ -458,33 +458,50 @@ def test_cuda_long_span_chain(card, span, transform, dual):
             (0 if transform == "none" else 2)
 
 
+# (N, dual, input dtype, output dtype) of the span link's cases
+LINK_CASES = [(200, False, torch.float32, torch.bfloat16),
+              (72, True, torch.float32, torch.bfloat16),
+              (40, True, torch.bfloat16, torch.float32),
+              (4096, False, torch.bfloat16, torch.float32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("span", [129, 300, 5000])
+@pytest.mark.parametrize("span", [129, 300, 641, 2048, 5000, 12288])
 def test_cuda_span_link_shapes(card, span):
-    """The span link alone: shared-memory tiles of 32 down to 1 column
-    (2 spans of 129 to 5000 rows, and the longest dual dwt span whose
-    three one-column tiles fit, 9557 rows); forward and inverse, bit-equal
-    to the plain version.  One row more is refused."""
+    """The span link alone over 2 spans of 129 to 12288 rows, bit-equal to
+    its plain version: forward and inverse; the Haar DWT at 1, 3 and 9
+    levels and at the serve path's resolved levels (the forward's windows
+    over one launch or the levels split over several through scratch), the
+    WHT (its block in one launch or its stages over two, and the rows
+    around it); single, and the dual with both biases; N of 40, 72, 200
+    and 4096, bf16 and f32 in and out.  A dual Haar span one row past the
+    9557 rows the link once refused runs too."""
     gen = torch.Generator(device=card).manual_seed(span)
-    longest = TSM.SPAN_SMEM // (4 * 3)
-    for s, n, dual in ((span, 200, False), (span, 72, True),
-                       (longest, 40, True)):
-        x = torch.randn((2, s, n), generator=gen, device=card)
-        u = torch.randn((2, s, n), generator=gen, device=card) \
-            if dual else None
+    auto = TS.StampConfig(levels=None, num_hi_tokens=4).resolved_levels(span)
+    for n, dual, dt_in, dt_out in LINK_CASES:
+        x = torch.randn((2, span, n), generator=gen, device=card).to(dt_in)
+        u = torch.randn((2, span, n), generator=gen, device=card).to(
+            dt_in) if dual else None
         b = torch.randn(n, generator=gen, device=card)
-        for tf in ("dwt", "wht"):
+        for tf, levels in (("dwt", 1), ("dwt", 3), ("dwt", 9),
+                           ("dwt", auto), ("wht", 3)):
             for inverse in (False, True):
-                kw = dict(transform=tf, levels=3, skip_first=True,
-                          inverse=inverse, out_dtype=torch.bfloat16)
-                args = (x, u, b, b) if inverse else (x,)
+                kw = dict(transform=tf, levels=levels, skip_first=True,
+                          inverse=inverse, out_dtype=dt_out)
+                args = (x, u, b, -b)
                 got = TSM.stamp_span_transform(*args, **kw)
                 want = TSM.span_transform_plain(*args, **kw)
                 torch.cuda.synchronize()
-                assert torch.equal(got, want)
-    x = torch.randn((1, longest + 1, 40), generator=gen, device=card)
-    with pytest.raises(ValueError, match="at most 9557 rows"):
-        TSM.stamp_span_transform(x, x, transform="dwt", inverse=True)
+                assert got.shape == want.shape and got.dtype == dt_out
+                assert torch.equal(got, want), (n, dual, tf, levels,
+                                                inverse)
+    if span == 12288:
+        x = torch.randn((1, 9558, 40), generator=gen, device=card)
+        kw = dict(transform="dwt", levels=3, skip_first=True, inverse=True)
+        assert torch.equal(TSM.stamp_span_transform(x, x, x[0, 0], None,
+                                                    **kw),
+                           TSM.span_transform_plain(x, x, x[0, 0], None,
+                                                    **kw))
 
 
 @pytest.mark.cuda

@@ -9,8 +9,8 @@ plain version, so this file holds the chain's routing and arithmetic:
 bit-equal to the single plain versions (``transform_quantize_plain`` →
 ``int_gemm_plain``), and against the reference's interpret-mode Pallas
 kernels (which hold the whole span) within the ``rtol`` of
-``test_torch_kernels.py``.  The launch plans of the span link
-(``span_plan``) and of K1's windows (``tq_fits``) run here too; the CUDA
+``test_torch_kernels.py``.  K1's windows (``tq_fits``) run here too; the
+span link's launch plans run in ``test_torch_span_link.py``, and the CUDA
 kernels are held to these plain versions in ``test_torch_cuda.py``.
 """
 
@@ -147,28 +147,6 @@ def test_tq_fits_picks_the_chain_only_where_windows_outgrow_k1():
                                         skip_first=True, num_hi=4,
                                         hi_bits=8, lo_bits=4)))
     assert set(TO.launch_counts().values()) == {0}   # plain versions
-
-
-@pytest.mark.parametrize("s,n,bufs,want", [
-    (129, 4096, 2, (32, 256, 129 * 2 * 4 * 32)),
-    (1024, 14336, 3, (8, 256, 1024 * 3 * 4 * 8)),
-    (2048, 4096, 2, (4, 256, 2048 * 2 * 4 * 4)),
-    (5000, 72, 3, (1, 256, 5000 * 3 * 4)),
-    (12000, 40, 3, None),
-    (20000, 40, 3, None),
-])
-def test_span_plan(s, n, bufs, want):
-    """The span link's column groups: the widest power of two up to 32
-    whose tiles fit 112 KB (two blocks an SM); a span whose one-column
-    tiles outgrow that is refused (past 9557 rows in three tiles)."""
-    if want is None:
-        with pytest.raises(ValueError, match="at most 9557 rows"):
-            TSM.span_plan(s, n, bufs)
-        return
-    plan = TSM.span_plan(s, n, bufs)
-    assert (1 << plan["lw"], plan["threads"], plan["smem"]) == want
-    assert plan["groups"] == -(-n // (1 << plan["lw"]))
-    assert TSM.span_plan(TSM.SPAN_SMEM // (4 * bufs), n, bufs)["lw"] == 0
 
 
 def test_gemm_plan_tiles_a_long_span_without_a_transform():

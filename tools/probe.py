@@ -2,8 +2,9 @@
 """Where K1's (``stamp_transform_quantize``), K2's (``stamp_int_gemm``),
 K3's (``stamp_decode_matmul``), K4's (``paged_ragged_attention``), K5's
 (``stamp_quant_grouped_matmul``), K6's (``cache_decode_attention``), K7's
-(``int8_matmul``), K8's (``quantize_pack``) and K10's
-(``walsh_hadamard``) time goes: each
+(``int8_matmul``), K8's (``quantize_pack``), K10's
+(``walsh_hadamard``) and the long-span link's (``stamp_span_transform``)
+time goes: each
 timed replayed from CUDA graphs at the serve path's (or the kernel
 library's) shapes, built whole and built with one part taken out, or with
 its launch plan changed.
@@ -18,10 +19,12 @@ its launch plan changed.
     python3 tools/probe.py k7 [--src DIR]
     python3 tools/probe.py k8 [--src DIR] [--warps 1,2,4]
     python3 tools/probe.py k10 [--src DIR]
+    python3 tools/probe.py link [--src DIR]
 
 A cut variant is the kernel's source (``src/repro_torch/csrc``, of this
 checkout or of the checkout at ``DIR``, whose wrappers are then the ones
-imported) with one statement deleted or replaced; its output is then wrong
+imported, with the headers it includes from there written into it) with
+one statement deleted or replaced; its output is then wrong
 and only its time is read.  Where a kernel's source was redesigned, each
 design has its own set of cuts, and the set whose statements the source
 holds is taken.
@@ -99,6 +102,19 @@ k10: variants without the butterfly stages, the loads or the stores (a
 store that never happens, so nothing is optimised away), and (the
 register-phase design) without the barriers between its phases.  Sites: the
 smoke's ``WHT_SHAPES`` in bf16.
+
+link: the span link's row windows (the Haar DWT) without the
+butterflies, the input loads or the output stores, and its WHT tiles
+(K10's register phases) without the stages, the tile loads, the tile
+stores or the rows around the block (``no_copy``); and the whole build
+with the WHT's tiles sized by the input's sectors instead of the
+narrower of input and output (``in_sector``), the inverse's windows of
+32 output rows (``out32``) or strips of 128 columns (``cols128``) (all
+right output).  Sites: the smoke's timed link shapes at 2048 rows
+(llama3-8b's qkv, gate/up dual and down, f32 products, bf16 out): the
+inverse Haar DWT at 3 and 9 levels and the inverse WHT; and qkv and down
+at 1024 rows, the inverse Haar DWT at 8 levels (the levels the serve
+path resolves there).
 
 Prints one ``[probe]`` line a site and run; needs a CUDA card.
 """
@@ -225,6 +241,36 @@ K10_VARIANTS = {
                                  "(void)0;")]},
     },
 }
+LINK_VARIANTS = {
+    "windows_and_tiles": {
+        "full": (),
+        "no_ops": ("for (int k = 0; k < nops; ++k) {",
+                   "for (int k = 0; k < 0; ++k) {"),
+        "no_loads": {"replace": [
+            ("cp_async16(X0 + at, x0 + g);", "X0[at] = (float)g;"),
+            ("if (DUAL) cp_async16(X1 + at, x1 + g);", "(void)0;"),
+            ("v[j] = ok ? ld4(x + off) : make_float4(0.f, 0.f, 0.f, 0.f);",
+             "v[j] = make_float4((float)off, 0.f, 0.f, 0.f);")]},
+        "no_stores": {"replace": [
+            ("store4(out + out_base + (size_t)dst * N + c,",
+             "if (g.x == -1.2345e-38f) store4(out + out_base + "
+             "(size_t)dst * N + c,"),
+            ("st4(y + off, epilogue<DUAL>(a, u, b0, nullptr, t.c0 + 4 * q, "
+             "t.nvec));",
+             "if (a.x == -1.2345e-38f) st4(y + off, epilogue<DUAL>(a, u, "
+             "b0, nullptr, t.c0 + 4 * q, t.nvec));")]},
+        "no_stages": {"replace": [("v[j] = add4(a, b);", "v[j] = a;"),
+                                  ("v[j + h] = sub4(a, b);",
+                                   "v[j + h] = b;")]},
+        "no_copy": ("if (ty == 0 && crows > 0)",
+                    "if (ty == 0 && crows < 0)"),
+    },
+}
+# the span link's transforms at each 2048-row site
+LINK_CASES = (("dwt", 3), ("dwt", 9), ("wht", 3))
+# the span link's window plans beside its own (right output)
+WINDOW_PLANS = {"out32": dict(SL_OUT_INVERSE=32),
+                "cols128": dict(SL_COLS=128)}
 # one set of cuts for each design of K1 and K5: the earlier ones (three
 # launches over 32-column slabs; dp4a blocks of 4-byte loads), the later
 # ones (one launch over row windows in clusters; mma.sync over a cp.async
@@ -459,11 +505,23 @@ def variant_source(src: str, cuts) -> str:
     return src
 
 
+def source_of(src_root: Path, name: str) -> str:
+    """``csrc/<name>.cu`` under ``src_root`` with the headers it includes
+    from ``csrc`` written in place of their ``#include`` lines."""
+    csrc = src_root / "src" / "repro_torch" / "csrc"
+    out = []
+    for line in (csrc / f"{name}.cu").read_text().splitlines(True):
+        inc = line.strip()
+        if inc.startswith('#include "') and inc.endswith('.cuh"'):
+            line = (csrc / inc[len('#include "'):-1]).read_text()
+        out.append(line)
+    return "".join(out)
+
+
 def variants_of(designs: dict, src_root: Path, name: str) -> dict:
     """The set of cuts in ``designs`` whose every statement is in the
     source ``csrc/<name>.cu`` under ``src_root``."""
-    src = (src_root / "src" / "repro_torch" / "csrc" / f"{name}.cu") \
-        .read_text()
+    src = source_of(src_root, name)
     for design, variants in designs.items():
         try:
             for cuts in variants.values():
@@ -481,8 +539,7 @@ def build_variants(cs, kcuda, name: str, src_root: Path, variants: dict,
     started together) and load it with the wrapper's signatures."""
     out_dir = ROOT / "build" / "probe" / name / src_root.resolve().name
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (src_root / "src" / "repro_torch" / "csrc" / f"{name}.cu") \
-        .read_text()
+    src = source_of(src_root, name)
     procs = {}
     for label, cuts in variants.items():
         cu = out_dir / f"{label}.cu"
@@ -682,6 +739,58 @@ def probe_k10(torch, cs, args) -> None:
             ms = cs.timed_graph(torch, call, 20, per_graph=10)
             print(f"[probe] k10 {name} {label}: graph_ms={ms:.4f}")
         del x
+        torch.cuda.empty_cache()
+
+
+def probe_link(torch, cs, args) -> None:
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels import stamp_matmul as sm
+    libs = build_variants(cs, kcuda, "span_link", args.src,
+                          variants_of(LINK_VARIANTS, args.src, "span_link"),
+                          sm._SPAN_SIGNATURES)
+    own_plan = sm.span_wht_plan
+    own_consts = {k: getattr(sm, k) for p in WINDOW_PLANS.values()
+                  for k in p}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    qkv = cs.D + 2 * cs.KV_HEADS * cs.HD
+    for name, n, dual, s, cases in (
+            ("qkv", qkv, False, 2048, LINK_CASES),
+            ("gate_up", cs.D_FF, True, 2048, LINK_CASES),
+            ("down", cs.D, False, 2048, LINK_CASES),
+            ("qkv", qkv, False, 1024, (("dwt", 8),)),
+            ("down", cs.D, False, 1024, (("dwt", 8),))):
+        g = torch.randn((1, s, n), generator=gen, device="cuda")
+        u = torch.randn((1, s, n), generator=gen, device="cuda") \
+            if dual else None
+        b = torch.randn(n, generator=gen, device="cuda")
+        for tf, levels in cases:
+            kw = dict(transform=tf, levels=levels, skip_first=True,
+                      inverse=True, out_dtype=torch.bfloat16)
+
+            def call():
+                return sm.stamp_span_transform(g, u, b, None, **kw)
+
+            runs = list(libs.items())
+            runs += [(k, libs["full"]) for k in
+                     (["in_sector"] if tf == "wht" else list(WINDOW_PLANS))]
+            for label, lib in runs:
+                kcuda._LIBS["span_link"] = lib
+                if label == "in_sector":
+                    sm.span_wht_plan = (lambda *a: own_plan(*a[:5], 4))
+                for name_, value in WINDOW_PLANS.get(label, {}).items():
+                    setattr(sm, name_, value)
+                sm.span_passes.cache_clear()
+                sm._PROGRAMS.clear()
+                if label == "full" or label not in dict(libs):
+                    cs.check(torch.equal(call(), sm.span_transform_plain(
+                        g, u, b, None, **kw)), f"link {label} differs")
+                ms = cs.timed_graph(torch, call, 20, per_graph=10)
+                sm.span_wht_plan = own_plan
+                for name_, value in own_consts.items():
+                    setattr(sm, name_, value)
+                print(f"[probe] link {name} s{s} {tf}{levels} {label}: "
+                      f"graph_ms={ms:.4f}")
+        del g, u
         torch.cuda.empty_cache()
 
 
@@ -885,7 +994,7 @@ def sweep_k4(torch, cs, pa, PKV, KV, forced, splits, own_plan) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=("k1", "k2", "k3", "k4", "k5", "k6",
-                                       "k7", "k8", "k10"))
+                                       "k7", "k8", "k10", "link"))
     ap.add_argument("--src", type=Path, default=ROOT)
     ap.add_argument("--fill", default="")
     ap.add_argument("--cluster", default="")
@@ -904,7 +1013,8 @@ def main() -> None:
     with torch.inference_mode():
         {"k1": probe_k1, "k2": probe_k2, "k3": probe_k3, "k4": probe_k4,
          "k5": probe_k5, "k6": probe_k6, "k7": probe_k7, "k8": probe_k8,
-         "k10": probe_k10}[args.kernel](torch, cs, args)
+         "k10": probe_k10, "link": probe_link}[args.kernel](torch, cs,
+                                                           args)
 
 
 if __name__ == "__main__":
