@@ -85,10 +85,17 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    codes of a 4096 -> 14336 weight and the inverse ``haar_dwt_seq``, and a
    ``walsh_hadamard`` involution, with every kernel's launch count set to 0
    before it and read after, held against the same chain of plain versions;
-   then serve llama3-8b at full width through the port's serve entry point
-   (seeded init, PTQ on the card, paged unified fused engine with the paged
-   attention kernel): 4 requests x 96 prompt tokens x 8 new tokens, with
-   every kernel's launch count set to 0 before that run and read after;
+   then the paper runners of ``repro_torch.paper.run`` at the reference's
+   sizes (``paper_phase``: Tables 1, 3 and 4, Figs. 3, 4b and 7, counts
+   read around their card run; every row held against the same row on the
+   CPU, Table 4's fused sites, K1 -> K2 -> span link at 256 rows, against
+   the port's reference path, Table 3's block on K9 / K10 against the
+   plain block and timed apart, printed as ``[paper]`` lines with the
+   phase's seconds); then serve llama3-8b at full width through the port's
+   serve entry point (seeded init, PTQ on the card, paged unified fused
+   engine with the paged attention kernel): 4 requests x 96 prompt tokens
+   x 8 new tokens, with every kernel's launch count set to 0 before that
+   run and read after;
    then the same model at ``--prefill-chunk 256`` with 4 prompts of 400
    tokens (the long-span chain) and through the bucketed engine at
    ``--bucket 512`` on the same prompts; then the same model and 96-token
@@ -1456,6 +1463,173 @@ def library_phase(torch, ops, prepare_linear, hd, wt, qp, im) -> dict:
     return counts
 
 
+# the paper phase (``repro_torch.paper``): the kernels its path launches
+# (Table 4's fused rows at 256 rows: K1 -> K2 -> span link; Table 3's
+# block: K9 and K10), the tolerance of a card row's SQNR against the same
+# row on the CPU, and Table 3's block held against its plain version
+PAPER_KERNELS = {"stamp_transform_quantize", "stamp_int_gemm",
+                 "stamp_span_transform", "haar_dwt_seq", "walsh_hadamard"}
+RTN_CODES_KERNELS = {"stamp_transform_quantize", "stamp_int_gemm",
+                     "stamp_span_transform"}
+PAPER_SQNR_DB = 0.05
+PAPER_BLOCK_REL = 1e-4
+PAPER_FUSED_REL = 1e-4
+
+
+def _sqnr_of(derived: str):
+    fields = dict(kv.split("=") for kv in derived.split(","))
+    return float(fields["sqnr_db"]) if "sqnr_db" in fields else None
+
+
+def _rel_norm(torch, got, want) -> float:
+    return float(torch.linalg.norm((got - want).float()) /
+                 torch.linalg.norm(want.float()))
+
+
+def table3_parts(torch, T3, hd, wt) -> dict:
+    """Table 3's block at the reference's (2, 1024, 512) taken apart on the
+    card: each transformed block held against the same block on the plain
+    transforms (within ``PAPER_BLOCK_REL`` relative), and the times of each
+    block, of K9 (forward + inverse, 3 levels) and K10 (sequence and
+    feature axis, twice each: forward and inverse) alone and of the block's
+    two GEMMs with silu, eager and replayed from CUDA graphs."""
+    from repro_torch.paper.common import lvm_activations
+    dev = torch.device("cuda")
+    x = lvm_activations(2, (32, 32), 512, seed=0, device=dev)
+    w1, w2 = T3.block_weights(512, dev)
+    out = {"shape": list(x.shape), "rel_err": {}, "ms": {}, "graph_ms": {}}
+    for tf in ("none",) + T3.TRANSFORMS:
+        got = T3.block_forward(tf, x, w1, w2)
+        want = T3.block_forward(tf, x, w1, w2, dwt=hd.haar_dwt_plain,
+                                wht=wt.wht_plain)
+        check(bool(torch.isfinite(got).all()), f"table3 {tf}: not finite")
+        rel = _rel_norm(torch, got, want)
+        check(rel <= PAPER_BLOCK_REL, f"table3 {tf}: the block on K9 / K10 "
+              f"is {rel} from the plain block (bound {PAPER_BLOCK_REL})")
+        out["rel_err"][tf] = rel
+    parts = {f"block_{tf}": (lambda tf=tf: T3.block_forward(tf, x, w1, w2))
+             for tf in ("none",) + T3.TRANSFORMS}
+    parts.update({
+        "k9_fwd_inv": lambda: hd.haar_dwt_seq(hd.haar_dwt_seq(x, 3), 3,
+                                              inverse=True),
+        "k10_seq_x2": lambda: wt.walsh_hadamard(wt.walsh_hadamard(x, -2), -2),
+        "k10_feat_x2": lambda: wt.walsh_hadamard(wt.walsh_hadamard(x, -1),
+                                                 -1),
+        "gemms_silu": lambda: torch.nn.functional.silu(x @ w1) @ w2})
+    for name, fn in parts.items():
+        out["ms"][name] = timed(torch, fn, iters=20)
+        out["graph_ms"][name] = timed_graph(torch, fn, 40, per_graph=10)
+    # bounds: each transform call reads and writes x once (f32); the GEMMs
+    # run in f32 outside the tensor cores (TF32 off), 2·M·N·K each
+    b, s, d = x.shape
+    io = 2 * x.numel() * x.element_size()
+    out["bound_ms"] = {
+        "k9_fwd_inv": bound(2 * io, 0, F32_FLOPS_PER_S),
+        "k10_seq_x2": bound(2 * io, 0, F32_FLOPS_PER_S),
+        "k10_feat_x2": bound(2 * io, 0, F32_FLOPS_PER_S),
+        "gemms_silu": bound(io + (w1.numel() + w2.numel()) * 4,
+                            4.0 * b * s * d * 4 * d, F32_FLOPS_PER_S)}
+    return out
+
+
+def rtn_codes_site(torch) -> dict:
+    """A fused STaMP linear on 4-bit RTN weight codes (``w_quant``) at 256
+    rows of 128 -> 256 on the card, beside the reference path on the same
+    codes dequantized: the codes go through K1 -> K2 -> span link as they
+    are."""
+    import dataclasses as dc
+    from repro_torch.core import quant as Q
+    from repro_torch.core.stamp import StampConfig, stamp_linear
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((1, 256, 128), generator=gen, device="cuda")
+    wq = Q.rtn_quantize_weight(torch.randn((128, 256), generator=gen,
+                                           device="cuda") * 0.05, bits=4)
+    cfg = StampConfig(num_hi_tokens=64)
+    return dict(name="rtn_w4_codes",
+                ref=stamp_linear(x, None, None, cfg, w_quant=wq),
+                fused=stamp_linear(x, None, None,
+                                   dc.replace(cfg, execution="fused"),
+                                   w_quant=wq))
+
+
+def paper_phase(torch, ops, hd, wt) -> dict:
+    """The paper runners of ``repro_torch.paper.run`` on the card at the
+    reference's sizes (Tables 1, 3, 4, Figs. 3, 4b, 7) and a fused linear
+    on RTN codes (:func:`rtn_codes_site`, which must launch each of
+    ``RTN_CODES_KERNELS``), every kernel's launch count set to 0 just
+    before and read just after; then each accuracy row held against the
+    same row of the CPU plain path (``sqnr_db`` within ``PAPER_SQNR_DB``;
+    Fig. 3's host statistics equal), Table 4's fused sites (K1 -> K2 ->
+    the span link at 256 rows, the gate/up pair through the dual link) and
+    the linear on RTN codes against the port's reference path on the card
+    (within ``PAPER_FUSED_REL`` relative), and Table 3's block against its
+    plain version (:func:`table3_parts`).  Prints ``[paper]`` lines and
+    the phase's seconds."""
+    import importlib
+    from repro_torch.paper import run as paper_run
+    from repro_torch.paper import table3_overhead as T3
+    from repro_torch.paper import table4_sites as T4
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    mods = {name.rsplit(".", 1)[1]: importlib.import_module(name)
+            for name in paper_run.MODULES}
+    ops.reset_launch_counts()
+    card = {}
+    for name, m in mods.items():
+        if m is T4:             # the same rows as T4.run, its sites kept
+            sites = T4.fused_sites(dev)
+            card[name] = T4.ablation_rows(dev) + T4.fused_site_rows(sites)
+        else:
+            card[name] = m.run(device=dev)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    sites.append(rtn_codes_site(torch))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    rtn = {k: counts[k] - before[k] for k in counts}
+    check(all(rtn[k] > 0 for k in RTN_CODES_KERNELS),
+          f"paper rtn_w4_codes: the fused linear on RTN codes launched "
+          f"{rtn}, not each of {sorted(RTN_CODES_KERNELS)}")
+    run_s = time.perf_counter() - t0
+    worst = 0.0
+    for name, m in mods.items():
+        if name == "table3_overhead":
+            continue            # no accuracy rows: held by table3_parts
+        cpu = m.run(device="cpu")
+        check([r["name"] for r in card[name]] == [r["name"] for r in cpu],
+              f"paper {name}: card and CPU rows differ in name")
+        for g, c in zip(card[name], cpu):
+            sg, sc = _sqnr_of(g["derived"]), _sqnr_of(c["derived"])
+            if sg is None:
+                check(name != "fig3_energy" or g["derived"] == c["derived"],
+                      f"paper {g['name']}: {g['derived']} on the card, "
+                      f"{c['derived']} on the CPU")
+                continue
+            worst = max(worst, abs(sg - sc))
+            check(abs(sg - sc) <= PAPER_SQNR_DB,
+                  f"paper {g['name']}: sqnr {sg} dB on the card, {sc} on "
+                  f"the CPU (bound {PAPER_SQNR_DB})")
+    fused = {}
+    for site in sites:
+        check(bool(torch.isfinite(site["fused"]).all()),
+              f"paper fused {site['name']}: not finite")
+        rel = _rel_norm(torch, site["fused"], site["ref"])
+        check(rel <= PAPER_FUSED_REL, f"paper fused {site['name']}: {rel} "
+              f"from the reference path (bound {PAPER_FUSED_REL})")
+        fused[site["name"]] = rel
+    parts = table3_parts(torch, T3, hd, wt)
+    for name, rows in card.items():
+        for r in rows:
+            print(f"[paper] {json.dumps(r)}")
+    print(f"[paper] {json.dumps({'fused_rel_err': fused})}")
+    print(f"[paper] {json.dumps({'table3_parts': parts})}")
+    print(f"[paper] {json.dumps({'launches': counts})}")
+    print(f"[paper] card rows in {run_s:.1f}s; sqnr card vs CPU within "
+          f"{worst:.4f} dB (bound {PAPER_SQNR_DB}); phase "
+          f"{time.perf_counter() - t0:.1f}s")
+    return counts
+
+
 def to_device(x, device):
     """A nest of dicts and lists of tensors, moved to ``device``."""
     if isinstance(x, dict):
@@ -2109,10 +2283,13 @@ def main() -> None:
     # which kernels each path must launch, and which it must not: the
     # library path runs only the standalone kernels, the serve paths none
     standalone = set(std)
-    serving = {k.__name__ for k in ops.KERNELS} - standalone
+    every = {k.__name__ for k in ops.KERNELS}
+    serving = every - standalone
     with torch.inference_mode():
         paths = {"kernel_library": (library_phase(torch, ops, prepare_linear,
                                                   hd, wt, qp, im), serving)}
+        paths["paper"] = (paper_phase(torch, ops, hd, wt),
+                          every - PAPER_KERNELS)
     torch.cuda.empty_cache()
     paths.update(serve_phases(torch, serve, ops, configs, None, standalone))
     for path, (counts, absent) in paths.items():

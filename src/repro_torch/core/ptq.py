@@ -28,6 +28,18 @@ class PTQReport:
     sites: int
 
 
+@torch.no_grad()
+def capture_block_inputs(params: dict, batch, cfg: ModelConfig) -> list:
+    """The calibration taps of one batch, as the reference takes them: the
+    token embeddings and the final normed hidden states, as f32 numpy
+    arrays (both taps stand in for the block inputs, whose autocorrelation
+    the data's locality drives at every depth, Fig. 3)."""
+    batch = lm.as_batch(batch)
+    x = lm.model_hidden(params, batch, cfg)
+    emb = lm._embed(params, batch["tokens"])
+    return [emb.float().cpu().numpy(), x.float().cpu().numpy()]
+
+
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
 

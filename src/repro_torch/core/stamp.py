@@ -2,15 +2,21 @@
 ported from ``repro.core.stamp``.
 
     1.  ``T = L · X``            (sequence transform, §3)
-    2.  ``Tq = Q(T)``            (mixed-precision quantize, first ``num_hi``
-                                  tokens at ``hi_bits``)
-    3.  ``Y = Tq · W``
-    4.  ``y = L⁻¹ · Y + 1βᵀ``    (inverse transform, then bias — Eq. 7)
+    2.  ``T = T · R``            (optional feature transform; ``R⁻¹`` is
+                                  folded into W by the caller)
+    3.  ``Tq = Q(T)``            (mixed-precision quantize, first ``num_hi``
+                                  tokens at ``hi_bits``; per token, or per
+                                  (token, feature block))
+    4.  ``Y = Tq · W``           (W, or its RTN codes dequantized)
+    5.  ``y = L⁻¹ · Y + 1βᵀ``    (inverse transform, then bias — Eq. 7)
 
 ``execution="reference"`` runs these as separate PyTorch ops on float
 weights; ``execution="fused"`` runs them on prepared int8 weights through
 `repro_torch.kernels.ops` (the Hopper kernels on a CUDA tensor, their plain
-versions on a CPU tensor).
+versions on a CPU tensor).  The dense bases (``dct``, ``klt``), the 2-D
+DWT, per-block scales and feature rotations have no fused kernel in the
+reference either: they stay on the reference path
+(:func:`fused_ineligibility`).
 """
 
 from __future__ import annotations
@@ -35,13 +41,15 @@ class StampConfig:
     setting — Haar DWT, 64 tokens at 8 bits, the rest at 4 bits, the
     first-token exception on)."""
 
-    seq_transform: str = "dwt"       # none | dwt | wht
+    seq_transform: str = "dwt"       # none | dwt | dwt2d | dct | wht | klt
     levels: Optional[int] = None     # None = auto: log2(seq / num_hi)
     num_hi_tokens: int = 64
     hi_bits: int = 8
     lo_bits: int = 4
     skip_first_token: bool = True    # attention-sink exception (§B.2)
-    granularity: str = "token"
+    granularity: str = "token"       # token | block
+    block_size: int = 64
+    hw: Optional[tuple] = None       # (H, W) latent grid for dwt2d
     enabled: bool = True
     execution: str = "reference"     # reference | fused
     fused_weight_bits: int = 8
@@ -56,6 +64,9 @@ class StampConfig:
             return self.levels
         ratio = max(seq_len / max(self.num_hi_tokens, 1), 2)
         return max(1, int(math.ceil(math.log2(ratio))))
+
+    def average_bits(self, seq_len: int) -> float:
+        return Q.average_bits(self.bits_vector(seq_len))
 
 
 def fold_segments(x: torch.Tensor, seg_len: int) -> torch.Tensor:
@@ -75,33 +86,61 @@ def unfold_segments(y: torch.Tensor, batch: int) -> torch.Tensor:
 
 
 def apply_seq_transform(x: torch.Tensor, cfg: StampConfig,
-                        axis: int = -2) -> torch.Tensor:
+                        axis: int = -2, basis=None) -> torch.Tensor:
+    """``L · x`` along ``axis`` (``basis``: the KLT's calibrated rows)."""
     if not cfg.enabled:
         return x
     return T.sequence_transform(
         x, cfg.seq_transform, axis=axis,
         levels=cfg.resolved_levels(x.shape[axis]),
-        skip_first=cfg.skip_first_token)
+        skip_first=cfg.skip_first_token, hw=cfg.hw, basis=basis)
 
 
 def invert_seq_transform(y: torch.Tensor, cfg: StampConfig,
-                         axis: int = -2) -> torch.Tensor:
+                         axis: int = -2, basis=None) -> torch.Tensor:
     if not cfg.enabled:
         return y
     return T.inverse_sequence_transform(
         y, cfg.seq_transform, axis=axis,
         levels=cfg.resolved_levels(y.shape[axis]),
-        skip_first=cfg.skip_first_token)
+        skip_first=cfg.skip_first_token, hw=cfg.hw, basis=basis)
+
+
+def blockwise_mixed(tx: torch.Tensor, bits: torch.Tensor,
+                    block_size: int) -> torch.Tensor:
+    """Per-(token, feature block) min-max fake quantization with per-token
+    ``bits`` (``granularity="block"``); a feature width that is no whole
+    number of blocks falls back to per-token scales, as in the
+    reference."""
+    *lead, s, d = tx.shape
+    if d % block_size:
+        return Q.fake_quant(tx, bits, axis=-1)
+    xb = tx.reshape(*lead, s, d // block_size, block_size)
+    n = (2.0 ** bits[:, None] - 1.0)[..., None]
+    mn = xb.amin(dim=-1, keepdim=True)
+    mx = xb.amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min((mx - mn) / n, Q.EPS)
+    zp = torch.round(-mn / scale)
+    q = torch.minimum(torch.clamp_min(torch.round(xb / scale) + zp, 0.0), n)
+    return ((q - zp) * scale).to(tx.dtype).reshape(*lead, s, d)
 
 
 def _reference_quantize(x: torch.Tensor, cfg: StampConfig,
-                        site: Optional[str] = None) -> torch.Tensor:
-    """Transformed + mixed-precision fake-quantized activation, in f32
-    (bf16 butterflies would move the min/max scales and flip codes).  With
-    a telemetry scope open, ``site``'s quant-health stats are recorded."""
-    tx = apply_seq_transform(x.float(), cfg)
-    bits = cfg.bits_vector(tx.shape[-2], device=x.device)
-    QS.record(site, tx, bits, cfg.hi_bits)
+                        site: Optional[str] = None, basis=None,
+                        feature_rot: Optional[torch.Tensor] = None,
+                        axis: int = -2) -> torch.Tensor:
+    """Transformed (and feature-rotated) mixed-precision fake-quantized
+    activation, in f32 (bf16 butterflies would move the min/max scales and
+    flip codes).  With a telemetry scope open, ``site``'s quant-health
+    stats are recorded (for the ``(…, s, d)`` layout only)."""
+    tx = apply_seq_transform(x.float(), cfg, axis=axis, basis=basis)
+    if feature_rot is not None:
+        tx = tx @ feature_rot.to(tx.dtype)
+    bits = cfg.bits_vector(tx.shape[axis], device=x.device)
+    if axis in (-2, x.ndim - 2):
+        QS.record(site, tx, bits, cfg.hi_bits)
+    if cfg.granularity == "block":
+        return blockwise_mixed(tx, bits, cfg.block_size)
     return Q.fake_quant(tx, bits, axis=-1)
 
 
@@ -118,20 +157,22 @@ def _record_fused(x: torch.Tensor, cfg: StampConfig,
               cfg.hi_bits)
 
 
-def stamp_fake_quant(x: torch.Tensor, cfg: StampConfig,
-                     seg_len: Optional[int] = None,
+def stamp_fake_quant(x: torch.Tensor, cfg: StampConfig, axis: int = -2,
+                     basis=None, seg_len: Optional[int] = None,
                      site: Optional[str] = None) -> torch.Tensor:
-    """Full round trip ``L⁻¹ Q(L X)`` along the sequence axis ``-2``;
-    ``seg_len`` marks a flattened batch of uniform spans along axis 1;
-    ``site`` names the telemetry site."""
+    """Full round trip ``L⁻¹ Q(L X)`` along ``axis`` (``basis``: the KLT's
+    rows); ``seg_len`` marks a flattened batch of uniform spans along axis
+    1; ``site`` names the telemetry site."""
     if not cfg.enabled:
         return x
     if seg_len is not None and seg_len != x.shape[1]:
+        if axis not in (-2, x.ndim - 2):
+            raise ValueError("segments fold along axis 1")
         return unfold_segments(
-            stamp_fake_quant(fold_segments(x, seg_len), cfg, site=site),
-            x.shape[0])
-    return invert_seq_transform(_reference_quantize(x, cfg, site),
-                                cfg).to(x.dtype)
+            stamp_fake_quant(fold_segments(x, seg_len), cfg, basis=basis,
+                             site=site), x.shape[0])
+    tq = _reference_quantize(x, cfg, site, basis=basis, axis=axis)
+    return invert_seq_transform(tq, cfg, axis=axis, basis=basis).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,11 +191,32 @@ class PreparedLinear:
         return ((self.qw.float() - self.zw) * self.sw).to(dtype)
 
 
-def prepare_linear(w: torch.Tensor, b: Optional[torch.Tensor] = None,
-                   bits: int = 8) -> PreparedLinear:
-    """Per-output-channel min-max quantization of ``w`` (``(…, din,
-    dout)``, reduced over ``din``) into signed int8 codes.  The range is
-    anchored at zero so the shifted zero point is a small integer."""
+def _prepared(qw: torch.Tensor, sw, zw, b) -> PreparedLinear:
+    # contiguous codes whatever their strides (a dequantized packed weight
+    # is a transposed view): the kernels read them row-major
+    qw = qw.contiguous()
+    return PreparedLinear(qw=qw, sw=sw, zw=zw,
+                          qw_sum=qw.sum(dim=-2, keepdim=True,
+                                        dtype=torch.int32), bias=b)
+
+
+def prepare_linear(w: Optional[torch.Tensor] = None,
+                   b: Optional[torch.Tensor] = None, bits: int = 8, *,
+                   w_quant: Optional[Q.QuantizedWeight] = None
+                   ) -> PreparedLinear:
+    """The fused path's weight buffers.  From ``w_quant`` its integer codes
+    are reused bit for bit, shifted into signed storage with the zero
+    point shifted alike; from a raw ``w`` (``(…, din, dout)``, reduced over
+    ``din``) a per-output-channel min-max quantization at ``bits``, its
+    range anchored at zero so the shifted zero point is a small
+    integer."""
+    if w_quant is not None:
+        if w_quant.bits > 8:
+            raise ValueError("fused path stores weight codes in int8")
+        shift = 1 << (w_quant.bits - 1)
+        return _prepared((w_quant.q.int() - shift).to(torch.int8),
+                         w_quant.scale.float(),
+                         (w_quant.zero_point - shift).float(), b)
     if bits > 8:
         raise ValueError("fused path stores weight codes in int8")
     n = float(2 ** bits - 1)
@@ -165,12 +227,7 @@ def prepare_linear(w: torch.Tensor, b: Optional[torch.Tensor] = None,
     sw = torch.clamp_min(Q.fdiv(mx - mn, n), Q.EPS)
     zp = torch.round(-mn / sw)
     q = torch.clamp(torch.round(wf / sw) + zp, 0.0, n)
-    # contiguous codes whatever ``w``'s strides (a dequantized packed weight
-    # is a transposed view): the kernels read them row-major
-    qw = (q - shift).to(torch.int8).contiguous()
-    return PreparedLinear(qw=qw, sw=sw, zw=zp - shift,
-                          qw_sum=qw.sum(dim=-2, keepdim=True,
-                                        dtype=torch.int32), bias=b)
+    return _prepared((q - shift).to(torch.int8), sw, zp - shift, b)
 
 
 def token_quantize(x: torch.Tensor, bits: int = 8) -> tuple:
@@ -192,8 +249,10 @@ def token_quantize(x: torch.Tensor, bits: int = 8) -> tuple:
     return q, s, z - shift
 
 
-def fused_ineligibility(cfg: StampConfig) -> tuple:
-    """Why ``cfg`` cannot run the fused kernels (empty = eligible)."""
+def fused_ineligibility(cfg: StampConfig,
+                        feature_rot: Optional[torch.Tensor] = None) -> tuple:
+    """Why ``cfg`` (with a feature rotation, if given) cannot run the fused
+    kernels (empty = eligible)."""
     reasons = []
     if not cfg.enabled:
         reasons.append("stamp_disabled")
@@ -205,11 +264,14 @@ def fused_ineligibility(cfg: StampConfig) -> tuple:
         reasons.append(f"transform_not_fusable:{cfg.seq_transform}")
     if max(cfg.hi_bits, cfg.lo_bits, cfg.fused_weight_bits) > 8:
         reasons.append("bits_exceed_int8")
+    if feature_rot is not None:
+        reasons.append("feature_rotation")
     return tuple(reasons)
 
 
-def fused_eligible(cfg: StampConfig) -> bool:
-    return not fused_ineligibility(cfg)
+def fused_eligible(cfg: StampConfig,
+                   feature_rot: Optional[torch.Tensor] = None) -> bool:
+    return not fused_ineligibility(cfg, feature_rot)
 
 
 def _kernel_kwargs(cfg: StampConfig, s: int) -> dict:
@@ -220,30 +282,39 @@ def _kernel_kwargs(cfg: StampConfig, s: int) -> dict:
 
 def stamp_linear(x: torch.Tensor, w: Optional[torch.Tensor],
                  b: Optional[torch.Tensor], cfg: StampConfig, *,
+                 w_quant: Optional[Q.QuantizedWeight] = None,
+                 basis=None, feature_rot: Optional[torch.Tensor] = None,
                  prepared: Optional[PreparedLinear] = None,
                  merge_heads: bool = False,
                  seg_len: Optional[int] = None,
                  site: Optional[str] = None) -> torch.Tensor:
     """STaMP linear layer (Fig. 2a).
 
-    ``merge_heads`` marks ``x`` as the raw head-split ``(…, s, nh, hd)``
-    attention output (out-proj site).  ``seg_len`` marks a flattened batch
-    of uniform ``seg_len``-token spans: the transform applies per span.
-    With ``cfg.execution == "fused"`` the chain runs on int8 weights
-    (``prepared``, or prepared on the fly from ``w``).  ``site`` names the
-    quant-telemetry site."""
+    ``w_quant`` replaces ``w`` by its RTN codes (dequantized on the
+    reference path, taken as they are by the fused path when ``bits ≤
+    8``).  ``basis`` is the KLT's calibrated rows.  ``feature_rot`` is the
+    feature transform ``R`` applied to the transformed activation; the
+    caller folds ``R⁻¹`` into ``w``.  ``merge_heads`` marks ``x`` as the
+    raw head-split ``(…, s, nh, hd)`` attention output (out-proj site).
+    ``seg_len`` marks a flattened batch of uniform ``seg_len``-token spans:
+    the transform applies per span.  With ``cfg.execution == "fused"`` the
+    chain runs on int8 weights (``prepared``, or prepared on the fly from
+    ``w_quant`` or ``w``).  ``site`` names the quant-telemetry site."""
     if seg_len is not None and x.ndim >= 3 and seg_len != x.shape[1]:
         y = stamp_linear(fold_segments(x, seg_len), w, b, cfg,
-                         prepared=prepared, merge_heads=merge_heads,
-                         site=site)
+                         w_quant=w_quant, basis=basis,
+                         feature_rot=feature_rot, prepared=prepared,
+                         merge_heads=merge_heads, site=site)
         return unfold_segments(y, x.shape[0])
     if merge_heads:
         x = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
-    if fused_eligible(cfg):
+    if fused_eligible(cfg, feature_rot) and \
+            (w_quant is None or w_quant.bits <= 8):
         from repro_torch.kernels import ops
         _record_fused(x, cfg, site)
         prep = prepared if prepared is not None else \
-            prepare_linear(w, b, bits=cfg.fused_weight_bits)
+            prepare_linear(w, b, bits=cfg.fused_weight_bits,
+                           w_quant=w_quant)
         bias = b if b is not None else prep.bias
         *lead, s, d = x.shape
         y = ops.stamp_quant_matmul(x.reshape(-1, s, d), prep.qw, prep.sw,
@@ -251,30 +322,35 @@ def stamp_linear(x: torch.Tensor, w: Optional[torch.Tensor],
                                    out_dtype=x.dtype,
                                    **_kernel_kwargs(cfg, s))
         return y.reshape(*lead, s, y.shape[-1])
-    if w is None and prepared is not None:
+    if w_quant is not None:
+        w = w_quant.dequant(x.dtype)
+    elif w is None and prepared is not None:
         w = prepared.dequant(x.dtype)
         b = prepared.bias if b is None else b
     if not cfg.enabled:
         y = x @ w.to(x.dtype)
     else:
-        tq = _reference_quantize(x, cfg, site)
-        y = invert_seq_transform(tq.to(x.dtype) @ w.to(x.dtype), cfg)
+        tq = _reference_quantize(x, cfg, site, basis=basis,
+                                 feature_rot=feature_rot)
+        y = invert_seq_transform(tq.to(x.dtype) @ w.to(x.dtype), cfg,
+                                 basis=basis)
     return y + b.to(y.dtype) if b is not None else y
 
 
 def stamp_dual_linear(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                       w_up: Optional[torch.Tensor], cfg: StampConfig, *,
+                      basis=None,
                       prepared_gate: Optional[PreparedLinear] = None,
                       prepared_up: Optional[PreparedLinear] = None,
                       seg_len: Optional[int] = None,
                       site: Optional[str] = None) -> torch.Tensor:
     """``silu(x·Wg)·(x·Wu)`` with ONE transform + quantize of ``x`` shared
-    by both products (the SwiGLU front half).  The fused path is one
-    quantize launch feeding a dual-output GEMM whose epilogue combines the
-    inverse-transformed pair."""
+    by both products (the SwiGLU front half; ``basis``: the KLT's rows).
+    The fused path is one quantize launch feeding a dual-output GEMM whose
+    epilogue combines the inverse-transformed pair."""
     if seg_len is not None and seg_len != x.shape[1]:
         y = stamp_dual_linear(fold_segments(x, seg_len), w_gate, w_up, cfg,
-                              prepared_gate=prepared_gate,
+                              basis=basis, prepared_gate=prepared_gate,
                               prepared_up=prepared_up, site=site)
         return unfold_segments(y, x.shape[0])
     if fused_eligible(cfg):
@@ -297,9 +373,9 @@ def stamp_dual_linear(x: torch.Tensor, w_gate: Optional[torch.Tensor],
     if not cfg.enabled:
         g, u = x @ w_gate.to(x.dtype), x @ w_up.to(x.dtype)
     else:
-        tq = _reference_quantize(x, cfg, site).to(x.dtype)
-        g = invert_seq_transform(tq @ w_gate.to(x.dtype), cfg)
-        u = invert_seq_transform(tq @ w_up.to(x.dtype), cfg)
+        tq = _reference_quantize(x, cfg, site, basis=basis).to(x.dtype)
+        g = invert_seq_transform(tq @ w_gate.to(x.dtype), cfg, basis=basis)
+        u = invert_seq_transform(tq @ w_up.to(x.dtype), cfg, basis=basis)
     if bg is not None:
         g = g + bg.to(g.dtype)
     if bu is not None:

@@ -1,7 +1,9 @@
-"""Orthonormal sequence transforms (paper §3, §3.2): the Haar DWT and the
-Walsh–Hadamard transform of ``repro.core.transforms``.
+"""Orthonormal sequence transforms (paper §3, §3.2), the port of
+``repro.core.transforms``: the Haar DWT, its 2-D form over a latent grid,
+the orthonormal DCT-II, the Walsh–Hadamard transform and the calibrated
+KLT.
 
-Both act along ``axis`` (default ``-2``, the sequence axis of ``(..., s,
+All act along ``axis`` (default ``-2``, the sequence axis of ``(..., s,
 d)`` activations).  Non-power-of-two lengths keep an identity tail, and
 ``skip_first`` keeps the first (attention-sink) token out of the transform,
 so every operator stays square and orthonormal.  The operation order is the
@@ -10,12 +12,18 @@ the WHT scales by 1/√p once at the end — and each division by those
 constants is the product with their f32 reciprocals, as the reference's
 compiled kernels evaluate it (:func:`~repro_torch.core.quant.div_const`).
 So the quantizer codes computed from these outputs equal the reference's
-bit for bit; the CUDA kernels repeat the same order."""
+bit for bit; the CUDA kernels repeat the same order.  The DCT and the KLT
+are dense ``(s, s)`` bases applied as one matrix product, whose summation
+order is the BLAS's: their outputs agree with the reference's to f32
+rounding, not bit for bit."""
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.quant import div_const
@@ -122,27 +130,164 @@ def iwht(y: torch.Tensor, axis: int = -2,
     return wht(y, axis=axis, skip_first=skip_first)
 
 
+@functools.lru_cache(maxsize=32)
+def subband_order(h: int, w: int, levels: int) -> np.ndarray:
+    """The permutation that reads a 2-D Haar output in subband order: the
+    last LL quadrant first, then each level's LH, HL and HH bands, the
+    coarsest first — so the first tokens carry the most energy."""
+    sizes = _quad_sizes(h, w, levels)
+    lh, lw = (sizes[-1][0] // 2, sizes[-1][1] // 2) if sizes else (h, w)
+    grid = np.arange(h * w).reshape(h, w)
+    order = [grid[:lh, :lw].ravel()]
+    for ph, pw in sizes[::-1]:
+        hh, hw_ = ph // 2, pw // 2
+        order.append(grid[:hh, hw_:pw].ravel())
+        order.append(grid[hh:ph, :hw_].ravel())
+        order.append(grid[hh:ph, hw_:pw].ravel())
+    return np.concatenate(order)
+
+
+def _quad_sizes(h: int, w: int, levels: int) -> list:
+    sizes = []
+    for _ in range(levels):
+        if h < 2 or w < 2:
+            break
+        sizes.append((h, w))
+        h, w = h // 2, w // 2
+    return sizes
+
+
+def _cols(fn, quad: torch.Tensor) -> torch.Tensor:
+    return fn(quad.transpose(-1, -2)).transpose(-1, -2)
+
+
+def haar_dwt_2d(x: torch.Tensor, hw: tuple, levels: int = 3,
+                axis: int = -2) -> torch.Tensor:
+    """2-D Haar DWT of a sequence that flattens an ``H × W`` latent grid:
+    each level transforms the rows, then the columns, of the current
+    low-pass quadrant; the result is read out in :func:`subband_order`."""
+    h, w = hw
+    x = x.movedim(axis, -1)
+    if x.shape[-1] != h * w:
+        raise ValueError(f"sequence {x.shape[-1]} != H*W {h * w}")
+    img = x.reshape(*x.shape[:-1], h, w)
+    for lh, lw in _quad_sizes(h, w, levels):
+        quad = _cols(_haar_level, _haar_level(img[..., :lh, :lw]))
+        img = img.clone()
+        img[..., :lh, :lw] = quad
+    perm = torch.from_numpy(subband_order(h, w, levels)).to(x.device)
+    out = img.reshape(*x.shape[:-1], h * w).index_select(-1, perm)
+    return out.movedim(-1, axis)
+
+
+def haar_idwt_2d(y: torch.Tensor, hw: tuple, levels: int = 3,
+                 axis: int = -2) -> torch.Tensor:
+    """Inverse of :func:`haar_dwt_2d`."""
+    h, w = hw
+    y = y.movedim(axis, -1)
+    inv = torch.from_numpy(np.argsort(subband_order(h, w, levels))).to(
+        y.device)
+    img = y.index_select(-1, inv).reshape(*y.shape[:-1], h, w)
+    for lh, lw in reversed(_quad_sizes(h, w, levels)):
+        quad = _haar_level_inv(_cols(_haar_level_inv, img[..., :lh, :lw]))
+        img = img.clone()
+        img[..., :lh, :lw] = quad
+    return img.reshape(*y.shape[:-1], h * w).movedim(-1, axis)
+
+
+@functools.lru_cache(maxsize=32)
+def dct_matrix(n: int) -> np.ndarray:
+    """Orthonormal DCT-II basis, rows = basis vectors (row 0 = DC)."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    m = np.cos(np.pi * k * (2 * i + 1) / (2 * n))
+    m[0] *= np.sqrt(1.0 / n)
+    m[1:] *= np.sqrt(2.0 / n)
+    return m.astype(np.float32)
+
+
+def _dense(x: torch.Tensor, axis: int, skip_first: bool,
+           inverse: bool) -> torch.Tensor:
+    x = x.movedim(axis, -1)
+    head, x0 = _split_head(x, skip_first)
+    m = torch.from_numpy(dct_matrix(x0.shape[-1])).to(x0.device, x0.dtype)
+    out = x0 @ (m if inverse else m.T)
+    return _join_head(head, out).movedim(-1, axis)
+
+
+def dct(x: torch.Tensor, axis: int = -2,
+        skip_first: bool = False) -> torch.Tensor:
+    return _dense(x, axis, skip_first, inverse=False)
+
+
+def idct(y: torch.Tensor, axis: int = -2,
+         skip_first: bool = False) -> torch.Tensor:
+    return _dense(y, axis, skip_first, inverse=True)
+
+
+def klt_basis(autocorr: np.ndarray) -> np.ndarray:
+    """Rows = eigenvectors of the (s, s) autocorrelation ``S`` sorted by
+    descending eigenvalue (§3.2: the optimal ``L`` is ``Uᵀ``)."""
+    s = np.asarray(autocorr, np.float64)
+    s = (s + s.T) / 2
+    vals, vecs = np.linalg.eigh(s)
+    order = np.argsort(vals)[::-1]
+    return vecs[:, order].T.astype(np.float32)
+
+
+def apply_matrix(x: torch.Tensor, m, axis: int = -2,
+                 inverse: bool = False) -> torch.Tensor:
+    """Apply an orthonormal basis ``m`` (rows = basis vectors) along
+    ``axis``; ``inverse=True`` applies ``mᵀ``."""
+    x = x.movedim(axis, -1)
+    m = torch.as_tensor(m, dtype=x.dtype, device=x.device)
+    out = x @ (m if inverse else m.T)
+    return out.movedim(-1, axis)
+
+
 def sequence_transform(x: torch.Tensor, kind: str, axis: int = -2,
-                       levels: int = 3,
-                       skip_first: bool = False) -> torch.Tensor:
+                       levels: int = 3, skip_first: bool = False,
+                       hw: Optional[tuple] = None,
+                       basis=None) -> torch.Tensor:
+    """Dispatch on the paper's transform names (``dwt2d`` needs the latent
+    grid ``hw``, ``klt`` its calibrated ``basis``)."""
     if kind in ("none", "identity"):
         return x
     if kind == "dwt":
         return haar_dwt(x, levels=levels, axis=axis, skip_first=skip_first)
+    if kind == "dwt2d":
+        if hw is None:
+            raise ValueError("dwt2d needs the (H, W) latent grid")
+        return haar_dwt_2d(x, hw, levels=levels, axis=axis)
+    if kind == "dct":
+        return dct(x, axis=axis, skip_first=skip_first)
     if kind == "wht":
         return wht(x, axis=axis, skip_first=skip_first)
-    raise ValueError(f"sequence transform {kind!r} is not ported "
-                     f"(ported: none, dwt, wht)")
+    if kind == "klt":
+        if basis is None:
+            raise ValueError("klt needs a calibrated basis")
+        return apply_matrix(x, basis, axis=axis)
+    raise ValueError(f"unknown sequence transform {kind!r}")
 
 
 def inverse_sequence_transform(y: torch.Tensor, kind: str, axis: int = -2,
-                               levels: int = 3,
-                               skip_first: bool = False) -> torch.Tensor:
+                               levels: int = 3, skip_first: bool = False,
+                               hw: Optional[tuple] = None,
+                               basis=None) -> torch.Tensor:
     if kind in ("none", "identity"):
         return y
     if kind == "dwt":
         return haar_idwt(y, levels=levels, axis=axis, skip_first=skip_first)
+    if kind == "dwt2d":
+        if hw is None:
+            raise ValueError("dwt2d needs the (H, W) latent grid")
+        return haar_idwt_2d(y, hw, levels=levels, axis=axis)
+    if kind == "dct":
+        return idct(y, axis=axis, skip_first=skip_first)
     if kind == "wht":
         return iwht(y, axis=axis, skip_first=skip_first)
-    raise ValueError(f"sequence transform {kind!r} is not ported "
-                     f"(ported: none, dwt, wht)")
+    if kind == "klt":
+        if basis is None:
+            raise ValueError("klt needs a calibrated basis")
+        return apply_matrix(y, basis, axis=axis, inverse=True)
+    raise ValueError(f"unknown sequence transform {kind!r}")
