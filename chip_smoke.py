@@ -128,6 +128,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    of 4 rows — 576 patch rows and 64 tokens, or 128 tokens beside 32
    frames — and 8 decode steps, counts read around them, printed as
    ``[model_api]`` lines with tokens/s, prefill seconds and peak memory);
+   then the training path (``train_phase``, which launches no kernel:
+   every launch count set to 0 before it and each required to stay 0):
+   minicpm-2b whole at full width (40 layers, d 2304, padded vocabulary
+   122880, f32 weights and AdamW moments) trained ``TRAIN_STEPS`` steps of
+   4 x 512 tokens under its WSD schedule through ``repro_torch.launch.
+   train.train`` (every loss finite, the last below the first; median step
+   ms, tokens/s and peak memory printed as ``[train]`` lines), one
+   ``build_step`` step of it cut to 2 layers on the card against the same
+   step on the CPU, the checkpoint manager's snapshot, write and restore
+   seconds on that cut's state, the reference test's crash-and-restart
+   run through ``python -m repro_torch.launch.train --device cuda`` (the
+   final loss and every leaf of the final checkpoint equal to a clean
+   run's), and Table 2 (its LM trained on the card, its rows against the
+   same parameters on the CPU, ``[table2]`` lines);
 5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1554,7 +1568,8 @@ def rtn_codes_site(torch) -> dict:
 
 def paper_phase(torch, ops, hd, wt) -> dict:
     """The paper runners of ``repro_torch.paper.run`` on the card at the
-    reference's sizes (Tables 1, 3, 4, Figs. 3, 4b, 7) and a fused linear
+    reference's sizes (Tables 1, 3, 4, Figs. 3, 4b, 7; Table 2 runs in the
+    train phase) and a fused linear
     on RTN codes (:func:`rtn_codes_site`, which must launch each of
     ``RTN_CODES_KERNELS``), every kernel's launch count set to 0 just
     before and read just after; then each accuracy row held against the
@@ -1571,8 +1586,10 @@ def paper_phase(torch, ops, hd, wt) -> dict:
     from repro_torch.paper import table4_sites as T4
     t0 = time.perf_counter()
     dev = torch.device("cuda")
+    # Table 2 trains its LM first: the train phase runs it (with autograd,
+    # which this phase's inference mode refuses) and holds it card vs CPU
     mods = {name.rsplit(".", 1)[1]: importlib.import_module(name)
-            for name in paper_run.MODULES}
+            for name in paper_run.MODULES if not name.endswith("table2_llm")}
     ops.reset_launch_counts()
     card = {}
     for name, m in mods.items():
@@ -1627,6 +1644,368 @@ def paper_phase(torch, ops, hd, wt) -> dict:
     print(f"[paper] card rows in {run_s:.1f}s; sqnr card vs CPU within "
           f"{worst:.4f} dB (bound {PAPER_SQNR_DB}); phase "
           f"{time.perf_counter() - t0:.1f}s")
+    return counts
+
+
+# ---------------------------------------------------------- train phase --
+
+# minicpm-2b whole at full width (40 layers, d 2304, padded vocab 122880)
+# trains TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens under its WSD
+# schedule; the card-vs-CPU step cuts it to STEP_LAYERS layers and one row
+# of STEP_SEQ tokens
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 4, 512
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+STEP_LAYERS, STEP_SEQ, STEP_LR = 2, 128, 3e-4
+# card against CPU after one step: loss and grad norm relative, every
+# parameter within 2 lr of the CPU's (AdamW's first step moves an element
+# by lr·g / (|g| + eps): about lr, either way for a gradient within the
+# devices' bf16 noise of zero) and all but STEP_FLIP_FRAC within lr (the
+# full vocabulary's tied head gives most embedding rows gradients near
+# eps, whose steps differ in their last digits: 14% of the elements sat
+# more than 1e-3 lr apart and 0.09% more than lr on an NVIDIA H100 80GB
+# HBM3 at 700.00 W)
+STEP_LOSS_REL, STEP_GNORM_REL, STEP_FLIP_FRAC = 2e-3, 3e-2, 0.02
+# Table 2's rows card against CPU on the card-trained parameters;
+# FlatQuant-lite's rows within the paper phase's bound (its 100 Adam steps
+# take the devices' last bits to other fits: 0.02 dB apart on an NVIDIA
+# H100 80GB HBM3 at 700.00 W); perplexities within 5× their measured gap
+# (3.0e-4 there), A4 with STaMP apart from A4 uniform by more (0.48%
+# there) and the three in the CPU's order
+TABLE2_SQNR_DB, TABLE2_PPL_REL = 0.01, 1.5e-3
+# steps of the full-width model profiled after its run
+PROFILE_STEPS = 2
+# the reference test's crash-and-restart run, on the card
+RESUME_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "12",
+               "--global-batch", "2", "--seq", "64", "--ckpt-every", "4"]
+
+
+def train_full_width(torch, configs, TTRAIN) -> dict:
+    """The trainer's entry point on minicpm-2b whole: every loss finite,
+    the last below the first; median step ms, tokens/s, peak memory."""
+    from repro_torch import tree as TR
+    cfg = configs.get_config(TRAIN_ARCH)
+    check(cfg.schedule == "wsd", f"{TRAIN_ARCH} trains with {cfg.schedule}")
+    tc = TTRAIN.TrainConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                            seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                            log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = TTRAIN.train(cfg, tc, verbose=True, device="cuda")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_params = sum(p.numel() for p in TR.leaves(out["params"]))
+    losses, times = out["losses"], out["step_times"]
+    profile_steps(torch, TTRAIN, cfg, tc, out)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
+                                            for x in losses),
+          f"{TRAIN_ARCH} training: losses {losses}")
+    check(losses[-1] < losses[0],
+          f"{TRAIN_ARCH} training: the loss did not fall ({losses})")
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    row = dict(arch=TRAIN_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
+               padded_vocab=cfg.padded_vocab, params=n_params,
+               steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               first_step_ms=times[0] * 1e3, median_step_ms=med * 1e3,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med,
+               peak_gib=peak, first_loss=losses[0], last_loss=losses[-1], run_s=run_s)
+    print(f"[train] {json.dumps(row)}")
+    print(f"[train] losses {json.dumps(losses)}")
+    return row
+
+
+def profile_steps(torch, TTRAIN, cfg, tc, out) -> None:
+    """``PROFILE_STEPS`` more steps of the trained model under
+    ``torch.profiler``: the device's busy and idle share of their wall
+    time and the ops that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import optim
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    sched = optim.make_schedule(cfg.schedule, tc.lr, tc.warmup, tc.steps)
+    step = TTRAIN.build_step(cfg, None, optim.AdamWConfig(
+        lr=tc.lr, schedule=sched), False)
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=tc.seq,
+                                   global_batch=tc.global_batch), step=tc.steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in
+                     next(data).items()}
+            m = step(out["params"], out["opt_state"], None, batch)[3]
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # the device's busy time: its kernels' spans; the ops: host-side
+    # events, each with the device time of the kernels it launched
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type.name == "CUDA") / 1e6
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type.name == "CPU"), key=dev,
+                 reverse=True)[:12]
+    row = dict(steps=PROFILE_STEPS, wall_ms=wall * 1e3 / PROFILE_STEPS,
+               device_busy_ms=busy * 1e3 / PROFILE_STEPS,
+               idle_share=1 - busy / wall,
+               top=[(e.key, round(dev(e) / 1e3 / PROFILE_STEPS, 3), e.count)
+                    for e in top])
+    print(f"[train] profile {json.dumps(row)}")
+    check(busy <= wall, f"profile: the device's kernels span {busy:.3f} s "
+          f"of a {wall:.3f} s wall")
+
+
+def step_against_cpu(torch, lm, configs, TTRAIN, optim) -> dict:
+    """One ``build_step`` of minicpm-2b at full width, cut to STEP_LAYERS
+    layers, on the card and on the CPU from the same parameters and batch:
+    loss, grad norm and the parameters after the step (untimed: it runs
+    beside the crash-and-restart subprocesses)."""
+    from repro_torch import tree as TR
+    from repro_torch.data.pipeline import DataConfig, markov_batch
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              num_layers=STEP_LAYERS)
+    sched = optim.make_schedule(cfg.schedule, STEP_LR, 1, 10)
+    opt_cfg = optim.AdamWConfig(lr=STEP_LR, schedule=sched)
+    init = lm.init_params(cfg, 0, device="cpu")
+    data = markov_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=STEP_SEQ, global_batch=1), 0)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+        # a copy on each device: the step updates its parameters in place
+        params = TR.tree_map(lambda t: t.to(dev, copy=True), init)
+        for leaf in TR.leaves(params):
+            leaf.requires_grad_(True)
+        state = optim.adamw_init(params, opt_cfg)
+        err = {"_": torch.zeros((), device=dev)}
+        params, state, _, m = TTRAIN.build_step(cfg, None, opt_cfg, False)(
+            params, state, err, batch)
+        loss, gnorm, lr = (float(m["loss"]), float(m["grad_norm"]),
+                           float(m["lr"]))
+        outs[dev] = dict(params=to_device(params, "cpu"), loss=loss,
+                         gnorm=gnorm, lr=lr)
+        del params, state
+        torch.cuda.empty_cache()
+    cpu, card = outs["cpu"], outs["cuda"]
+    flips = far = total = 0
+    worst = 0.0
+    for (path, a), (_, b) in zip(TR.flatten_with_paths(cpu["params"]),
+                                 TR.flatten_with_paths(card["params"])):
+        d = (a.detach().float() - b.detach().float()).abs()
+        worst = max(worst, float(d.max()))
+        flips += int((d > cpu["lr"]).sum())
+        far += int((d > 1e-3 * cpu["lr"]).sum())
+        total += d.numel()
+    row = dict(arch=TRAIN_ARCH, layers=STEP_LAYERS, seq=STEP_SEQ,
+               loss_cpu=cpu["loss"], loss_card=card["loss"],
+               gnorm_cpu=cpu["gnorm"], gnorm_card=card["gnorm"],
+               lr=cpu["lr"], max_param_diff=worst, flip_frac=flips / total,
+               past_1e3_lr_frac=far / total)
+    print(f"[train] step card vs CPU {json.dumps(row)}")
+    check(abs(card["loss"] - cpu["loss"]) <= STEP_LOSS_REL * cpu["loss"],
+          f"train step: loss {card['loss']} on the card, {cpu['loss']} on "
+          f"the CPU")
+    check(abs(card["gnorm"] - cpu["gnorm"]) <= STEP_GNORM_REL * cpu["gnorm"],
+          f"train step: grad norm {card['gnorm']} on the card, "
+          f"{cpu['gnorm']} on the CPU")
+    check(card["lr"] == cpu["lr"] and
+          worst <= 2 * cpu["lr"] * (1 + 1e-3) and
+          flips <= STEP_FLIP_FRAC * total,
+          f"train step: parameters after the step {worst} apart "
+          f"({flips / total:.4f} past lr)")
+    return row
+
+
+def checkpoint_seconds(torch, lm, configs, optim) -> dict:
+    """The checkpoint manager on the STEP_LAYERS cut's full training state
+    (parameters and both moments, f32, on the card): the async save's host
+    snapshot (what the training loop waits for), its background write, and
+    a restore onto the card checked bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch import tree as TR
+    from repro_torch.checkpoint.manager import CheckpointManager
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              num_layers=STEP_LAYERS)
+    params = lm.init_params(cfg, 0, device="cuda")
+    state = {"params": params,
+             "opt": optim.adamw_init(params, optim.AdamWConfig())}
+    nbytes = sum(t.numel() * t.element_size() for t in TR.leaves(state))
+    tmp = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        mgr = CheckpointManager(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save_async(1, state, extra={"step": 1})
+        snap = time.perf_counter() - t0
+        mgr.wait()
+        write = time.perf_counter() - t0 - snap
+        t0 = time.perf_counter()
+        back, extra = mgr.restore(state, device="cuda")
+        torch.cuda.synchronize()
+        restore = time.perf_counter() - t0
+        check(extra == {"step": 1} and all(
+            torch.equal(a, b) for a, b in zip(TR.leaves(state),
+                                              TR.leaves(back))),
+              "checkpoint: the restored state differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state, back, params
+    torch.cuda.empty_cache()
+    row = dict(gib=nbytes / 2 ** 30, snapshot_s=snap, write_s=write,
+               restore_s=restore)
+    print(f"[train] checkpoint {json.dumps(row)}")
+    return row
+
+
+def resume_on_card(during=(None, None)) -> dict:
+    """``tests/test_distributed.py``'s crash-and-restart run through
+    ``python -m repro_torch.launch.train --device cuda``: the crash (exit
+    17) and a clean run side by side, then the restart, which resumes from
+    step 4; the final loss equal to the clean run's, and the last
+    checkpoint's every leaf CRC too.  ``during[0]()`` runs in this process
+    while the first two run, ``during[1]()`` while the restart does."""
+    import os
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="resume_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+            "cuda", *RESUME_ARGS]
+
+    def start(name, *extra):
+        return subprocess.Popen(base + ["--ckpt-dir", str(tmp / name),
+                                        *extra], env=env, cwd=ROOT,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        procs["crash"] = start("crash", "--fail-at-step", "6")
+        procs["clean"] = start("clean")
+        if during[0] is not None:
+            during[0]()
+        out = {k: p.communicate(timeout=300) for k, p in procs.items()}
+        check(procs["crash"].returncode == 17,
+              f"resume: the crash run exited {procs['crash'].returncode}: "
+              f"{out['crash'][1][-800:]}")
+        check(procs["clean"].returncode == 0,
+              f"resume: the clean run failed: {out['clean'][1][-800:]}")
+        procs["resumed"] = start("crash")
+        if during[1] is not None:
+            during[1]()
+        out["resumed"] = procs["resumed"].communicate(timeout=300)
+        check(procs["resumed"].returncode == 0,
+              f"resume: the restart failed: {out['resumed'][1][-800:]}")
+        check("[restore] resumed from step 4" in out["resumed"][0],
+              "resume: the restart did not resume from step 4")
+        final = {k: out[k][0].strip().splitlines()[-1]
+                 for k in ("resumed", "clean")}
+        crcs = {k: {n: v["crc32"] for n, v in json.loads(
+            (tmp / d / "step_00000012" / "index.json").read_text()
+        )["leaves"].items()} for k, d in (("resumed", "crash"),
+                                          ("clean", "clean"))}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(final["resumed"].split()[2] == final["clean"].split()[2],
+          f"resume: {final['resumed']!r} after the restart, "
+          f"{final['clean']!r} clean")
+    same = sum(crcs["resumed"][n] == c for n, c in crcs["clean"].items())
+    check(same == len(crcs["clean"]),
+          f"resume: {len(crcs['clean']) - same} of {len(crcs['clean'])} "
+          f"leaves of the final checkpoint differ from the clean run's")
+    row = dict(final=final["resumed"], leaves=len(crcs["clean"]),
+               seconds=time.perf_counter() - t0)
+    print(f"[train] resume on the card {json.dumps(row)}")
+    return row
+
+
+def table2_on_card(torch) -> dict:
+    """Table 2 on the card (its LM trained there, 400 steps), then its
+    evaluation on the card-trained parameters held against the same
+    parameters on the CPU, QuaRot on the same signs: SQNR within
+    TABLE2_SQNR_DB, perplexities within TABLE2_PPL_REL and in the CPU's
+    order, A4 with STaMP apart from A4 uniform by more than that."""
+    from repro_torch.core.feature_transforms import rademacher_signs
+    from repro_torch.paper import table2_llm as T2
+    t0 = time.perf_counter()
+    params = T2._trained("cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    signs = rademacher_signs(T2.CFG.d_model, gen)
+    card = T2.evaluate(params, "cuda", signs=signs.cuda())
+    cpu = T2.evaluate(to_device(params, "cpu"), "cpu", signs=signs)
+    check([r["name"] for r in card] == [r["name"] for r in cpu],
+          "table2: card and CPU rows differ in name")
+    worst = {"sqnr_db": 0.0, "ppl": 0.0}
+    for g, c in zip(card, cpu):
+        kind, vg = g["derived"].split("=")
+        vc = float(c["derived"].split("=")[1])
+        err = abs(float(vg) - vc) if kind == "sqnr_db" else \
+            abs(float(vg) - vc) / vc
+        worst[kind] = max(worst[kind], err)
+        bound = TABLE2_PPL_REL if kind == "ppl" else \
+            PAPER_SQNR_DB if "flatquant" in g["name"] else TABLE2_SQNR_DB
+        check(err <= bound, f"table2 {g['name']}: {g['derived']} on the "
+              f"card, {c['derived']} on the CPU (bound {bound})")
+        print(f"[table2] {json.dumps(g)}")
+    ppl = {dev: {r["name"]: float(r["derived"].split("=")[1]) for r in rows
+                 if "/ppl_" in r["name"]} for dev, rows in (("card", card),
+                                                            ("cpu", cpu))}
+    check(sorted(ppl["card"], key=ppl["card"].get)
+          == sorted(ppl["cpu"], key=ppl["cpu"].get),
+          f"table2: the card's perplexities {ppl['card']} stand in another "
+          f"order than the CPU's {ppl['cpu']}")
+    uni, stamp = (ppl["card"][f"table2/ppl_a4_{k}"] for k in ("uniform",
+                                                              "stamp"))
+    check(abs(uni - stamp) > TABLE2_PPL_REL * stamp,
+          f"table2: A4 with STaMP ({stamp}) within the bound of A4 uniform "
+          f"({uni})")
+    T2._trained.cache_clear()
+    row = dict(train_s=train_s, worst=worst,
+               phase_s=time.perf_counter() - t0)
+    print(f"[table2] card vs CPU {json.dumps(row)}")
+    return row
+
+
+def train_phase(torch, ops) -> dict:
+    """The training path on the card (no kernel: training runs the plain
+    PyTorch forward and its autograd, as the reference trains through
+    plain XLA), every kernel's launch count set to 0 just before and read
+    just after: minicpm-2b whole at full width, the checkpoint's seconds
+    and Table 2, each alone on the card, then the crash-and-restart run's
+    subprocesses with one step against the CPU beside them.  Returns the
+    counts."""
+    from repro_torch import configs, optim
+    from repro_torch.launch import train as TTRAIN
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    train_full_width(torch, configs, TTRAIN)
+    checkpoint_seconds(torch, lm, configs, optim)
+    table2_on_card(torch)
+    # the crash-and-restart subprocesses (small, on the same card) run
+    # beside the one step against the CPU, whose check is numerical only:
+    # nothing timed above shares the card or the host with them
+    resume_on_card((lambda: step_against_cpu(torch, lm, configs, TTRAIN,
+                                             optim), None))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"[train] phase {time.perf_counter() - t0:.1f}s launches "
+          f"{json.dumps(counts)}")
     return counts
 
 
@@ -2292,6 +2671,10 @@ def main() -> None:
                           every - PAPER_KERNELS)
     torch.cuda.empty_cache()
     paths.update(serve_phases(torch, serve, ops, configs, None, standalone))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training runs no kernel: its path must launch none
+    paths["train"] = (train_phase(torch, ops), every)
     for path, (counts, absent) in paths.items():
         for name, n in counts.items():
             if name in absent:

@@ -103,7 +103,7 @@ def calibrate_and_quantize(params: dict, calib_batches: list,
     layers = iter(params["layers"])
     for spec in cfg.layer_specs():
         layer = next(layers)
-        xs = [lm.hidden_layer(layer, spec, x, cfg, e)
+        xs = [lm.prefill_layer(layer, spec, x, cfg, enc_out=e)[0]
               for x, e in zip(xs, enc_outs)]
         layer = {k: _bf16(v) for k, v in layer.items()}
         packed.append(lm.quantize_weights_for_serving(layer, weight_bits)

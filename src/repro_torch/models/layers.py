@@ -140,7 +140,10 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
     to its ``(f, d)`` one (stacked tensors, or a view that dequantizes one
     expert at a time).  Only experts that keep a token are computed: an
     expert without tokens sees all-zero dispatch rows and adds exact zeros
-    in the reference's dense einsums, so the sum is unchanged."""
+    in the reference's dense einsums, so the sum is unchanged, and in
+    training its weights' gradient is zero on both sides.  Autograd takes
+    the per-expert writes into ``out``; choosing the experts costs one
+    host sync a call (``tolist``)."""
     bsz, seq, d = x.shape
     xg, valid, seq_p = _moe_fold(x, group_size)
     combine, dispatch, counts = moe_route(xg, gate_w, experts_per_token,

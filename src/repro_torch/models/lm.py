@@ -3,8 +3,10 @@ multimodal stacks (LLaVA's patch frontend, Seamless's encoder and
 cross-attention): calibration forward, the paged serving
 steps (the unified step; the two-call pair ``paged_prefill_chunk`` /
 ``paged_decode_step``), and the contiguous-cache ``prefill`` /
-``decode_step`` of the bucketed engine (the port of those paths of
-``repro.models.lm``).  With ``ServeConfig.quant_telemetry`` the prefill
+``decode_step`` of the bucketed engine, and the training loss
+(``train_loss``: the full-sequence forward with each layer recomputed in
+the backward, then ``chunked_xent``) — the port of those paths of
+``repro.models.lm``.  With ``ServeConfig.quant_telemetry`` the prefill
 entry points also return the per-site quant-health stats
 (`repro_torch.obs.quantstats`); ``fused_site_matrix`` is the per-site
 fused / reference audit the engines publish.
@@ -242,6 +244,24 @@ def from_jax_params(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
         {k: t(np.asarray(v)[i]) for k, v in tree["period"][j].items()}
         for i in range(nper) for j in range(len(period))]
     return params
+
+
+def from_jax_train_state(opt_state: dict, err_state: dict,
+                         cfg: ModelConfig, device="cpu") -> tuple:
+    """The reference trainer's optimizer state ``{"step", "m", "v"}`` and
+    error-feedback state, given as numpy arrays, as the port's: the
+    moments and the residuals are parameter-shaped trees
+    (:func:`from_jax_params`); without compression the reference carries
+    the placeholder ``{"_": 0}``, kept as it is."""
+    opt = {"step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                dtype=torch.int32, device=device),
+           "m": from_jax_params(opt_state["m"], cfg, device),
+           "v": from_jax_params(opt_state["v"], cfg, device)}
+    if "_" in err_state:
+        err = {"_": torch.from_numpy(np.array(err_state["_"])).to(device)}
+    else:
+        err = from_jax_params(err_state, cfg, device)
+    return opt, err
 
 
 def _head_weight(params: dict) -> torch.Tensor:
@@ -967,16 +987,33 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()].to(COMPUTE_DTYPE)
 
 
-def hidden_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
-                 cfg: ModelConfig,
-                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One layer of the full-sequence forward without STaMP (with the
-    encoder output, its cross-attention too)."""
+def prefill_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
+                  cfg: ModelConfig, stamp: Optional[StampConfig] = None,
+                  kv: Optional[KV.KVCacheConfig] = None,
+                  capacity: Optional[int] = None,
+                  enc_out: Optional[torch.Tensor] = None,
+                  seq_lengths: Optional[torch.Tensor] = None) -> tuple:
+    """One layer of the full-sequence forward (the reference's
+    ``apply_block`` in ``prefill`` / ``train`` mode): the mixer, its
+    cross-attention given the encoder output, and the FFN, under ``stamp``
+    when given.  Returns ``(x, cache entry)``: with ``kv`` an attention
+    layer's contiguous cache for ``capacity`` tokens, a Mamba layer's
+    recurrent state after each row's ``seq_lengths``."""
     if spec.mixer == "mamba":
-        x, _ = mamba_block_prefill(p, x, cfg, None)
+        x, entry = mamba_block_prefill(p, x, cfg, stamp, seq_lengths)
     else:
-        x, _ = attn_block_prefill(p, x, cfg, None, enc_out=enc_out)
-    return ffn_block(p, x, spec, cfg, None, False)
+        x, entry = attn_block_prefill(p, x, cfg, stamp, kv, capacity,
+                                      enc_out)
+    return ffn_block(p, x, spec, cfg, stamp, False), entry
+
+
+def _recompute(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward (the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``): only the
+    inputs are kept."""
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def final_hidden(params: dict, x: torch.Tensor,
@@ -1014,30 +1051,35 @@ def encoder_layer(p: dict, x: torch.Tensor,
 
 
 def encoder_forward(params: dict, frames: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
     """The encoder over the frame embeddings ``(b, s_enc, d)`` (cast to
-    bf16), then its final RMSNorm: the cross-attention's memory."""
+    bf16), then its final RMSNorm: the cross-attention's memory.  With
+    ``remat`` (training) each layer is recomputed in the backward."""
     x = frames.to(COMPUTE_DTYPE)
     for p in params["encoder"]["layers"]:
-        x = encoder_layer(p, x, cfg)
+        if remat:
+            x = _recompute(lambda a, p=p: encoder_layer(p, a, cfg), x)
+        else:
+            x = encoder_layer(p, x, cfg)
     return L.rms_norm(x, params["encoder"]["final_norm"].to(x.dtype),
                       cfg.norm_eps)
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
-                 encoder: bool = True) -> tuple:
+                 encoder: bool = True, remat: bool = False) -> tuple:
     """The decoder's input and the encoder output, as the reference's
     ``model_hidden`` builds them: an enc-dec (or frames) stack embeds the
     tokens and runs ``frames`` through the encoder; a patch frontend puts
     ``patches`` before the token embeddings; else the token embeddings.
     A batch without the frontend's key raises its ``KeyError``.  Returns
     ``(x, enc_out or None)``; ``encoder=False`` leaves ``enc_out`` None
-    for a caller that runs the encoder itself."""
+    for a caller that runs the encoder itself; ``remat`` recomputes its
+    layers in the backward."""
     enc_out = None
     if cfg.frontend == "frames" or cfg.encoder_layers:
         frames = batch["frames"]
         if encoder:
-            enc_out = encoder_forward(params, frames, cfg)
+            enc_out = encoder_forward(params, frames, cfg, remat)
         x = _embed(params, batch["tokens"])
     elif cfg.frontend == "patch":
         tok = _embed(params, batch["tokens"])
@@ -1048,15 +1090,61 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
     return x, enc_out
 
 
-def model_hidden(params: dict, batch, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence forward without STaMP (the calibration pass, the
-    reference's ``model_hidden(mode="train")``): final normed hidden
-    states ``(b, s, d)`` in bf16.  ``batch``: a dict as the reference's
-    (``tokens``, and ``patches`` or ``frames``), or the tokens."""
-    x, enc_out = embed_inputs(params, as_batch(batch), cfg)
+def model_hidden(params: dict, batch, cfg: ModelConfig,
+                 stamp: Optional[StampConfig] = None,
+                 kv_cfg: Optional[KV.KVCacheConfig] = None,
+                 remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward through the layer code of :func:`prefill`:
+    final normed hidden states ``(b, s, d)`` in bf16 at every position.
+    Without ``stamp`` it is the calibration pass and the training forward
+    (the reference's ``model_hidden(mode="train")``); with ``stamp`` and
+    ``kv_cfg``, the reference's ``mode="prefill"`` hidden states (Table 2's
+    perplexity).  ``remat`` (training) recomputes each layer's activations
+    in the backward, the reference's scanned body under ``jax.checkpoint``.
+    ``batch``: a dict as the reference's (``tokens``, and ``patches`` or
+    ``frames``), or the tokens."""
+    x, enc_out = embed_inputs(params, as_batch(batch), cfg, remat=remat)
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
-        x = hidden_layer(p, spec, x, cfg, enc_out)
+        def layer(a, p=p, spec=spec, e=enc_out):
+            return prefill_layer(p, spec, a, cfg, stamp, kv_cfg, None, e)[0]
+        x = _recompute(layer, x) if remat else layer(x)
     return final_hidden(params, x, cfg)
+
+
+def _xent_chunk(xc: torch.Tensor, head, lc: torch.Tensor) -> tuple:
+    logits = _linear(xc, head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(lc, 0).long()[..., None])[..., 0]
+    valid = (lc >= 0).float()
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def chunked_xent(x: torch.Tensor, head, labels: torch.Tensor,
+                 chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy without materializing ``(b, s, vocab)``: sequence
+    chunks of ``chunk`` positions, each chunk's f32 logits recomputed in
+    the backward (the reference's scan body under ``jax.checkpoint``).
+    Labels < 0 are ignored (VLM patch positions)."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    assert s % chunk == 0
+    loss = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        lc = labels[:, c0:c0 + chunk].to(x.device)
+        part, n = _recompute(_xent_chunk, x[:, c0:c0 + chunk], head, lc)
+        loss, cnt = loss + part, cnt + n
+    return loss / torch.clamp_min(cnt, 1.0)
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``, and ``patches`` or ``frames`` where the arch takes them):
+    the training forward without STaMP, each layer recomputed in the
+    backward, then :func:`chunked_xent` over the head (``embed.T`` when
+    tied)."""
+    x = model_hidden(params, batch, cfg, remat=True)
+    return chunked_xent(x, _head_weight(params), batch["labels"])
 
 
 def _ssm_entry(cfg: ModelConfig, batch: int, device) -> dict:
@@ -1118,14 +1206,8 @@ def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
         enc = enc_out if enc is None else enc
         cache = []
         for spec, p in zip(cfg.layer_specs(), params["layers"]):
-            if spec.mixer == "mamba":
-                x, entry = mamba_block_prefill(p, x, cfg, serve.stamp,
-                                               seq_lengths)
-            else:
-                x, entry = attn_block_prefill(p, x, cfg, serve.stamp,
-                                              serve.kv,
-                                              serve.cache_capacity, enc)
-            x = ffn_block(p, x, spec, cfg, serve.stamp, False)
+            x, entry = prefill_layer(p, spec, x, cfg, serve.stamp, serve.kv,
+                                     serve.cache_capacity, enc, seq_lengths)
             cache.append(entry)
         return x, cache
 

@@ -4,8 +4,8 @@
     PYTHONPATH=src python -m repro_torch.paper.run [--device cpu]
 
 Runs on ``cuda`` unless ``--device`` names another device; without a card
-a CUDA run raises.  Table 2 (which trains an LM first) and the kernel
-throughput suite are not among the modules."""
+a CUDA run raises.  Table 2 trains its LM first (400 steps of the port's
+trainer); the kernel throughput suite is not among the modules."""
 
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch.device import resolve_device
 
 MODULES = [
     "repro_torch.paper.table1_lvm",
+    "repro_torch.paper.table2_llm",
     "repro_torch.paper.table3_overhead",
     "repro_torch.paper.fig4b_tokens",
     "repro_torch.paper.fig7_combinations",

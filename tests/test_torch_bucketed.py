@@ -45,6 +45,11 @@ import torch
 
 jax.config.update("jax_platform_name", "cpu")
 
+# One PyTorch thread a process: the tier-1 run puts six pytest workers on
+# the machine's cores, where PyTorch's default of an OpenMP thread per core
+# makes each worker's ops wait on the others' (tens of times slower).
+torch.set_num_threads(1)
+
 from repro.configs import arctic_480b as JARCTIC
 from repro.configs import llama3_8b as JLLAMA
 from repro.core.stamp import StampConfig as JStampConfig

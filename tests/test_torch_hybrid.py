@@ -46,6 +46,11 @@ import torch
 
 jax.config.update("jax_platform_name", "cpu")
 
+# One PyTorch thread a process: the tier-1 run puts six pytest workers on
+# the machine's cores, where PyTorch's default of an OpenMP thread per core
+# makes each worker's ops wait on the others' (tens of times slower).
+torch.set_num_threads(1)
+
 from repro import configs as JCONFIGS
 from repro.core import ptq as JPTQ
 from repro.data import pipeline as JDATA
@@ -335,7 +340,7 @@ def test_calibration_layers_match_reference(case):
         for j, spec in enumerate(period):
             pj = jax.tree.map(lambda a, i=i: a[i],
                               case["jparams"]["period"][j])
-            tx = TLM.hidden_layer(
+            tx, _ = TLM.prefill_layer(
                 case["tparams"]["layers"][i * len(period) + j],
                 tcfg.layer_specs()[i * len(period) + j],
                 torch.from_numpy(np.asarray(x, np.float32)).to(

@@ -32,6 +32,11 @@ from repro_torch.kernels.ref import span_kv
 from repro_torch.serving import kvcache as TKV
 from test_torch_cuda import paged_pools
 
+# One PyTorch thread a process: the tier-1 run puts six pytest workers on
+# the machine's cores, where PyTorch's default of an OpenMP thread per core
+# makes each worker's ops wait on the others' (tens of times slower).
+torch.set_num_threads(1)
+
 NEG = -1e30
 
 

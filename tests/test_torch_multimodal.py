@@ -61,6 +61,11 @@ import torch
 
 jax.config.update("jax_platform_name", "cpu")
 
+# One PyTorch thread a process: the tier-1 run puts six pytest workers on
+# the machine's cores, where PyTorch's default of an OpenMP thread per core
+# makes each worker's ops wait on the others' (tens of times slower).
+torch.set_num_threads(1)
+
 from repro import configs as JCONFIGS
 from repro.core import ptq as JPTQ
 from repro.core import quant as JQ

@@ -25,6 +25,11 @@ import torch
 
 jax.config.update("jax_platform_name", "cpu")
 
+# One PyTorch thread a process: the tier-1 run puts six pytest workers on
+# the machine's cores, where PyTorch's default of an OpenMP thread per core
+# makes each worker's ops wait on the others' (tens of times slower).
+torch.set_num_threads(1)
+
 from repro.kernels.stamp_matmul import _seq_inv
 
 from repro_torch.core import stamp as TS
