@@ -141,7 +141,19 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    run through ``python -m repro_torch.launch.train --device cuda`` (the
    final loss and every leaf of the final checkpoint equal to a clean
    run's), and Table 2 (its LM trained on the card, its rows against the
-   same parameters on the CPU, ``[table2]`` lines);
+   same parameters on the CPU, ``[table2]`` lines); then the sharded
+   trainer (``shard_phase``, which launches no kernel either: the ranks'
+   counts read around their runs): ``repro_torch.launch.train.train``
+   under ``torch.distributed.run --nproc-per-node 1`` on NCCL (a ``(1,
+   1)`` mesh), minicpm-2b whole for the train phase's steps, every
+   parameter's CRC32 and every loss equal to the one-device run's, its
+   median step ms, tokens/s, peak memory, training state, idle share and
+   collectives a step (a ``torch.profiler`` trace of two more steps)
+   beside the one-device step's; then two ranks sharing the card over
+   gloo (NCCL refuses two ranks on one card) on a ``(1, 2)`` and a ``(2,
+   1)`` mesh, minicpm-2b at full width cut to ``PAIR_LAYERS`` layers,
+   each held against the one-device step on rank 0 (``[shard]`` lines,
+   each rank's bytes of training state);
 5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1698,7 +1710,8 @@ def train_full_width(torch, configs, TTRAIN) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     n_params = sum(p.numel() for p in TR.leaves(out["params"]))
     losses, times = out["losses"], out["step_times"]
-    profile_steps(torch, TTRAIN, cfg, tc, out)
+    crcs = leaf_crcs(out["params"])
+    profile = profile_steps(torch, TTRAIN, cfg, tc, out)
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -1716,18 +1729,35 @@ def train_full_width(torch, configs, TTRAIN) -> dict:
                peak_gib=peak, first_loss=losses[0], last_loss=losses[-1], run_s=run_s)
     print(f"[train] {json.dumps(row)}")
     print(f"[train] losses {json.dumps(losses)}")
-    return row
+    return dict(row, losses=losses, crcs=crcs, profile=profile)
 
 
-def profile_steps(torch, TTRAIN, cfg, tc, out) -> None:
+def leaf_crcs(tree) -> dict:
+    """Each leaf's CRC32 by path, gathered whole where it is sharded
+    (copied to the host one leaf at a time, summed in eight threads)."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch import sharding as SH
+    from repro_torch import tree as TR
+    with ThreadPoolExecutor(8) as pool:
+        crcs = {TR.path_name(path): pool.submit(
+            zlib.crc32, SH.gather_full(t).detach().cpu().contiguous()
+            .numpy()) for path, t in TR.flatten_with_paths(tree)}
+        return {k: f.result() for k, f in crcs.items()}
+
+
+def profile_steps(torch, TTRAIN, cfg, tc, out, policy=None,
+                  tag: str = "[train]") -> dict:
     """``PROFILE_STEPS`` more steps of the trained model under
     ``torch.profiler``: the device's busy and idle share of their wall
-    time and the ops that take the most device time."""
+    time, the ops that take the most device time, and the collectives
+    (NCCL kernels on the device, ``c10d`` calls on the host) a step.
+    Under a sharding ``policy`` each step takes its rows of the batch."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import optim
     from repro_torch.data.pipeline import DataConfig, DataIterator
     sched = optim.make_schedule(cfg.schedule, tc.lr, tc.warmup, tc.steps)
-    step = TTRAIN.build_step(cfg, None, optim.AdamWConfig(
+    step = TTRAIN.build_step(cfg, policy, optim.AdamWConfig(
         lr=tc.lr, schedule=sched), False)
     data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=tc.seq,
                                    global_batch=tc.global_batch), step=tc.steps)
@@ -1736,8 +1766,11 @@ def profile_steps(torch, TTRAIN, cfg, tc, out) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
+            batch = next(data)
+            if policy is not None:
+                batch = policy.batch_rows(batch)
             batch = {k: torch.from_numpy(v).cuda() for k, v in
-                     next(data).items()}
+                     batch.items()}
             m = step(out["params"], out["opt_state"], None, batch)[3]
             float(m["loss"])
         torch.cuda.synchronize()
@@ -1748,19 +1781,28 @@ def profile_steps(torch, TTRAIN, cfg, tc, out) -> None:
                        getattr(e, "self_cuda_time_total", 0.0))
     # the device's busy time: its kernels' spans; the ops: host-side
     # events, each with the device time of the kernels it launched
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+    events = prof.events()
+    busy = sum(e.time_range.elapsed_us() for e in events
                if e.device_type.name == "CUDA") / 1e6
     top = sorted((e for e in prof.key_averages()
                   if e.device_type.name == "CPU"), key=dev,
                  reverse=True)[:12]
+    nccl = [e for e in events if "nccl" in e.name.lower()]
     row = dict(steps=PROFILE_STEPS, wall_ms=wall * 1e3 / PROFILE_STEPS,
                device_busy_ms=busy * 1e3 / PROFILE_STEPS,
                idle_share=1 - busy / wall,
+               nccl_kernels_per_step=sum(
+                   e.device_type.name == "CUDA" for e in nccl) / PROFILE_STEPS,
+               collective_calls_per_step=sum(
+                   e.device_type.name == "CPU" and e.name.startswith("c10d::")
+                   for e in events) / PROFILE_STEPS,
+               nccl_names=sorted({e.name for e in nccl})[:8],
                top=[(e.key, round(dev(e) / 1e3 / PROFILE_STEPS, 3), e.count)
                     for e in top])
-    print(f"[train] profile {json.dumps(row)}")
+    print(f"{tag} profile {json.dumps(row)}")
     check(busy <= wall, f"profile: the device's kernels span {busy:.3f} s "
           f"of a {wall:.3f} s wall")
+    return row
 
 
 def step_against_cpu(torch, lm, configs, TTRAIN, optim) -> dict:
@@ -1994,7 +2036,7 @@ def train_phase(torch, ops) -> dict:
     from repro_torch.models import lm
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    train_full_width(torch, configs, TTRAIN)
+    full = train_full_width(torch, configs, TTRAIN)
     checkpoint_seconds(torch, lm, configs, optim)
     table2_on_card(torch)
     # the crash-and-restart subprocesses (small, on the same card) run
@@ -2005,6 +2047,320 @@ def train_phase(torch, ops) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(f"[train] phase {time.perf_counter() - t0:.1f}s launches "
+          f"{json.dumps(counts)}")
+    return counts, full
+
+
+# ---------------------------------------------------------- shard phase --
+
+# the sharded trainer on a one-rank NCCL group: TRAIN_ARCH whole at full
+# width, the train phase's run (TRAIN_STEPS steps of TRAIN_BATCH x
+# TRAIN_SEQ tokens), through torchrun; its parameters must be the
+# one-device run's bit for bit
+SHARD_TIMEOUT_S = 600
+# two ranks sharing the card: NCCL refuses them ("Duplicate GPU detected")
+# and gloo takes CUDA tensors in every collective the step makes
+# (tools/probe_gloo_cuda.py), so the pair runs over gloo, by design:
+# TRAIN_ARCH at full width cut to PAIR_LAYERS layers, PAIR_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens on a (1, 2) and a (2, 1) mesh, each held
+# against the one-device step on rank 0 within the CPU tests' bounds
+# (tests/test_torch_sharded_train.py): with the batch whole (1, 2) the
+# losses equal and every parameter within PAIR_ULP f32 ulp of its leaf's
+# largest magnitude; with it split (2, 1) the loss within PAIR_LOSS_REL
+# and the grad norm within PAIR_GNORM_REL each step, the parameters after
+# the first within 2 lr and all but PAIR_FLIP_FRAC within lr, as the
+# train phase holds its card-vs-CPU step (the CPU tests' 1e-3 lr does not
+# carry to full width: the tied 122 880-row embedding's rows of tokens
+# absent from the batch have gradients near zero, whose first AdamW steps
+# take the data halves' bf16 roundings to other signs: 5.8% of the
+# elements sat past 1e-3 lr on an NVIDIA H100 80GB HBM3 at 700.00 W)
+PAIR_LAYERS, PAIR_STEPS = 2, 3
+PAIR_ULP, PAIR_LOSS_REL, PAIR_GNORM_REL, PAIR_FLIP_FRAC = 2, 1e-3, 1e-2, 0.02
+
+
+def shard_rank(plan: dict) -> None:
+    """One rank of the shard phase's group (``chip_smoke.py --shard-rank
+    PLAN``, under torchrun): ``train`` under the group's mesh, then its
+    parameters' CRCs, its peak memory and bytes of training state, a
+    profile of ``PROFILE_STEPS`` more steps, and the kernels' launch
+    counts, printed as one ``[shard-rank]`` line by rank 0."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch import sharding as SH
+    from repro_torch import tree as TR
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TTRAIN
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    dev = init_distributed(plan["device"])
+    try:
+        cfg = configs.get_config(plan["arch"])
+        tc = TTRAIN.TrainConfig(steps=plan["steps"],
+                                global_batch=plan["batch"], seq=plan["seq"],
+                                lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                log_every=1,
+                                model_parallel=plan["model_parallel"])
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = TTRAIN.train(cfg, tc, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        state = [out["params"], out["opt_state"]["m"], out["opt_state"]["v"]]
+        state_gib = sum(SH.local(t).numel() * SH.local(t).element_size()
+                        for tree in state for t in TR.leaves(tree)) / 2 ** 30
+        t0 = time.perf_counter()
+        crcs = leaf_crcs(out["params"])
+        crc_s = time.perf_counter() - t0
+        policy = SH.ShardingPolicy(mesh=make_local_mesh(tc.model_parallel,
+                                                        dev))
+        t0 = time.perf_counter()
+        profile = profile_steps(torch, TTRAIN, cfg, tc, out, policy,
+                                tag="[shard]")
+        profile_s = time.perf_counter() - t0
+        times = out["step_times"]
+        med = sorted(times[1:])[len(times[1:]) // 2]
+        row = dict(world=dist.get_world_size(),
+                   mesh=list(policy.mesh.mesh.shape),
+                   backend=dist.get_backend(), losses=out["losses"],
+                   first_step_ms=times[0] * 1e3, median_step_ms=med * 1e3,
+                   tokens_per_s=tc.global_batch * tc.seq / med,
+                   peak_gib=peak, state_gib_per_rank=state_gib, run_s=run_s,
+                   crc_s=crc_s, profile_s=profile_s, profile=profile,
+                   launches=ops.launch_counts(), crcs=crcs)
+        if dist.get_rank() == 0:
+            print(f"[shard-rank] {json.dumps(row)}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_pair(plan: dict) -> None:
+    """One of two ranks sharing card 0 (``chip_smoke.py --shard-rank``
+    with ``"pair"``, under torchrun) over gloo: ``build_step`` on each
+    mesh of ``plan["meshes"]`` (model-parallel sizes), then rank 0 runs
+    the one-device step from the same init and holds each mesh's run to
+    it; each rank prints a ``[shard-pair]`` line (its bytes of training
+    state and seconds), rank 0 the comparison."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, optim
+    from repro_torch import sharding as SH
+    from repro_torch import tree as TR
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TTRAIN
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    dev = torch.device(plan["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    rank = dist.get_rank()
+    try:
+        cfg = dataclasses.replace(configs.get_config(plan["arch"]),
+                                  num_layers=plan["layers"])
+        opt_cfg = optim.AdamWConfig(lr=TRAIN_LR, schedule=optim.make_schedule(
+            cfg.schedule, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+        data = DataIterator(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=plan["seq"],
+                                       global_batch=plan["batch"]))
+        batches = [next(data) for _ in range(plan["steps"])]
+        ops.reset_launch_counts()
+
+        def run(policy) -> dict:
+            params = lm.init_params(cfg, 0, device=dev)
+            if policy is not None:
+                params = policy.place(params, dev)
+            for leaf in TR.leaves(params):
+                leaf.requires_grad_(True)
+            state = optim.adamw_init(params, opt_cfg)
+            step = TTRAIN.build_step(cfg, policy, opt_cfg, False)
+            out = {"metrics": []}
+            t0 = time.perf_counter()
+            for i, batch in enumerate(batches):
+                if policy is not None:
+                    batch = policy.batch_rows(batch)
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()}
+                params, state, _, m = step(params, state, None, batch)
+                out["metrics"].append((float(m["loss"]),
+                                       float(m["grad_norm"]),
+                                       float(m["lr"])))
+                if i == 0:       # a collective: every rank gathers
+                    out["after1"] = [SH.gather_full(t).detach().clone()
+                                     for t in TR.leaves(params)]
+            out["seconds"] = time.perf_counter() - t0
+            out["final"] = [SH.gather_full(t).detach().clone()
+                            for t in TR.leaves(params)]
+            out["state_gib"] = sum(
+                SH.local(t).numel() * SH.local(t).element_size()
+                for tree in (params, state["m"], state["v"])
+                for t in TR.leaves(tree)) / 2 ** 30
+            return out
+
+        runs = {}
+        for mp in plan["meshes"]:
+            policy = SH.ShardingPolicy(mesh=make_local_mesh(mp, dev))
+            name = "x".join(map(str, policy.mesh.mesh.shape))
+            runs[name] = run(policy)
+            mine = dict(rank=rank, mesh=name, seconds=runs[name]["seconds"],
+                        state_gib=runs[name]["state_gib"])
+            print(f"[shard-pair] {json.dumps(mine)}", flush=True)
+            if rank != 0:
+                runs[name] = None
+        if rank == 0:
+            one = run(None)
+            rows = {name: pair_against_one_device(name, got, one)
+                    for name, got in runs.items()}
+            row = dict(one_device_state_gib=one["state_gib"],
+                       one_device_seconds=one["seconds"], meshes=rows,
+                       launches=ops.launch_counts())
+            print(f"[shard-pair] {json.dumps(row)}", flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def pair_against_one_device(name: str, got: dict, one: dict) -> dict:
+    """A pair run on mesh ``name`` held to the one-device run: with the
+    batch whole (``1x2``) its losses equal and its final parameters within
+    PAIR_ULP ulp of each leaf's largest magnitude; with it split, its
+    loss and grad norm within PAIR_LOSS_REL / PAIR_GNORM_REL each step and
+    its parameters after the first within 2 lr, all but PAIR_FLIP_FRAC
+    within lr.  Returns the worst numbers."""
+    lr1 = one["metrics"][0][2]
+    d1 = [(a - b).abs() for a, b in zip(got["after1"], one["after1"])]
+    row = dict(
+        loss_rel=max(abs(a[0] - b[0]) / b[0]
+                     for a, b in zip(got["metrics"], one["metrics"])),
+        gnorm_rel=max(abs(a[1] - b[1]) / b[1]
+                      for a, b in zip(got["metrics"], one["metrics"])),
+        final_max_ulp=max(float((a - b).abs().max()) /
+                          (2.0 ** -23 * max(float(b.abs().max()), 1e-30))
+                          for a, b in zip(got["final"], one["final"])),
+        after1_max_over_lr=max(float(d.max()) for d in d1) / lr1,
+        after1_past_lr_frac=sum(int((d > lr1).sum()) for d in d1) /
+        sum(d.numel() for d in d1),
+        after1_past_1e3_lr_frac=sum(int((d > 1e-3 * lr1).sum())
+                                    for d in d1) /
+        sum(d.numel() for d in d1),
+        losses=[m[0] for m in got["metrics"]],
+        one_device_losses=[m[0] for m in one["metrics"]])
+    print(f"[shard-pair] {json.dumps(dict(mesh=name, **row))}", flush=True)
+    if name.startswith("1x"):
+        check(row["losses"] == row["one_device_losses"] and
+              row["final_max_ulp"] <= PAIR_ULP,
+              f"shard pair {name}: {row}")
+    else:
+        check(row["loss_rel"] <= PAIR_LOSS_REL and
+              row["gnorm_rel"] <= PAIR_GNORM_REL and
+              row["after1_max_over_lr"] <= 2 * (1 + 1e-3) and
+              row["after1_past_lr_frac"] <= PAIR_FLIP_FRAC,
+              f"shard pair {name}: {row}")
+    return row
+
+
+def torchrun(nproc: int, plan: dict, tag: str) -> list:
+    """``chip_smoke.py --shard-rank PLAN`` in ``nproc`` ranks through
+    ``torch.distributed.run --standalone``: the JSON of its ``tag``
+    lines (its ``[shard]`` lines echoed)."""
+    import os
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
+         "--shard-rank", json.dumps(plan)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        capture_output=True, text=True, timeout=SHARD_TIMEOUT_S)
+    fails = [ln for ln in p.stderr.splitlines() if "FAIL" in ln]
+    check(p.returncode == 0, f"shard: the torchrun group of {nproc} failed "
+          f"({p.returncode}): {fails} {p.stdout[-1500:]} "
+          f"{p.stderr[-2000:]}")
+    for line in p.stdout.splitlines():
+        if line.startswith("[shard] "):
+            print(line)
+    return [json.loads(line.split(" ", 1)[1]) for line in
+            p.stdout.splitlines() if line.startswith(tag + " ")]
+
+
+def shard_phase(torch, ops, one_device: dict) -> dict:
+    """The sharded trainer through ``torch.distributed.run``.  One rank
+    (NCCL, a ``(1, 1)`` mesh) at full width: its losses and every
+    parameter's CRC32 equal to the one-device run's (``one_device``, the
+    train phase's), its step ms, tokens/s, peak memory, idle share and
+    collectives a step printed beside the one-device step's.  Two ranks
+    on the card over gloo (:func:`shard_pair`): a ``(1, 2)`` and a ``(2,
+    1)`` mesh against the one-device step, each rank's bytes of training
+    state.  No kernel launched (the ranks' counts).  Returns the
+    counts."""
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    rows = torchrun(1, dict(mode="one", arch=TRAIN_ARCH, steps=TRAIN_STEPS,
+                            batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                            model_parallel=1, device="cuda"),
+                    "[shard-rank]")
+    check(len(rows) == 1, "shard: no [shard-rank] line")
+    got = rows[0]
+    crcs = got.pop("crcs")
+    same = sum(crcs.get(k) == v for k, v in one_device["crcs"].items())
+    row = dict(arch=TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, leaves=len(one_device["crcs"]),
+               leaves_bit_equal=same,
+               sharded={k: got[k] for k in (
+                   "world", "mesh", "backend", "first_step_ms",
+                   "median_step_ms", "tokens_per_s", "peak_gib",
+                   "state_gib_per_rank", "run_s", "crc_s", "profile_s")},
+               one_device={k: one_device[k] for k in (
+                   "first_step_ms", "median_step_ms", "tokens_per_s",
+                   "peak_gib", "run_s")},
+               idle_share={"sharded": got["profile"]["idle_share"],
+                           "one_device": one_device["profile"]["idle_share"]},
+               collectives_per_step={
+                   k: got["profile"][k] for k in (
+                       "nccl_kernels_per_step", "collective_calls_per_step")})
+    print(f"[shard] one-rank NCCL group vs one device {json.dumps(row)}")
+    check(got["backend"] == "nccl" and got["mesh"] == [1, 1],
+          f"shard: ran on {got['backend']} over a {got['mesh']} mesh")
+    check(got["losses"] == one_device["losses"],
+          f"shard: losses {got['losses']} sharded, "
+          f"{one_device['losses']} on one device")
+    check(set(crcs) == set(one_device["crcs"]) and
+          same == len(one_device["crcs"]),
+          f"shard: {len(one_device['crcs']) - same} of "
+          f"{len(one_device['crcs'])} parameters differ from the one-device "
+          f"run's")
+    check(got["profile"]["collective_calls_per_step"] > 0,
+          "shard: the profile shows no collective")
+    print(f"[shard] one rank: {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    pair = torchrun(2, dict(mode="pair", arch=TRAIN_ARCH,
+                            layers=PAIR_LAYERS, steps=PAIR_STEPS,
+                            batch=TRAIN_BATCH, seq=TRAIN_SEQ, meshes=[2, 1],
+                            device="cuda"), "[shard-pair]")
+    ranks = [r for r in pair if "rank" in r]
+    one = [r for r in pair if "meshes" in r]
+    check(len(ranks) == 4 and len(one) == 1,
+          f"shard: the pair printed {len(pair)} lines")
+    one = one[0]
+    for name, cmp in one["meshes"].items():
+        row = dict(arch=TRAIN_ARCH, layers=PAIR_LAYERS, steps=PAIR_STEPS,
+                   mesh=name, **cmp,
+                   state_gib_per_rank=[r["state_gib"] for r in ranks
+                                       if r["mesh"] == name],
+                   seconds=max(r["seconds"] for r in ranks
+                               if r["mesh"] == name),
+                   one_device_state_gib=one["one_device_state_gib"])
+        print(f"[shard] two ranks on the card (gloo) {json.dumps(row)}")
+    print(f"[shard] two ranks on the card: "
+          f"{time.perf_counter() - t1:.1f}s")
+    counts = {k: ops.launch_counts()[k] + got["launches"][k] +
+              one["launches"][k] for k in got["launches"]}
+    print(f"[shard] phase {time.perf_counter() - t0:.1f}s launches "
           f"{json.dumps(counts)}")
     return counts
 
@@ -2518,12 +2874,16 @@ def main() -> None:
     # the card-vs-CPU checks and the serve phases not named, and prints no
     # kernels line and no final ok line
     only = None
-    if len(sys.argv) == 3 and sys.argv[1] == "--serve-only":
-        only = set(sys.argv[2].split(","))
-    elif len(sys.argv) > 1:
-        fail("usage: chip_smoke.py [--serve-only PHASE,...]")
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("run from the root of a checkout: src/repro_torch is missing")
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-only":
+        only = set(sys.argv[2].split(","))
+    elif len(sys.argv) == 3 and sys.argv[1] == "--shard-rank":
+        plan = json.loads(sys.argv[2])
+        (shard_pair if plan["mode"] == "pair" else shard_rank)(plan)
+        return
+    elif len(sys.argv) > 1:
+        fail("usage: chip_smoke.py [--serve-only PHASE,...]")
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     if not torch.cuda.is_available():
@@ -2673,8 +3033,12 @@ def main() -> None:
     paths.update(serve_phases(torch, serve, ops, configs, None, standalone))
     gc.collect()
     torch.cuda.empty_cache()
-    # training runs no kernel: its path must launch none
-    paths["train"] = (train_phase(torch, ops), every)
+    # training runs no kernel: its paths must launch none
+    counts, one_device = train_phase(torch, ops)
+    paths["train"] = (counts, every)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["shard"] = (shard_phase(torch, ops, one_device), every)
     for path, (counts, absent) in paths.items():
         for name, n in counts.items():
             if name in absent:

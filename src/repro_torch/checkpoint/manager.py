@@ -14,8 +14,15 @@ One ``.npy`` per leaf, named from the tree path (``params/layers/0/wq`` →
 ``params__layers__0__wq.npy``); ``index.json`` holds ``step``, ``extra``
 and each leaf's ``file``, ``shape``, ``dtype`` and ``crc32``.  numpy has
 no bfloat16: a bf16 leaf is written as the reference writes one, its raw
-2-byte words with the dtype name ``bfloat16``, and read back as bf16.  The
-reference's ``shardings`` argument is a target device here.
+2-byte words with the dtype name ``bfloat16``, and read back as bf16.
+
+Under a process group the files hold full leaves, as one process writes
+them: every rank gathers each sharded (DTensor) leaf, rank 0 alone
+writes, and ``wait`` returns on every rank once rank 0's writer is done.
+``restore`` reads each leaf whole on every rank and keeps the block its
+``shardings`` entry names (the reference's elastic restore), so a
+checkpoint written on one mesh restores onto any other, or onto one
+process without a group.
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding as SH
 from repro_torch import tree as TR
 
 _STEP_RE = re.compile(r"step_(\d+)$")
@@ -53,6 +62,10 @@ def _dtype_name(arr: np.ndarray) -> str:
 
 def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+
+
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _from_host(arr: np.ndarray, dtype_name: str, device) -> torch.Tensor:
@@ -77,27 +90,40 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
         """Synchronous atomic save."""
-        self._write(step, self._snapshot(tree), extra or {})
+        snapshot = self._snapshot(tree)
+        if _writer():
+            self._write(step, snapshot, extra or {})
 
     def save_async(self, step: int, tree: Any,
                    extra: Optional[dict] = None):
         """Copy to the host now, write in the background."""
         snapshot = self._snapshot(tree)
         self.wait()
-        self._thread = threading.Thread(
-            target=self._write, args=(step, snapshot, extra or {}),
-            daemon=True)
-        self._thread.start()
+        if _writer():
+            self._thread = threading.Thread(
+                target=self._write, args=(step, snapshot, extra or {}),
+                daemon=True)
+            self._thread.start()
 
     def wait(self):
+        """Return once the background write is done (on every rank of a
+        group)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if dist.is_initialized():
+            dist.barrier()
 
     @staticmethod
     def _snapshot(tree: Any) -> list:
-        return [(TR.path_name(path), _to_host(leaf))
-                for path, leaf in TR.flatten_with_paths(tree)]
+        """Host copies of the leaves, gathered whole (a collective under a
+        group; only the writer keeps them)."""
+        out = []
+        for path, leaf in TR.flatten_with_paths(tree):
+            full = SH.gather_full(leaf)
+            if _writer():
+                out.append((TR.path_name(path), _to_host(full)))
+        return out
 
     def _write(self, step: int, snapshot: list, extra: dict):
         final = self.directory / f"step_{step:08d}"
@@ -141,23 +167,28 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None, verify: bool = True) -> tuple:
+                shardings: Any = None, device=None,
+                verify: bool = True) -> tuple:
         """Restore into the structure of ``template`` (its leaves give the
-        names), as tensors on ``device`` (default: the CPU).  Falls back
-        one step on an integrity failure."""
+        names), as tensors on ``device`` (default: the CPU); a leaf whose
+        place in ``shardings`` (a tree shaped as ``template``, ``None``
+        where a leaf or subtree stays whole) holds a
+        :class:`repro_torch.sharding.NamedSharding` becomes this rank's
+        block of it.  Falls back one step on an integrity failure."""
         candidates = ([step] if step is not None
                       else list(reversed(self.all_steps())))
         last_err: Optional[Exception] = None
         for s in candidates:
             try:
-                return self._restore_step(template, s, device, verify)
+                return self._restore_step(template, s, shardings, device,
+                                          verify)
             except Exception as e:      # torn checkpoint → try previous
                 last_err = e
                 continue
         raise FileNotFoundError(
             f"no restorable checkpoint in {self.directory}: {last_err}")
 
-    def _restore_step(self, template, step, device, verify):
+    def _restore_step(self, template, step, shardings, device, verify):
         d = self.directory / f"step_{step:08d}"
         index = json.loads((d / "index.json").read_text())
         leaves = []
@@ -167,5 +198,21 @@ class CheckpointManager:
             arr = np.load(d / meta["file"], allow_pickle=False)
             if verify and _crc(arr) != meta["crc32"]:
                 raise IOError(f"crc mismatch for {name} at step {step}")
-            leaves.append(_from_host(arr, meta["dtype"], device))
+            sh = _sharding_at(shardings, path)
+            if sh is None:
+                leaves.append(_from_host(arr, meta["dtype"], device))
+            else:
+                leaves.append(sh.shard(_from_host(arr, meta["dtype"], None),
+                                       device))
         return TR.unflatten_like(template, leaves), index["extra"]
+
+
+def _sharding_at(shardings, path: tuple):
+    """The entry of ``shardings`` at ``path``; ``None`` where it (or a
+    subtree above it) is ``None``."""
+    node = shardings
+    for k in path:
+        if node is None:
+            return None
+        node = node[k]
+    return node

@@ -63,6 +63,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.obs import quantstats as QS
 from repro_torch.serving import kvcache as KV
 from repro_torch.serving import paged_kvcache as PKV
+from repro_torch.sharding import ShardingPolicy, constrain
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -1050,23 +1051,44 @@ def encoder_layer(p: dict, x: torch.Tensor,
     return x + _linear(g, p["wo_mlp"], f32_sum=True)
 
 
+def _gathered(p, policy: Optional[ShardingPolicy]):
+    """``p`` (a tree or a leaf) with its sharded leaves gathered whole
+    (ZeRO-3's all-gather at use; a no-op without a policy or on whole
+    leaves)."""
+    return p if policy is None else policy.gather(p)
+
+
+def _top(params: dict, policy: Optional[ShardingPolicy]) -> dict:
+    """``params`` with the leaves outside ``layers`` / ``encoder``
+    (``embed``, ``head``, ``final_norm``) gathered, once a step: a tied
+    embedding serves the lookup and the head from one copy."""
+    if policy is None:
+        return params
+    return {k: v if k in ("layers", "encoder") else policy.gather(v)
+            for k, v in params.items()}
+
+
 def encoder_forward(params: dict, frames: torch.Tensor,
-                    cfg: ModelConfig, remat: bool = False) -> torch.Tensor:
+                    cfg: ModelConfig, remat: bool = False,
+                    policy: Optional[ShardingPolicy] = None
+                    ) -> torch.Tensor:
     """The encoder over the frame embeddings ``(b, s_enc, d)`` (cast to
     bf16), then its final RMSNorm: the cross-attention's memory.  With
-    ``remat`` (training) each layer is recomputed in the backward."""
+    ``remat`` (training) each layer is recomputed in the backward; under
+    a sharding ``policy`` each layer's leaves are gathered inside it."""
     x = frames.to(COMPUTE_DTYPE)
     for p in params["encoder"]["layers"]:
-        if remat:
-            x = _recompute(lambda a, p=p: encoder_layer(p, a, cfg), x)
-        else:
-            x = encoder_layer(p, x, cfg)
-    return L.rms_norm(x, params["encoder"]["final_norm"].to(x.dtype),
-                      cfg.norm_eps)
+        def layer(a, p=p):
+            return encoder_layer(_gathered(p, policy), a, cfg)
+        x = _recompute(layer, x) if remat else layer(x)
+        x = constrain(x, policy, lambda pol: pol.acts())
+    norm = _gathered(params["encoder"]["final_norm"], policy)
+    return L.rms_norm(x, norm.to(x.dtype), cfg.norm_eps)
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
-                 encoder: bool = True, remat: bool = False) -> tuple:
+                 encoder: bool = True, remat: bool = False,
+                 policy: Optional[ShardingPolicy] = None) -> tuple:
     """The decoder's input and the encoder output, as the reference's
     ``model_hidden`` builds them: an enc-dec (or frames) stack embeds the
     tokens and runs ``frames`` through the encoder; a patch frontend puts
@@ -1079,7 +1101,7 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
     if cfg.frontend == "frames" or cfg.encoder_layers:
         frames = batch["frames"]
         if encoder:
-            enc_out = encoder_forward(params, frames, cfg, remat)
+            enc_out = encoder_forward(params, frames, cfg, remat, policy)
         x = _embed(params, batch["tokens"])
     elif cfg.frontend == "patch":
         tok = _embed(params, batch["tokens"])
@@ -1093,7 +1115,8 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
 def model_hidden(params: dict, batch, cfg: ModelConfig,
                  stamp: Optional[StampConfig] = None,
                  kv_cfg: Optional[KV.KVCacheConfig] = None,
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False,
+                 policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
     """Full-sequence forward through the layer code of :func:`prefill`:
     final normed hidden states ``(b, s, d)`` in bf16 at every position.
     Without ``stamp`` it is the calibration pass and the training forward
@@ -1102,12 +1125,22 @@ def model_hidden(params: dict, batch, cfg: ModelConfig,
     perplexity).  ``remat`` (training) recomputes each layer's activations
     in the backward, the reference's scanned body under ``jax.checkpoint``.
     ``batch``: a dict as the reference's (``tokens``, and ``patches`` or
-    ``frames``), or the tokens."""
-    x, enc_out = embed_inputs(params, as_batch(batch), cfg, remat=remat)
+    ``frames``), or the tokens.  Under a sharding ``policy`` (training on
+    a mesh) ``batch`` holds this rank's rows, each layer's leaves are
+    gathered inside the layer (so a recomputed layer gathers again in the
+    backward), and the residual is constrained to ``policy.acts()`` after
+    the embedding and after every layer, where the reference constrains
+    it."""
+    params = _top(params, policy)
+    x, enc_out = embed_inputs(params, as_batch(batch), cfg, remat=remat,
+                              policy=policy)
+    x = constrain(x, policy, lambda pol: pol.acts())
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
         def layer(a, p=p, spec=spec, e=enc_out):
-            return prefill_layer(p, spec, a, cfg, stamp, kv_cfg, None, e)[0]
+            return prefill_layer(_gathered(p, policy), spec, a, cfg, stamp,
+                                 kv_cfg, None, e)[0]
         x = _recompute(layer, x) if remat else layer(x)
+        x = constrain(x, policy, lambda pol: pol.acts())
     return final_hidden(params, x, cfg)
 
 
@@ -1121,11 +1154,18 @@ def _xent_chunk(xc: torch.Tensor, head, lc: torch.Tensor) -> tuple:
 
 
 def chunked_xent(x: torch.Tensor, head, labels: torch.Tensor,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512,
+                 policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
     """Cross-entropy without materializing ``(b, s, vocab)``: sequence
     chunks of ``chunk`` positions, each chunk's f32 logits recomputed in
     the backward (the reference's scan body under ``jax.checkpoint``).
-    Labels < 0 are ignored (VLM patch positions)."""
+    Labels < 0 are ignored (VLM patch positions).  Under a sharding
+    ``policy`` ``x`` and ``labels`` are this rank's rows, and the loss is
+    the global batch's: the summed loss and the count of valid labels are
+    each summed over the data ranks before the division (a mean of the
+    ranks' means would weigh ranks with fewer valid labels more); each
+    rank's gradient is that of its own rows' share, summed over the ranks
+    where the parameters' gradients meet."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     assert s % chunk == 0
@@ -1134,17 +1174,23 @@ def chunked_xent(x: torch.Tensor, head, labels: torch.Tensor,
         lc = labels[:, c0:c0 + chunk].to(x.device)
         part, n = _recompute(_xent_chunk, x[:, c0:c0 + chunk], head, lc)
         loss, cnt = loss + part, cnt + n
+    if policy is not None:
+        loss, cnt = policy.batch_sum(loss), policy.batch_sum(cnt)
     return loss / torch.clamp_min(cnt, 1.0)
 
 
-def train_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def train_loss(params: dict, batch: dict, cfg: ModelConfig,
+               policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens``,
     ``labels``, and ``patches`` or ``frames`` where the arch takes them):
     the training forward without STaMP, each layer recomputed in the
     backward, then :func:`chunked_xent` over the head (``embed.T`` when
-    tied)."""
-    x = model_hidden(params, batch, cfg, remat=True)
-    return chunked_xent(x, _head_weight(params), batch["labels"])
+    tied).  Under a sharding ``policy`` the parameters are DTensors,
+    ``batch`` is this rank's rows, and the loss is the global batch's."""
+    params = _top(params, policy)
+    x = model_hidden(params, batch, cfg, remat=True, policy=policy)
+    return chunked_xent(x, _head_weight(params), batch["labels"],
+                        policy=policy)
 
 
 def _ssm_entry(cfg: ModelConfig, batch: int, device) -> dict:

@@ -11,6 +11,12 @@ eps) + wd·p`` and ``p − lr·delta`` cast back to the parameter's dtype.
 decays ``p·(1 − lr·wd)`` before the Adam step and divides by ``√v / √bc2
 + eps``.)  Parameters and moments are updated in place, one leaf at a
 time, so the update's temporaries stay one leaf's size.
+
+Under a sharding policy (:mod:`repro_torch.sharding`) the leaves are
+DTensors: the moments take their parameter's placement, the update runs
+on each rank's blocks, and the global norm sums each element once (a
+leaf's blocks over the mesh dims it is sharded on, one copy over those it
+is replicated on).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch import tree as TR
 
 
@@ -37,7 +44,8 @@ class AdamWConfig:
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=cfg.moment_dtype,
+                                requires_grad=False)
     step_dev = TR.leaves(params)[0].device
     return {"step": torch.zeros((), dtype=torch.int32, device=step_dev),
             "m": TR.tree_map(zeros, params),
@@ -45,11 +53,14 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """``sqrt(0 + Σ₁ + Σ₂ + …)``: each leaf's f32 sum of squares, added in
-    leaf order."""
+    """``sqrt(Σ₁ + Σ₂ + …)``: each leaf's f32 sum of squares (over its
+    blocks, when sharded), added in leaf order."""
+    flat = TR.leaves(tree)
+    sums = SH.sum_over_shards(
+        [torch.sum(torch.square(SH.local(leaf).float())) for leaf in flat],
+        flat)
     total = None
-    for leaf in TR.leaves(tree):
-        s = torch.sum(torch.square(leaf.float()))
+    for s in sums:
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -66,10 +77,9 @@ def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig) -> tuple:
     stepf = step.float()
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
-    flat_p = TR.leaves(params)
-    flat_g = TR.leaves(grads)
-    flat_m = TR.leaves(opt_state["m"])
-    flat_v = TR.leaves(opt_state["v"])
+    flat_p, flat_g, flat_m, flat_v = (
+        [SH.local(t) for t in TR.leaves(tree)]
+        for tree in (params, grads, opt_state["m"], opt_state["v"]))
     for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
         g = g.float() * scale
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g

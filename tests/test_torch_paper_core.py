@@ -22,6 +22,7 @@ reference's at the same θ, and both fits' end by what they achieve
 (:func:`test_flatquant_lite_fit`)."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -655,6 +656,91 @@ def test_flatquant_lite_fit():
             for r, r_inv in (JF.flatquant_lite_fit(jx, jw, bits=4),
                              (jnp.asarray(tr), jnp.asarray(tri)))]
     assert max(fits) < start and max(fits) < plain / 2
+
+
+FIT_TRAJECTORY = """
+import json, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.core import feature_transforms as JF
+from repro.core import quant as JQ
+from repro.data import pipeline as JD
+rng = np.random.default_rng(23)
+x = JD.ar_features((96, 32), rho=0.5, seed=23, axis=0)
+x[:, :2] *= 6.0
+w = (rng.standard_normal((32, 16)) * 0.2).astype(np.float32)
+jx, jw = jnp.asarray(x), jnp.asarray(w)
+h = jnp.asarray(JF.hadamard_matrix(32))
+ref = jx @ jw
+
+
+def loss(theta):
+    r = jnp.exp(theta)[:, None] * h
+    r_inv = h.T * jnp.exp(-theta)[None, :]
+    return jnp.mean(((JQ.fake_quant(jx @ r, 4, axis=-1) @ r_inv) @ jw
+                     - ref) ** 2)
+
+
+grad = jax.jit(jax.grad(loss))
+theta = jnp.zeros((32,), jnp.float32)
+m, v, out = jnp.zeros_like(theta), jnp.zeros_like(theta), []
+for t in range(1, 101):      # flatquant_lite_fit's loop, theta kept a step
+    g = grad(theta)
+    m = 0.9 * m + 0.1 * g
+    v = 0.999 * v + 0.001 * g * g
+    theta = theta - 1e-2 * (m / (1 - 0.9**t)) / (jnp.sqrt(v / (1 - 0.999**t))
+                                                 + 1e-8)
+    out.append(np.asarray(theta).tolist())
+print(json.dumps(out))
+"""
+
+
+def test_flatquant_fits_part_at_a_code_flip():
+    """Where the two 100-step fits part (ROADMAP §3): the reference's θ
+    trajectory is the same with and without XLA's excess precision (the
+    fit is all f32); the port's follows it within 1e-6 until one step,
+    where θ jumps apart (measured: step 58, 7.6e-7 before it, 2.4e-4
+    after) because one 4-bit code of ``X·R`` lies within that gap of a
+    rounding boundary: the reference's own compiled quantizer gives
+    another code at the port's θ than at its own."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    runs = []
+    for flags in ("", "--xla_allow_excess_precision=false"):
+        p = subprocess.run(
+            [sys.executable, "-c", FIT_TRAJECTORY],
+            env=dict(os.environ, PYTHONPATH=str(root / "src"),
+                     JAX_PLATFORMS="cpu", XLA_FLAGS=flags),
+            capture_output=True, text=True, timeout=300)
+        assert p.returncode == 0, p.stderr[-2000:]
+        runs.append(np.array(json.loads(p.stdout.strip().splitlines()[-1]),
+                             np.float32))
+    assert np.array_equal(runs[0], runs[1])
+    x, w = _flat_inputs()
+    tx, tw = _t(x), _t(w)
+    h = torch.tensor(TF.hadamard_matrix(32))
+    theta, m, v, port = torch.zeros(32), torch.zeros(32), torch.zeros(32), []
+    for t in range(1, 101):             # flatquant_lite_fit's loop
+        g = _port_flat_grad(theta, tx, tw, h)
+        m, v = 0.9 * m + 0.1 * g, 0.999 * v + 0.001 * g * g
+        mh, vh = TQ.fdiv(m, 1 - 0.9 ** t), TQ.fdiv(v, 1 - 0.999 ** t)
+        theta = theta - 1e-2 * mh / (torch.sqrt(vh) + 1e-8)
+        port.append(theta.numpy().copy())
+    gap = np.abs(runs[0] - np.array(port)).max(axis=1)
+    part = int(np.argmax(gap > 1e-5))           # the step index that parts
+    assert 0 < part and gap[part - 1] <= 1e-6 < 1e-4 <= gap[part], gap
+    jh = jnp.asarray(h.numpy())
+
+    @jax.jit
+    def codes(th):
+        t = jnp.asarray(x) @ (jnp.exp(th)[:, None] * jh)
+        s, z = JQ.minmax_scale_offset(t, 4)
+        return JQ.quantize(t, s, z, 4)
+    flips = [int((codes(runs[0][i - 1]) != codes(port[i - 1])).sum())
+             for i in (part - 1, part)]
+    assert flips == [0, 1], (part + 1, flips)
 
 
 @pytest.mark.parametrize("name", ["rtn", "quarot", "hadamard", "smoothquant",

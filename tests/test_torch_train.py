@@ -393,18 +393,25 @@ def test_crash_and_restart_resumes(tmp_path):
 
 
 def test_refusals():
-    """``--model-parallel 2`` raises (the sharded step is to come); without
-    ``--device cpu`` the trainer runs on ``cuda`` and raises with no card;
-    a sharding policy is refused."""
+    """In one process without a group, ``--model-parallel 2`` raises, as
+    the reference's mesh assertion does on one device; without ``--device
+    cpu`` the trainer runs on ``cuda`` and raises with no card; a
+    sequence-sharded policy is refused (only the dry run sets it)."""
+    from repro.launch.mesh import make_local_mesh as jmake_local_mesh
+    from repro_torch.sharding import ShardingPolicy
+    with pytest.raises(AssertionError):
+        jmake_local_mesh(2)
     tc = TTRAIN.TrainConfig(steps=1, global_batch=2, seq=16,
                             model_parallel=2)
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    with pytest.raises(ValueError, match="model-parallel 2"):
         TTRAIN.train(SYS_CFG, tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    with pytest.raises(ValueError, match="model-parallel 2"):
         TTRAIN.main(["--reduced", "--device", "cpu", "--model-parallel",
                      "2", "--steps", "1"])
-    with pytest.raises(NotImplementedError):
-        TTRAIN.build_step(SYS_CFG, object(), TAdamW(), False)
+    with pytest.raises(NotImplementedError, match="seq_sharded"):
+        TTRAIN.build_step(SYS_CFG, ShardingPolicy(mesh=None,
+                                                  seq_sharded=True),
+                          TAdamW(), False)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal needs none")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
