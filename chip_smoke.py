@@ -153,7 +153,17 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    gloo (NCCL refuses two ranks on one card) on a ``(1, 2)`` and a ``(2,
    1)`` mesh, minicpm-2b at full width cut to ``PAIR_LAYERS`` layers,
    each held against the one-device step on rank 0 (``[shard]`` lines,
-   each rank's bytes of training state);
+   each rank's bytes of training state); then the dry-run tools
+   (``dryrun_phase``, which launches no kernel: counts set to 0 before it
+   and each required to stay 0): ``python -m repro_torch.launch.dryrun``
+   on minicpm-2b ``train_4k`` (16 x 16) and mamba2-1.3b ``long_500k``
+   (2 x 16 x 16) in subprocesses, each ``ok`` with its record, and the
+   dry run of minicpm-2b whole on one device, its train step (the train
+   phase's, whose ``FlopCounterMode`` count, peak memory and median step
+   it reuses) and a prefill of 4 x 512 tokens under ``make_serve_config``
+   (timed on the card here), each held to the card's FLOPs exactly, its
+   peak within ``DRYRUN_PEAK_REL`` and its roofline step time no longer
+   than the measured one (``[dryrun]`` lines);
 5. print ``{"kernels": [...]}``, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1702,6 +1712,7 @@ def train_full_width(torch, configs, TTRAIN) -> dict:
                             seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
                             log_every=1)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = TTRAIN.train(cfg, tc, verbose=True, device="cuda")
@@ -1712,6 +1723,7 @@ def train_full_width(torch, configs, TTRAIN) -> dict:
     losses, times = out["losses"], out["step_times"]
     crcs = leaf_crcs(out["params"])
     profile = profile_steps(torch, TTRAIN, cfg, tc, out)
+    flops = flop_count_step(torch, TTRAIN, cfg, tc, out)
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -1726,7 +1738,8 @@ def train_full_width(torch, configs, TTRAIN) -> dict:
                steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                first_step_ms=times[0] * 1e3, median_step_ms=med * 1e3,
                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / med,
-               peak_gib=peak, first_loss=losses[0], last_loss=losses[-1], run_s=run_s)
+               peak_gib=peak, base_gib=base, first_loss=losses[0],
+               last_loss=losses[-1], run_s=run_s, flop_counter_flops=flops)
     print(f"[train] {json.dumps(row)}")
     print(f"[train] losses {json.dumps(losses)}")
     return dict(row, losses=losses, crcs=crcs, profile=profile)
@@ -1803,6 +1816,25 @@ def profile_steps(torch, TTRAIN, cfg, tc, out, policy=None,
     check(busy <= wall, f"profile: the device's kernels span {busy:.3f} s "
           f"of a {wall:.3f} s wall")
     return row
+
+
+def flop_count_step(torch, TTRAIN, cfg, tc, out) -> int:
+    """``FlopCounterMode``'s count of one more step of the trained model
+    (the dry run's yardstick: :func:`dryrun_phase`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import optim
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    sched = optim.make_schedule(cfg.schedule, tc.lr, tc.warmup, tc.steps)
+    step = TTRAIN.build_step(cfg, None, optim.AdamWConfig(
+        lr=tc.lr, schedule=sched), False)
+    data = DataIterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=tc.seq,
+                                   global_batch=tc.global_batch),
+                        step=tc.steps + PROFILE_STEPS)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+    with FlopCounterMode(display=False) as fc:
+        step(out["params"], out["opt_state"], None, batch)
+    torch.cuda.synchronize()
+    return fc.get_total_flops()
 
 
 def step_against_cpu(torch, lm, configs, TTRAIN, optim) -> dict:
@@ -2083,7 +2115,7 @@ def shard_rank(plan: dict) -> None:
     PLAN``, under torchrun): ``train`` under the group's mesh, then its
     parameters' CRCs, its peak memory and bytes of training state, a
     profile of ``PROFILE_STEPS`` more steps, and the kernels' launch
-    counts, printed as one ``[shard-rank]`` line by rank 0."""
+    counts, written as one ``[shard-rank]`` line by rank 0."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
@@ -2131,7 +2163,7 @@ def shard_rank(plan: dict) -> None:
                    crc_s=crc_s, profile_s=profile_s, profile=profile,
                    launches=ops.launch_counts(), crcs=crcs)
         if dist.get_rank() == 0:
-            print(f"[shard-rank] {json.dumps(row)}", flush=True)
+            rank_line(plan, "[shard-rank]", row)
     finally:
         dist.destroy_process_group()
 
@@ -2141,7 +2173,7 @@ def shard_pair(plan: dict) -> None:
     with ``"pair"``, under torchrun) over gloo: ``build_step`` on each
     mesh of ``plan["meshes"]`` (model-parallel sizes), then rank 0 runs
     the one-device step from the same init and holds each mesh's run to
-    it; each rank prints a ``[shard-pair]`` line (its bytes of training
+    it; each rank writes a ``[shard-pair]`` line (its bytes of training
     state and seconds), rank 0 the comparison."""
     import os
     sys.path.insert(0, str(ROOT / "src"))
@@ -2211,7 +2243,7 @@ def shard_pair(plan: dict) -> None:
             runs[name] = run(policy)
             mine = dict(rank=rank, mesh=name, seconds=runs[name]["seconds"],
                         state_gib=runs[name]["state_gib"])
-            print(f"[shard-pair] {json.dumps(mine)}", flush=True)
+            rank_line(plan, "[shard-pair]", mine)
             if rank != 0:
                 runs[name] = None
         if rank == 0:
@@ -2221,7 +2253,7 @@ def shard_pair(plan: dict) -> None:
             row = dict(one_device_state_gib=one["state_gib"],
                        one_device_seconds=one["seconds"], meshes=rows,
                        launches=ops.launch_counts())
-            print(f"[shard-pair] {json.dumps(row)}", flush=True)
+            rank_line(plan, "[shard-pair]", row)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -2252,7 +2284,7 @@ def pair_against_one_device(name: str, got: dict, one: dict) -> dict:
         sum(d.numel() for d in d1),
         losses=[m[0] for m in got["metrics"]],
         one_device_losses=[m[0] for m in one["metrics"]])
-    print(f"[shard-pair] {json.dumps(dict(mesh=name, **row))}", flush=True)
+    print(f"[shard] pair {json.dumps(dict(mesh=name, **row))}", flush=True)
     if name.startswith("1x"):
         check(row["losses"] == row["one_device_losses"] and
               row["final_max_ulp"] <= PAIR_ULP,
@@ -2266,26 +2298,41 @@ def pair_against_one_device(name: str, got: dict, one: dict) -> dict:
     return row
 
 
+def rank_line(plan: dict, tag: str, row: dict) -> None:
+    """A rank's result: one ``tag`` line appended to its own file in
+    ``plan["out"]``.  The ranks share one stdout pipe, where two lines
+    written at once can interleave."""
+    import os
+    with open(Path(plan["out"]) / f"rank{os.environ['RANK']}.jsonl",
+              "a") as f:
+        f.write(f"{tag} {json.dumps(row)}\n")
+
+
 def torchrun(nproc: int, plan: dict, tag: str) -> list:
     """``chip_smoke.py --shard-rank PLAN`` in ``nproc`` ranks through
-    ``torch.distributed.run --standalone``: the JSON of its ``tag``
-    lines (its ``[shard]`` lines echoed)."""
+    ``torch.distributed.run --standalone``: the JSON of the ``tag`` lines
+    its ranks wrote (:func:`rank_line`), rank by rank (its ``[shard]``
+    lines echoed)."""
     import os
-    p = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
-         "--shard-rank", json.dumps(plan)],
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
-        capture_output=True, text=True, timeout=SHARD_TIMEOUT_S)
-    fails = [ln for ln in p.stderr.splitlines() if "FAIL" in ln]
-    check(p.returncode == 0, f"shard: the torchrun group of {nproc} failed "
-          f"({p.returncode}): {fails} {p.stdout[-1500:]} "
-          f"{p.stderr[-2000:]}")
-    for line in p.stdout.splitlines():
-        if line.startswith("[shard] "):
-            print(line)
-    return [json.loads(line.split(" ", 1)[1]) for line in
-            p.stdout.splitlines() if line.startswith(tag + " ")]
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        p = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
+             "--shard-rank", json.dumps(dict(plan, out=out))],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+            capture_output=True, text=True, timeout=SHARD_TIMEOUT_S)
+        fails = [ln for ln in p.stderr.splitlines() if "FAIL" in ln]
+        check(p.returncode == 0, f"shard: the torchrun group of {nproc} "
+              f"failed ({p.returncode}): {fails} {p.stdout[-1500:]} "
+              f"{p.stderr[-2000:]}")
+        for line in p.stdout.splitlines():
+            if line.startswith("[shard] "):
+                print(line)
+        lines = [line for path in sorted(Path(out).glob("rank*.jsonl"))
+                 for line in path.read_text().splitlines()]
+    return [json.loads(line.split(" ", 1)[1]) for line in lines
+            if line.startswith(tag + " ")]
 
 
 def shard_phase(torch, ops, one_device: dict) -> dict:
@@ -2363,6 +2410,201 @@ def shard_phase(torch, ops, one_device: dict) -> dict:
     print(f"[shard] phase {time.perf_counter() - t0:.1f}s launches "
           f"{json.dumps(counts)}")
     return counts
+
+
+# --------------------------------------------------------- dryrun phase --
+
+# the dry run's CLI on two production cells (subprocesses on the host,
+# beside the card work below), then the dry run held against the card on
+# the cells it can run whole: TRAIN_ARCH at full width on one device, no
+# policy, the train phase's step (TRAIN_BATCH x TRAIN_SEQ, its numbers
+# reused) and a prefill of as many tokens under make_serve_config (no
+# fused kernel), timed here: FLOPs equal to FlopCounterMode's, the peak
+# within DRYRUN_PEAK_REL of max_memory_allocated (less what was allocated
+# before), the roofline's step time no longer than the measured step
+DRYRUN_CLI = [("minicpm-2b", "train_4k", False),
+              ("mamba2-1.3b", "long_500k", True)]
+DRYRUN_PEAK_REL = 0.10
+DRYRUN_TIMEOUT_S = 600
+PREFILL_ITERS = 5
+
+
+def dryrun_cli(out_dir: Path) -> list:
+    """The dry run's CLI on each DRYRUN_CLI cell, one subprocess each,
+    started together."""
+    import os
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_CLI:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out-dir", str(out_dir)]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1")
+        procs.append((arch, shape, multi_pod, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs
+
+
+def dryrun_cli_rows(procs: list, out_dir: Path) -> list:
+    """Each CLI cell's exit and record: ``ok`` on its mesh's ranks."""
+    rows = []
+    for arch, shape, multi_pod, proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"dry run {arch} {shape}: over {DRYRUN_TIMEOUT_S} s")
+        check(proc.returncode == 0, f"dry run {arch} {shape} exited "
+              f"{proc.returncode}:\n{log[-3000:]}")
+        mesh = "multipod" if multi_pod else "singlepod"
+        rec = json.loads((out_dir / f"{arch}_{shape}_{mesh}.json")
+                         .read_text())
+        chips = 512 if multi_pod else 256
+        check(rec["status"] == "ok" and rec["chips"] == chips,
+              f"dry run {arch} {shape} {mesh}: {rec.get('status')} on "
+              f"{rec.get('chips')} chips")
+        check(rec["op_stats"]["dot_flops_per_device"] > 0 and
+              rec["memory"]["peak_bytes_per_device"] >=
+              rec["memory"]["argument_bytes_per_device"] > 0,
+              f"dry run {arch} {shape} {mesh}: no products or memory "
+              f"counted on {rec['device']}")
+        r, m = rec["roofline"], rec["memory"]
+        row = dict(arch=arch, shape=shape, mesh=mesh, chips=rec["chips"],
+                   device=rec["device"], cell_s=rec["t_s"],
+                   trace_s=rec["t_trace_s"], ops=rec["op_count"],
+                   peak_gb=m["peak_bytes_per_device"] / 1e9,
+                   dot_flops=rec["op_stats"]["dot_flops_per_device"],
+                   collective_bytes=rec["op_stats"][
+                       "collective_bytes_per_device"],
+                   step_time_s=r["step_time_s"], bottleneck=r["bottleneck"],
+                   useful_flops_ratio=r["useful_flops_ratio"])
+        print(f"[dryrun] cli {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def prefill_on_card(torch, lm, S, cfg) -> dict:
+    """``cfg``'s prefill of TRAIN_BATCH x TRAIN_SEQ tokens under
+    ``make_serve_config`` on the card (bf16 parameters, int4 weights, as
+    the dry run's ``serve_param_struct``): median ms of PREFILL_ITERS
+    calls after a warm-up, the peak above what was allocated before the
+    parameters, and ``FlopCounterMode``'s count of one call."""
+    from torch.utils.flop_counter import FlopCounterMode
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = lm.init_params(cfg, 0, device="cuda", dtype=torch.bfloat16)
+    params["layers"] = [lm.quantize_weights_for_serving(p, 4)
+                        for p in params["layers"]]
+    serve = S.make_serve_config(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        lm.prefill(params, tokens, cfg, serve)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(PREFILL_ITERS):
+            t0 = time.perf_counter()
+            lm.prefill(params, tokens, cfg, serve)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        with FlopCounterMode(display=False) as fc:
+            lm.prefill(params, tokens, cfg, serve)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(median_ms=sorted(times)[len(times) // 2] * 1e3,
+                peak_gib=peak / 2 ** 30,
+                flop_counter_flops=fc.get_total_flops())
+
+
+def dryrun_phase(torch, ops, one_device: dict) -> dict:
+    """The dry-run tools on the card's machine (no kernel: the dry run
+    traces fake tensors and reaches no fused path; counts set to 0 just
+    before and read just after): the CLI on DRYRUN_CLI, and the dry run
+    of TRAIN_ARCH's train step and prefill at TRAIN_BATCH x TRAIN_SEQ on
+    one device against the card's runs (``one_device``: the train
+    phase's row), printed as ``[dryrun]`` lines.  Returns the counts and
+    the rows."""
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as S
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    procs = dryrun_cli(out_dir)
+    cfg = configs.get_config(TRAIN_ARCH)
+    prefill = prefill_on_card(torch, lm, S, cfg)
+    card = {"train": dict(median_ms=one_device["median_step_ms"],
+                          peak_gib=one_device["peak_gib"]
+                          - one_device["base_gib"],
+                          flop_counter_flops=one_device[
+                              "flop_counter_flops"]),
+            "prefill": prefill}
+    rows = {}
+    for kind, measured in card.items():
+        shape = ShapeConfig(f"card_{kind}", TRAIN_SEQ, TRAIN_BATCH, kind)
+        rec = DR.analyze(DR.lower_cell(TRAIN_ARCH, None, multi_pod=False,
+                                       cfg=cfg, shape=shape, sharded=False))
+        stats, roof = rec["op_stats"], rec["roofline"]
+        peak = rec["memory"]["peak_bytes_per_device"] / 2 ** 30
+        bound_ms = roof["step_time_s"] * 1e3
+        row = dict(kind=kind, arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, device=rec["device"],
+                   dot_flops=stats["dot_flops_per_device"],
+                   card_flop_counter=measured["flop_counter_flops"],
+                   dot_flops_by_dtype=stats["dot_flops_by_dtype"],
+                   hbm_bytes=stats["hbm_bytes_per_device"],
+                   ops=rec["op_count"], peak_gib=peak,
+                   card_peak_gib=measured["peak_gib"],
+                   peak_rel=peak / measured["peak_gib"] - 1,
+                   compute_ms=roof["compute_s"] * 1e3,
+                   memory_ms=roof["memory_s"] * 1e3,
+                   bound_ms=bound_ms, bottleneck=roof["bottleneck"],
+                   card_ms=measured["median_ms"],
+                   bound_frac=bound_ms / measured["median_ms"],
+                   trace_s=rec["t_trace_s"])
+        print(f"[dryrun] card {json.dumps(row)}")
+        check(row["dot_flops"] == row["card_flop_counter"],
+              f"dry run {kind}: {row['dot_flops']} dot FLOPs, "
+              f"FlopCounterMode counted {row['card_flop_counter']} on the "
+              f"card")
+        check(abs(row["peak_rel"]) <= DRYRUN_PEAK_REL,
+              f"dry run {kind}: peak {peak:.3f} GiB, the card's "
+              f"{measured['peak_gib']:.3f} GiB")
+        check(bound_ms <= measured["median_ms"],
+              f"dry run {kind}: the roofline's {bound_ms:.1f} ms exceeds "
+              f"the measured {measured['median_ms']:.1f} ms")
+        rows[kind] = row
+    # the same train cell on fake cpu tensors, as a CPU-only PyTorch
+    # sweeps it: the same products, bytes less the host-to-device copies
+    cpu = DR.analyze(DR.lower_cell(
+        TRAIN_ARCH, None, multi_pod=False, cfg=cfg,
+        shape=ShapeConfig("card_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        sharded=False, device="cpu"))["op_stats"]
+    same = dict(dot_flops_equal=cpu["dot_flops_per_device"]
+                == rows["train"]["dot_flops"],
+                hbm_bytes_cuda_less_cpu=rows["train"]["hbm_bytes"]
+                - cpu["hbm_bytes_per_device"])
+    print(f"[dryrun] fake cpu vs fake cuda {json.dumps(same)}")
+    check(same["dot_flops_equal"], "dry run: the fake cpu trace's FLOPs "
+          "differ from the fake cuda trace's")
+    cli = dryrun_cli_rows(procs, out_dir)
+    shutil.rmtree(out_dir)
+    counts = ops.launch_counts()
+    print(f"[dryrun] phase {time.perf_counter() - t0:.1f}s launches "
+          f"{json.dumps(counts)}")
+    return counts, dict(rows, cli=cli)
 
 
 def to_device(x, device):
@@ -3039,6 +3281,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths["shard"] = (shard_phase(torch, ops, one_device), every)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_counts, _ = dryrun_phase(torch, ops, one_device)
+    paths["dryrun"] = (dry_counts, every)
     for path, (counts, absent) in paths.items():
         for name, n in counts.items():
             if name in absent:

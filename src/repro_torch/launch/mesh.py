@@ -64,15 +64,17 @@ def _mesh(device_type: str, shape: tuple, names: tuple) -> DeviceMesh:
                       mesh_dim_names=names)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cpu") -> DeviceMesh:
     """``(16, 16)`` over ``("data", "model")``, or ``(2, 16, 16)`` over
     ``("pod", "data", "model")``, over the group's first 256 or 512 ranks
     (as ``jax.make_mesh`` takes the first devices).  Built under a fake
     group of that size for shapes alone, as the dry run lowers on fake
-    host devices."""
+    host devices; ``device_type`` is its tensors' (DTensor moves a block
+    onto its mesh's device type)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh("cpu", shape, axes)
+    return _mesh(device_type, shape, axes)
 
 
 def make_local_mesh(model_parallel: int = 1, device=None) -> DeviceMesh:

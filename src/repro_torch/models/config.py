@@ -1,8 +1,9 @@
 """Model configuration for the stacks the port serves: dense GQA,
 capacity-routed MoE, hybrid Mamba + attention (Jamba), pure Mamba2 / SSD,
 encoder-decoder (Seamless) and backbones behind a stubbed modality frontend
-(LLaVA's patches, Seamless's frames) — a copy of ``repro.models.config``
-less the training-shape cells."""
+(LLaVA's patches, Seamless's frames), and the dry run's input-shape cells
+(``ShapeConfig``, ``SHAPES``, ``shape_applicable``) — a copy of
+``repro.models.config``."""
 
 from __future__ import annotations
 
@@ -127,3 +128,81 @@ class ModelConfig:
         period pattern repeated (the port keeps layers unrolled)."""
         pro, period, nper = self.layer_plan()
         return pro + period * nper
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks), for 6·N·D."""
+        d = self.d_model
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            attn += self.q_dim + 2 * self.kv_dim
+        mlp = 3 * d * self.d_ff
+        moe = 0
+        if self.num_experts:
+            moe = (self.num_experts * 3 * d * self.expert_d_ff
+                   + d * self.num_experts)
+        di, ns, nh = self.d_inner, self.ssm_state, self.ssm_heads
+        groups_dim = 2 * ns  # B and C projections (single group)
+        mamba = (d * (2 * di + groups_dim + nh)   # in_proj (x, z, B, C, dt)
+                 + di * d                          # out_proj
+                 + di * self.conv_width + nh * 2 + di)  # conv, A/dt bias, D
+        total = 0
+        for spec in self.layer_specs():
+            if spec.mixer == "attn":
+                total += attn
+            elif spec.mixer == "mamba":
+                total += mamba
+            if spec.ffn == "mlp":
+                total += mlp
+            elif spec.ffn == "moe":
+                total += moe
+            elif spec.ffn == "moe_dense":
+                total += moe + mlp
+            total += 2 * d  # norms
+        if self.encoder_layers:
+            # encoder self-attn + ffn, and decoder cross-attn blocks
+            total += self.encoder_layers * (attn + mlp + 2 * d)
+            total += self.num_layers * (attn + d)  # cross-attn + norm
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return total
+
+    def active_param_count(self) -> int:
+        """Active (per-token) params, for MoE MODEL_FLOPS = 6·N_active·D."""
+        if not self.num_experts:
+            return self.param_count()
+        full_moe = self.num_experts * 3 * self.d_model * self.expert_d_ff
+        active_moe = (self.experts_per_token * 3 * self.d_model
+                      * self.expert_d_ff)
+        n_moe_layers = sum(1 for s in self.layer_specs()
+                           if s.ffn in ("moe", "moe_dense"))
+        return self.param_count() - n_moe_layers * (full_moe - active_moe)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (input-shape) cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skipped (pure full-attention arch; long_500k needs "
+                       "sub-quadratic)")
+    return True, ""

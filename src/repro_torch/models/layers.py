@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.stamp import (PreparedLinear, stamp_dual_linear,
                                     stamp_linear, token_quantize)
+from repro_torch.device import fake_mode_active
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.stamp_matmul import silu
 from repro_torch.obs import quantstats as QS
@@ -143,14 +144,21 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
     in the reference's dense einsums, so the sum is unchanged, and in
     training its weights' gradient is zero on both sides.  Autograd takes
     the per-expert writes into ``out``; choosing the experts costs one
-    host sync a call (``tolist``)."""
+    host sync a call (``tolist``).  Under a ``FakeTensorMode`` (the dry
+    run) the counts hold no values to read, so every expert is computed:
+    the same function, since an expert without tokens adds exact zeros,
+    and the work this loop does whenever every expert keeps a token."""
     bsz, seq, d = x.shape
     xg, valid, seq_p = _moe_fold(x, group_size)
     combine, dispatch, counts = moe_route(xg, gate_w, experts_per_token,
                                           capacity_factor, valid)
     xin = torch.einsum("bsec,bsd->becd", dispatch, xg)        # (b, E, C, d)
     out = torch.zeros_like(xin)
-    for ei in torch.nonzero(counts.sum(dim=0) > 0).flatten().tolist():
+    if fake_mode_active():
+        experts = range(counts.shape[-1])
+    else:
+        experts = torch.nonzero(counts.sum(dim=0) > 0).flatten().tolist()
+    for ei in experts:
         xe = xin[:, ei]
         h = silu(xe @ w_gate[ei].to(x.dtype)) * (xe @ w_up[ei].to(x.dtype))
         out[:, ei] = h @ w_down[ei].to(x.dtype)

@@ -52,7 +52,7 @@ from repro_torch.core.stamp import (StampConfig, fused_eligible,
                                     fused_ineligibility, prepare_linear,
                                     stamp_fake_quant)
 from repro_torch.core.quant import EPS, fake_quant, fdiv
-from repro_torch.device import resolve_device
+from repro_torch.device import fake_mode_active, resolve_device
 from repro_torch.kernels.cache_attention import cache_decode_attention
 from repro_torch.kernels.decode_matmul import stamp_decode_matmul
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
@@ -123,8 +123,11 @@ def _dense(gen, din, dout, device, dtype, std=None):
 def _expert_stack(gen, e, din, dout, device, dtype):
     """(E, din, dout) drawn one expert at a time in f32 and stored in
     ``dtype``: no f32 stack is ever held (one Arctic stack is 17.8 GB in
-    f32), and a bf16 stack equals the f32 one cast."""
+    f32), and a bf16 stack equals the f32 one cast.  Under a
+    ``FakeTensorMode`` nothing is drawn (the stack's shape is all)."""
     out = torch.empty((e, din, dout), dtype=dtype, device=device)
+    if fake_mode_active():
+        return out
     for i in range(e):
         out[i] = _dense(gen, din, dout, device, dtype)
     return out
@@ -174,9 +177,8 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen, dev, dtype) -> dict:
         p[f"{pre}wo_mlp"] = _dense(gen, cfg.d_ff, d, dev, dtype)
     if spec.ffn in ("moe", "moe_dense"):
         e, f = cfg.num_experts, cfg.expert_d_ff
-        # the router stays in f32 whatever ``dtype`` is (d x E, small): it
-        # routes on f32 weights, as the reference's does
-        p["gate_w"] = _dense(gen, d, e, dev, torch.float32)
+        # stored in ``dtype`` as the reference's; routing upcasts it to f32
+        p["gate_w"] = _dense(gen, d, e, dev, dtype)
         p["we_gate"] = _expert_stack(gen, e, d, f, dev, dtype)
         p["we_up"] = _expert_stack(gen, e, d, f, dev, dtype)
         p["we_down"] = _expert_stack(gen, e, f, d, dev, dtype)
@@ -187,17 +189,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype=torch.float32, lazy: bool = False) -> dict:
     """Random parameters from ``seed`` (a ``torch.Generator`` on the
     target device), with the reference's shapes and scales, drawn in f32
-    and stored in ``dtype`` (a bf16 model equals the f32 one cast; MoE
-    routers stay f32).  An encoder-decoder stack's ``encoder`` (its layers
-    without cross-attention, and its ``final_norm``) is drawn before the
-    decoder layers.  With
+    and stored in ``dtype`` (a bf16 model equals the f32 one cast, MoE
+    routers included, as the reference's).  An encoder-decoder stack's
+    ``encoder`` (its layers without cross-attention, and its
+    ``final_norm``) is drawn before the decoder layers.  With
     ``lazy``, ``layers`` is an iterator that draws each layer when it is
     reached, with the same numbers: a full-width MoE stack is set up one
-    layer at a time.  Runs on ``cuda`` unless ``device`` says otherwise."""
+    layer at a time.  Runs on ``cuda`` unless ``device`` says otherwise.
+    Under a ``FakeTensorMode`` (the dry run's stand-ins) nothing is drawn:
+    the leaves are shapes, and no generator is made."""
     dev = resolve_device(device)
     specs = cfg.layer_specs()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if not fake_mode_active():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     d = cfg.d_model
     params = {
         "embed": (torch.randn((cfg.padded_vocab, d), generator=gen,
@@ -401,10 +407,14 @@ def _one_expert(w, e: int):
 def _per_expert(fn, w) -> dict:
     """``fn`` (a ``(din, dout)`` weight or packed dict → dict of tensors)
     over a stacked ``(E, ·, ·)`` weight one expert at a time, stacked into
-    preallocated outputs: its f32 temporaries stay one expert's size."""
+    preallocated outputs: its f32 temporaries stay one expert's size.
+    Under a ``FakeTensorMode`` only the first expert runs: its outputs'
+    shapes are every expert's, and fake tensors hold no values."""
     first = fn(_one_expert(w, 0))
     n = (next(iter(w.values())) if isinstance(w, dict) else w).shape[0]
     out = {k: v.new_empty((n, *v.shape)) for k, v in first.items()}
+    if fake_mode_active():
+        return out
     for e in range(n):
         part = first if e == 0 else fn(_one_expert(w, e))
         for k, v in part.items():
@@ -1229,7 +1239,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, serve: ServeConfig,
 
 def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
             last_pos: Optional[torch.Tensor] = None,
-            enc_out: Optional[torch.Tensor] = None) -> tuple:
+            enc_out: Optional[torch.Tensor] = None, *,
+            policy: Optional[ShardingPolicy] = None) -> tuple:
     """Whole-prompt forward with STaMP activation quantization: next-token
     logits ``(b, V)`` f32 read at ``last_pos`` (b,) per row (default: the
     last column; right-padded prompts read their true last token), and
@@ -1241,19 +1252,29 @@ def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
     ``enc_out``, the encoder's output for those frames, is taken as it is
     and the encoder does not run).  Mamba layers stop their recurrence at
     each row's ``last_pos``: attention never reads a right pad (causal),
-    but a recurrent state would keep absorbing them."""
+    but a recurrent state would keep absorbing them.  Under a sharding
+    ``policy`` (the reference's argument) the parameters are DTensors
+    placed by its rules, ``batch`` holds this rank's rows (the batch axes'
+    split of the global batch), each layer's leaves are gathered inside
+    the layer and the residual is constrained to ``policy.acts()``, as in
+    :func:`model_hidden`; the logits and cache are this rank's rows."""
     batch = as_batch(batch)
     dev = batch["tokens"].device
     seq_lengths = None if last_pos is None else \
         last_pos.to(dev).to(torch.int32) + 1
+    params = _top(params, policy)
 
     def stack():
-        x, enc = embed_inputs(params, batch, cfg, encoder=enc_out is None)
+        x, enc = embed_inputs(params, batch, cfg, encoder=enc_out is None,
+                              policy=policy)
         enc = enc_out if enc is None else enc
+        x = constrain(x, policy, lambda pol: pol.acts())
         cache = []
         for spec, p in zip(cfg.layer_specs(), params["layers"]):
-            x, entry = prefill_layer(p, spec, x, cfg, serve.stamp, serve.kv,
+            x, entry = prefill_layer(_gathered(p, policy), spec, x, cfg,
+                                     serve.stamp, serve.kv,
                                      serve.cache_capacity, enc, seq_lengths)
+            x = constrain(x, policy, lambda pol: pol.acts())
             cache.append(entry)
         return x, cache
 
@@ -1269,18 +1290,28 @@ def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
 
 
 def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
-                cfg: ModelConfig, serve: ServeConfig) -> tuple:
+                cfg: ModelConfig, serve: ServeConfig, *,
+                policy: Optional[ShardingPolicy] = None) -> tuple:
     """One token per slot against the contiguous cache.  ``tokens``: (b,);
     ``pos``: a scalar (every slot at the same length) or (b,) per-slot
     positions, where each new token's K/V is written.  Decode runs
     transform free; with ``fused_decode_matmul`` its linears over prepared
     weights take the decode kernel K3.  The cache updates in place (an
     enc-dec entry's ``xk`` / ``xv`` are carried: the reference's decode
-    runs no cross-attention).  Returns ``(logits (b, V) f32, cache)``."""
+    runs no cross-attention).  Returns ``(logits (b, V) f32, cache)``.
+    Under a sharding ``policy`` the parameters are DTensors placed by its
+    rules, each layer's leaves gathered inside the layer; ``tokens`` and
+    ``cache`` are this rank's rows, the cache's sequence whole.  The
+    reference also constrains the dequantized cache to
+    ``policy.decode_kv_spec`` (its sequence over ``model``); the eager
+    step splits only the batch (:meth:`ShardingPolicy.constraint`), so
+    that constraint is not asked for here."""
     dm = serve.fused_decode_matmul
+    params = _top(params, policy)
     x = _embed(params, tokens[:, None])
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     for spec, p, entry in zip(cfg.layer_specs(), params["layers"], cache):
+        p = _gathered(p, policy)
         if spec.mixer == "mamba":
             x = mamba_block_cached_decode(p, x, cfg, entry, dm)
         else:

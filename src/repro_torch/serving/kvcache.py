@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import EPS, div_const
+from repro_torch.device import fake_mode_active
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +173,13 @@ def write_token(entry: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         return entry
     hi_len = entry["k_hi"].shape[1]
     in_hi = pos < hi_len
-    hi_rows, lo_rows = rows[in_hi], rows[~in_hi]
+    if fake_mode_active():
+        # a fake position holds no value to split the rows by: every row
+        # writes past the hi region, as the dry run's decode cells do (a
+        # token at 32k or 500k cached positions)
+        hi_rows, lo_rows = rows[:0], rows
+    else:
+        hi_rows, lo_rows = rows[in_hi], rows[~in_hi]
     for name, t in (("k", k_new), ("v", v_new)):
         t = t[:, 0]
         q8, sc8, zp8 = quant_tokens(t, cfg.hi_bits)

@@ -463,7 +463,8 @@ def _equal_trees(a, b) -> None:
 
 def test_streaming_setup_equals_whole_model():
     """The full-width setup path, at the reduced size: a bf16 init equals
-    the f32 one cast, its f32 routers equal; the lazily drawn layers, calibrated layer-major and
+    the f32 one cast, routers included (stored in the init's dtype, as the
+    reference's); the lazily drawn layers, calibrated layer-major and
     prepared as they are handed over, give the same PTQ report, packed and
     prepared weights as the whole model held at once."""
     f32 = TLM.init_params(TCFG, seed=3, device="cpu")
@@ -471,11 +472,10 @@ def test_streaming_setup_equals_whole_model():
     _equal_trees({k: v for k, v in whole.items() if k != "layers"},
                  {k: v.to(torch.bfloat16) for k, v in f32.items()
                   if k != "layers"})
-    # ... but for the router, which stays f32 (it routes on f32 weights)
-    _equal_trees(whole["layers"], [{k: v if k == "gate_w" else
-                                    v.to(torch.bfloat16)
+    _equal_trees(whole["layers"], [{k: v.to(torch.bfloat16)
                                     for k, v in layer.items()}
                                    for layer in f32["layers"]])
+    assert whole["layers"][0]["gate_w"].dtype == torch.bfloat16
     lazy = TLM.init_params(TCFG, seed=3, device="cpu", dtype=torch.bfloat16,
                            lazy=True)
     assert not isinstance(lazy["layers"], list)
