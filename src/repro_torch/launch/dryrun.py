@@ -23,9 +23,16 @@ hardware:
   gzip-compressed op log beside it (``reanalyze`` re-derives the numbers
   from it).
 
-The eager step splits only the batch: parameters are stored by the rule
-table and gathered whole at use, the model axis's compute is replicated,
-and a spec that splits anything but the batch is refused
+Parameters are stored by the rule table and gathered at use.  The train
+step splits the model axis's compute (``lm.train_loss`` under
+``ShardingPolicy.model_split``): each model rank keeps its block of the
+linears, the vocabulary and the experts, computes the attention heads
+its block overlaps, and copy-in / reduce-out collectives make the
+function the one-process one.  Left whole along ``model``, and named in
+each record's ``model_split``: the Mamba mixers (replicated on every
+model rank) and serving (``prefill`` / ``decode_step`` gather every leaf
+whole: their STaMP quantizers take whole rows).  Activations split only
+the batch, and a spec that splits anything else is refused
 (``--seq-sharded`` writes a ``refused`` record with the step's words).
 Where the reference shards the decode cache's sequence over ``model``,
 the port keeps it whole on each rank; the record names both.
@@ -156,6 +163,39 @@ def _alias_bytes(outputs, arguments) -> int:
                and local(t).untyped_storage()._cdata in args)
 
 
+def model_split_record(cfg: ModelConfig, shape: ShapeConfig,
+                       policy: Optional[ShardingPolicy]) -> dict:
+    """What the traced step splits along ``model`` and what it computes
+    whole on every model rank (the record's ``model_split``)."""
+    split = policy is not None and policy.model_split() is not None
+    specs = cfg.layer_specs()
+    if not split:
+        return {"split": False, "why": "no policy" if policy is None
+                else "the model axis has one rank"}
+    if shape.kind != "train":
+        return {"split": False,
+                "why": "serving gathers every leaf whole along model: its "
+                       "STaMP quantizers take per-token min-max over whole "
+                       "rows"}
+    parts = ["embedding and loss (vocab-parallel)"]
+    if any(s.mixer == "attn" for s in specs):
+        parts += ["attention projections (column / row parallel)",
+                  "attention over the heads a rank's block overlaps"]
+    if any(s.ffn in ("mlp", "moe_dense") for s in specs) or \
+            cfg.encoder_layers:
+        parts.append("dense MLP (column / row parallel)")
+    if any(s.ffn in ("moe", "moe_dense") for s in specs):
+        parts.append("experts (expert parallel; every row routed on "
+                     "every rank)")
+    if cfg.encoder_layers:
+        parts.append("encoder and cross-attention")
+    whole = ["Mamba mixers (in_proj's flat [z, x, B, C, dt] output does "
+             "not split on head boundaries)"] \
+        if any(s.mixer == "mamba" for s in specs) else []
+    return {"split": True, "model_ranks": policy.model_split().size,
+            "split_parts": parts, "whole": whole}
+
+
 def trace_step(cfg: ModelConfig, shape: ShapeConfig,
                policy: Optional[ShardingPolicy], device, *,
                quantize_acts: bool = True, weight_bits=4,
@@ -164,12 +204,14 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig,
     one device) on fake tensors.  Returns the counter and the record's
     memory and placement fields; raises what the eager step raises."""
     device = torch.device(device)
-    info: dict = {"notes": []}
+    info: dict = {"notes": [],
+                  "model_split": model_split_record(cfg, shape, policy)}
     if cfg.num_experts:
         info["notes"].append(
-            "moe_ffn computes every expert under fake tensors (no routing "
-            "counts to read): the eager step's work when every expert "
-            "keeps a token")
+            "moe_ffn computes every expert (of this rank's block, under "
+            "a model split) under fake tensors (no routing counts to "
+            "read): the eager step's work when every expert keeps a "
+            "token")
     if shape.kind == "decode" and any(
             s.mixer == "attn" for s in cfg.layer_specs()):
         info["notes"].append(
@@ -318,6 +360,7 @@ def analyze(result: dict, save_ops: str = "") -> dict:
         "op_count": stats["device_ops"],
         "decomposed_ops": counter.decomposed,
         "batch_specs": result["batch_specs"],
+        "model_split": result["model_split"],
         "notes": result["notes"],
     }
     for k in ("cache_specs", "decode_kv_spec"):

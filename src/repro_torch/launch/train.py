@@ -5,8 +5,9 @@ sharded over the process group's mesh, fault tolerant.
   group whenever one is up (``--model-parallel`` sets ``mp``), with the
   reference's sharding rules (:mod:`repro_torch.sharding`): parameters,
   gradients and AdamW moments stored as the rule table places them, each
-  leaf gathered whole at use, every rank drawing the same global batch
-  and keeping its data rows; without a group (a plain ``python -m``) the
+  leaf gathered over the batch axis at use (its ``model`` block kept
+  where the step splits that axis), every rank drawing the same global
+  batch and keeping its data rows; without a group (a plain ``python -m``) the
   one-device step, unchanged;
 * WSD or cosine schedule (per arch: MiniCPM trains with WSD);
 * checkpoint / restart: atomic async checkpoints every ``--ckpt-every``
@@ -28,8 +29,11 @@ run equal to a clean one bit for bit on an NVIDIA H100 80GB HBM3
 tokens a step; the encoder stacks and full widths were not checked.
 Runs on ``cuda`` unless ``--device`` says otherwise; under torchrun a
 rank takes the card ``LOCAL_RANK`` over NCCL, or gloo with ``--device
-cpu``.  The compute along ``model`` is replicated: tensor-parallel
-linears are still to be ported.
+cpu``.  With ``--model-parallel`` above 1 the step splits the model
+axis's compute (``lm.train_loss`` under ``ShardingPolicy.model_split``):
+column / row-parallel linears, attention over each rank's heads, a
+vocab-parallel embedding and loss, and expert-parallel MoE; the Mamba
+mixers run whole on every model rank.
 
 Usage (CPU, reduced config; one process, then a 2 x 2 mesh):
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\

@@ -135,7 +135,8 @@ def moe_route(x: torch.Tensor, gate_w: torch.Tensor, experts_per_token: int,
 
 def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
             experts_per_token: int, capacity_factor: float,
-            group_size: int = 1024) -> torch.Tensor:
+            group_size: int = 1024,
+            experts: Optional[tuple] = None) -> torch.Tensor:
     """Capacity-based top-k MoE, reference path.  ``w_gate / w_up``
     index to expert ``e``'s ``(d, f)`` weight by ``w[e]`` and ``w_down``
     to its ``(f, d)`` one (stacked tensors, or a view that dequantizes one
@@ -147,18 +148,26 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
     host sync a call (``tolist``).  Under a ``FakeTensorMode`` (the dry
     run) the counts hold no values to read, so every expert is computed:
     the same function, since an expert without tokens adds exact zeros,
-    and the work this loop does whenever every expert keeps a token."""
+    and the work this loop does whenever every expert keeps a token.  With
+    ``experts = (e0, e1)`` (expert parallel) every row is routed over all
+    experts, but only experts ``[e0, e1)`` are computed, their weights
+    held at stack indices ``0 … e1 − e0``: the result is their part of
+    the sum, and the dispatch buffer holds only them."""
     bsz, seq, d = x.shape
     xg, valid, seq_p = _moe_fold(x, group_size)
     combine, dispatch, counts = moe_route(xg, gate_w, experts_per_token,
                                           capacity_factor, valid)
+    if experts is not None:
+        e0, e1 = experts
+        combine, dispatch = combine[:, :, e0:e1], dispatch[:, :, e0:e1]
+        counts = counts[:, e0:e1]
     xin = torch.einsum("bsec,bsd->becd", dispatch, xg)        # (b, E, C, d)
     out = torch.zeros_like(xin)
     if fake_mode_active():
-        experts = range(counts.shape[-1])
+        kept = range(counts.shape[-1])
     else:
-        experts = torch.nonzero(counts.sum(dim=0) > 0).flatten().tolist()
-    for ei in experts:
+        kept = torch.nonzero(counts.sum(dim=0) > 0).flatten().tolist()
+    for ei in kept:
         xe = xin[:, ei]
         h = silu(xe @ w_gate[ei].to(x.dtype)) * (xe @ w_up[ei].to(x.dtype))
         out[:, ei] = h @ w_down[ei].to(x.dtype)

@@ -63,7 +63,7 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.obs import quantstats as QS
 from repro_torch.serving import kvcache as KV
 from repro_torch.serving import paged_kvcache as PKV
-from repro_torch.sharding import ShardingPolicy, constrain
+from repro_torch.sharding import ModelSplit, ShardingPolicy, constrain
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -489,6 +489,16 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _whole_rows(stamp: Optional[StampConfig], kv=None) -> None:
+    """Refuse STaMP or a cache under a model split: their per-token
+    min-max takes whole rows, and the split is the training step's
+    (``prefill`` / ``decode_step`` gather their leaves whole)."""
+    if stamp is not None or kv is not None:
+        raise NotImplementedError(
+            "the model split is the training step's: STaMP's and the "
+            "cache's per-token min-max take whole rows")
+
+
 def _maybe_stamp(x: torch.Tensor, stamp: Optional[StampConfig],
                  site: Optional[str] = None):
     if stamp is None or not stamp.enabled:
@@ -547,17 +557,25 @@ class _ExpertStack:
 
 
 def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
-              stamp: Optional[StampConfig], dm: bool) -> torch.Tensor:
+              stamp: Optional[StampConfig], dm: bool,
+              split: Optional[ModelSplit] = None) -> torch.Tensor:
     """SwiGLU MLP and/or MoE + residual, summed as the reference does: ``x
     + ((0 + moe) + mlp)``.  The fused MLP is one dual call for gate/up and
     one call for the down-projection; the fused MoE routes on the stamped
     round trip and runs the expert stack through the grouped kernel.
     Without fused weights or STaMP (the decode region, calibration) the
     MoE runs the reference FFN over the routed experts only.  A pure-SSM
-    layer has no FFN (``none``)."""
+    layer has no FFN (``none``).  Without STaMP the FFN is
+    :func:`_ffn_plain`, on this rank's blocks under a model ``split``
+    (training)."""
     if spec.ffn == "none":
         return x
     h = L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
+    if split is not None:
+        _whole_rows(stamp)
+    if stamp is None or not stamp.enabled:
+        return x + _reduced(_ffn_plain(p, _copy_in(h, split), spec, cfg, dm,
+                                       split), split)
     hq = None
     out = torch.zeros_like(x)
     if spec.ffn in ("moe", "moe_dense"):
@@ -587,11 +605,85 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     return x + out
 
 
+def _copy_in(x: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
+    """A column-parallel block's input: its gradient summed over the model
+    ranks (itself without a split)."""
+    return x if split is None else split.copy_in(x)
+
+
+def _reduced(y: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
+    """A row-parallel product summed over the model ranks (itself
+    without a split)."""
+    return y if split is None else split.reduce_out(y)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               positions, cfg: ModelConfig, causal: bool,
+               split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """Attention from the flat q, k and v projections to the flat output
+    (``wo``'s input); ``positions`` ``None``: no RoPE (cross-attention).
+    Under a model ``split`` the projections are this rank's flat blocks,
+    and so is the output ``(…, q_dim / size)``.  The blocks rarely fall
+    on head boundaries, so k and v are gathered over ``model`` (and q
+    too unless its block is whole heads); only the query heads that
+    overlap the block are computed, each against its KV head (a GQA
+    group's K / V selected per query head), and the block is sliced
+    out."""
+    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    h0, h1 = 0, nh
+    if split is not None:
+        q0, q1 = split.block(cfg.q_dim)
+        h0, h1 = q0 // hd, -(-q1 // hd)
+        if q0 % hd or q1 % hd:
+            q = split.gather(q, -1)[..., h0 * hd:h1 * hd]
+        k, v = split.gather(k, -1), split.gather(v, -1)
+    q = _split_heads(q, h1 - h0, hd)
+    k, v = _split_heads(k, kvh, hd), _split_heads(v, kvh, hd)
+    if split is not None:
+        groups = torch.arange(h0, h1, device=q.device) // (nh // kvh)
+        k, v = k.index_select(-2, groups), v.index_select(-2, groups)
+    if positions is not None:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    attn = L.flash_attention(q, k, v, causal=causal)
+    attn = attn.reshape(*attn.shape[:-2], -1)
+    if split is None:
+        return attn
+    return attn[..., q0 - h0 * hd:q1 - h0 * hd]
+
+
+def _ffn_plain(p: dict, h: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
+               dm: bool, split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """The FFN without STaMP, from the normed input ``h``: the MLP's
+    ``silu(h wi_gate) · h wi_up`` through ``wo_mlp``, after the MoE's
+    reference FFN over the routed experts.  Under a model ``split`` ``h``
+    has passed its copy-in and the result is this rank's part of the sum
+    (the caller's reduce-out takes the MLP's and the experts' parts in
+    one): gate and up column-parallel, ``silu·mul`` on the block, the
+    down-projection row-parallel; the MoE routes every row (the router
+    replicated, its weight's gradient summed over the model ranks by a
+    copy-in: each rank's part comes through its own experts) and
+    computes only this rank's ``E / size`` experts."""
+    out = torch.zeros_like(h)
+    if spec.ffn in ("moe", "moe_dense"):
+        out = out + L.moe_ffn(h, _copy_in(p["gate_w"], split), *(
+            _ExpertStack(p[k], h.dtype) for k in _EXPERTS),
+            cfg.experts_per_token, cfg.capacity_factor, cfg.moe_group_size,
+            experts=None if split is None else split.block(cfg.num_experts))
+    if spec.ffn in ("mlp", "moe_dense"):
+        pre = "d" if spec.ffn == "moe_dense" else ""
+        g = silu(_linear(h, p[f"{pre}wi_gate"], None, dm)) * \
+            _linear(h, p[f"{pre}wi_up"], None, dm)
+        out = out + _linear(g, p[f"{pre}wo_mlp"], None, dm)
+    return out
+
+
 def attn_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
                        stamp: Optional[StampConfig],
                        kv: Optional[KV.KVCacheConfig] = None,
                        capacity: Optional[int] = None,
-                       enc_out: Optional[torch.Tensor] = None) -> tuple:
+                       enc_out: Optional[torch.Tensor] = None,
+                       split: Optional[ModelSplit] = None) -> tuple:
     """Causal self-attention over whole sequences: QKV (the fused STaMP
     linear over prepared weights, or the reference path), RoPE, attention,
     out-projection; then, given the encoder output ``enc_out``, the
@@ -599,26 +691,39 @@ def attn_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     contiguous cache, quantized from the RoPE'd K and V with room for
     ``capacity`` tokens (the bucketed engine's prefill), with the
     cross-attention's bf16 ``xk`` / ``xv`` beside them; without, ``None``
-    (the calibration forward)."""
+    (the calibration forward).  Without STaMP or a cache, under a model
+    ``split`` (training) the layer's leaves are this rank's blocks:
+    column-parallel QKV, attention over the overlapping heads
+    (:func:`_attention`), row-parallel ``wo`` summed over the model
+    ranks."""
     hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
-    q, k, v = _attn_qkv(p, h, cfg, stamp, False)
-    q = _rope(q, positions, cfg, nh, hd)
-    k = _rope(k, positions, cfg, kvh, hd)
-    v = _split_heads(v, kvh, hd)
-    attn = L.flash_attention(q, k, v, causal=True)
-    entry = None if kv is None else KV.quantize_full(k, v, kv,
-                                                     capacity=capacity)
-    x = _attn_out(p, attn, x, stamp, False)
+    if split is not None:
+        _whole_rows(stamp, kv)
+    entry = None
+    if kv is None and (stamp is None or not stamp.enabled):
+        q, k, v = _attn_qkv(p, _copy_in(h, split), cfg, None, False)
+        attn = _attention(q, k, v, positions, cfg, True, split)
+        x = x + _reduced(_linear(attn, p["wo"]), split)
+    else:
+        q, k, v = _attn_qkv(p, h, cfg, stamp, False)
+        q = _rope(q, positions, cfg, nh, hd)
+        k = _rope(k, positions, cfg, kvh, hd)
+        v = _split_heads(v, kvh, hd)
+        attn = L.flash_attention(q, k, v, causal=True)
+        if kv is not None:
+            entry = KV.quantize_full(k, v, kv, capacity=capacity)
+        x = _attn_out(p, attn, x, stamp, False)
     if enc_out is not None and "xwq" in p:
-        x = cross_attn_block(p, x, enc_out, cfg, stamp, entry)
+        x = cross_attn_block(p, x, enc_out, cfg, stamp, entry, split)
     return x, entry
 
 
 def cross_attn_block(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
                      cfg: ModelConfig, stamp: Optional[StampConfig],
-                     entry: Optional[dict] = None) -> torch.Tensor:
+                     entry: Optional[dict] = None,
+                     split: Optional[ModelSplit] = None) -> torch.Tensor:
     """Cross-attention + residual (the reference's enc-dec branch of
     ``attn_block``): queries from the ``lnx``-normed ``x``, keys and values
     from the encoder output, no mask and no RoPE, the projections plain
@@ -630,20 +735,23 @@ def cross_attn_block(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
     (:func:`_linear`'s ``f32_sum``), so ``xk`` / ``xv`` are the
     reference's bit for bit.  The reference's decode step runs no
     cross-attention (its ``decode_step`` passes no encoder output), so the
-    cached ``xk`` / ``xv`` are written here and carried, never read."""
-    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    cached ``xk`` / ``xv`` are written here and carried, never read.
+    Under a model ``split`` (training: no STaMP, no cache) the
+    projections are this rank's blocks, as in
+    :func:`attn_block_prefill`."""
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
     hx = L.rms_norm(x, p["lnx"].to(x.dtype), cfg.norm_eps)
-    qx = _split_heads(_linear(hx, p["xwq"], f32_sum=True), nh, hd)
-    kx = _split_heads(_linear(enc_out, p["xwk"], f32_sum=True), kvh, hd)
-    vx = _split_heads(_linear(enc_out, p["xwv"], f32_sum=True), kvh, hd)
-    ax = L.flash_attention(qx, kx, vx, causal=False)
+    qx = _linear(_copy_in(hx, split), p["xwq"], f32_sum=True)
+    enc_out = _copy_in(enc_out, split)
+    kx = _linear(enc_out, p["xwk"], f32_sum=True)
+    vx = _linear(enc_out, p["xwv"], f32_sum=True)
     if entry is not None:
-        entry["xk"] = kx.to(torch.bfloat16)
-        entry["xv"] = vx.to(torch.bfloat16)
-    ox = ax.reshape(*ax.shape[:-2], -1)
+        entry["xk"] = _split_heads(kx, kvh, hd).to(torch.bfloat16)
+        entry["xv"] = _split_heads(vx, kvh, hd).to(torch.bfloat16)
+    ox = _attention(qx, kx, vx, None, cfg, False, split)
     if stamp is not None and stamp.enabled:
         ox = fake_quant(ox, stamp.lo_bits, compiled=True)
-    return x + _linear(ox, p["xwo"], f32_sum=True)
+    return x + _reduced(_linear(ox, p["xwo"], f32_sum=True), split)
 
 
 def attn_block_cached_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -994,8 +1102,16 @@ def mamba_block_unified(p: dict, x: tuple, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(COMPUTE_DTYPE)
+def _embed(params: dict, tokens: torch.Tensor,
+           split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """The token embeddings in bf16.  Under a model ``split``
+    (vocab-parallel) ``embed`` is this rank's block of rows: ids outside
+    it give zeros, and the ranks' rows are summed (one is not zero)."""
+    if split is None:
+        return params["embed"][tokens.long()].to(COMPUTE_DTYPE)
+    table = params["embed"]
+    ids, mine = split.local_ids(tokens, table.shape[0] * split.size)
+    return split.reduce_out((table[ids] * mine[..., None]).to(COMPUTE_DTYPE))
 
 
 def prefill_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
@@ -1003,19 +1119,23 @@ def prefill_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
                   kv: Optional[KV.KVCacheConfig] = None,
                   capacity: Optional[int] = None,
                   enc_out: Optional[torch.Tensor] = None,
-                  seq_lengths: Optional[torch.Tensor] = None) -> tuple:
+                  seq_lengths: Optional[torch.Tensor] = None,
+                  split: Optional[ModelSplit] = None) -> tuple:
     """One layer of the full-sequence forward (the reference's
     ``apply_block`` in ``prefill`` / ``train`` mode): the mixer, its
     cross-attention given the encoder output, and the FFN, under ``stamp``
     when given.  Returns ``(x, cache entry)``: with ``kv`` an attention
     layer's contiguous cache for ``capacity`` tokens, a Mamba layer's
-    recurrent state after each row's ``seq_lengths``."""
+    recurrent state after each row's ``seq_lengths``.  Under a model
+    ``split`` the attention and the FFN run on this rank's blocks; a
+    Mamba mixer runs whole on every model rank (its leaves gathered
+    whole: :func:`_gathered`)."""
     if spec.mixer == "mamba":
         x, entry = mamba_block_prefill(p, x, cfg, stamp, seq_lengths)
     else:
         x, entry = attn_block_prefill(p, x, cfg, stamp, kv, capacity,
-                                      enc_out)
-    return ffn_block(p, x, spec, cfg, stamp, False), entry
+                                      enc_out, split)
+    return ffn_block(p, x, spec, cfg, stamp, False, split), entry
 
 
 def _recompute(fn, *args):
@@ -1038,58 +1158,74 @@ def as_batch(batch) -> dict:
     return batch if isinstance(batch, dict) else {"tokens": batch}
 
 
-def encoder_layer(p: dict, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def encoder_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                  split: Optional[ModelSplit] = None) -> torch.Tensor:
     """One encoder layer (the reference's ``_encoder_forward`` body, its
     ``attn_block`` and ``ffn_block`` without STaMP): RoPE'd non-causal
     self-attention and the SwiGLU MLP, each with its residual, no cache.
     The encoder runs unquantized on its (packed) weights, so its linears
-    are plain products with f32 sums (:func:`_linear`'s ``f32_sum``)."""
-    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    are plain products with f32 sums (:func:`_linear`'s ``f32_sum``).
+    Under a model ``split`` (training) each linear is this rank's block,
+    as in the decoder's layers."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+    h = _copy_in(L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps), split)
     q, k, v = (_linear(h, p[w], p.get(b), f32_sum=True) for w, b in
                (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-    attn = L.flash_attention(_rope(q, positions, cfg, nh, hd),
-                             _rope(k, positions, cfg, kvh, hd),
-                             _split_heads(v, kvh, hd), causal=False)
-    x = x + _linear(attn.reshape(*attn.shape[:-2], -1), p["wo"],
-                    f32_sum=True)
-    h = L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
+    attn = _attention(q, k, v, positions, cfg, False, split)
+    x = x + _reduced(_linear(attn, p["wo"], f32_sum=True), split)
+    h = _copy_in(L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps), split)
     g = silu(_linear(h, p["wi_gate"], f32_sum=True)) * \
         _linear(h, p["wi_up"], f32_sum=True)
-    return x + _linear(g, p["wo_mlp"], f32_sum=True)
+    return x + _reduced(_linear(g, p["wo_mlp"], f32_sum=True), split)
 
 
-def _gathered(p, policy: Optional[ShardingPolicy]):
+# a Mamba mixer's projections, gathered whole along ``model`` under a
+# split: ``in_proj``'s flat [z, x, B, C, dt] output does not split on
+# head boundaries, so the mixer runs whole on every model rank
+_MIXER_WHOLE = ("in_proj", "out_proj")
+
+
+def _gathered(p, policy: Optional[ShardingPolicy],
+              split: Optional[ModelSplit] = None):
     """``p`` (a tree or a leaf) with its sharded leaves gathered whole
     (ZeRO-3's all-gather at use; a no-op without a policy or on whole
-    leaves)."""
-    return p if policy is None else policy.gather(p)
+    leaves).  Under a model ``split`` a layer's leaves keep their
+    ``model`` block, but a Mamba mixer's (:data:`_MIXER_WHOLE`)."""
+    if policy is None:
+        return p
+    if split is None:
+        return policy.gather(p)
+    return {k: policy.gather(v, keep_model=k not in _MIXER_WHOLE)
+            for k, v in p.items()}
 
 
-def _top(params: dict, policy: Optional[ShardingPolicy]) -> dict:
+def _top(params: dict, policy: Optional[ShardingPolicy],
+         split: Optional[ModelSplit] = None) -> dict:
     """``params`` with the leaves outside ``layers`` / ``encoder``
     (``embed``, ``head``, ``final_norm``) gathered, once a step: a tied
-    embedding serves the lookup and the head from one copy."""
+    embedding serves the lookup and the head from one copy.  Under a
+    model ``split`` the embedding and the head keep their vocabulary
+    blocks."""
     if policy is None:
         return params
-    return {k: v if k in ("layers", "encoder") else policy.gather(v)
+    return {k: v if k in ("layers", "encoder") else
+            policy.gather(v, keep_model=split is not None)
             for k, v in params.items()}
 
 
 def encoder_forward(params: dict, frames: torch.Tensor,
                     cfg: ModelConfig, remat: bool = False,
-                    policy: Optional[ShardingPolicy] = None
-                    ) -> torch.Tensor:
+                    policy: Optional[ShardingPolicy] = None,
+                    split: Optional[ModelSplit] = None) -> torch.Tensor:
     """The encoder over the frame embeddings ``(b, s_enc, d)`` (cast to
     bf16), then its final RMSNorm: the cross-attention's memory.  With
     ``remat`` (training) each layer is recomputed in the backward; under
-    a sharding ``policy`` each layer's leaves are gathered inside it."""
+    a sharding ``policy`` each layer's leaves are gathered inside it (its
+    ``model`` blocks kept under a ``split``)."""
     x = frames.to(COMPUTE_DTYPE)
     for p in params["encoder"]["layers"]:
         def layer(a, p=p):
-            return encoder_layer(_gathered(p, policy), a, cfg)
+            return encoder_layer(_gathered(p, policy, split), a, cfg, split)
         x = _recompute(layer, x) if remat else layer(x)
         x = constrain(x, policy, lambda pol: pol.acts())
     norm = _gathered(params["encoder"]["final_norm"], policy)
@@ -1098,7 +1234,8 @@ def encoder_forward(params: dict, frames: torch.Tensor,
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
                  encoder: bool = True, remat: bool = False,
-                 policy: Optional[ShardingPolicy] = None) -> tuple:
+                 policy: Optional[ShardingPolicy] = None,
+                 split: Optional[ModelSplit] = None) -> tuple:
     """The decoder's input and the encoder output, as the reference's
     ``model_hidden`` builds them: an enc-dec (or frames) stack embeds the
     tokens and runs ``frames`` through the encoder; a patch frontend puts
@@ -1106,19 +1243,21 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
     A batch without the frontend's key raises its ``KeyError``.  Returns
     ``(x, enc_out or None)``; ``encoder=False`` leaves ``enc_out`` None
     for a caller that runs the encoder itself; ``remat`` recomputes its
-    layers in the backward."""
+    layers in the backward; a model ``split`` reaches the embedding and
+    the encoder."""
     enc_out = None
     if cfg.frontend == "frames" or cfg.encoder_layers:
         frames = batch["frames"]
         if encoder:
-            enc_out = encoder_forward(params, frames, cfg, remat, policy)
-        x = _embed(params, batch["tokens"])
+            enc_out = encoder_forward(params, frames, cfg, remat, policy,
+                                      split)
+        x = _embed(params, batch["tokens"], split)
     elif cfg.frontend == "patch":
-        tok = _embed(params, batch["tokens"])
+        tok = _embed(params, batch["tokens"], split)
         x = torch.cat([batch["patches"].to(COMPUTE_DTYPE).to(tok.device),
                        tok], dim=1)
     else:
-        x = _embed(params, batch["tokens"])
+        x = _embed(params, batch["tokens"], split)
     return x, enc_out
 
 
@@ -1126,7 +1265,8 @@ def model_hidden(params: dict, batch, cfg: ModelConfig,
                  stamp: Optional[StampConfig] = None,
                  kv_cfg: Optional[KV.KVCacheConfig] = None,
                  remat: bool = False,
-                 policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
+                 policy: Optional[ShardingPolicy] = None,
+                 split: Optional[ModelSplit] = None) -> torch.Tensor:
     """Full-sequence forward through the layer code of :func:`prefill`:
     final normed hidden states ``(b, s, d)`` in bf16 at every position.
     Without ``stamp`` it is the calibration pass and the training forward
@@ -1140,15 +1280,17 @@ def model_hidden(params: dict, batch, cfg: ModelConfig,
     gathered inside the layer (so a recomputed layer gathers again in the
     backward), and the residual is constrained to ``policy.acts()`` after
     the embedding and after every layer, where the reference constrains
-    it."""
-    params = _top(params, policy)
+    it.  With a model ``split`` (the training loss's) each layer keeps
+    its leaves' ``model`` blocks and computes only them; the residual
+    between layers is whole on every model rank."""
+    params = _top(params, policy, split)
     x, enc_out = embed_inputs(params, as_batch(batch), cfg, remat=remat,
-                              policy=policy)
+                              policy=policy, split=split)
     x = constrain(x, policy, lambda pol: pol.acts())
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
         def layer(a, p=p, spec=spec, e=enc_out):
-            return prefill_layer(_gathered(p, policy), spec, a, cfg, stamp,
-                                 kv_cfg, None, e)[0]
+            return prefill_layer(_gathered(p, policy, split), spec, a, cfg,
+                                 stamp, kv_cfg, None, e, split=split)[0]
         x = _recompute(layer, x) if remat else layer(x)
         x = constrain(x, policy, lambda pol: pol.acts())
     return final_hidden(params, x, cfg)
@@ -1163,9 +1305,29 @@ def _xent_chunk(xc: torch.Tensor, head, lc: torch.Tensor) -> tuple:
     return torch.sum((logz - gold) * valid), torch.sum(valid)
 
 
+def _xent_chunk_split(xc: torch.Tensor, head, lc: torch.Tensor,
+                      split: ModelSplit) -> tuple:
+    """:func:`_xent_chunk` vocab-parallel: ``head`` is this rank's
+    ``(d, V / size)`` block, so only its logits exist here; the row max
+    (all-reduced with ``MAX``, held constant: ``logsumexp``'s gradient
+    does not depend on it), the sum of exponentials and the gold logit
+    (from the rank whose block holds the label, zeros elsewhere) are
+    summed over the model ranks."""
+    logits = _linear(xc, head).float()
+    m = split.max(logits.amax(dim=-1))
+    sumexp = split.reduce_out(torch.exp(logits - m[..., None]).sum(dim=-1))
+    logz = torch.log(sumexp) + m
+    ids, mine = split.local_ids(lc, logits.shape[-1] * split.size)
+    gold = torch.gather(logits, -1, ids[..., None])
+    gold = split.reduce_out(gold[..., 0] * mine)
+    valid = (lc >= 0).float()
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
 def chunked_xent(x: torch.Tensor, head, labels: torch.Tensor,
                  chunk: int = 512,
-                 policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
+                 policy: Optional[ShardingPolicy] = None,
+                 split: Optional[ModelSplit] = None) -> torch.Tensor:
     """Cross-entropy without materializing ``(b, s, vocab)``: sequence
     chunks of ``chunk`` positions, each chunk's f32 logits recomputed in
     the backward (the reference's scan body under ``jax.checkpoint``).
@@ -1175,14 +1337,20 @@ def chunked_xent(x: torch.Tensor, head, labels: torch.Tensor,
     each summed over the data ranks before the division (a mean of the
     ranks' means would weigh ranks with fewer valid labels more); each
     rank's gradient is that of its own rows' share, summed over the ranks
-    where the parameters' gradients meet."""
+    where the parameters' gradients meet.  Under a model ``split``
+    ``head`` is this rank's vocabulary block and each chunk's loss is
+    vocab-parallel (:func:`_xent_chunk_split`): the ``(b, chunk, V)``
+    logits never exist whole on a rank."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     assert s % chunk == 0
     loss = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _copy_in(x, split)
+    fn, extra = (_xent_chunk, ()) if split is None else \
+        (_xent_chunk_split, (split,))
     for c0 in range(0, s, chunk):
         lc = labels[:, c0:c0 + chunk].to(x.device)
-        part, n = _recompute(_xent_chunk, x[:, c0:c0 + chunk], head, lc)
+        part, n = _recompute(fn, x[:, c0:c0 + chunk], head, lc, *extra)
         loss, cnt = loss + part, cnt + n
     if policy is not None:
         loss, cnt = policy.batch_sum(loss), policy.batch_sum(cnt)
@@ -1196,11 +1364,18 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig,
     the training forward without STaMP, each layer recomputed in the
     backward, then :func:`chunked_xent` over the head (``embed.T`` when
     tied).  Under a sharding ``policy`` the parameters are DTensors,
-    ``batch`` is this rank's rows, and the loss is the global batch's."""
-    params = _top(params, policy)
-    x = model_hidden(params, batch, cfg, remat=True, policy=policy)
+    ``batch`` is this rank's rows, and the loss is the global batch's.
+    A policy whose ``model`` axis has more than one rank splits the
+    compute along it (:meth:`ShardingPolicy.model_split`): each model
+    rank computes its block of the linears, the heads that block
+    overlaps, its vocabulary block of the embedding and the loss, and its
+    experts; the Mamba mixers run whole on every model rank."""
+    split = None if policy is None else policy.model_split()
+    params = _top(params, policy, split)
+    x = model_hidden(params, batch, cfg, remat=True, policy=policy,
+                     split=split)
     return chunked_xent(x, _head_weight(params), batch["labels"],
-                        policy=policy)
+                        policy=policy, split=split)
 
 
 def _ssm_entry(cfg: ModelConfig, batch: int, device) -> dict:

@@ -20,9 +20,20 @@ Policy (the reference's rule table, entry for entry):
   (:class:`_Gather`): DTensor's own ``full_tensor`` cost 275 ms of host
   time a step at minicpm-2b's 362 leaves on an H100 host, and under gloo
   on CUDA tensors it ends the ranks with SIGSEGV.
-* **TP** — the flattened head / ffn / expert dimension is sharded over
-  ``model``.  The step stores it so; its compute along ``model`` is
-  replicated (each model rank runs its data rows whole).
+* **TP** — the flattened head / ffn / expert / vocabulary dimensions are
+  sharded over ``model``.  The training loss splits their compute
+  (Megatron's scheme, :class:`ModelSplit`): each model rank keeps its
+  block of those leaves (``gather(..., keep_model=True)``) and computes
+  only that block — column-parallel ``wq`` / ``wk`` / ``wv`` /
+  ``wi_*`` / ``xw{q,k,v}`` and the head, row-parallel ``wo`` /
+  ``wo_mlp`` / ``dwo`` / ``xwo``, attention over the heads its block of
+  ``wo``'s input overlaps, the embedding's rows and the loss's logits
+  over its vocabulary block, its experts — with copy-in and reduce-out
+  making the function the one-process one.  Left whole on every model
+  rank, each stated where it is done: the Mamba mixers (``in_proj``'s
+  flat ``[z, x, B, C, dt]`` output does not split on head boundaries),
+  and ``prefill`` / ``decode_step`` under a policy (their STaMP
+  quantizers take per-token min-max over whole rows).
 * **Sequence parallelism** — ``seq_sharded`` keeps the reference's spec
   values (the residual's sequence over ``model``); the eager step refuses
   it.
@@ -253,17 +264,20 @@ def _whole(local: torch.Tensor, mesh: DeviceMesh, pl: tuple
 
 
 class _Gather(torch.autograd.Function):
-    """ZeRO-3's gather at use over plain collectives.  Forward: the whole
-    tensor from this rank's block.  Backward: the whole tensor's gradient
-    summed over the batch mesh dims (each rank ran its own rows) and
-    taken as computed over the others (their compute is replicated), then
-    cut to this rank's block: a reduce-scatter (or an all-reduce where
-    the leaf is replicated) on a batch dim, a slice on another, outermost
-    first."""
+    """ZeRO-3's gather at use over plain collectives.  Forward: the tensor
+    from this rank's block, whole along every mesh dim but those ``keep``
+    names (their block stays).  Backward: the gradient summed over the
+    batch mesh dims (each rank ran its own rows) and taken as computed
+    over the others (their compute is replicated, or split and the block
+    kept), then cut to this rank's block: a reduce-scatter (or an
+    all-reduce where the leaf is replicated) on a batch dim, a slice on
+    another gathered one, outermost first."""
 
     @staticmethod
-    def forward(ctx, local, mesh, pl, batch):
+    def forward(ctx, local, mesh, pl, batch, keep):
         ctx.mesh, ctx.pl, ctx.batch = mesh, pl, batch
+        pl = tuple(Replicate() if k else p for p, k in zip(pl, keep))
+        ctx.gathered = pl
         return _whole(local, mesh, pl)
 
     @staticmethod
@@ -280,9 +294,9 @@ class _Gather(torch.autograd.Function):
             elif ctx.batch[i]:
                 grad = grad.contiguous()
                 dist.all_reduce(grad, group=mesh.get_group(i))
-            elif shard is not None:
+            elif isinstance(ctx.gathered[i], Shard):
                 grad = grad.chunk(n, dim=shard)[coord[i]]
-        return grad.contiguous(), None, None, None
+        return grad.contiguous(), None, None, None, None
 
 
 def gather_full(t: torch.Tensor) -> torch.Tensor:
@@ -291,6 +305,100 @@ def gather_full(t: torch.Tensor) -> torch.Tensor:
         return t
     with torch.no_grad():
         return _whole(t.to_local(), t.device_mesh, t.placements)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward; the gradient all-reduced
+    over the model group backward (each model rank's block of the
+    computation that follows gives a part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's ``g``: the model ranks' partial results all-reduced
+    forward (in place: the partial is a fresh product no other node
+    keeps); the gradient, alike on every model rank, passed on unchanged
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.mark_dirty(x)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """The model ranks' blocks concatenated along ``dim`` forward; this
+    rank's block of the summed gradient (a reduce-scatter) backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, n, group):
+        ctx.dim, ctx.n, ctx.group = dim, n, group
+        return _all_gather(x, dim, n, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_reduce_scatter(grad, ctx.dim, ctx.n, ctx.group), None,
+                None, None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """This rank's share of the ``model`` axis in the split training step:
+    the axis's process ``group``, this rank's index ``rank`` on it and its
+    ``size`` (more than one).  The layer functions take it (``None``: the
+    computation whole, as on one device)."""
+    group: Any
+    rank: int
+    size: int
+
+    def block(self, n: int) -> tuple:
+        """``[start, stop)`` of this rank's block of a dim of ``n`` split
+        over the axis; a dim the axis does not divide is refused, as
+        :meth:`NamedSharding.shard_shape` refuses it."""
+        if n % self.size:
+            raise ValueError(f"a dim of {n} does not split {self.size} "
+                             f"ways over 'model'")
+        b = n // self.size
+        return self.rank * b, (self.rank + 1) * b
+
+    def local_ids(self, ids: torch.Tensor, n: int) -> tuple:
+        """``ids`` into a dim of ``n`` (a vocabulary) against this rank's
+        block of it: the ids made local to the block and clamped into it,
+        and the mask of those the block holds."""
+        v0, v1 = self.block(n)
+        local = ids.long() - v0
+        mine = (local >= 0) & (local < v1 - v0)
+        return local.clamp(0, v1 - v0 - 1), mine
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyIn.apply(x, self.group)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceOut.apply(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _GatherModel.apply(x, dim % x.dim(), self.size, self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise largest of the ranks' ``x``, outside autograd."""
+        x = x.detach().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+        return x
 
 
 class _BatchSum(torch.autograd.Function):
@@ -457,15 +565,30 @@ class ShardingPolicy:
         return TR.tree_map(lambda t, sh: sh.shard(t, device), tree,
                            self.params_shardings(tree))
 
-    def gather(self, tree: Pytree) -> Pytree:
+    def gather(self, tree: Pytree, keep_model: bool = False) -> Pytree:
         """Each DTensor leaf whole (plain tensors pass through), its
         gradient summed over the batch axes and scattered back to the
-        leaf's blocks (:class:`_Gather`)."""
-        batch = tuple(n in self.batch_axes for n in self.mesh.mesh_dim_names)
+        leaf's blocks (:class:`_Gather`).  With ``keep_model`` the leaf
+        is gathered over the batch axes only: a leaf sharded along
+        ``model`` stays this rank's block, for a computation split as
+        :class:`ModelSplit` splits it."""
+        names = self.mesh.mesh_dim_names
+        batch = tuple(n in self.batch_axes for n in names)
+        keep = tuple(keep_model and n == "model" for n in names)
         return TR.tree_map(
             lambda t: _Gather.apply(t.to_local(), t.device_mesh,
-                                    t.placements, batch)
+                                    t.placements, batch, keep)
             if isinstance(t, DTensor) else t, tree)
+
+    def model_split(self) -> Optional[ModelSplit]:
+        """This rank's :class:`ModelSplit`, or ``None`` when ``model`` has
+        one rank (nothing to split: the step is the one-device one)."""
+        i = self.mesh.mesh_dim_names.index("model")
+        n = self.mesh.size(i)
+        if n == 1:
+            return None
+        return ModelSplit(self.mesh.get_group(i),
+                          self.mesh.get_coordinate()[i], n)
 
     def _batch_index(self) -> tuple:
         coord = self.mesh.get_coordinate()

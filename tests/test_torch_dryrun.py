@@ -22,8 +22,10 @@ the reference's (``repro.launch.*``, ``repro.analysis.*``).
   projections and attention's score and value einsums over every
   2048-token chunk pair — and the head on the last position).
 * On a ``(2, 4)`` fake mesh the train step's all-gathers equal what the
-  rule table predicts leaf by leaf; the reference's small-mesh cells
-  trace ``ok`` on 8 ranks; ``--seq-sharded`` is refused with the eager
+  rule table predicts leaf by leaf (over ``data`` only: the split step
+  keeps the ``model`` blocks) plus the split's k / v gathers, and its
+  residual- and loss-sized all-reduces what the layer structure names;
+  the reference's small-mesh cells trace ``ok`` on 8 ranks; ``--seq-sharded`` is refused with the eager
   step's words; ``sweep`` over two reduced cells, ``report`` and
   ``reanalyze`` round-trip.
 """
@@ -395,13 +397,15 @@ def test_prefill_dot_flops_against_the_reference_hlo():
 
 
 def _expected_gathers(cfg, policy) -> tuple:
-    """From the rule table: each leaf gathered innermost mesh dim first,
-    twice a step inside a layer (the forward and the recompute), once
-    outside (``embed``, ``head``, ``final_norm``).  Returns (all-gathers,
-    their output bytes, the bytes they receive)."""
+    """From the rule table: each leaf gathered over the batch axis only
+    (the split step keeps its ``model`` block), twice a step inside a
+    layer (the forward and the recompute), once outside (``embed``,
+    ``head``, ``final_norm``).  Returns (all-gathers, their output bytes,
+    the bytes they receive)."""
     with FakeTensorMode():
         params = S.param_struct(cfg, device=CPU)
     mesh = policy.mesh
+    names = mesh.mesh_dim_names
     n = out_b = recv_b = 0
     for path, leaf in TR.flatten_with_paths(params):
         spec = policy.param_spec(TR.path_name(path), leaf.dim())
@@ -410,20 +414,57 @@ def _expected_gathers(cfg, policy) -> tuple:
         shape = list(policy.named(spec).shard_shape(leaf.shape))
         block = math.prod(shape)
         for i in reversed(range(mesh.ndim)):
-            if isinstance(pl[i], Shard) and mesh.size(i) > 1:
+            if isinstance(pl[i], Shard) and mesh.size(i) > 1 and \
+                    names[i] != "model":
                 shape[pl[i].dim] *= mesh.size(i)
                 n += times
                 out_b += times * math.prod(shape) * leaf.element_size()
-        recv_b += times * (leaf.numel() - block) * leaf.element_size()
+        recv_b += times * (math.prod(shape) - block) * leaf.element_size()
     return n, out_b, recv_b
 
 
+def _expected_activation_collectives(cfg, shape, policy) -> dict:
+    """From the layer structure of the split step (each layer run twice,
+    its forward and its recompute; the loss's one chunk twice): per
+    attention layer and pass the gathers of k and v over ``model`` (and
+    of q where a rank's block is not whole heads); the residual-sized
+    all-reduces — per layer the attention's reduce-out in both passes and
+    the FFN's in the forward only (the recompute stops at the last tensor
+    the backward needs, and the FFN's sum is the layer's last op), once a
+    step the embedding's, and in the backward each layer's two copy-ins
+    and the loss input's; and the loss's per pass three ``(b, chunk)``
+    f32 all-reduces (the row max, the sum of exponentials, the gold
+    logit)."""
+    m = SH.axis_size(policy.mesh, "model")
+    b = shape.global_batch // SH.axis_size(policy.mesh, policy.batch_axes)
+    s, layers = shape.seq_len, cfg.num_layers
+    q_block = cfg.q_dim // m
+    per_pass = 2 + (q_block % cfg.resolved_head_dim != 0)
+    gathers = 2 * layers * per_pass
+    kv_out = b * s * cfg.kv_dim * 2
+    out_b = 2 * layers * 2 * kv_out
+    recv_b = 2 * layers * 2 * (kv_out - kv_out // m)
+    if per_pass == 3:
+        out_b += 2 * layers * b * s * cfg.q_dim * 2
+        recv_b += 2 * layers * b * s * (cfg.q_dim - q_block) * 2
+    chunk = min(512, s)
+    return {"gathers": (gathers, out_b, recv_b),
+            "residual_all_reduces": (3 * layers + 1 + 2 * layers + 1,
+                                     b * s * cfg.d_model * 2),
+            "loss_all_reduces": (3 * 2 * (s // chunk), b * chunk * 4)}
+
+
 def test_train_all_gathers_follow_the_rule_table():
+    """On a (2, 4) mesh the split step gathers each leaf over ``data``
+    only, and gathers k and v over ``model`` in each attention layer; its
+    residual-sized and loss-sized all-reduces are those the layer
+    structure names."""
     cfg = get_reduced("minicpm-2b")
+    shape = _small("train_4k")
     r = DR.lower_cell("minicpm-2b", None, multi_pod=False, cfg=cfg,
-                      shape=_small("train_4k"), mesh_shape=SMALL_MESH,
-                      device=CPU)
+                      shape=shape, mesh_shape=SMALL_MESH, device=CPU)
     assert r["status"] == "ok" and r["chips"] == 8
+    assert r["model_split"]["split"] and r["model_split"]["whole"] == []
     log = r["counter"].log()
     stats = OS.op_stats(log)
     dist.init_process_group("fake", store=dist.HashStore(), rank=0,
@@ -432,13 +473,20 @@ def test_train_all_gathers_follow_the_rule_table():
         policy = SH.ShardingPolicy(mesh=DR._mesh(SMALL_MESH, False,
                                                  "cpu"))
         n, out_b, recv_b = _expected_gathers(cfg, policy)
+        act = _expected_activation_collectives(cfg, shape, policy)
     finally:
         dist.destroy_process_group()
-    assert stats["collective_counts"]["all-gather"] == n
-    assert stats["collective_bytes_by_kind"]["all-gather"] == out_b
+    an, aout, arecv = act["gathers"]
+    assert stats["collective_counts"]["all-gather"] == n + an
+    assert stats["collective_bytes_by_kind"]["all-gather"] == out_b + aout
     recv = sum(rec["count"] * (rec["writes"] - rec["reads"]) for rec in log
                if rec.get("coll") == "all-gather")
-    assert recv == recv_b
+    assert recv == recv_b + arecv
+    for key in ("residual_all_reduces", "loss_all_reduces"):
+        count, payload = act[key]
+        assert sum(rec["count"] for rec in log
+                   if rec.get("coll") == "all-reduce"
+                   and rec["payload"] == payload) == count, key
     # the gradients leave as reduce-scatters (sharded leaves) and
     # all-reduces (replicated norms, the loss and norm sums)
     assert stats["collective_counts"]["reduce-scatter"] > 0

@@ -4,22 +4,31 @@ the CPU, in gloo process groups.
 
 * One group of four worker processes (this file run as a script, joined
   through a ``FileStore``) serves the checks that need a mesh, on a
-  ``(2, 2)`` and a ``(1, 4)`` ``("data", "model")`` mesh; the test
-  process computes the one-process side meanwhile:
+  ``(4, 1)``, a ``(2, 2)`` and a ``(1, 4)`` ``("data", "model")`` mesh;
+  the test process computes the one-process side meanwhile:
   - three steps of reduced minicpm-2b (dense, tied; with and without
     gradient compression), arctic-480b (MoE, its router scaled by
     ``ROUTER_SCALE`` on both sides, as ``test_torch_train.py`` does and
     says why) and mamba2-1.3b (SSM, its per-head leaves replicated), two
     layers each.  Each rank's stored block of every parameter and moment
     is the slice the rule table names: the four ranks' blocks reassemble
-    the tensor, replicas equal, and the blocks placed at the start
-    reassemble the init exactly.  On ``(1, 4)`` nothing splits the batch
-    and the run is the one-process ``build_step(cfg, None, …)``'s within
-    ``ADAM_ULP`` (measured: equal).  On ``(2, 2)`` the data ranks' sums
-    meet in another order: each data rank's weight gradient is a bf16
-    product over its own rows, and the two halves are summed in f32 where
-    one process rounds their sum once; the bounds below are set from the
-    measured gaps;
+    the tensor, replicas equal (a leaf replicated along ``model`` —
+    norms, the router — gets the same update on every model rank), and
+    the blocks placed at the start reassemble the init exactly.  On
+    ``(4, 1)`` only the batch splits: the data ranks' sums meet in
+    another order (each data rank's weight gradient is a bf16 product
+    over its own rows, the quarters summed in f32 where one process
+    rounds their sum once); the first step's bounds below are set from
+    the measured gaps.  Where ``model`` has more than one rank the step
+    splits its compute (``lm.train_loss`` under
+    ``ShardingPolicy.model_split``): a row-parallel product sums its
+    ranks' bf16 partials, each rounded, where one process rounds the
+    whole sum once, so the forward itself parts from the one-process
+    one by bf16 steps.  So on ``(1, 4)`` and ``(2, 2)`` a first step
+    run in f32 compute (``lm.COMPUTE_DTYPE``) on both sides is held to
+    the data split's first-step bounds, and the bf16 runs to the bounds
+    the data split keeps for its later steps (``LOSS_REL``,
+    ``GNORM_REL``) from the first step on (:func:`_split_steps`);
   - gradient compression on the one-process gradients, placed: the int8
     codes, the scales and the residuals equal the one-process ones (a
     leaf's scale comes from its global ``absmax``);
@@ -40,6 +49,7 @@ the CPU, in gloo process groups.
   group's policy step is bit-equal to the one-device step.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -72,14 +82,13 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD, MP = 4, 2
-MESHES = {"2x2": 2, "1x4": 4}          # name: model_parallel
+MESHES = {"4x1": 1, "2x2": 2, "1x4": 4}          # name: model_parallel
 STEPS, BATCH, SEQ, LR, WARMUP = 3, 4, 32, 3e-3, 1
 ROUTER_SCALE = 30.0
 LOSS_REL = 1e-3          # test_torch_train.py's
 FLIP_FRAC = 0.02         # test_torch_train.py's
-ADAM_ULP = 2             # test_torch_optim.py's
 GNORM_REL = 1e-2
-FIRST_LOSS_REL, FIRST_GNORM_REL = 1e-6, 1e-4   # measured 7.7e-8, 7.0e-6
+FIRST_LOSS_REL, FIRST_GNORM_REL = 1e-6, 1e-4   # measured 7.7e-8, 5.6e-5 (4, 1)
 XENT_REL = 1e-6
 SCENARIOS = {"minicpm": ("minicpm-2b", False),
              "minicpm_ef": ("minicpm-2b", True),
@@ -104,6 +113,16 @@ def _init(arch: str) -> dict:
         if "gate_w" in p:
             p["gate_w"] = p["gate_w"] * ROUTER_SCALE
     return params
+
+
+@contextlib.contextmanager
+def _compute(dtype):
+    """The port's forward in ``dtype`` (``lm.COMPUTE_DTYPE``) inside."""
+    old, TLM.COMPUTE_DTYPE = TLM.COMPUTE_DTYPE, dtype
+    try:
+        yield
+    finally:
+        TLM.COMPUTE_DTYPE = old
 
 
 def _batches(cfg) -> list:
@@ -137,9 +156,10 @@ def _locals(tree) -> list:
     return [SH.local(t).detach().clone() for t in TR.leaves(tree)]
 
 
-def _run(params, cfg, compress: bool, policy=None) -> dict:
-    """STEPS steps of ``build_step``: the loss and grad norm of each, the
-    final parameters and moments (each rank's blocks under a policy)."""
+def _run(params, cfg, compress: bool, policy=None, steps=STEPS) -> dict:
+    """``steps`` steps of ``build_step``: the loss and grad norm of each,
+    the final parameters and moments (each rank's blocks under a
+    policy)."""
     opt_cfg = _opt(cfg)
     for leaf in TR.leaves(params):
         leaf.requires_grad_(True)
@@ -147,7 +167,7 @@ def _run(params, cfg, compress: bool, policy=None) -> dict:
     err = init_error_state(params) if compress else {"_": torch.zeros(())}
     step = TTRAIN.build_step(cfg, policy, opt_cfg, compress)
     out = {"metrics": []}
-    for i, batch in enumerate(_batches(cfg)):
+    for i, batch in enumerate(_batches(cfg)[:steps]):
         if policy is not None:
             batch = policy.batch_rows(batch)
         params, state, err, m = step(params, state, err, _tensors(batch))
@@ -175,6 +195,11 @@ def _worker(work: Path, rank: int) -> None:
                 placed = policy.place(_init(arch))
                 out[mesh][name + "_init"] = _locals(placed)
                 out[mesh][name] = _run(placed, _cfg(arch), compress, policy)
+                if mp > 1:
+                    with _compute(torch.float32):
+                        out[mesh][name + "_f32"] = _run(
+                            policy.place(_init(arch)), _cfg(arch), compress,
+                            policy, steps=1)
         policy = SH.ShardingPolicy(mesh=make_local_mesh(MP, "cpu"))
         inputs = torch.load(work / "compress_in.pt")
         qs, scales, res = compress_gradients(policy.place(inputs["grads"]),
@@ -182,6 +207,7 @@ def _worker(work: Path, rank: int) -> None:
         out["2x2"]["compress"] = {"q": _locals(qs), "res": _locals(res),
                                   "scale": TR.leaves(scales)}
         cfg = _cfg("minicpm-2b")
+        policy = SH.ShardingPolicy(mesh=make_local_mesh(1, "cpu"))
         params = policy.place(_init("minicpm-2b"))
         with torch.no_grad():
             out["uneven"] = float(TLM.train_loss(
@@ -266,6 +292,10 @@ def group_run(tmp_path_factory):
     try:
         one = {name: _run(_init(arch), _cfg(arch), compress)
                for name, (arch, compress) in SCENARIOS.items()}
+        with _compute(torch.float32):
+            one.update({name + "_f32": _run(_init(arch), _cfg(arch),
+                                            compress, steps=1)
+                        for name, (arch, compress) in SCENARIOS.items()})
         one["compress"] = compress_gradients(grads, err)
         with torch.no_grad():
             full = _init("minicpm-2b")
@@ -336,13 +366,6 @@ def _assemble(group_run, mesh: str, name: str, key: str, ref_tree) -> list:
     return out
 
 
-def _ulp_close(got, want, ulps: int) -> bool:
-    """``|got − want| ≤ ulps`` f32 ulp at ``want``'s largest magnitude
-    (``test_torch_optim.py``'s measure)."""
-    return float((got.float() - want.float()).abs().max()) <= \
-        ulps * 2.0 ** -23 * max(float(want.abs().max()), 1e-30)
-
-
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_blocks_at_placement_are_the_rule_tables(group_run, mesh, name):
@@ -353,66 +376,123 @@ def test_blocks_at_placement_are_the_rule_tables(group_run, mesh, name):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_model_axis_alone_is_the_one_process_step(group_run, name):
-    """On the (1, 4) mesh nothing splits the batch: every rank runs the
-    whole batch on gathered leaves, and only the global norm adds its
-    blocks in another order.  Three steps: the losses equal, the grad
-    norms within ``ADAM_ULP`` ulp, every parameter and moment within
-    ``ADAM_ULP`` ulp of its leaf's largest magnitude (measured: equal)."""
-    one = group_run["one"][name]
-    got = group_run["ranks"][0]["1x4"][name]
-    for (l1, g1), (l2, g2) in zip(one["metrics"], got["metrics"]):
-        assert l1 == l2
-        assert _ulp_close(torch.tensor(g2), torch.tensor(g1), ADAM_ULP)
-    template = _init(SCENARIOS[name][0])
-    for key in ("params", "m", "v"):
-        for (path, _), a, b in zip(
-                TR.flatten_with_paths(template),
-                _assemble(group_run, "1x4", name, key, template), one[key]):
-            assert _ulp_close(a, b, ADAM_ULP), (key, path)
-
-
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_data_split_first_step(group_run, name):
-    """On the 2 x 2 mesh, the first step: the loss within
-    ``FIRST_LOSS_REL`` and the grad norm within ``FIRST_GNORM_REL`` of
-    the one-process step's, every replica's alike; the parameters after
-    it reassembled within ``test_torch_train.py``'s bounds for a step
-    (every element within 2·lr, all but ``FLIP_FRAC`` within 1e-3·lr:
-    AdamW's first step moves an element by about ±lr, so an element whose
-    gradient lies within the data halves' bf16 rounding of zero may step
-    the other way; measured: 0.06–0.7% past 1e-3·lr)."""
-    one = group_run["one"][name]
-    ranks = [o["2x2"][name] for o in group_run["ranks"]]
-    assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
-    (l1, g1), (l2, g2) = one["metrics"][0], ranks[0]["metrics"][0]
-    assert abs(l2 - l1) <= FIRST_LOSS_REL * l1, (l1, l2)
-    assert abs(g2 - g1) <= FIRST_GNORM_REL * g1, (g1, g2)
+def _first_step_params(group_run, mesh: str, name: str,
+                       key: str = "") -> float:
+    """The parameters after the first step on ``mesh`` (of run ``key``,
+    ``name`` by default), reassembled, within ``test_torch_train.py``'s
+    bounds for a step: every element within 2·lr, all but ``FLIP_FRAC``
+    within 1e-3·lr (AdamW's first step moves an element by about ±lr, so
+    an element whose gradient lies within the runs' rounding of zero may
+    step the other way).  Returns the share past 1e-3·lr."""
+    key = key or name
+    one = group_run["one"][key]
     template = _init(SCENARIOS[name][0])
     far = total = 0
     for (path, _), a, b in zip(
             TR.flatten_with_paths(template),
-            _assemble(group_run, "2x2", name, "params1", template),
+            _assemble(group_run, mesh, key, "params1", template),
             one["params1"]):
         d = (a - b).abs()
         assert float(d.max()) <= 2 * LR * (1 + 1e-3), path
         far += int((d > 1e-3 * LR).sum())
         total += d.numel()
     assert far <= FLIP_FRAC * total, far / total
+    return far / total
+
+
+def _first_step(group_run, mesh: str, name: str, key: str = "") -> None:
+    """The first step of run ``key`` (``name`` by default) on ``mesh``
+    held as the data split's is: every rank's metrics alike, the loss
+    within ``FIRST_LOSS_REL`` and the grad norm within ``FIRST_GNORM_REL``
+    of the one-process step's, the parameters after it as
+    :func:`_first_step_params` holds them."""
+    key = key or name
+    one = group_run["one"][key]["metrics"]
+    ranks = [o[mesh][key] for o in group_run["ranks"]]
+    assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    (l1, g1), (l2, g2) = one[0], ranks[0]["metrics"][0]
+    assert abs(l2 - l1) <= FIRST_LOSS_REL * l1, (l1, l2)
+    assert abs(g2 - g1) <= FIRST_GNORM_REL * g1, (g1, g2)
+    _first_step_params(group_run, mesh, name, key)
+
+
+def _split_steps(group_run, mesh: str, name: str) -> None:
+    """A run whose ``model`` axis splits the compute, held to the
+    one-process run from the same init.  In f32 compute (the ``_f32``
+    runs: one step) the split is the one-process function up to f32
+    rounding: its first step is held as the data split's
+    (:func:`_first_step`), Arctic's ×30 router included.  In bf16 every
+    rank's metrics are alike and the parameters after the first step
+    are held by :func:`_first_step_params`; the loss within ``LOSS_REL``
+    and the grad norm within ``GNORM_REL`` at every step, but Arctic's:
+    its ×30 router turns the split's bf16 rounding into a grad norm 13–14%
+    from the one-process one at the first step (loss 1.1e-3 / 8.1e-4 on
+    (1, 4) / (2, 2), 12.6% of its elements past 1e-3·lr), where in f32
+    the same split sits within ``FIRST_LOSS_REL`` and
+    ``FIRST_GNORM_REL``; that gap is rounding amplified by the router's
+    near-ties (``PERF.md``, open questions)."""
+    _first_step(group_run, mesh, name, name + "_f32")
+    one = group_run["one"][name]["metrics"]
+    ranks = [o[mesh][name] for o in group_run["ranks"]]
+    assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    if name == "arctic":
+        return
+    for (l1, g1), (l2, g2) in zip(one, ranks[0]["metrics"]):
+        assert abs(l2 - l1) <= LOSS_REL * l1, (l1, l2)
+        assert abs(g2 - g1) <= GNORM_REL * g1, (g1, g2)
+    _first_step_params(group_run, mesh, name)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_model_axis_alone_is_the_one_process_step(group_run, name):
+    """On the (1, 4) mesh nothing splits the batch and the model axis
+    splits the compute: each rank computes its blocks of the linears, the
+    heads they overlap, its vocabulary block and its experts.  Held as
+    :func:`_split_steps` says (measured in f32 at the first step: the
+    losses equal, the grad norm 4.7e-6 at most (Arctic; 0 for the
+    others), 0–0.03% of the elements past 1e-3·lr; in bf16 over the three
+    steps: loss 1.6e-4 at most for the dense scenarios, 7.3e-5 for
+    mamba2, whose mixers run whole and only its embedding and loss split;
+    grad norm 3.9e-3, 9.8e-4; 0.7–1.5% of the elements past 1e-3·lr
+    after the first step; Arctic, not held there, 1.1e-3 and 0.13 at the
+    first step)."""
+    _split_steps(group_run, "1x4", name)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_data_and_model_split(group_run, name):
+    """On the 2 x 2 mesh both axes split: held as the (1, 4) mesh is
+    (measured in f32 at the first step: loss 1.5e-7 at most, grad norm
+    3.7e-6 (Arctic; 8.9e-8 for the others), 0–0.03% of the elements
+    past 1e-3·lr; in bf16: loss 7.5e-5 and 1.0e-4 at most for the dense
+    scenarios and mamba2; grad norm 3.4e-3, 1.0e-3; 0.8–1.3% of the
+    elements past 1e-3·lr after the first step; Arctic, not held there,
+    8.1e-4 and 0.14 at the first step)."""
+    _split_steps(group_run, "2x2", name)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_data_split_first_step(group_run, name):
+    """On the (4, 1) mesh, where only the batch splits, the first step:
+    the loss within ``FIRST_LOSS_REL`` and the grad norm within
+    ``FIRST_GNORM_REL`` of the one-process step's, every replica's
+    alike; the parameters after it reassembled within
+    :func:`_first_step_params`' bounds (measured: loss 7.7e-8, grad norm
+    5.6e-5 at most, 0.08–0.8% of the elements past 1e-3·lr)."""
+    _first_step(group_run, "4x1", name)
 
 
 @pytest.mark.parametrize("name", ["minicpm", "minicpm_ef"])
 def test_data_split_later_steps(group_run, name):
-    """The dense scenarios' second and third steps on the 2 x 2 mesh: the
-    loss within ``LOSS_REL`` and the grad norm within ``GNORM_REL``
-    (measured 1.0e-4 and 3.1e-3 at most).  Arctic is held at its first
-    step here and at all three on the (1, 4) mesh: after a step, the
-    first step's sign flips move its router's logits and swap top-2
-    choices (its grad norm 0.28 apart at the second step, its loss 2.4e-3
-    at the third)."""
+    """The dense scenarios' second and third steps on the (4, 1) mesh:
+    the loss within ``LOSS_REL`` and the grad norm within ``GNORM_REL``
+    (measured 7.9e-5 and 3.3e-3 at most).  Arctic is held at its first
+    step here: after a step, the first step's sign flips move its
+    router's logits and swap top-2 choices (on a 2 x 2 data split its
+    grad norm 0.28 apart at the second step, its loss 2.4e-3 at the
+    third)."""
     one = group_run["one"][name]["metrics"]
-    got = group_run["ranks"][0]["2x2"][name]["metrics"]
+    got = group_run["ranks"][0]["4x1"][name]["metrics"]
     for (l1, g1), (l2, g2) in list(zip(one, got))[1:]:
         assert abs(l2 - l1) <= LOSS_REL * l1, (l1, l2)
         assert abs(g2 - g1) <= GNORM_REL * g1, (g1, g2)
@@ -433,8 +513,9 @@ def test_compression_codes_and_scales_are_global(group_run):
 
 
 def test_uneven_labels_give_the_global_loss(group_run):
-    """The loss of a batch whose valid labels fall 64 : 6 over the data
-    ranks is the one-process loss; the ranks' mean of means is not."""
+    """The loss of a batch whose valid labels fall 32 : 32 : 3 : 3 over
+    the (4, 1) mesh's data ranks is the one-process loss; a mean of the
+    halves' means is not."""
     one = group_run["one"]["uneven"]
     for o in group_run["ranks"]:
         assert abs(o["uneven"] - one) <= XENT_REL * one, (o["uneven"], one)
