@@ -78,7 +78,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    its qkv, gate and down shapes and at 8 rows, K8 ``quantize_pack`` at 4
    and 8 bits, K9 ``haar_dwt_seq`` at 3 and 5 levels up to 32768 tokens,
    K10 ``walsh_hadamard`` along the sequence, split and not, and the
-   features; K8 also in f32, beside the ``copy_`` ceiling);
+   features; K8 also in f32, beside the ``copy_`` ceiling); then the
+   serving split's kernel modes at the serve pair's shapes
+   (``check_split_modes``, ``[split_mode]`` lines): K1's statistics and
+   given-statistics modes on each of 2 ranks' blocks of llama3-8b's
+   row-parallel inputs (wo over 4096, down over 14336; 128 and 320 rows,
+   the second through the span link), exact against the plain versions
+   and the whole rows' codes; K2's parts and summed modes on those blocks'
+   codes, exact against the plain versions, the summed parts finished
+   equal to the whole rows' K1 -> K2 bit for bit (``torch._int_mm`` timed
+   beside the parts); K3's statistics and given modes on decode rows'
+   blocks (``torch.aminmax`` timed beside the statistics); K6's block mode over 2 sequence blocks of a 336-position
+   cache and its merge of the ranks' states, against the whole-cache K6
+   and the plain versions (a block past every length: m = -inf, l = 0);
+   each timed beside its bound (the ``kernels`` line's ``modes``);
 4. drive the kernel library's path through ``repro_torch.kernels.ops``: a
    (1, 2048, 4096) activation through ``haar_dwt_seq`` (3 levels),
    ``quantize_pack`` (8 bits), ``int8_matmul`` against ``prepare_linear``'s
@@ -154,7 +167,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    1)`` mesh, minicpm-2b at full width cut to ``PAIR_LAYERS`` layers,
    each held against the one-device step on rank 0 (``[shard]`` lines,
    each rank's bytes of training state; on ``(1, 2)`` its dot FLOPs and
-   its first step's peak held to the dry run's); then the dry-run tools
+   its first step's peak held to the dry run's); then the serve pair
+   (``serve_pair_phase``: two gloo ranks on the card on a ``(1, 2)`` mesh,
+   llama3-8b at full width cut to ``PAIR_LAYERS`` layers, fused STaMP
+   over int8 weights prepared whole and cut to each rank's blocks, K3 and
+   K6; prompts of 128 and 320 tokens, then 16 teacher-forced decode
+   steps, the launch counts set to 0 before and read after; rank 0 holds
+   the prefill logits to one device's bit for bit, every step's within
+   ``SERVE_LOGIT_REL`` and the greedy tokens under the margin rule, at
+   the served mix and at 8 bits; each rank's row-parallel K1 codes and
+   K1 -> K2 product through gloo's all-reduces exact, its ``FlopCounterMode`` count of the
+   dry run's serve cells equal to the dry run's on a fake ``(1, 2)``
+   group; ``[shard] serve pair`` line); then the dry-run tools
    (``dryrun_phase``, which launches no kernel: counts set to 0 before it
    and each required to stay 0): ``python -m repro_torch.launch.dryrun``
    on minicpm-2b ``train_4k`` (16 x 16) and mamba2-1.3b ``long_500k``
@@ -1245,6 +1269,282 @@ def check_cache_attention(torch, ca, ref, KV, heads=HEADS, hd=HD,
                         graph_ms=gms, library_graph_ms=lib_gms))
         del entry
     return out
+
+
+# ------------------------------------- phase 3: the serving split's modes --
+
+# K1's and K3's statistics modes, K2's parts and summed modes and K6's
+# block mode at the serve pair's
+# shapes (llama3-8b on 2 model ranks): each rank's block of the
+# row-parallel inputs (wo over q_dim 4096, down over d_ff 14336; prompts
+# of SERVE_PROMPTS rows, decode rows of 1 and SLOTS) and each rank's block
+# of the pair's cache (SERVE_PROMPTS[-1] + SERVE_STEPS positions, hi 64)
+SPLIT_RANKS = 2
+
+
+def _two_blocks(x, k):
+    return [x[..., r * k // SPLIT_RANKS:(r + 1) * k // SPLIT_RANKS]
+            .contiguous() for r in range(SPLIT_RANKS)]
+
+
+def check_split_modes(torch, sm, dm, ca, ref, KV, ops, prepare_linear
+                      ) -> dict:
+    """The new modes against their plain versions on the card, timed
+    (eager and from CUDA graphs) beside their bounds and, where one
+    PyTorch call computes the same function, its time: K1's statistics
+    (exact; ``torch.aminmax`` where the rows come transformed, past 128)
+    and given-statistics (codes exact, and the whole rows' block) modes,
+    K2's parts (exact; ``torch._int_mm`` on the block's codes) and summed
+    modes (the ranks' parts summed and finished: the whole rows' K2
+    output bit for bit), K3's statistics mode (exact; ``torch.aminmax``)
+    and given mode (f32 within 1e-5 relative), K6's block mode and its
+    merge over the ranks' states (f32 queries within 1e-5 of the
+    whole-cache kernel; a block past every length m = -inf, l = 0).
+    Returns ``{kernel: rows}``."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    k1, k2, k3, k6 = [], [], [], []
+
+    def aminmax_lib(x):
+        """``torch.aminmax`` over the rows of ``x``: eager and graph ms."""
+        def call():
+            return torch.aminmax(x, dim=-1)
+        return dict(library_ms=timed(torch, call, iters=K3_ITERS),
+                    library_graph_ms=timed_graph(torch, call, K3_ITERS))
+
+    for name, k in (("wo", D), ("down", D_FF)):
+        p = prepare_linear(torch.randn((k, D), generator=gen, device="cuda")
+                           / math.sqrt(k))
+        bias = torch.randn((D,), generator=gen, device="cuda")
+        for s in SERVE_PROMPTS:
+            levels = max(1, math.ceil(math.log2(max(s / 64, 2))))
+            kw = dict(transform="dwt", levels=levels, skip_first=True,
+                      num_hi=64, hi_bits=8, lo_bits=4)
+            x = torch.randn((1, s, k), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            long = not sm.tq_fits(s, "dwt", levels, True)
+            qk = dict(kw, transform="none") if long else kw
+            whole = ops._quantize(x, **kw)
+            blocks = _two_blocks(x, k)
+            if long:
+                blocks = [sm.stamp_span_transform(
+                    b, transform="dwt", levels=levels, skip_first=True)
+                    for b in blocks]
+            stats = [sm.stamp_transform_quantize(b, stats_only=True, **qk)
+                     for b in blocks]
+            for b, st in zip(blocks, stats):
+                check(torch.equal(st, sm.transform_quantize_plain(
+                    b, stats_only=True, **qk)),
+                      f"K1's statistics differ from the plain version's "
+                      f"({name}, {s} rows)")
+            st = torch.stack(stats)
+            given = torch.stack([st[..., 0].amin(0), st[..., 1].amax(0)], -1)
+            c = k // SPLIT_RANKS
+            parts, wblocks = [], []
+            for r, b in enumerate(blocks):
+                got = sm.stamp_transform_quantize(b, row_stats=given, **qk)
+                want = sm.transform_quantize_plain(b, row_stats=given, **qk)
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"K1's given statistics differ from the plain "
+                      f"version's ({name}, {s} rows)")
+                check(torch.equal(got[0], whole[0][:, r * c:(r + 1) * c])
+                      and torch.equal(got[1], whole[1]),
+                      f"K1's block codes differ from the whole rows' "
+                      f"({name}, {s} rows)")
+                wq = p.qw[r * c:(r + 1) * c].contiguous()
+                wblocks.append((got[0], wq, wq.sum(dim=0, keepdim=True,
+                                                   dtype=torch.int32)))
+                parts.append(sm.stamp_int_gemm_parts(got[0], s,
+                                                     *wblocks[-1][1:]))
+                check(torch.equal(parts[-1], sm.int_gemm_parts_plain(
+                    *wblocks[-1])), f"K2's parts differ from the plain "
+                                    f"version's ({name}, {s} rows)")
+            summed = sum(parts)
+            gkw = dict(transform="dwt", levels=levels, skip_first=True,
+                       out_dtype=torch.bfloat16)
+            y = sm.stamp_int_gemm_summed(summed, whole[1], whole[2], s, p.sw,
+                                         p.zw, bias, **gkw)
+            one = ops.stamp_quant_matmul(x, p.qw, p.sw, p.zw, p.qw_sum, bias,
+                                         **kw)
+            check(torch.equal(y, one),
+                  f"K2's summed parts differ from the whole rows' K2 "
+                  f"({name}, {s} rows)")
+            check(torch.equal(y, sm.int_gemm_summed_plain(
+                summed, whole[1], whole[2], s, p.sw, p.zw, bias, **gkw)),
+                  f"K2's summed mode differs from the plain version's "
+                  f"({name}, {s} rows)")
+            b0 = blocks[0]
+            rows, isz = s, b0.element_size()
+
+            def stats_call():
+                return sm.stamp_transform_quantize(b0, stats_only=True,
+                                                   **qk)
+
+            def given_call():
+                return sm.stamp_transform_quantize(b0, row_stats=given,
+                                                   **qk)
+
+            for mode, call, plain, nbytes in (
+                    ("stats", stats_call, lambda: sm.transform_quantize_plain(
+                        b0, stats_only=True, **qk), rows * c * isz + rows * 8),
+                    ("given", given_call, lambda: sm.transform_quantize_plain(
+                        b0, row_stats=given, **qk),
+                     rows * c * isz + rows * 8 + rows * c + rows * 8)):
+                bd = bound(nbytes, 0, INT8_OPS_PER_S)
+                # past 128 rows the rows come transformed: the statistics
+                # are then a row min / max, one library call
+                lib = aminmax_lib(b0) if mode == "stats" and long else \
+                    dict(library_ms=None, library_graph_ms=None)
+                k1.append(dict(site=f"{name}_block_{s} ({mode})",
+                               max_abs_err=0.0,
+                               ms=timed(torch, call, iters=K1_ITERS),
+                               plain_ms=timed(torch, plain, iters=5),
+                               bound_ms=bd[0], bound_by=bd[1],
+                               graph_ms=timed_graph(torch, call, K1_ITERS),
+                               **lib))
+            q0, wq0, qs0 = wblocks[0]
+            pb = (s + 1) * (D + 1) * 4
+
+            def parts_call():
+                return sm.stamp_int_gemm_parts(q0, s, wq0, qs0)
+
+            def summed_call():
+                return sm.stamp_int_gemm_summed(summed, whole[1], whole[2], s,
+                                                p.sw, p.zw, bias, **gkw)
+
+            def int_mm():
+                return torch._int_mm(q0, wq0)
+
+            for mode, call, plain, nbytes, ops_, lib in (
+                    ("parts", parts_call,
+                     lambda: sm.int_gemm_parts_plain(q0, wq0, qs0),
+                     s * c + c * D + D * 4 + pb, 2 * s * c * D, int_mm),
+                    ("summed", summed_call,
+                     lambda: sm.int_gemm_summed_plain(
+                         summed, whole[1], whole[2], s, p.sw, p.zw, bias,
+                         **gkw),
+                     pb + s * 8 + D * 12 + s * D * 2, 0, None)):
+                bd = bound(nbytes, ops_, INT8_OPS_PER_S)
+                k2.append(dict(
+                    site=f"{name}_block_{s} ({mode})", max_abs_err=0.0,
+                    ms=timed(torch, call, iters=K1_ITERS),
+                    plain_ms=timed(torch, plain, iters=3),
+                    bound_ms=bd[0], bound_by=bd[1],
+                    graph_ms=timed_graph(torch, call, K1_ITERS),
+                    library_ms=lib and timed(torch, lib, iters=K1_ITERS),
+                    library_graph_ms=lib and timed_graph(torch, lib,
+                                                         K1_ITERS)))
+        for m in (1, SLOTS):
+            x = torch.randn((m, k), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            blocks = _two_blocks(x, k)
+            stats = [dm.decode_row_minmax(b) for b in blocks]
+            for b, st in zip(blocks, stats):
+                check(torch.equal(st, dm.row_minmax_plain(b)),
+                      f"K3's statistics differ from the plain version's "
+                      f"({name}, {m} rows)")
+            st = torch.stack(stats)
+            given = torch.stack([st[..., 0].amin(0), st[..., 1].amax(0)], -1)
+            c = k // SPLIT_RANKS
+            wq = p.qw[:c].contiguous()
+            w = (wq, p.sw, p.zw, wq.sum(dim=0, keepdim=True,
+                                        dtype=torch.int32))
+            got = dm.stamp_decode_matmul(blocks[0], *w, row_stats=given)
+            want = dm.decode_matmul_plain(blocks[0], *w, row_stats=given)
+            rel = float((got - want).abs().max() / want.abs().max())
+            check(rel <= 1e-5, f"K3's given mode off by {rel} ({name})")
+            b0 = blocks[0]
+
+            def stats_call():
+                return dm.decode_row_minmax(b0)
+
+            def given_call():
+                return dm.stamp_decode_matmul(b0, *w, row_stats=given)
+
+            for mode, call, plain, nbytes, ops_ in (
+                    ("stats", stats_call, lambda: dm.row_minmax_plain(b0),
+                     m * c * 2 + m * 8, 0),
+                    ("given", given_call, lambda: dm.decode_matmul_plain(
+                        b0, *w, row_stats=given),
+                     m * c * 2 + m * 8 + c * D + 12 * D + m * D * 4,
+                     2 * m * c * D)):
+                bd = bound(nbytes, ops_, INT8_OPS_PER_S)
+                lib = aminmax_lib(b0) if mode == "stats" else \
+                    dict(library_ms=None, library_graph_ms=None)
+                k3.append(dict(site=f"{name}_block_m{m} ({mode})",
+                               max_abs_err=rel if mode == "given" else 0.0,
+                               ms=timed(torch, call, iters=K3_ITERS),
+                               plain_ms=timed(torch, plain, iters=5),
+                               bound_ms=bd[0], bound_by=bd[1],
+                               graph_ms=timed_graph(torch, call, K3_ITERS),
+                               **lib))
+    cap = SERVE_PROMPTS[-1] + SERVE_STEPS
+    kvc = KV.KVCacheConfig()
+    kk = torch.randn((1, cap, KV_HEADS, HD), generator=gen, device="cuda")
+    vv = torch.randn((1, cap, KV_HEADS, HD), generator=gen, device="cuda")
+    whole = KV.quantize_full(kk.bfloat16(), vv.bfloat16(), kvc)
+    q = torch.randn((1, 1, HEADS, HD), generator=gen, device="cuda")
+
+    from repro_torch.sharding import SeqGroup
+    blocks = []
+    for r in range(SPLIT_RANKS):
+        # rank r's block over a sequence group of the model ranks alone
+        blk = KV.seq_block(kvc, cap, SeqGroup(None, r, SPLIT_RANKS, r,
+                                              SPLIT_RANKS))
+        blocks.append((blk, KV.quantize_full(kk.bfloat16(), vv.bfloat16(),
+                                             kvc, block=blk)))
+    for length in (cap, 200, 20):
+        ln = torch.tensor([length], dtype=torch.int32, device="cuda")
+        states, plains = [], []
+        for blk, entry in blocks:
+            pos = (blk.hi0, blk.lo0)
+            states.append(ca.cache_decode_attention(entry, q, ln, pos))
+            plains.append(ref.cache_block_attention_ref(entry, q, ln, *pos))
+        got = ca.merge_states(torch.stack(states), q.dtype)
+        want = ca.cache_decode_attention(whole, q, ln)
+        plain = ref.merge_states_ref(torch.stack(plains), q.dtype)
+        rel = max(float((got - want).abs().max() / want.abs().max()),
+                  float((got - plain).abs().max() / plain.abs().max()))
+        check(rel <= 1e-5, f"K6's block mode merged off by {rel} "
+                           f"(length {length})")
+        if length <= 32:
+            check(float(states[1][..., 0].max()) == -math.inf and
+                  float(states[1][..., 1].abs().max()) == 0.0,
+                  "K6's empty block is not m = -inf, l = 0")
+        blk, entry = blocks[0]
+        n_tok = min(length, blk.hi0 + blk.hi_n) - blk.hi0 + \
+            max(min(length, blk.lo0 + blk.lo_n) - blk.lo0, 0)
+        n_hi = max(min(length, blk.hi0 + blk.hi_n) - blk.hi0, 0)
+        nbytes = KV_HEADS * (n_hi * 2 * HD + (n_tok - n_hi) * HD
+                             + n_tok * 8) + HEADS * HD * 4 + \
+            HEADS * (HD + 2) * 4
+        bd = bound(nbytes, 4 * HD * HEADS * n_tok, BF16_FLOPS_PER_S)
+        st = torch.stack(states)
+
+        def block_call():
+            return ca.cache_decode_attention(entry, q, ln, (blk.hi0, blk.lo0))
+
+        def merge_call():
+            return ca.merge_states(st, q.dtype)
+
+        k6.append(dict(site=f"block_cap{cap}_len{length} (block)",
+                       max_abs_err=rel, ms=timed(torch, block_call, 20),
+                       plain_ms=timed(torch, lambda: ref.
+                                      cache_block_attention_ref(
+                                          entry, q, ln, blk.hi0, blk.lo0), 3),
+                       bound_ms=bd[0], bound_by=bd[1], library_ms=None,
+                       graph_ms=timed_graph(torch, block_call, K4_ITERS)))
+        mb = bound(st.numel() * 4 + HEADS * HD * 4, 0, BF16_FLOPS_PER_S)
+        k6.append(dict(site=f"merge_{SPLIT_RANKS}_len{length} (merge)",
+                       max_abs_err=rel, ms=timed(torch, merge_call, 20),
+                       plain_ms=timed(torch, lambda: ref.merge_states_ref(
+                           st, q.dtype), 3),
+                       bound_ms=mb[0], bound_by=mb[1], library_ms=None,
+                       graph_ms=timed_graph(torch, merge_call, K4_ITERS)))
+    for rows in (k1, k2, k3, k6):
+        for r in rows:
+            print(f"[split_mode] {json.dumps(r)}")
+    return {"stamp_transform_quantize": k1, "stamp_int_gemm": k2,
+            "stamp_decode_matmul": k3, "cache_decode_attention": k6}
 
 
 # --------------------------------------- phase 3: the standalone library --
@@ -2493,6 +2793,307 @@ def pair_phase() -> dict:
     return one["launches"]
 
 
+# ------------------------------------------------------- serve pair ----
+
+# serving split over the model axis (lm.prefill / lm.decode_step under a
+# policy): two gloo ranks sharing the card on a (1, 2) mesh, llama3-8b at
+# full width cut to PAIR_LAYERS layers, fused STaMP with int8 weights
+# prepared whole and cut to each rank's blocks, the decode matmul K3 and
+# the packed-cache attention K6; a prompt of each of SERVE_PROMPTS tokens
+# (320: the long-span chain) then SERVE_STEPS teacher-forced decode steps.
+# Rank 0 holds the pair against one device, at the served 8/4-bit mix and
+# with every row at 8 bits: the prefill logits equal (each row-parallel
+# site's K2 int32 parts summed, then one epilogue: one device's bits),
+# every step's within SERVE_LOGIT_REL of the largest one-device logit,
+# the greedy token equal wherever the one-device top-1 / top-2 margin
+# exceeds SERVE_MARGIN.  On each rank the row-parallel sites' K1 codes
+# (statistics mode, gloo's all-reduce, K1 with them) equal the whole
+# rows' block exactly, and so does the block's K1 -> K2 product (K2's
+# parts, gloo's integer all-reduce, K2's summed mode), and its
+# FlopCounterMode count of the dry run's serve cells (make_serve_config,
+# packed weights placed by the rule table) equals the dry run's on a fake
+# (1, 2) group
+SERVE_PROMPTS, SERVE_STEPS = (128, 320), 16
+# (measured, NVIDIA H100 80GB HBM3, 700.00 W: prefill 0 at every setting;
+# with the decode steps 8-bit 0.0119 / 0.0098, the mix 0.0159 / 0.0215 at
+# 128 / 320 tokens.  Decode's sums still round in another order: K6's
+# block states merged over the ranks, and K3's f32 parts of wo and down
+# summed over them, move a bf16 step now and then, which the next
+# quantizer may turn into a code.)
+SERVE_LOGIT_REL = 3e-2
+SERVE_MARGIN = 0.1
+SERVE_PAIR_KERNELS = {"stamp_transform_quantize", "stamp_int_gemm",
+                      "stamp_decode_matmul", "cache_decode_attention",
+                      "stamp_span_transform"}
+SERVE_FLOP_CELLS = {"prefill": (SERVE_PROMPTS[0], 1),
+                    "decode": (SERVE_PROMPTS[0] + SERVE_STEPS, 1)}
+
+
+def _mode_counts(ops) -> dict:
+    """Every wrapper's launches, and its launches in a mode."""
+    return {f"{k.__name__}.{a}": v for k in ops.KERNELS
+            for a, v in vars(k).items() if a.endswith("launches")}
+
+
+def serve_rank_run(torch, lm, params, cfg, serve, tokens, forced,
+                   policy=None) -> torch.Tensor:
+    """Prefill ``tokens`` (1, s), then the ``forced`` tokens a step: the
+    (steps + 1, 1, V) logits."""
+    logits, cache = lm.prefill(params, tokens, cfg, serve, policy=policy)
+    out = [logits]
+    s = tokens.shape[1]
+    for i, tok in enumerate(forced):
+        logits, cache = lm.decode_step(params, cache, tok, s + i, cfg, serve,
+                                       policy=policy)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def serve_flop_cell(torch, lm, LS, cfg, policy, dev, kind: str) -> int:
+    """``FlopCounterMode``'s count of the dry run's serve cell ``kind``
+    (:data:`SERVE_FLOP_CELLS`) on this rank: ``make_serve_config``, the
+    packed bf16 parameters placed by the rule table."""
+    from torch.utils.flop_counter import FlopCounterMode
+    seq, b = SERVE_FLOP_CELLS[kind]
+    serve = dataclasses.replace(LS.make_serve_config(cfg),
+                                cache_capacity=seq)
+    params = lm.init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+    params["layers"] = [lm.quantize_weights_for_serving(p, 4)
+                        for p in params["layers"]]
+    params = policy.place(params, dev)
+    with FlopCounterMode(display=False) as fc:
+        if kind == "prefill":
+            lm.prefill(params, torch.zeros((b, seq), dtype=torch.int32,
+                                           device=dev), cfg, serve,
+                       policy=policy, global_batch=b)
+        else:
+            cache = lm.init_cache(cfg, b, seq, serve, dev,
+                                  group=policy.seq_group(b))
+            lm.decode_step(params, cache, torch.zeros(b, dtype=torch.int32,
+                                                      device=dev),
+                           seq - 1, cfg, serve, policy=policy,
+                           global_batch=b)
+    return fc.get_total_flops()
+
+
+def serve_pair(plan: dict) -> None:
+    """One of two ranks sharing card 0 over gloo (``chip_smoke.py
+    --shard-rank`` with ``"serve"``, under torchrun): the split serve
+    path (launch counts set to 0 before it and read after), the
+    row-parallel K1 codes against the whole rows', the dry run's serve
+    cells under ``FlopCounterMode``; rank 0 then the one-device run and
+    the comparison.  Each rank writes ``[serve-pair]`` lines."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch import sharding as SH
+    from repro_torch.core.stamp import StampConfig, prepare_linear
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs as LS
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.serving.kvcache import KVCacheConfig
+    dev = torch.device(plan["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    rank = dist.get_rank()
+    cuda = dev.type == "cuda"
+    try:
+        with torch.no_grad():
+            # (``reduced``: the arch's reduced config, a rehearsal on the
+            # CPU)
+            get = configs.get_reduced if plan.get("reduced") else \
+                configs.get_config
+            cfg = dataclasses.replace(get(plan["arch"]),
+                                      num_layers=plan["layers"])
+            policy = SH.ShardingPolicy(mesh=make_local_mesh(2, dev))
+            split = policy.model_split()
+            stamp = StampConfig(execution="fused", levels=None)
+            whole = lm.init_params(cfg, 0, device=dev, dtype=torch.bfloat16)
+            whole["layers"] = [lm.quantize_weights_for_serving(p, 4)
+                               for p in whole["layers"]]
+            mine = lm.prepare_fused_weights(whole, stamp, split)
+            gen = torch.Generator().manual_seed(11)
+            runs = []
+            for s in plan["prompts"]:
+                tokens = torch.randint(0, cfg.vocab_size, (1, s),
+                                       generator=gen).to(dev)
+                forced = torch.randint(0, cfg.vocab_size,
+                                       (plan["steps"], 1),
+                                       generator=gen).to(dev)
+                # the served 8/4-bit mix, and every row at 8 bits (STaMP
+                # and the cache), where a rounding moves no 4-bit code
+                for mix, bits in (("mix", {}),
+                                  ("8bit", dict(hi_bits=8, lo_bits=8))):
+                    serve = lm.ServeConfig(
+                        stamp=dataclasses.replace(stamp, **bits),
+                        kv=KVCacheConfig(**bits),
+                        cache_capacity=s + plan["steps"],
+                        fused_cache_attention=True, fused_decode_matmul=True)
+                    runs.append((mix, tokens, forced, serve))
+            ops.reset_launch_counts()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [serve_rank_run(torch, lm, mine, cfg, serve, t, f, policy)
+                   for _, t, f, serve in runs]
+            if cuda:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _mode_counts(ops)
+            # the row-parallel sites (wo over q_dim, down over d_ff) at
+            # both prompts, through gloo's all-reduces: the block's K1
+            # codes the whole rows', its product (K2's parts summed, then
+            # finished) the whole rows' K1 -> K2
+            codes = []
+            g2 = torch.Generator(device=dev).manual_seed(12)
+            for name, k in (("wo", cfg.q_dim), ("down", cfg.d_ff)):
+                p = prepare_linear(torch.randn(
+                    (k, cfg.d_model), generator=g2, device=dev) /
+                    math.sqrt(k))
+                bias = torch.randn((cfg.d_model,), generator=g2, device=dev)
+                for s in plan["prompts"]:
+                    x = torch.randn((1, s, k), generator=g2, device=dev,
+                                    dtype=torch.bfloat16)
+                    kw = dict(transform="dwt",
+                              levels=stamp.resolved_levels(s),
+                              skip_first=True, num_hi=64, hi_bits=8,
+                              lo_bits=4)
+                    qx, sx, zx = ops._quantize(x, **kw)
+                    c0, c1 = split.block(k)
+                    xb = x[..., c0:c1].contiguous()
+                    q, sc, zp = ops._quantize(xb, **kw,
+                                              row_minmax=split.minmax)
+                    wq = p.qw[c0:c1].contiguous()
+                    y = ops.stamp_quant_matmul(
+                        xb, wq, p.sw, p.zw, wq.sum(dim=0, keepdim=True,
+                                                   dtype=torch.int32),
+                        bias, **kw, row_minmax=split.minmax,
+                        sum_parts=split.sum)
+                    one = ops.stamp_quant_matmul(x, p.qw, p.sw, p.zw,
+                                                 p.qw_sum, bias, **kw)
+                    codes.append(dict(site=name, rows=s, exact=bool(
+                        torch.equal(q, qx[:, c0:c1]) and
+                        torch.equal(sc, sx) and torch.equal(zp, zx)),
+                        product_exact=bool(torch.equal(y, one))))
+            flops = {kind: serve_flop_cell(torch, lm, LS, cfg, policy, dev,
+                                           kind)
+                     for kind in SERVE_FLOP_CELLS}
+            rank_line(plan, "[serve-pair]", dict(
+                rank=rank, seconds=seconds, launches=counts, codes=codes,
+                flops=flops, peak_gib=torch.cuda.max_memory_allocated()
+                / 2 ** 30 if cuda else None))
+            if rank == 0:
+                one_params = lm.prepare_fused_weights(whole, stamp)
+                cmp = []
+                for (mix, t, f, serve), g in zip(runs, got):
+                    want = serve_rank_run(torch, lm, one_params, cfg, serve,
+                                          t, f)
+                    top = want.topk(2, dim=-1).values
+                    decisive = (top[..., 0] - top[..., 1]) > SERVE_MARGIN
+                    diff = g.argmax(-1) != want.argmax(-1)
+                    cmp.append(dict(
+                        prompt=t.shape[1], bits=mix,
+                        rel=float((g - want).abs().max() /
+                                  want.abs().max()),
+                        prefill_rel=float((g[0] - want[0]).abs().max() /
+                                          want[0].abs().max()),
+                        decisive=int(decisive.sum()),
+                        misses=int((decisive & diff).sum()),
+                        finite=bool(torch.isfinite(g).all())))
+                rank_line(plan, "[serve-pair]", dict(one_device=cmp))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_pair_dry_run() -> dict:
+    """The dry run's serve cells of the pair (llama3-8b at full width cut
+    to PAIR_LAYERS layers, :data:`SERVE_FLOP_CELLS`) on rank 0 of a fake
+    (1, 2) group: dot FLOPs a rank and what splits."""
+    from repro_torch import configs
+    from repro_torch.analysis import opstats as OS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.config import ShapeConfig
+    cfg = dataclasses.replace(configs.get_config("llama3-8b"),
+                              num_layers=PAIR_LAYERS)
+    out = {}
+    for kind, (seq, b) in SERVE_FLOP_CELLS.items():
+        rec = DR.lower_cell("llama3-8b", None, multi_pod=False, cfg=cfg,
+                            shape=ShapeConfig(f"pair_{kind}", seq, b, kind),
+                            mesh_shape=(1, 2))
+        check(rec["status"] == "ok" and rec["model_split"]["split"],
+              f"serve pair: the {kind} dry run {rec.get('status')} "
+              f"{rec.get('model_split')}")
+        out[kind] = dict(dot_flops=OS.op_stats(rec["counter"].log())[
+            "dot_flops_per_device"], model_split=rec["model_split"],
+            decode_kv_spec=rec.get("decode_kv_spec"))
+    return out
+
+
+def serve_pair_phase(ops) -> dict:
+    """The serve pair (:func:`serve_pair`) on the card and its checks: the
+    one-device comparison, the exact codes, each rank's FLOPs equal to
+    the dry run's.  Returns the split path's launch counts (both ranks')
+    and prints the modes' launches."""
+    t0 = time.perf_counter()
+    rows = torchrun(2, dict(mode="serve", arch="llama3-8b",
+                            layers=PAIR_LAYERS, prompts=list(SERVE_PROMPTS),
+                            steps=SERVE_STEPS, device="cuda"),
+                    "[serve-pair]")
+    ranks = [r for r in rows if "rank" in r]
+    one = [r for r in rows if "one_device" in r]
+    check(len(ranks) == 2 and len(one) == 1,
+          f"serve pair: {len(rows)} lines from the ranks")
+    dry = serve_pair_dry_run()
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    row = dict(arch="llama3-8b", layers=PAIR_LAYERS, mesh="1x2",
+               prompts=SERVE_PROMPTS, steps=SERVE_STEPS,
+               seconds=[r["seconds"] for r in ranks],
+               peak_gib=[r["peak_gib"] for r in ranks],
+               one_device=one[0]["one_device"],
+               flops_per_rank={k: [r["flops"][k] for r in ranks]
+                               for k in SERVE_FLOP_CELLS},
+               dry_run={k: d["dot_flops"] for k, d in dry.items()},
+               decode_kv_spec=dry["decode"]["decode_kv_spec"],
+               model_split=dry["decode"]["model_split"],
+               mode_launches={k: v for k, v in launches.items()
+                              if not k.endswith(".launches")},
+               phase_s=time.perf_counter() - t0)
+    print(f"[shard] serve pair {json.dumps(row)}")
+    for r in ranks:
+        check(all(c["exact"] and c["product_exact"] for c in r["codes"]),
+              f"serve pair: rank {r['rank']}'s row-parallel K1 codes or "
+              f"K1 -> K2 product differ from the whole rows' {r['codes']}")
+        for kind, d in dry.items():
+            check(r["flops"][kind] == d["dot_flops"],
+                  f"serve pair: rank {r['rank']} counted {r['flops'][kind]} "
+                  f"{kind} FLOPs, the dry run {d['dot_flops']}")
+    for c in one[0]["one_device"]:
+        check(c["finite"] and c["prefill_rel"] == 0.0 and
+              c["rel"] <= SERVE_LOGIT_REL and c["misses"] == 0,
+              f"serve pair against one device: {c}")
+    for k in ("stamp_transform_quantize.stats_launches",
+              "stamp_transform_quantize.given_launches",
+              "stamp_int_gemm.parts_launches",
+              "stamp_int_gemm.summed_launches",
+              "stamp_decode_matmul.stats_launches",
+              "stamp_decode_matmul.given_launches",
+              "cache_decode_attention.block_launches",
+              "cache_decode_attention.merge_launches"):
+        check(launches.get(k, 0) > 0, f"serve pair: no launch in {k}")
+    return {k.split(".")[0]: v for k, v in launches.items()
+            if k.endswith(".launches")}
+
+
 # --------------------------------------------------------- dryrun phase --
 
 # the dry run's CLI on two production cells (subprocesses on the host,
@@ -3199,14 +3800,17 @@ def main() -> None:
     only = None
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("run from the root of a checkout: src/repro_torch is missing")
+    split_only = sys.argv[1:] == ["--split-only"]
     if len(sys.argv) == 3 and sys.argv[1] == "--serve-only":
         only = set(sys.argv[2].split(","))
     elif len(sys.argv) == 3 and sys.argv[1] == "--shard-rank":
         plan = json.loads(sys.argv[2])
-        (shard_pair if plan["mode"] == "pair" else shard_rank)(plan)
+        {"pair": shard_pair, "serve": serve_pair}.get(
+            plan["mode"], shard_rank)(plan)
         return
-    elif len(sys.argv) > 1:
-        fail("usage: chip_smoke.py [--serve-only PHASE,...]")
+    elif len(sys.argv) > 1 and not split_only:
+        fail("usage: chip_smoke.py [--serve-only PHASE,...] "
+             "[--split-only]")
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     if not torch.cuda.is_available():
@@ -3247,6 +3851,12 @@ def main() -> None:
         from repro_torch.launch import serve
         serve_phases(torch, serve, ops, configs, only, set())
         print("[chip_smoke] partial run (--serve-only): no kernels line")
+        return
+    if split_only:
+        with torch.inference_mode():
+            check_split_modes(torch, sm, dm, ca, ref, KV, ops, prepare_linear)
+        serve_pair_phase(ops)
+        print("[chip_smoke] partial run (--split-only): no kernels line")
         return
     with torch.inference_mode():
         k1, k2 = check_stamp(torch, sm, ops, prepare_linear, LLAMA_SITES)
@@ -3307,6 +3917,9 @@ def main() -> None:
                 prefix=cfg.name.split("-")[0] + "_")
             torch.cuda.empty_cache()
         torch.cuda.empty_cache()
+        split_modes = check_split_modes(torch, sm, dm, ca, ref, KV, ops,
+                                        prepare_linear)
+        torch.cuda.empty_cache()
         std = check_standalone(torch, hd, wt, qp, im)
         torch.cuda.empty_cache()
     for rows in (k1, k2, k3, k4, k5, k6, link, *std.values()):
@@ -3362,6 +3975,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths["shard"] = (shard_phase(torch, ops, one_device), every)
+    paths["serve_pair"] = (serve_pair_phase(ops), every - SERVE_PAIR_KERNELS)
     gc.collect()
     torch.cuda.empty_cache()
     dry_counts, _ = dryrun_phase(torch, ops, one_device)
@@ -3431,6 +4045,10 @@ def main() -> None:
               link),
     ]
     kernels[3]["per_shape"] = k4
+    # the serving split's modes, timed apart (not in the sums above)
+    for kern in kernels:
+        if kern["name"] in split_modes:
+            kern["modes"] = split_modes[kern["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

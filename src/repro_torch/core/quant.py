@@ -88,14 +88,20 @@ def _align_token_axis(v: torch.Tensor, ndim: int,
 
 
 def minmax_scale_offset(x: torch.Tensor, bits: Bits, axis: int = -1,
-                        compiled: bool = False
+                        compiled: bool = False, minmax=None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Asymmetric min-max ``(scale, zero_point)`` with ``axis`` kept.  The
     range divides by the level count truly; with ``compiled`` (a constant
-    int ``bits``) by its f32 reciprocal's product (:func:`div_const`)."""
+    int ``bits``) by its f32 reciprocal's product (:func:`div_const`).
+    ``minmax``: the ``(min, max)`` over ``axis`` (kept) to use in place of
+    ``x``'s own — a row-parallel block's, all-reduced into the whole
+    rows'."""
     xf = x.float()
-    mn = xf.amin(dim=axis, keepdim=True)
-    mx = xf.amax(dim=axis, keepdim=True)
+    if minmax is None:
+        mn = xf.amin(dim=axis, keepdim=True)
+        mx = xf.amax(dim=axis, keepdim=True)
+    else:
+        mn, mx = (t.float() for t in minmax)
     if compiled:
         scale = div_const(mx - mn, float(2 ** bits - 1))
     else:
@@ -138,7 +144,7 @@ def to_int(q: torch.Tensor, bits: int) -> torch.Tensor:
 
 def fake_quant(x: torch.Tensor, bits: Bits, axis: int = -1,
                out_dtype: Optional[torch.dtype] = None,
-               compiled: bool = False) -> torch.Tensor:
+               compiled: bool = False, minmax=None) -> torch.Tensor:
     """Quantize-dequantize with per-``axis`` min-max scales.  Each site
     takes the form its twin in the reference computes: STaMP's per-token
     bit vector (``stamp_fake_quant``, the kernels' plain versions) divides
@@ -146,8 +152,11 @@ def fake_quant(x: torch.Tensor, bits: Bits, axis: int = -1,
     ``bits`` inside one of the reference's compiled programs (the
     cross-attention's per-token ``lo_bits``), where XLA folds that
     division into a product with the reciprocal (:func:`div_const`) — a
-    true division there flips a code on a tie now and then."""
-    scale, zp = minmax_scale_offset(x, bits, axis=axis, compiled=compiled)
+    true division there flips a code on a tie now and then.  ``minmax``:
+    the ``(min, max)`` to take in place of ``x``'s own (:func:`
+    minmax_scale_offset`)."""
+    scale, zp = minmax_scale_offset(x, bits, axis=axis, compiled=compiled,
+                                    minmax=minmax)
     out = dequantize(quantize(x, scale, zp, bits), scale, zp)
     return out.to(out_dtype or x.dtype)
 

@@ -125,44 +125,82 @@ def blockwise_mixed(tx: torch.Tensor, bits: torch.Tensor,
     return ((q - zp) * scale).to(tx.dtype).reshape(*lead, s, d)
 
 
+def _row_minmax(tx: torch.Tensor, split) -> tuple:
+    """The whole rows' ``(min, max)`` (kept dim) of a row-parallel block
+    ``tx``: its own, all-reduced over the model ranks."""
+    return split.minmax(tx.amin(dim=-1, keepdim=True),
+                        tx.amax(dim=-1, keepdim=True))
+
+
+def _record(site: Optional[str], tx: torch.Tensor, cfg: StampConfig,
+            split=None) -> None:
+    """Quant-health stats of ``site``'s transformed activation; a
+    row-parallel block's with the whole rows' scales
+    (:func:`~repro_torch.obs.quantstats.record`)."""
+    if not QS.active() or site is None:
+        return
+    bits = cfg.bits_vector(tx.shape[-2], device=tx.device)
+    if split is None:
+        QS.record(site, tx, bits, cfg.hi_bits)
+        return
+    scale, zp = Q.minmax_scale_offset(tx, bits, axis=-1,
+                                      minmax=_row_minmax(tx, split))
+    QS.record(site, tx, bits, cfg.hi_bits, scale, zp, split)
+
+
 def _reference_quantize(x: torch.Tensor, cfg: StampConfig,
                         site: Optional[str] = None, basis=None,
                         feature_rot: Optional[torch.Tensor] = None,
-                        axis: int = -2) -> torch.Tensor:
+                        axis: int = -2, split=None) -> torch.Tensor:
     """Transformed (and feature-rotated) mixed-precision fake-quantized
     activation, in f32 (bf16 butterflies would move the min/max scales and
     flip codes).  With a telemetry scope open, ``site``'s quant-health
-    stats are recorded (for the ``(…, s, d)`` layout only)."""
+    stats are recorded (for the ``(…, s, d)`` layout only).  Under a model
+    ``split`` ``x`` is a row-parallel block: the sequence transform is per
+    feature, so its transformed values are the whole rows' block, and
+    each row's min / max is all-reduced over the model ranks before the
+    quantize (per-(token, feature block) scales need no exchange where
+    the block holds whole feature blocks)."""
     tx = apply_seq_transform(x.float(), cfg, axis=axis, basis=basis)
     if feature_rot is not None:
         tx = tx @ feature_rot.to(tx.dtype)
     bits = cfg.bits_vector(tx.shape[axis], device=x.device)
+    if split is not None and (feature_rot is not None or
+                              axis not in (-2, x.ndim - 2)):
+        raise NotImplementedError("a row-parallel STaMP block takes no "
+                                  "feature rotation and quantizes rows")
     if axis in (-2, x.ndim - 2):
-        QS.record(site, tx, bits, cfg.hi_bits)
+        _record(site, tx, cfg, split)
     if cfg.granularity == "block":
+        if split is not None and tx.shape[-1] % cfg.block_size:
+            raise NotImplementedError(
+                f"a row-parallel block of {tx.shape[-1]} features does not "
+                f"hold whole {cfg.block_size}-feature quantizer blocks")
         return blockwise_mixed(tx, bits, cfg.block_size)
-    return Q.fake_quant(tx, bits, axis=-1)
+    minmax = None if split is None else _row_minmax(tx, split)
+    return Q.fake_quant(tx, bits, axis=-1, minmax=minmax)
 
 
 def _record_fused(x: torch.Tensor, cfg: StampConfig,
-                  site: Optional[str]) -> None:
+                  site: Optional[str], split=None) -> None:
     """Quant-health telemetry of a fused site: the kernels fuse transform,
     quantize and GEMM, so the transform and the per-token statistics are
     recomputed here with plain PyTorch beside them (nothing when no scope
     is open, so a step without telemetry runs exactly its kernels)."""
     if not QS.active() or site is None or not cfg.enabled:
         return
-    tx = apply_seq_transform(x.float(), cfg)
-    QS.record(site, tx, cfg.bits_vector(tx.shape[-2], device=x.device),
-              cfg.hi_bits)
+    _record(site, apply_seq_transform(x.float(), cfg), cfg, split)
 
 
 def stamp_fake_quant(x: torch.Tensor, cfg: StampConfig, axis: int = -2,
                      basis=None, seg_len: Optional[int] = None,
-                     site: Optional[str] = None) -> torch.Tensor:
+                     site: Optional[str] = None, split=None) -> torch.Tensor:
     """Full round trip ``L⁻¹ Q(L X)`` along ``axis`` (``basis``: the KLT's
     rows); ``seg_len`` marks a flattened batch of uniform spans along axis
-    1; ``site`` names the telemetry site."""
+    1; ``site`` names the telemetry site; under a model ``split`` ``x`` is
+    a row-parallel block quantized with the whole rows' statistics
+    (:func:`_reference_quantize`), its round trip the whole one's
+    block."""
     if not cfg.enabled:
         return x
     if seg_len is not None and seg_len != x.shape[1]:
@@ -170,8 +208,9 @@ def stamp_fake_quant(x: torch.Tensor, cfg: StampConfig, axis: int = -2,
             raise ValueError("segments fold along axis 1")
         return unfold_segments(
             stamp_fake_quant(fold_segments(x, seg_len), cfg, basis=basis,
-                             site=site), x.shape[0])
-    tq = _reference_quantize(x, cfg, site, basis=basis, axis=axis)
+                             site=site, split=split), x.shape[0])
+    tq = _reference_quantize(x, cfg, site, basis=basis, axis=axis,
+                             split=split)
     return invert_seq_transform(tq, cfg, axis=axis, basis=basis).to(x.dtype)
 
 
@@ -230,19 +269,23 @@ def prepare_linear(w: Optional[torch.Tensor] = None,
     return _prepared((q - shift).to(torch.int8), sw, zp - shift, b)
 
 
-def token_quantize(x: torch.Tensor, bits: int = 8) -> tuple:
+def token_quantize(x: torch.Tensor, bits: int = 8, minmax=None) -> tuple:
     """Per-token asymmetric min-max quantize in the token domain — the
     grouped MoE path's dispatch-buffer format: each token is coded once,
     before dispatch, however many expert buckets it lands in.  Returns
     signed int8 codes plus ``(..., 1)`` f32 scale and identically shifted
     zero point.  The range divides by the constant ``2^bits - 1`` as the
     compiled reference does (:func:`~repro_torch.core.quant.div_const`);
-    ``-mn / s`` and ``x / s`` stay true divisions."""
+    ``-mn / s`` and ``x / s`` stay true divisions.  ``minmax``: the
+    ``(min, max)`` (kept dim) to take in place of the rows' own."""
     n = float(2 ** bits - 1)
     shift = float(1 << (bits - 1))
     xf = x.float()
-    mn = xf.amin(dim=-1, keepdim=True)
-    mx = xf.amax(dim=-1, keepdim=True)
+    if minmax is None:
+        mn = xf.amin(dim=-1, keepdim=True)
+        mx = xf.amax(dim=-1, keepdim=True)
+    else:
+        mn, mx = (t.float() for t in minmax)
     s = torch.clamp_min(Q.div_const(mx - mn, n), Q.EPS)
     z = torch.round(-mn / s)
     q = (torch.clamp(torch.round(xf / s) + z, 0.0, n) - shift).to(torch.int8)
@@ -287,7 +330,7 @@ def stamp_linear(x: torch.Tensor, w: Optional[torch.Tensor],
                  prepared: Optional[PreparedLinear] = None,
                  merge_heads: bool = False,
                  seg_len: Optional[int] = None,
-                 site: Optional[str] = None) -> torch.Tensor:
+                 site: Optional[str] = None, split=None) -> torch.Tensor:
     """STaMP linear layer (Fig. 2a).
 
     ``w_quant`` replaces ``w`` by its RTN codes (dequantized on the
@@ -299,29 +342,45 @@ def stamp_linear(x: torch.Tensor, w: Optional[torch.Tensor],
     ``seg_len`` marks a flattened batch of uniform ``seg_len``-token spans:
     the transform applies per span.  With ``cfg.execution == "fused"`` the
     chain runs on int8 weights (``prepared``, or prepared on the fly from
-    ``w_quant`` or ``w``).  ``site`` names the quant-telemetry site."""
+    ``w_quant`` or ``w``).  ``site`` names the quant-telemetry site.
+    Under a model ``split`` the fused layer is row-parallel: ``x`` is this
+    rank's block of the input features and the weight its rows; the
+    block is quantized with the whole rows' statistics (K1's statistics
+    mode, their all-reduce, K1 with them), K2 writes the block's int32
+    products and row sums, and their integer all-reduce is finished by
+    K2's epilogue on every rank: one device's output, bit for bit."""
     if seg_len is not None and x.ndim >= 3 and seg_len != x.shape[1]:
         y = stamp_linear(fold_segments(x, seg_len), w, b, cfg,
                          w_quant=w_quant, basis=basis,
                          feature_rot=feature_rot, prepared=prepared,
-                         merge_heads=merge_heads, site=site)
+                         merge_heads=merge_heads, site=site, split=split)
         return unfold_segments(y, x.shape[0])
     if merge_heads:
         x = x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
     if fused_eligible(cfg, feature_rot) and \
             (w_quant is None or w_quant.bits <= 8):
         from repro_torch.kernels import ops
-        _record_fused(x, cfg, site)
+        _record_fused(x, cfg, site, split)
         prep = prepared if prepared is not None else \
             prepare_linear(w, b, bits=cfg.fused_weight_bits,
                            w_quant=w_quant)
         bias = b if b is not None else prep.bias
         *lead, s, d = x.shape
-        y = ops.stamp_quant_matmul(x.reshape(-1, s, d), prep.qw, prep.sw,
-                                   prep.zw, prep.qw_sum, bias,
-                                   out_dtype=x.dtype,
-                                   **_kernel_kwargs(cfg, s))
+        if split is None:
+            y = ops.stamp_quant_matmul(x.reshape(-1, s, d), prep.qw,
+                                       prep.sw, prep.zw, prep.qw_sum, bias,
+                                       out_dtype=x.dtype,
+                                       **_kernel_kwargs(cfg, s))
+        else:
+            y = ops.stamp_quant_matmul(
+                x.reshape(-1, s, d), prep.qw, prep.sw, prep.zw, prep.qw_sum,
+                bias, out_dtype=x.dtype, row_minmax=split.minmax,
+                sum_parts=split.sum, **_kernel_kwargs(cfg, s))
         return y.reshape(*lead, s, y.shape[-1])
+    if split is not None:
+        raise NotImplementedError("a row-parallel STaMP linear runs the "
+                                  "fused chain (the reference execution "
+                                  "quantizes with stamp_fake_quant)")
     if w_quant is not None:
         w = w_quant.dequant(x.dtype)
     elif w is None and prepared is not None:

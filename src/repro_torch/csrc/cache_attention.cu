@@ -330,7 +330,7 @@ template <int HD, typename T>
 __global__ void __launch_bounds__(THREADS, Occupancy<T>::BLOCKS)
 cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
                       int hi_len, int S, int tiles_per_range, float scale,
-                      float* part) {
+                      float* part, int hi0, int lo0) {
   using D = Dims<HD>;
   constexpr int HDP = D::HDP, KS = D::KS;
   constexpr int NQ = std::is_same<T, float>::value ? 3 : 1;
@@ -350,14 +350,26 @@ cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
   float* out = part + (((size_t)bi * g + kvh) * n_split + split) * rep *
                           (HD + 2);
 
-  // the range's tiles up to the one holding position len - 1
-  const int t0 = split * tiles_per_range;
-  const int t1 = min(t0 + tiles_per_range, n_tiles);
+  // positions are local to the buffers; hi position i is global hi0 + i,
+  // lo position hi_len + i global lo0 + i (0 and hi_len for a whole cache,
+  // a rank's blocks' first positions for a block of a sequence-split one,
+  // past every length for a region this rank does not read), and the
+  // mask is global: each region's valid local positions end at
+  const int end_hi = max(0, min(hi_len, len - hi0));
+  const int end_lo = hi_len + max(0, min(s_lo, len - lo0));
   auto tile_start = [&](int t) {
     return t < n_hi ? t * TILE_HI : hi_len + (t - n_hi) * TILE_LO;
   };
+  auto valid_end = [&](int t) { return t < n_hi ? end_hi : end_lo; };
+  // the range's tiles holding valid positions: a run (a region's valid
+  // positions are a prefix of it, and the lo region's start past the hi
+  // region's), after any hi tiles of a region this rank does not read
+  int t0 = split * tiles_per_range;
+  const int t1 = min(t0 + tiles_per_range, n_tiles);
+  while (t0 < t1 && tile_start(t0) >= valid_end(t0)) ++t0;
   int n_act = 0;
-  while (t0 + n_act < t1 && tile_start(t0 + n_act) < len) ++n_act;
+  while (t0 + n_act < t1 && tile_start(t0 + n_act) < valid_end(t0 + n_act))
+    ++n_act;
   if (n_act == 0) {
     for (int i = tid; i < rep * (HD + 2); i += THREADS)
       out[i] = (i % (HD + 2) == 0) ? NEG : 0.0f;
@@ -397,7 +409,7 @@ cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
     const bool hi = t < n_hi;
     const int start = tile_start(t);
     const int n = min(hi ? min(TILE_HI, hi_len - start)
-                         : min(TILE_LO, S - start), len - start);
+                         : min(TILE_LO, S - start), valid_end(t) - start);
     if (hi) {
       // a hi row in the largest chunks that divide it (and so keep every
       // row's chunks aligned): 16 bytes, or 8 at head_dim 72
@@ -431,7 +443,7 @@ cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
   auto params = [&](int t) {
     const int start = tile_start(t);
     const int pos = start + tid;
-    const int end = min(t < n_hi ? hi_len : S, len);
+    const int end = valid_end(t);
     float4 pr = make_float4(0.f, 0.f, 0.f, 0.f);
     if (tid < (t < n_hi ? TILE_HI : TILE_LO) && pos < end) {
       const size_t sp = ((size_t)bi * S + pos) * g + kvh;
@@ -477,7 +489,7 @@ cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
     const bool hi = t < n_hi;
     const int start = tile_start(t);
     // rows of this tile holding valid positions
-    const int n = min(hi ? hi_len : S, len) - start;
+    const int n = valid_end(t) - start;
     const uint8_t* kc = smem + st * D::STAGE;
     const uint8_t* vc = kc + D::CODE_BYTES;
     const float4* prm = prm_slot(st);
@@ -608,16 +620,21 @@ cache_attention_split(const T* q, Cache C, const int* lengths, int h, int g,
 }
 
 // one block per (kv head, b, query head), a thread a feature: merge the
-// ranges in order
+// ranges in order.  A partial whose m is -inf (a sequence block that holds
+// no valid position) weighs 0.  With `state` (block mode) the merged
+// partial (m, l, unnormalised sum) is written there, (b, g, rep, hd + 2),
+// m = -inf where no position was valid, and `out` is not.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 cache_attention_merge(const float* part, int h, int g, int hd, int n_split,
-                      T* out) {
+                      T* out, float* state) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int kvh = blockIdx.x, bi = blockIdx.y, r = blockIdx.z;
   const int rep = h / g;
   const float* base = part + ((size_t)bi * g + kvh) * n_split * rep *
                                  (hd + 2);
+  float* st = state ? state + (((size_t)bi * g + kvh) * rep + r) * (hd + 2)
+                    : nullptr;
   for (int d = threadIdx.x; d < hd; d += THREADS) {
     float m = NEG;
     for (int i = 0; i < n_split; ++i)
@@ -625,12 +642,20 @@ cache_attention_merge(const float* part, int h, int g, int hd, int n_split,
     float l = 0.0f, o = 0.0f;
     for (int i = 0; i < n_split; ++i) {
       const float* pi = base + (i * rep + r) * (hd + 2);
-      const float c = expf(pi[0] - m);
+      const float c = pi[0] == -INFINITY ? 0.0f : expf(pi[0] - m);
       l += pi[1] * c;
       o += pi[2 + d] * c;
     }
-    store_f(out + ((size_t)bi * h + kvh * rep + r) * hd + d,
-            o / fmaxf(l, 1e-30f));
+    if (st) {
+      st[2 + d] = o;
+      if (d == 0) {
+        st[0] = l > 0.0f ? m : -INFINITY;
+        st[1] = l;
+      }
+    } else {
+      store_f(out + ((size_t)bi * h + kvh * rep + r) * hd + d,
+              o / fmaxf(l, 1e-30f));
+    }
   }
 }
 
@@ -638,7 +663,7 @@ template <int HD, typename T>
 cudaError_t launch(const void* q, const Cache& C, const int* lengths, int b,
                    int h, int g, int hi_len, int S, int tiles_per_range,
                    int n_split, float scale, float* part, void* out,
-                   cudaStream_t st) {
+                   int hi0, int lo0, float* state, cudaStream_t st) {
   using D = Dims<HD>;
   const size_t merge = sizeof(float) * WARPS * MAX_REP * (3 + D::HDP);
   const size_t smem = STAGES * D::STAGE > merge ? STAGES * D::STAGE : merge;
@@ -648,7 +673,7 @@ cudaError_t launch(const void* q, const Cache& C, const int* lengths, int b,
   if (e != cudaSuccess) return e;
   cache_attention_split<HD, T><<<dim3(g, n_split, b), THREADS, smem, st>>>(
       static_cast<const T*>(q), C, lengths, h, g, hi_len, S,
-      tiles_per_range, scale, part);
+      tiles_per_range, scale, part, hi0, lo0);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -662,21 +687,22 @@ cudaError_t launch(const void* q, const Cache& C, const int* lengths, int b,
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, cache_attention_merge<T>,
                             static_cast<const float*>(part), h, g, HD,
-                            n_split, static_cast<T*>(out));
+                            n_split, static_cast<T*>(out), state);
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const Cache& C,
                         const int* lengths, int b, int h, int g, int hi_len,
                         int S, int tpr, int n_split, float scale,
-                        float* part, void* out, cudaStream_t st) {
+                        float* part, void* out, int hi0, int lo0,
+                        float* state, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<16, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
-    case 32: return launch<32, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
-    case 64: return launch<64, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
-    case 72: return launch<72, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
-    case 112: return launch<112, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
-    case 128: return launch<128, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, st);
+    case 16: return launch<16, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, hi0, lo0, state, st);
+    case 32: return launch<32, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, hi0, lo0, state, st);
+    case 64: return launch<64, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, hi0, lo0, state, st);
+    case 72: return launch<72, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, hi0, lo0, state, st);
+    case 112: return launch<112, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, hi0, lo0, state, st);
+    case 128: return launch<128, T>(q, C, lengths, b, h, g, hi_len, S, tpr, n_split, scale, part, out, hi0, lo0, state, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -685,13 +711,19 @@ cudaError_t dispatch_hd(int hd, const void* q, const Cache& C,
 
 // tiles_per_range and n_split come from the wrapper's launch plan
 // (kernels/cache_attention.py: tiles of TILE_HI hi and TILE_LO lo
-// positions); they must cover the row's tiles.
+// positions); they must cover the row's tiles.  Block mode, for a rank's
+// block of a sequence-split cache: hi0 / lo0 are the global positions of
+// the buffers' first hi and lo positions (0 and hi_len for a whole cache;
+// past every length for a region the rank does not read), and with
+// `state` non-null the ranges' merged partial (m, l, o), (b, g, h / g,
+// hd + 2) f32, is written there instead of the output.
 extern "C" int cache_attention(
     const void* q, int q_bf16, int b, int h, int g, int hd, int hi_len,
     int S, const void* k_hi, const void* v_hi, const void* k_lo,
     const void* v_lo, const void* k_sc, const void* k_zp, const void* v_sc,
     const void* v_zp, const int* lengths, int tiles_per_range, int n_split,
-    float scale, void* part, void* out, void* stream) {
+    float scale, void* part, void* out, int hi0, int lo0, void* state,
+    void* stream) {
   const int n_tiles = (hi_len + TILE_HI - 1) / TILE_HI +
                       (S - hi_len + TILE_LO - 1) / TILE_LO;
   if (h % g || h / g > MAX_REP || tiles_per_range < 1 || n_split < 1 ||
@@ -707,12 +739,35 @@ extern "C" int cache_attention(
                 static_cast<const __half*>(v_zp)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
+  float* sp = static_cast<float*>(state);
   cudaError_t e =
       q_bf16 ? dispatch_hd<__nv_bfloat16>(hd, q, C, lengths, b, h, g, hi_len,
                                           S, tiles_per_range, n_split, scale,
-                                          p, out, st)
+                                          p, out, hi0, lo0, sp, st)
              : dispatch_hd<float>(hd, q, C, lengths, b, h, g, hi_len, S,
                                   tiles_per_range, n_split, scale, p, out,
-                                  st);
+                                  hi0, lo0, sp, st);
   return (int)e;
+}
+
+// The merge alone over the ranks' block states of a sequence-split cache:
+// part (b, g, n, h / g, hd + 2) f32 (each the merged (m, l, o) of one
+// rank's block, in rank order; m = -inf for a block with no valid
+// position), out (b, h, hd) in the queries' type.
+extern "C" int cache_attention_merge_states(const void* part, int out_bf16,
+                                            int b, int h, int g, int hd,
+                                            int n, void* out, void* stream) {
+  if (b < 0 || g < 1 || h % g || h / g > MAX_REP || n < 1 || hd < 1)
+    return (int)cudaErrorInvalidValue;
+  if (b == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(g, b, h / g);
+  const float* p = static_cast<const float*>(part);
+  if (out_bf16)
+    cache_attention_merge<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        p, h, g, hd, n, static_cast<__nv_bfloat16*>(out), nullptr);
+  else
+    cache_attention_merge<float><<<grid, THREADS, 0, st>>>(
+        p, h, g, hd, n, static_cast<float*>(out), nullptr);
+  return (int)cudaGetLastError();
 }

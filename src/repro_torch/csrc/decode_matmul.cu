@@ -130,6 +130,7 @@ struct Args {
   const float* sw; const float* zw; const int* wsum; const float* bias;
   int M, K, N, split_k;
   void* out;
+  const float* given;   // (M, 2) rows' (min, max), or null: the rows' own
 };
 
 // With one range the block is its own cluster: plain barriers and its own
@@ -211,7 +212,11 @@ decode_matmul_kernel(Args a) {
   // to memory however long the range.
   float* mm = reinterpret_cast<float*>(sm + L::MM_OFF);  // (min, max) a row
   float* sz = mm + 2 * ROWS;                           // (s, z) a row
-  {
+  if (a.given) {
+    // a row-parallel block: the whole rows' (min, max), all-reduced over
+    // the blocks (every range takes the same, so the exchange keeps them)
+    if (tid < 2 * rows) mm[tid] = a.given[2 * row0 + tid];
+  } else {
     constexpr int U = 8;
     const int tpr = THREADS / (rows > 4 ? 8 : rows > 2 ? 4 : rows > 1 ? 2
                                : 1);
@@ -444,18 +449,69 @@ cudaError_t launch(const Args& a, int n_split, int vec, int strip,
              : launch_variant<TX, TO, false, 256>(a, n_split, st);
 }
 
+// K3's statistics mode for a row-parallel block: each row's (min, max)
+// over its K values, one block a row (the rows are a few decode tokens).
+template <typename TX>
+__global__ void __launch_bounds__(THREADS)
+row_minmax_kernel(const TX* x, int K, float* out) {
+  __shared__ float red[2][THREADS / 32];
+  const TX* xr = x + (size_t)blockIdx.x * K;
+  float mn = __int_as_float(0x7f800000), mx = -mn;
+  for (int k = threadIdx.x; k < K; k += THREADS) {
+    const float v = load_f(xr + k);
+    mn = fminf(mn, v);
+    mx = fmaxf(mx, v);
+  }
+  for (int o = 16; o; o >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[0][warp] = mn;
+    red[1][warp] = mx;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < THREADS / 32; ++w) {
+      mn = fminf(mn, red[0][w]);
+      mx = fmaxf(mx, red[1][w]);
+    }
+    out[2 * blockIdx.x] = mn;
+    out[2 * blockIdx.x + 1] = mx;
+  }
+}
+
 }  // namespace
+
+// x: (M, K) bf16 (x_bf16) or f32, contiguous; out: (M, 2) f32, each row's
+// (min, max).
+extern "C" int decode_row_minmax(const void* x, int x_bf16, int M, int K,
+                                 float* out, void* stream) {
+  if (M < 0 || K < 1) return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    row_minmax_kernel<__nv_bfloat16><<<M, THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), K, out);
+  else
+    row_minmax_kernel<float><<<M, THREADS, 0, st>>>(
+        static_cast<const float*>(x), K, out);
+  return (int)cudaGetLastError();
+}
 
 // x: (M, K) bf16 (x_bf16) or f32; qw: (K, N) int8; sw, zw: (N,) f32; wsum:
 // (N,) int32; bias: (N,) f32 or null; out: (M, N) bf16 (out_bf16) or f32;
 // all contiguous.  n_split k ranges of split_k rows (a multiple of 32)
 // cover K; strip: columns a block, 128 or 256; vec: N is a multiple of 16
-// and qw 16-byte aligned.
+// and qw 16-byte aligned.  given: (M, 2) f32 rows' (min, max) to quantize
+// with in place of the rows' own (a row-parallel block of a model split:
+// the whole rows', all-reduced), or null.
 extern "C" int stamp_decode_matmul(
     const void* x, int x_bf16, int M, int K, int N, const void* qw,
     const float* sw, const float* zw, const int* wsum, const float* bias,
     int n_split, int split_k, int strip, int vec, void* out, int out_bf16,
-    void* stream) {
+    const float* given, void* stream) {
   if (M < 0 || K < 1 || N < 0 || K % 4 || N % 4 || n_split < 1 ||
       n_split > MAX_SPLIT || split_k < KS || split_k % KS ||
       (long long)(n_split - 1) * split_k >= K ||
@@ -464,7 +520,7 @@ extern "C" int stamp_decode_matmul(
     return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   const Args a{x, static_cast<const int8_t*>(qw), sw, zw, wsum, bias,
-               M, K, N, split_k, out};
+               M, K, N, split_k, out, given};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (x_bf16)

@@ -126,7 +126,8 @@ template <typename T, bool KEEP>
 __global__ void __launch_bounds__(256, 2)
 tq_kernel(const T* __restrict__ x, int S, int K, const int* __restrict__ prog,
           float inv_sqrt2, float inv_wht, int num_hi, float n_hi, float n_lo,
-          int kc, int room, int8_t* qx, float* sx, float* zx) {
+          int kc, int room, int8_t* qx, float* sx, float* zx,
+          const float* __restrict__ given, float* stats) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   constexpr int U = TQ_U;
@@ -199,7 +200,8 @@ tq_kernel(const T* __restrict__ x, int S, int K, const int* __restrict__ prog,
     mn[q] = INFINITY;
     mx[q] = -INFINITY;
   }
-  for (int cb = c0; cb < c1; cb += ld) {
+  // (given statistics: the pass only keeps the outputs for the quantize)
+  for (int cb = c0; cb < c1 && (KEEP || !given); cb += ld) {
     transform(cb);
 #pragma unroll
     for (int q = 0; q < TQ_OUT; ++q) {
@@ -259,18 +261,26 @@ tq_kernel(const T* __restrict__ x, int S, int K, const int* __restrict__ prog,
       c = fmaxf(c, pc[rk]);
     }
     const int row = outs[2 * tid + 1];
+    if (given) {            // the whole row's, all-reduced over its blocks
+      a = given[2 * ((size_t)b * S + row)];
+      c = given[2 * ((size_t)b * S + row) + 1];
+    }
+    if (stats && rank == 0) {
+      stats[2 * ((size_t)b * S + row)] = a;
+      stats[2 * ((size_t)b * S + row) + 1] = c;
+    }
     const float n = row < num_hi ? n_hi : n_lo;
     const float s = fmaxf(__fdiv_rn(c - a, n), 1e-8f);
     const float z = rintf(__fdiv_rn(-a, s));
     sc[tid] = s;
     zp[tid] = z;
-    if (rank == 0) {
+    if (rank == 0 && !stats) {
       sx[(size_t)b * S + row] = s;
       zx[(size_t)b * S + row] = z - 128.0f;   // shifted with the codes
     }
   }
   __syncthreads();
-  for (int cb = c0; cb < c1; cb += ld) {
+  for (int cb = c0; cb < c1 && !stats; cb += ld) {
     if (!KEEP) transform(cb);
 #pragma unroll
     for (int q = 0; q < TQ_OUT; ++q) {
@@ -330,10 +340,14 @@ template <bool DUAL> struct Cols {
   static constexpr int EW = BLOCK / 2;
 };
 
+// The epilogue's inputs; pout / pin: a row-parallel block's parts (see
+// stamp_int_gemm), written in place of the epilogue, or read in place of
+// the product.
 struct Epi {
   const float* sx; const float* zx;
   const float* sw0; const float* zw0; const int* ws0; const float* b0;
   const float* sw1; const float* zw1; const int* ws1; const float* b1;
+  int* pout; const int* pin;
 };
 
 __device__ __forceinline__ void cp_async_z(void* dst, const void* src,
@@ -563,9 +577,11 @@ stamp_gemm_kernel(const int8_t* qx, int S, int K, int N, const int8_t* qw0,
   // a long span without a transform runs as tiles of S rows, the last one
   // ragged: its block takes the rows that are left
   S = min(S, (int)((size_t)rows - row0));
+  // summed parts: no product of its own; the whole K from the parts' corner
+  if (e.pin) K = e.pin[(size_t)rows * (N + 1) + N];
   const int split = blockIdx.z, n_split = gridDim.z;
   const int kb = split * split_k, ke = min(K, kb + split_k);
-  const int KT = (ke - kb + BK - 1) / BK;
+  const int KT = e.pin ? 0 : (ke - kb + BK - 1) / BK;
   // VEC: 16-byte copies (K and N multiples of 16), each thread's two A and
   // two B copies a stage set up once, a stage then moves the pointers by
   // BK; otherwise 4-byte copies, their addresses worked out per stage
@@ -753,6 +769,40 @@ stamp_gemm_kernel(const int8_t* qx, int S, int K, int N, const int8_t* qw0,
 
   const int rbase = wg * 64 + (warp & 3) * 16 + (lane >> 2);
   const int cl = 2 * (lane & 3);
+  if constexpr (!DUAL) {
+    // parts: the products and row sums out (row stride N + 1), no
+    // epilogue; summed parts: the same entries in, for the epilogue
+    if (e.pout || e.pin) {
+      const size_t ld = (size_t)N + 1;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (chunk_of(j) < c_first || chunk_of(j) > c_last) continue;
+        const int n = n0 + 8 * j + cl;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = rbase + 8 * hf;
+          if (r >= S) continue;
+          const size_t at = (row0 + r) * ld + n;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if (n + u >= N) continue;
+            if (e.pin)
+              acc[4 * j + 2 * hf + u] = e.pin[at + u];
+            else
+              e.pout[at + u] = acc[4 * j + 2 * hf + u];
+          }
+        }
+      }
+      const int r = tid - 128;
+      if (tid >= 128 && r < S) {
+        if (e.pin)
+          my_rsum = e.pin[(row0 + r) * ld + N];
+        else if (blockIdx.y == 0 && c_first == 0)
+          e.pout[(row0 + r) * ld + N] = my_rsum;
+      }
+      if (e.pout) return;
+    }
+  }
   float* rs = reinterpret_cast<float*>(gsm + RS_OFF);
   if (tid >= 128) rs[tid - 128] = (float)my_rsum;
   float* ep = reinterpret_cast<float*>(gsm + BT_OFF);
@@ -842,7 +892,8 @@ cudaError_t launch_tq(const void* x, int B, int S, int K, const int* prog,
                       int n_win, int cl, int kc, int room, int threads,
                       size_t smem, float inv_sqrt2, float inv_wht, int num_hi,
                       float n_hi, float n_lo, int8_t* qx, float* sx,
-                      float* zx, cudaStream_t st) {
+                      float* zx, const float* given, float* stats,
+                      cudaStream_t st) {
   // the attributes are set once per instantiation and card: bit d of
   // `sized` for card d
   static unsigned sized = 0u;
@@ -874,7 +925,7 @@ cudaError_t launch_tq(const void* x, int B, int S, int K, const int* prog,
   return cudaLaunchKernelEx(&cfg, tq_kernel<T, KEEP>,
                             static_cast<const T*>(x), S, K, prog, inv_sqrt2,
                             inv_wht, num_hi, n_hi, n_lo, kc, room, qx, sx,
-                            zx);
+                            zx, given, stats);
 }
 
 template <typename T>
@@ -883,13 +934,15 @@ cudaError_t launch_tq_keep(int keep, const void* x, int B, int S, int K,
                            int room, int threads, size_t smem,
                            float inv_sqrt2, float inv_wht, int num_hi,
                            float n_hi, float n_lo, int8_t* qx, float* sx,
-                           float* zx, cudaStream_t st) {
+                           float* zx, const float* given, float* stats,
+                           cudaStream_t st) {
   return keep ? launch_tq<T, true>(x, B, S, K, prog, n_win, cl, kc, room,
                                    threads, smem, inv_sqrt2, inv_wht, num_hi,
-                                   n_hi, n_lo, qx, sx, zx, st)
+                                   n_hi, n_lo, qx, sx, zx, given, stats, st)
               : launch_tq<T, false>(x, B, S, K, prog, n_win, cl, kc, room,
                                     threads, smem, inv_sqrt2, inv_wht,
-                                    num_hi, n_hi, n_lo, qx, sx, zx, st);
+                                    num_hi, n_hi, n_lo, qx, sx, zx, given,
+                                    stats, st);
 }
 
 // ------------------------------------------------------------ long spans --
@@ -909,15 +962,23 @@ cudaError_t launch_tq_keep(int keep, const void* x, int B, int S, int K,
 // ranges of kc columns a window's cluster splits K into; keep: a range is
 // one chunk of TQ_U x threads columns (the outputs stay in registers);
 // room: ints of the longest window program; threads a block and its shared
-// memory (program and slots), smem bytes.
+// memory (program and slots), smem bytes.  Two modes for a row-parallel
+// block of a model split, whose rows' min / max must be the whole rows':
+// stats (non-null) takes (B * S, 2) f32 and receives each transformed
+// row's (min, max) over this block's K instead of the codes (qx, sx, zx
+// untouched); given (non-null, (B * S, 2) f32) quantizes with those
+// (min, max) in place of the block's own.  The transform is per column,
+// so a block's transformed values, and with the all-reduced (min, max)
+// its codes, scales and zero points, are the whole row's bit for bit.
 extern "C" int stamp_transform_quantize(
     const void* x, int x_bf16, int B, int S, int K, const int* prog,
     int n_win, int cl, int kc, int keep, int room, int threads, int smem,
     float inv_sqrt2, float inv_wht, int num_hi, float n_hi, float n_lo,
-    void* qx, float* sx, float* zx, void* stream) {
+    void* qx, float* sx, float* zx, const float* given, float* stats,
+    void* stream) {
   if (cl < 1 || cl > TQ_MAX_CL || n_win < 1 || kc < 1 || threads < 32 ||
       threads > 256 || threads % 32 || smem > TQ_SMEM || room % 4 ||
-      (keep && kc > TQ_U * threads))
+      (keep && kc > TQ_U * threads) || (given && stats))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || K == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -926,29 +987,43 @@ extern "C" int stamp_transform_quantize(
                    ? launch_tq_keep<__nv_bfloat16>(
                          keep, x, B, S, K, prog, n_win, cl, kc, room,
                          threads, smem, inv_sqrt2, inv_wht, num_hi, n_hi,
-                         n_lo, q, sx, zx, st)
+                         n_lo, q, sx, zx, given, stats, st)
                    : launch_tq_keep<float>(keep, x, B, S, K, prog, n_win, cl,
                                            kc, room, threads, smem,
                                            inv_sqrt2, inv_wht, num_hi, n_hi,
-                                           n_lo, q, sx, zx, st));
+                                           n_lo, q, sx, zx, given, stats,
+                                           st));
 }
 
 // rows: all rows of qx, in spans of S (a long span without a transform:
-// tiles of S rows, the last one ragged).
+// tiles of S rows, the last one ragged).  Two modes for a row-parallel
+// block of a model split, single GEMM only, whose product is a sum over
+// the blocks' K ranges: parts_out (non-null, (rows + 1, N + 1) int32)
+// receives the block's int32 products [r, n] and row sums Σqx [r, N] in
+// place of the epilogue (out untouched; the caller puts the block's Σqw
+// and K in the last row); parts_in (the ranks' parts summed: the whole
+// rows' products, row sums, Σqw and K) is read in place of the product
+// (qx, qw0 and ws0 unread) and finished by the epilogue, which is then
+// one device's bit for bit.  Integer sums are exact in any order.
 extern "C" int stamp_int_gemm(
     const void* qx, const float* sx, const float* zx, int rows, int S, int K,
     int N, const void* qw0, const float* sw0, const float* zw0,
     const int* ws0, const float* b0, const void* qw1, const float* sw1,
     const float* zw1, const int* ws1, const float* b1, int kind, int levels,
     int skip, float inv_sqrt2, float inv_wht, void* out, int out_bf16,
-    int n_split, int split_k, int vec, void* stream) {
+    int n_split, int split_k, int vec, int* parts_out, const int* parts_in,
+    void* stream) {
   if (S > RM || S < 1 || n_split < 1 || n_split > MAX_SPLITS ||
-      split_k < 1 || split_k % BK)
+      split_k < 1 || split_k % BK ||
+      ((parts_out || parts_in) && qw1) || (parts_out && parts_in) ||
+      (parts_in && n_split != 1))
     return (int)cudaErrorInvalidValue;
   if (rows == 0 || N == 0) return 0;
   if (kind != 0 && rows % S) return (int)cudaErrorInvalidValue;
   const SeqT t{kind, levels, skip, inv_sqrt2, inv_wht};
-  const Epi e{sx, zx, sw0, zw0, ws0, b0, sw1, zw1, ws1, b1};
+  if (parts_in) ws0 = parts_in + (size_t)rows * (N + 1);
+  const Epi e{sx, zx, sw0, zw0, ws0, b0, sw1, zw1, ws1, b1, parts_out,
+              parts_in};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(qx);
   const int8_t* w0 = static_cast<const int8_t*>(qw0);

@@ -18,11 +18,14 @@ Bound on the H100: bytes — the packed cache, its scales and zero points.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import cuda
-from repro_torch.kernels.ref import cache_decode_attention_ref
+from repro_torch.kernels.ref import (cache_block_attention_ref,
+                                     cache_decode_attention_ref,
+                                     merge_states_ref)
 
 # every config's head_dim (Kimi-K2: 112, PixArt-Σ: 72)
 _HEAD_DIMS = (16, 32, 64, 72, 112, 128)
@@ -37,7 +40,13 @@ _SIGNATURES = {
     "cache_attention": [cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
                         cuda.INT, cuda.INT, cuda.INT, *([cuda.VP] * 8),
                         cuda.VP, cuda.INT, cuda.INT, cuda.FLT, cuda.VP,
-                        cuda.VP, cuda.VP]}
+                        cuda.VP, cuda.INT, cuda.INT, cuda.VP, cuda.VP],
+    "cache_attention_merge_states": [cuda.VP, cuda.INT, cuda.INT, cuda.INT,
+                                     cuda.INT, cuda.INT, cuda.INT, cuda.VP,
+                                     cuda.VP]}
+#: a block's first position for a region the rank does not read: past
+#: every length
+NEVER = 1 << 30
 
 
 def tiles(hi_len: int, s_total: int) -> list:
@@ -61,14 +70,25 @@ def launch_plan(b: int, g: int, hi_len: int, s_total: int,
 
 
 def cache_decode_attention(entry: dict, q: torch.Tensor,
-                           length: torch.Tensor) -> torch.Tensor:
+                           length: torch.Tensor,
+                           block: Optional[tuple] = None) -> torch.Tensor:
     """K6.  ``entry``: one layer's contiguous cache (``k_hi / v_hi`` (b, hi,
     g, hd) int8, ``k_lo / v_lo`` (b, S − hi, g, hd/2) uint8, ``*_scale /
     *_zp`` (b, S, g) f16); ``q``: (b, 1, h, hd) bf16 or f32; ``length``:
     (b,) or (1,) int32, at least 1 per row.  Returns (b, 1, h, hd) in q's
     dtype.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise.
+
+    Block mode, ``block = (hi0, lo0)``: ``entry`` is one rank's block of a
+    sequence-split cache, its hi positions at global ``hi0 + i`` and its lo
+    positions at ``lo0 + i`` (:data:`NEVER` for a region this rank does
+    not read), ``length`` global; returns the block's merged partial state
+    ``(b, g, h / g, hd + 2)`` f32 (``m``, ``-inf`` where no position is
+    valid; ``l``; the unnormalised sum) for :func:`merge_states`.  Counted
+    also in ``block_launches``."""
     if q.device.type == "cpu":
+        if block is not None:
+            return cache_block_attention_ref(entry, q, length, *block)
         return cache_decode_attention_ref(entry, q, length)
     b, one, h, hd = q.shape
     hi_len, g = entry["k_hi"].shape[1], entry["k_hi"].shape[2]
@@ -93,15 +113,50 @@ def cache_decode_attention(entry: dict, q: torch.Tensor,
                                cuda.sm_count(q.device))
     part = torch.empty((b, g, n_split, h // g, hd + 2), dtype=torch.float32,
                        device=q.device)
-    out = torch.empty_like(q)
+    hi0, lo0 = (0, hi_len) if block is None else (int(v) for v in block)
+    state = None if block is None else torch.empty(
+        (b, g, h // g, hd + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q) if block is None else state
     err = lib.cache_attention(
         q.data_ptr(), int(q.dtype == torch.bfloat16), b, h, g, hd, hi_len,
         s_total, *(t.data_ptr() for t in bufs), length.data_ptr(),
         per, n_split, 1.0 / math.sqrt(hd),
-        part.data_ptr(), out.data_ptr(), cuda.stream_ptr(q))
+        part.data_ptr(), out.data_ptr(), hi0, lo0, cuda.ptr(state),
+        cuda.stream_ptr(q))
     cuda.check(err, "cache_attention")
     cache_decode_attention.launches += 1
+    if block is not None:
+        cache_decode_attention.block_launches += 1
     return out
 
 
 cache_decode_attention.launches = 0
+cache_decode_attention.block_launches = 0
+
+
+def merge_states(parts: torch.Tensor, dtype) -> torch.Tensor:
+    """K6's merge over the ranks' block states of a sequence-split cache:
+    ``parts`` ``(n, b, g, h / g, hd + 2)`` f32 in rank order (a state
+    with ``m = -inf`` weighs 0) → ``(b, 1, h, hd)`` in ``dtype`` — the
+    kernel that merges K6's own ranges, launched on the gathered states
+    (counted in K6's ``launches`` and ``merge_launches``)."""
+    if parts.device.type == "cpu":
+        return merge_states_ref(parts, dtype)
+    n, b, g, rep, hd2 = parts.shape
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("K6 writes bf16 or f32")
+    parts = parts.float().permute(1, 2, 0, 3, 4).contiguous()
+    cuda.require_cuda(parts)
+    out = torch.empty((b, 1, g * rep, hd2 - 2), dtype=dtype,
+                      device=parts.device)
+    err = cuda.library("cache_attention", _SIGNATURES).\
+        cache_attention_merge_states(
+            parts.data_ptr(), int(dtype == torch.bfloat16), b, g * rep, g,
+            hd2 - 2, n, out.data_ptr(), cuda.stream_ptr(parts))
+    cuda.check(err, "cache_attention_merge_states")
+    cache_decode_attention.launches += 1
+    cache_decode_attention.merge_launches += 1
+    return out
+
+
+cache_decode_attention.merge_launches = 0

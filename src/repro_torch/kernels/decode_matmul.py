@@ -31,24 +31,68 @@ MAX_SPLIT = 8        # k ranges of a cluster
 MIN_RANGE_K = 256    # k rows a range holds at least
 FILL = 3             # blocks an SM the plan aims at (one wave)
 
-_SIGNATURES = {"stamp_decode_matmul": [
-    cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.VP,
-    cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
-    cuda.VP, cuda.INT, cuda.VP]}
+_SIGNATURES = {
+    "stamp_decode_matmul": [
+        cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.VP,
+        cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
+        cuda.VP, cuda.INT, cuda.VP, cuda.VP],
+    "decode_row_minmax": [cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.VP,
+                          cuda.VP]}
 
 
-def row_quantize8(x: torch.Tensor) -> tuple:
+def _lib():
+    return cuda.library("decode_matmul", _SIGNATURES)
+
+
+def row_quantize8(x: torch.Tensor, row_stats=None) -> tuple:
     """Per-row 8-bit asymmetric min-max quantize of ``(M, K)`` rows: signed
     int8 codes plus ``(M,)`` f32 scale and shifted zero point (the Pallas
-    decode kernel's quantizer, which is :func:`token_quantize`'s)."""
-    q, s, z = token_quantize(x)
+    decode kernel's quantizer, which is :func:`token_quantize`'s);
+    ``row_stats`` (M, 2): the rows' ``(min, max)`` to take in place of
+    their own."""
+    minmax = None if row_stats is None else \
+        row_stats.float()[:, :, None].unbind(1)
+    q, s, z = token_quantize(x, minmax=minmax)
     return q, s[:, 0], z[:, 0]
 
 
+def row_minmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's statistics mode: ``(M, 2)`` f32 rows' ``(min,
+    max)``."""
+    xf = x.float()
+    return torch.stack([xf.amin(dim=-1), xf.amax(dim=-1)], dim=-1)
+
+
+def decode_row_minmax(x: torch.Tensor) -> torch.Tensor:
+    """K3's statistics mode for a row-parallel block of a model split: each
+    of the ``(M, K)`` rows' ``(min, max)`` over this block, ``(M, 2)`` f32
+    (all-reduced over the ranks, they are :func:`stamp_decode_matmul`'s
+    ``row_stats``).  Counted in K3's ``launches`` and ``stats_launches``.
+    A kernel rather than ``torch.aminmax``, which takes 1.6-4x its device
+    time on these rows (``chip_smoke.py``'s ``[split_mode]`` lines)."""
+    if x.device.type == "cpu":
+        return row_minmax_plain(x)
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K3's statistics take (M, K) bf16 or f32 rows, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    x = x.contiguous()
+    cuda.require_cuda(x)
+    out = torch.empty((x.shape[0], 2), dtype=torch.float32, device=x.device)
+    err = _lib().decode_row_minmax(x.data_ptr(),
+                                   int(x.dtype == torch.bfloat16),
+                                   x.shape[0], x.shape[1], out.data_ptr(),
+                                   cuda.stream_ptr(x))
+    cuda.check(err, "decode_row_minmax")
+    stamp_decode_matmul.launches += 1
+    stamp_decode_matmul.stats_launches += 1
+    return out
+
+
 def decode_matmul_plain(x, qw, sw, zw, qw_sum, bias=None,
-                        out_dtype=torch.float32) -> torch.Tensor:
+                        out_dtype=torch.float32,
+                        row_stats=None) -> torch.Tensor:
     """Plain version of K3.  ``x``: (M, K); returns (M, N)."""
-    qx, sx, zx = row_quantize8(x)
+    qx, sx, zx = row_quantize8(x, row_stats)
     y = _epilogue(int_matmul(qx, qw), sx, zx, sw.reshape(1, -1).float(),
                   zw.reshape(1, -1).float(), qx.sum(dim=1, dtype=torch.int32),
                   qw_sum.reshape(-1), qx.shape[1])
@@ -84,12 +128,18 @@ def decode_plan(m: int, k: int, n: int, sms: int) -> dict:
 
 def stamp_decode_matmul(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
                         zw: torch.Tensor, qw_sum: torch.Tensor, bias=None,
-                        out_dtype=torch.float32) -> torch.Tensor:
+                        out_dtype=torch.float32,
+                        row_stats=None) -> torch.Tensor:
     """K3.  ``x``: (M, K) bf16 or f32, any M; ``qw``: (K, N) int8; ``sw/zw``:
     (1, N) f32; ``qw_sum``: (1, N) int32 column sums of ``qw``
-    (``PreparedLinear.qw_sum``)."""
+    (``PreparedLinear.qw_sum``).  ``row_stats`` (M, 2) f32: quantize with
+    these rows' ``(min, max)`` in place of their own (a row-parallel
+    block of a model split, its :func:`decode_row_minmax` all-reduced:
+    the codes are then the whole rows' block); counted also in
+    ``given_launches``."""
     if x.device.type == "cpu":
-        return decode_matmul_plain(x, qw, sw, zw, qw_sum, bias, out_dtype)
+        return decode_matmul_plain(x, qw, sw, zw, qw_sum, bias, out_dtype,
+                                   row_stats)
     x = x.contiguous()
     m, k = x.shape
     n = qw.shape[1]
@@ -105,18 +155,28 @@ def stamp_decode_matmul(x: torch.Tensor, qw: torch.Tensor, sw: torch.Tensor,
     if qw_sum.dtype != torch.int32:
         raise ValueError(f"column sums must be int32, got {qw_sum.dtype}")
     qw_sum = qw_sum.reshape(-1).contiguous()
-    cuda.require_cuda(x, qw, sw, zw, qw_sum, bias)
+    if row_stats is not None:
+        row_stats = row_stats.float().contiguous()
+        if tuple(row_stats.shape) != (m, 2):
+            raise ValueError(f"K3's row statistics are (M, 2) = {(m, 2)}, "
+                             f"got {tuple(row_stats.shape)}")
+    cuda.require_cuda(x, qw, sw, zw, qw_sum, bias, row_stats)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     plan = decode_plan(m, k, n, cuda.sm_count(x.device))
     vec = int(n % 16 == 0 and qw.data_ptr() % 16 == 0)
-    err = cuda.library("decode_matmul", _SIGNATURES).stamp_decode_matmul(
+    err = _lib().stamp_decode_matmul(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, n, qw.data_ptr(),
         sw.data_ptr(), zw.data_ptr(), qw_sum.data_ptr(), cuda.ptr(bias),
         plan["n_split"], plan["split_k"], plan["strip"], vec, out.data_ptr(),
-        int(out_dtype == torch.bfloat16), cuda.stream_ptr(x))
+        int(out_dtype == torch.bfloat16), cuda.ptr(row_stats),
+        cuda.stream_ptr(x))
     cuda.check(err, "stamp_decode_matmul")
     stamp_decode_matmul.launches += 1
+    if row_stats is not None:
+        stamp_decode_matmul.given_launches += 1
     return out
 
 
 stamp_decode_matmul.launches = 0
+stamp_decode_matmul.stats_launches = 0
+stamp_decode_matmul.given_launches = 0

@@ -37,19 +37,39 @@ KERNELS = (stamp_transform_quantize, stamp_int_gemm, stamp_decode_matmul,
 
 
 def reset_launch_counts() -> None:
+    """Every wrapper's count to 0, its counts of launches in a mode
+    (``stats_launches`` …) too."""
     for k in KERNELS:
-        k.launches = 0
+        for name in list(vars(k)):
+            if name.endswith("launches"):
+                setattr(k, name, 0)
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def _quantize(x, transform, levels, skip_first, num_hi, hi_bits, lo_bits):
-    return stamp_transform_quantize(
-        x.contiguous(), transform=transform, levels=levels,
-        skip_first=skip_first, num_hi=num_hi, hi_bits=hi_bits,
-        lo_bits=lo_bits)
+def _quantize(x, transform, levels, skip_first, num_hi, hi_bits, lo_bits,
+              row_minmax=None):
+    """K1 over ``x``; with ``row_minmax`` (a row-parallel block) K1's
+    statistics mode, ``row_minmax(min, max)`` (the all-reduce over the
+    model ranks), then K1 with the whole rows' statistics — after the
+    span link's forward transform, once, where K1's windows cannot hold
+    the span."""
+    kw = dict(transform=transform, levels=levels, skip_first=skip_first,
+              num_hi=num_hi, hi_bits=hi_bits, lo_bits=lo_bits)
+    x = x.contiguous()
+    if row_minmax is None:
+        return stamp_transform_quantize(x, **kw)
+    if transform in SM._KINDS and not SM.tq_fits(x.shape[1], transform,
+                                                 levels, skip_first):
+        x = stamp_span_transform(x, transform=transform, levels=levels,
+                                 skip_first=skip_first)
+        kw["transform"] = "none"
+    stats = stamp_transform_quantize(x, stats_only=True, **kw)
+    mn, mx = row_minmax(stats[:, 0], stats[:, 1])
+    return stamp_transform_quantize(x, row_stats=torch.stack([mn, mx], -1),
+                                    **kw)
 
 
 def stamp_quant_matmul(x: torch.Tensor, qw, sw, zw, qw_sum,
@@ -57,16 +77,28 @@ def stamp_quant_matmul(x: torch.Tensor, qw, sw, zw, qw_sum,
                        transform: str = "dwt", levels: int = 3,
                        skip_first: bool = True, num_hi: int = 64,
                        hi_bits: int = 8, lo_bits: int = 4,
-                       out_dtype=None) -> torch.Tensor:
+                       out_dtype=None, row_minmax=None,
+                       sum_parts=None) -> torch.Tensor:
     """Fused STaMP linear ``L⁻¹(Q(L·x)·W) + bias``: x (b, s, K) → (b, s,
     N); ``qw`` (K, N) int8, ``sw/zw`` (1, N) f32, ``qw_sum`` (1, N) int32
-    (``PreparedLinear``'s buffers)."""
+    (``PreparedLinear``'s buffers).  ``row_minmax`` and ``sum_parts``: ``x``
+    is a row-parallel block (``qw`` the weight's rows of its K range,
+    ``sw`` / ``zw`` the whole columns'), whose rows' ``(min, max)``
+    ``row_minmax`` makes the whole rows' (:func:`_quantize`) and whose
+    int32 parts ``sum_parts`` sums over the blocks (K2's parts and summed
+    modes): the result is then the whole product, one device's bit for
+    bit."""
     qx, sx, zx = _quantize(x, transform, levels, skip_first, num_hi,
-                           hi_bits, lo_bits)
+                           hi_bits, lo_bits, row_minmax)
+    kw = dict(transform=transform, levels=levels, skip_first=skip_first,
+              out_dtype=out_dtype or x.dtype)
+    if sum_parts is not None:
+        parts = sum_parts(SM.stamp_int_gemm_parts(qx, x.shape[1], qw,
+                                                  qw_sum))
+        return SM.stamp_int_gemm_summed(parts, sx, zx, x.shape[1], sw, zw,
+                                        bias, **kw)
     return stamp_int_gemm(qx, sx, zx, x.shape[1], qw, sw, zw, qw_sum, bias,
-                          transform=transform, levels=levels,
-                          skip_first=skip_first,
-                          out_dtype=out_dtype or x.dtype)
+                          **kw)
 
 
 def stamp_quant_segment_matmul(x: torch.Tensor, qw, sw, zw, qw_sum,

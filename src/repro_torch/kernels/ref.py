@@ -253,6 +253,57 @@ def cache_decode_attention_ref(entry: dict, q: torch.Tensor,
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
+def cache_block_attention_ref(entry: dict, q: torch.Tensor,
+                              length: torch.Tensor, hi0: int,
+                              lo0: int) -> torch.Tensor:
+    """Plain version of K6's block mode: one rank's block of a
+    sequence-split contiguous cache (its hi codes at global positions
+    ``hi0 + i``, its lo codes at ``lo0 + i``, each region's scales after
+    the other's as the buffers hold them; a region past every length is
+    not read) attended under the global mask ``pos < length``.  Returns
+    the block's partial softmax state ``(b, g, h / g, hd + 2)`` f32:
+    ``m`` (``-inf`` where no position is valid), ``l`` and the
+    unnormalised sum ``o``, over the dequantized f32 codes of both
+    regions at once."""
+    b, _, h, hd = q.shape
+    hi_len, g = entry["k_hi"].shape[1], entry["k_hi"].shape[2]
+    rep = h // g
+    s_lo = entry["k_lo"].shape[1]
+    length = length.to(q.device).reshape(-1).expand(b)[:, None, None, None]
+    qg = q.reshape(b, g, rep, hd).float() * (1.0 / math.sqrt(hd))
+
+    def region(name):
+        vals = torch.cat([entry[f"{name}_hi"].float(),
+                          KV.unpack_nibbles(entry[f"{name}_lo"])], dim=1)
+        sc = entry[f"{name}_scale"].float()
+        zp = entry[f"{name}_zp"].float()
+        return ((vals - zp[..., None]) * sc[..., None]).transpose(1, 2)
+
+    pos = torch.cat([hi0 + torch.arange(hi_len, device=q.device),
+                     lo0 + torch.arange(s_lo, device=q.device)])
+    valid = pos < length                                  # (b, 1, 1, n)
+    s = qg @ region("k").transpose(-1, -2)                # (b, g, rep, n)
+    m = torch.where(valid, s, -math.inf).amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    o = p @ region("v")
+    return torch.cat([m[..., None], p.sum(dim=-1)[..., None], o], dim=-1)
+
+
+def merge_states_ref(parts: torch.Tensor, dtype) -> torch.Tensor:
+    """Plain version of K6's merge over the ranks' block states ``parts``
+    ``(n, b, g, h / g, hd + 2)`` (:func:`cache_block_attention_ref`, in
+    rank order; a state with ``m = -inf`` weighs 0): the log-sum-exp
+    merge, then ``o / max(l, 1e-30)`` as ``(b, 1, h, hd)`` in ``dtype``."""
+    m, l, o = parts[..., 0], parts[..., 1], parts[..., 2:]
+    m_tot = m.amax(dim=0)
+    c = torch.where(m == -math.inf, 0.0, torch.exp(m - m_tot))
+    l_tot = (l * c).sum(dim=0)
+    o_tot = (o * c[..., None]).sum(dim=0)
+    out = o_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
+    b, g, rep, hd = out.shape
+    return out.reshape(b, 1, g * rep, hd).to(dtype)
+
+
 # ------------------------------------------- the standalone kernel library --
 
 

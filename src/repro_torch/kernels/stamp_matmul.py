@@ -29,6 +29,14 @@ that the inverse :func:`stamp_span_transform` turns into the output, with
 the bias and the dual ``silu(g)·u``.  So both wrappers take any span the
 reference takes.
 
+A row-parallel block of a model split (this rank's K range of the input
+and of the weight's rows) takes the chain in two modes of each kernel: K1
+writes the block's rows' min / max, then quantizes with the whole rows'
+(all-reduced), so its codes are the whole rows' block; K2 writes its
+int32 products and row sums (:func:`stamp_int_gemm_parts`), and after
+their integer all-reduce finishes the whole rows' epilogue
+(:func:`stamp_int_gemm_summed`): one device's output, bit for bit.
+
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 plain PyTorch version for a CPU tensor; ``launches`` counts kernel launches.
 The plain versions repeat the Pallas kernel's arithmetic: int32-exact
@@ -61,12 +69,13 @@ _SIGNATURES = {
         cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP, cuda.INT,
         cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.FLT,
         cuda.FLT, cuda.INT, cuda.FLT, cuda.FLT, cuda.VP, cuda.VP, cuda.VP,
-        cuda.VP],
+        cuda.VP, cuda.VP, cuda.VP],
     "stamp_int_gemm": [
         cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT,
         cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP, cuda.VP,
         cuda.VP, cuda.VP, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.FLT,
-        cuda.FLT, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP],
+        cuda.FLT, cuda.VP, cuda.INT, cuda.INT, cuda.INT, cuda.INT, cuda.VP,
+        cuda.VP, cuda.VP],
 }
 _SPAN_SIGNATURES = {
     "span_windows": [
@@ -104,19 +113,31 @@ def _n_levels(hi_bits: int, lo_bits: int) -> tuple[float, float]:
 
 def transform_quantize_plain(x: torch.Tensor, *, transform: str,
                              levels: int, skip_first: bool, num_hi: int,
-                             hi_bits: int, lo_bits: int) -> tuple:
+                             hi_bits: int, lo_bits: int,
+                             row_stats: Optional[torch.Tensor] = None,
+                             stats_only: bool = False):
     """Plain version of K1 (the Pallas ``_transform_quantize``): per-span
     sequence transform, then per-token min-max quantize with the first
     ``num_hi`` rows at ``hi_bits``.  ``x``: (b, s, K).  Returns signed int8
-    codes (b·s, K) and f32 scale / shifted zero point (b·s,)."""
+    codes (b·s, K) and f32 scale / shifted zero point (b·s,).  Its two
+    modes for a row-parallel block (:func:`stamp_transform_quantize`):
+    ``stats_only`` returns the transformed rows' ``(min, max)`` (b·s, 2);
+    ``row_stats`` (b·s, 2) quantizes with those in place of the rows'
+    own."""
     b, s, k = x.shape
     tx = T.sequence_transform(x.float(), transform, axis=-2, levels=levels,
                               skip_first=skip_first)
     n_hi, n_lo = _n_levels(hi_bits, lo_bits)
     row = torch.arange(s, device=x.device)[:, None]
     n_lev = torch.where(row < num_hi, n_hi, n_lo).float()
-    mn = tx.amin(dim=-1, keepdim=True)
-    mx = tx.amax(dim=-1, keepdim=True)
+    if row_stats is None:
+        mn = tx.amin(dim=-1, keepdim=True)
+        mx = tx.amax(dim=-1, keepdim=True)
+    else:
+        mn, mx = row_stats.float().reshape(b, s, 2).unbind(-1)
+        mn, mx = mn[..., None], mx[..., None]
+    if stats_only:
+        return torch.cat([mn, mx], dim=-1).reshape(b * s, 2)
     sx = torch.clamp_min((mx - mn) / n_lev, Q.EPS)
     zx = torch.round(-mn / sx)
     q = torch.minimum(torch.clamp_min(torch.round(tx / sx) + zx, 0.0), n_lev)
@@ -373,14 +394,27 @@ def tq_fits(s: int, transform: str, levels: int, skip_first: bool) -> bool:
 def stamp_transform_quantize(x: torch.Tensor, *, transform: str = "dwt",
                              levels: int = 3, skip_first: bool = True,
                              num_hi: int = 64, hi_bits: int = 8,
-                             lo_bits: int = 4) -> tuple:
+                             lo_bits: int = 4,
+                             row_stats: Optional[torch.Tensor] = None,
+                             stats_only: bool = False):
     """K1.  ``x``: (b, s, K) bf16 or f32 (a head-split out-proj input is
     passed as its contiguous (b, s, nh·hd) view).  Where K1's windows
     cannot hold the transform (:func:`tq_fits`), the forward
     :func:`stamp_span_transform` runs first and K1 quantizes its f32 rows
-    with transform none."""
+    with transform none.  For a row-parallel block of a model split (its
+    rows' min / max must be the whole rows'), two modes: ``stats_only``
+    returns each transformed row's ``(min, max)`` over this block (b·s,
+    2) f32 and no codes; ``row_stats`` (b·s, 2) quantizes with the given
+    ``(min, max)`` (the ranks' all-reduced) in place of the block's.  The
+    transform is per column, so the codes, scales and zero points are
+    then the matching block of the whole row's, bit for bit.  Launches in
+    those modes are also counted in ``stats_launches`` /
+    ``given_launches``."""
     kw = dict(transform=transform, levels=levels, skip_first=skip_first,
-              num_hi=num_hi, hi_bits=hi_bits, lo_bits=lo_bits)
+              num_hi=num_hi, hi_bits=hi_bits, lo_bits=lo_bits,
+              row_stats=row_stats, stats_only=stats_only)
+    if stats_only and row_stats is not None:
+        raise ValueError("K1 takes row statistics or writes them, not both")
     if transform in _KINDS and not tq_fits(x.shape[1], transform, levels,
                                            skip_first):
         tx = stamp_span_transform(x, transform=transform, levels=levels,
@@ -393,11 +427,21 @@ def stamp_transform_quantize(x: torch.Tensor, *, transform: str = "dwt",
         raise ValueError(f"K1 takes bf16 or f32 activations, got {x.dtype}")
     b, s, k = x.shape
     targs = _transform_args(transform, levels, skip_first, s)
-    qx = torch.empty((b * s, k), dtype=torch.int8, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
-    sx = torch.empty(b * s, **f32)
-    zx = torch.empty(b * s, **f32)
+    if row_stats is not None:
+        row_stats = row_stats.float().contiguous()
+        cuda.require_cuda(row_stats)
+        if tuple(row_stats.shape) != (b * s, 2):
+            raise ValueError(f"K1's row statistics are (b·s, 2) = "
+                             f"{(b * s, 2)}, got {tuple(row_stats.shape)}")
+    stats = torch.empty((b * s, 2), **f32) if stats_only else None
+    qx = torch.empty((0 if stats_only else b * s, k), dtype=torch.int8,
+                     device=x.device)
+    sx = torch.empty(0 if stats_only else b * s, **f32)
+    zx = torch.empty(0 if stats_only else b * s, **f32)
     if b * s == 0 or k == 0:
+        if stats_only:
+            return stats.copy_(torch.tensor([math.inf, -math.inf]))
         return qx, sx, zx
     prog, n_win, max_in, max_prog = _tq_launch_args(
         x.device, s, transform, levels, skip_first)
@@ -408,13 +452,21 @@ def stamp_transform_quantize(x: torch.Tensor, *, transform: str = "dwt",
         prog.data_ptr(), n_win, plan["cl"], plan["kc"], int(plan["keep"]),
         plan["room"], plan["threads"], plan["smem"],
         targs[3], targs[4], num_hi, n_hi, n_lo, qx.data_ptr(), sx.data_ptr(),
-        zx.data_ptr(), cuda.stream_ptr(x))
+        zx.data_ptr(), cuda.ptr(row_stats), cuda.ptr(stats),
+        cuda.stream_ptr(x))
     cuda.check(err, "stamp_transform_quantize")
     stamp_transform_quantize.launches += 1
+    if stats_only:
+        stamp_transform_quantize.stats_launches += 1
+        return stats
+    if row_stats is not None:
+        stamp_transform_quantize.given_launches += 1
     return qx, sx, zx
 
 
 stamp_transform_quantize.launches = 0
+stamp_transform_quantize.stats_launches = 0
+stamp_transform_quantize.given_launches = 0
 
 
 # --------------------------------------------------------------------- K2 --
@@ -445,17 +497,28 @@ def _epilogue(acc, sx, zx, sw, zw, qx_sum, qw_sum, k: int) -> torch.Tensor:
     return corr * sx * sw
 
 
-def _gemm_one(qx, sx, zx, qw, sw, zw, qw_sum, bias, b: int, s: int,
-              inverse):
-    acc = int_matmul(qx, qw)
+def _finish(acc, qx_sum, qw_sum, k: int, sx, zx, sw, zw, bias, b: int,
+            s: int, inverse):
     y = _epilogue(acc, sx, zx, sw.reshape(1, -1).float(),
-                  zw.reshape(1, -1).float(),
-                  qx.sum(dim=1, dtype=torch.int32), qw_sum.reshape(-1),
-                  qx.shape[1])
+                  zw.reshape(1, -1).float(), qx_sum, qw_sum.reshape(-1), k)
     y = inverse(y.reshape(b, s, -1))
     if bias is not None:
         y = y + bias.reshape(1, -1).float()
     return y
+
+
+def _gemm_one(qx, sx, zx, qw, sw, zw, qw_sum, bias, b: int, s: int,
+              inverse):
+    return _finish(int_matmul(qx, qw), qx.sum(dim=1, dtype=torch.int32),
+                   qw_sum, qx.shape[1], sx, zx, sw, zw, bias, b, s, inverse)
+
+
+def _inverse(transform: str, levels: int, skip_first: bool):
+    def inverse(y):
+        return T.inverse_sequence_transform(y, transform, axis=-2,
+                                            levels=levels,
+                                            skip_first=skip_first)
+    return inverse
 
 
 def int_gemm_plain(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
@@ -468,17 +531,38 @@ def int_gemm_plain(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
     returns ``silu(g)·u``.  Returns (spans, span_len, N)."""
     rows = qx.shape[0]
     b, s = rows // span_len, span_len
-
-    def inverse(y):
-        return T.inverse_sequence_transform(y, transform, axis=-2,
-                                            levels=levels,
-                                            skip_first=skip_first)
-
+    inverse = _inverse(transform, levels, skip_first)
     y = _gemm_one(qx, sx, zx, qw, sw, zw, qw_sum, bias, b, s, inverse)
     if qw_up is not None:
         u = _gemm_one(qx, sx, zx, qw_up, sw_up, zw_up, qw_sum_up, bias_up, b,
                       s, inverse)
         y = silu(y) * u
+    return y.to(out_dtype)
+
+
+def int_gemm_parts_plain(qx, qw, qw_sum) -> torch.Tensor:
+    """Plain version of K2's parts mode (:func:`stamp_int_gemm_parts`)."""
+    rows, k = qx.shape
+    n = qw.shape[1]
+    parts = torch.zeros((rows + 1, n + 1), dtype=torch.int32,
+                        device=qx.device)
+    parts[:rows, :n] = int_matmul(qx, qw)
+    parts[:rows, n] = qx.sum(dim=1, dtype=torch.int32)
+    parts[rows, :n] = qw_sum.reshape(-1)
+    parts[rows, n] = k
+    return parts
+
+
+def int_gemm_summed_plain(parts, sx, zx, span_len: int, sw, zw, bias=None,
+                          *, transform: str, levels: int, skip_first: bool,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K2's summed mode (:func:`stamp_int_gemm_summed`):
+    :func:`int_gemm_plain`'s epilogue, inverse transform and bias over the
+    summed parts.  Returns (spans, span_len, N)."""
+    rows, n = parts.shape[0] - 1, parts.shape[1] - 1
+    y = _finish(parts[:rows, :n], parts[:rows, n], parts[rows, :n],
+                int(parts[rows, n]), sx, zx, sw, zw, bias, rows // span_len,
+                span_len, _inverse(transform, levels, skip_first))
     return y.to(out_dtype)
 
 
@@ -538,48 +622,139 @@ def stamp_int_gemm(qx, sx, zx, span_len: int, qw, sw, zw, qw_sum, bias=None,
                               qw_up, sw_up, zw_up, qw_sum_up, bias_up, **kw)
     rows, k = qx.shape
     n = qw.shape[1]
-    if k % 4 or n % 4 or qw.shape[0] != k:
+    _check_gemm(qx, qw, span_len)
+    if qw_up is not None and (qw_up.shape != qw.shape or qw_sum_up is None):
+        raise ValueError("the dual GEMM needs an up weight of the gate's "
+                         "shape with its column sums")
+    out = torch.empty((rows // span_len, span_len, n), dtype=out_dtype,
+                      device=qx.device)
+    _launch_gemm(qx, sx, zx, rows, min(span_len, MAX_SPAN), k, n, qw, sw, zw,
+                 qw_sum, bias, qw_up, sw_up, zw_up, qw_sum_up, bias_up,
+                 transform, levels, skip_first, out, None, None)
+    return out
+
+
+stamp_int_gemm.launches = 0
+stamp_int_gemm.parts_launches = 0
+stamp_int_gemm.summed_launches = 0
+
+
+def _check_gemm(qx, qw, span_len: int) -> None:
+    rows, k = qx.shape
+    if k % 4 or qw.shape[1] % 4 or qw.shape[0] != k:
         raise ValueError(f"K2 needs K and N multiples of 4 and a (K, N) "
                          f"weight; got qx {tuple(qx.shape)}, qw "
                          f"{tuple(qw.shape)}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"K2 writes bf16 or f32, not {out_dtype}")
+    if rows % span_len:
+        raise ValueError(f"K2 takes whole spans: {rows} rows in spans of "
+                         f"{span_len}")
+
+
+def _launch_gemm(qx, sx, zx, rows: int, tile: int, k: int, n: int, qw, sw,
+                 zw, qw_sum, bias, qw_up, sw_up, zw_up, qw_sum_up, bias_up,
+                 transform: str, levels: int, skip_first: bool, out,
+                 parts_out, parts_in) -> None:
+    """One K2 launch over ``rows`` rows in spans (or, without a transform,
+    tiles) of ``tile``: the product of ``qx`` and ``qw`` (with ``qw_up``
+    the dual one) into ``out``, its parts into ``parts_out``, or the
+    summed ``parts_in`` finished into ``out`` (``qx``, ``qw`` and
+    ``qw_sum`` ``None``).  Counted in ``stamp_int_gemm``'s ``launches``
+    and its mode's."""
+    if out is not None and out.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K2 writes bf16 or f32, not {out.dtype}")
     dual = qw_up is not None
     sw, zw, bias = _f32_vec(sw), _f32_vec(zw), _f32_vec(bias)
     sw_up, zw_up, bias_up = _f32_vec(sw_up), _f32_vec(zw_up), \
         _f32_vec(bias_up)
     qw_sum, qw_sum_up = _i32_vec(qw_sum), _i32_vec(qw_sum_up)
     cuda.require_cuda(qx, sx, zx, qw, sw, zw, qw_sum, bias, qw_up, sw_up,
-                      zw_up, qw_sum_up, bias_up)
-    if dual and (qw_up.shape != qw.shape or qw_sum_up is None):
-        raise ValueError("the dual GEMM needs an up weight of the gate's "
-                         "shape with its column sums")
-    if rows % span_len:
-        raise ValueError(f"K2 takes whole spans: {rows} rows in spans of "
-                         f"{span_len}")
-    b = rows // span_len
-    # without a transform a long span runs as tiles of MAX_SPAN rows
-    tile = min(span_len, MAX_SPAN)
-    dev = qx.device
-    plan = gemm_plan(-(-rows // tile), k, n, dual, cuda.sm_count(dev))
-    # 16-byte copies where rows and pointers allow, else 4-byte ones
-    vec = int(k % 16 == 0 and n % 16 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (qx, qw, qw_up) if t is not None))
-    out = torch.empty((b, span_len, n), dtype=out_dtype, device=dev)
+                      zw_up, qw_sum_up, bias_up, out, parts_out, parts_in)
+    dev = (qx if qx is not None else parts_in).device
+    if parts_in is None:
+        plan = gemm_plan(-(-rows // tile), k, n, dual, cuda.sm_count(dev))
+        # 16-byte copies where rows and pointers allow, else 4-byte ones
+        vec = int(k % 16 == 0 and n % 16 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (qx, qw, qw_up)
+            if t is not None))
+    else:
+        plan, vec = dict(n_split=1, split_k=GEMM_BK), 0
     err = _lib().stamp_int_gemm(
-        qx.data_ptr(), sx.data_ptr(), zx.data_ptr(), rows, tile, k, n,
-        qw.data_ptr(), sw.data_ptr(), zw.data_ptr(), qw_sum.data_ptr(),
+        cuda.ptr(qx), cuda.ptr(sx), cuda.ptr(zx), rows, tile, k, n,
+        cuda.ptr(qw), cuda.ptr(sw), cuda.ptr(zw), cuda.ptr(qw_sum),
         cuda.ptr(bias), cuda.ptr(qw_up), cuda.ptr(sw_up), cuda.ptr(zw_up),
         cuda.ptr(qw_sum_up), cuda.ptr(bias_up),
         *_transform_args(transform, levels, skip_first, tile),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), plan["n_split"],
-        plan["split_k"], vec, cuda.stream_ptr(qx))
+        cuda.ptr(out), int(out is not None and out.dtype == torch.bfloat16),
+        plan["n_split"], plan["split_k"], vec, cuda.ptr(parts_out),
+        cuda.ptr(parts_in), cuda.stream_ptr(qx if qx is not None
+                                            else parts_in))
     cuda.check(err, "stamp_int_gemm")
     stamp_int_gemm.launches += 1
+    if parts_out is not None:
+        stamp_int_gemm.parts_launches += 1
+    if parts_in is not None:
+        stamp_int_gemm.summed_launches += 1
+
+
+def stamp_int_gemm_parts(qx, span_len: int, qw, qw_sum) -> torch.Tensor:
+    """K2's parts mode, for a row-parallel block of a model split (``qx``
+    this block's codes over its K range, ``qw`` the weight's rows of that
+    range, ``qw_sum`` their column sums): everything the epilogue needs
+    that is a sum over K, as ``(rows + 1, N + 1)`` int32 — ``[:rows, :N]``
+    the int32 products, ``[:rows, N]`` the rows' Σqx, ``[rows, :N]`` the
+    block's Σqw and ``[rows, N]`` its K.  The ranks' parts summed (an
+    integer all-reduce, exact) are the whole rows' for
+    :func:`stamp_int_gemm_summed`.  No transform: it acts in the
+    epilogue."""
+    if qx.device.type == "cpu":
+        return int_gemm_parts_plain(qx, qw, qw_sum)
+    rows, k = qx.shape
+    n = qw.shape[1]
+    _check_gemm(qx, qw, span_len)
+    parts = torch.empty((rows + 1, n + 1), dtype=torch.int32,
+                        device=qx.device)
+    parts[rows, :n] = qw_sum.reshape(-1)
+    parts[rows, n:].fill_(k)
+    _launch_gemm(qx, None, None, rows, min(span_len, MAX_SPAN), k, n, qw,
+                 None, None, qw_sum, None, None, None, None, None, None,
+                 "none", 0, False, None, parts, None)
+    return parts
+
+
+def stamp_int_gemm_summed(parts, sx, zx, span_len: int, sw, zw, bias=None,
+                          *, transform: str = "dwt", levels: int = 3,
+                          skip_first: bool = True,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """K2's summed mode: the ranks' :func:`stamp_int_gemm_parts` summed,
+    finished by K2's epilogue, inverse transform and bias (``sx`` / ``zx``
+    the whole rows' scales and zero points, ``sw`` / ``zw`` the whole
+    columns') — :func:`stamp_int_gemm` of the whole rows, bit for bit.
+    Spans over ``MAX_SPAN`` rows finish without a transform, then the
+    span link inverts it.  Returns (spans, span_len, N)."""
+    kw = dict(transform=transform, levels=levels, skip_first=skip_first,
+              out_dtype=out_dtype)
+    if span_len > MAX_SPAN and transform != "none":
+        g = stamp_int_gemm_summed(parts, sx, zx, span_len, sw, zw,
+                                  **dict(kw, transform="none",
+                                         out_dtype=torch.float32))
+        return stamp_span_transform(g, None, bias, transform=transform,
+                                    levels=levels, skip_first=skip_first,
+                                    inverse=True, out_dtype=out_dtype)
+    if parts.device.type == "cpu":
+        return int_gemm_summed_plain(parts, sx, zx, span_len, sw, zw, bias,
+                                     **kw)
+    if parts.dtype != torch.int32 or not parts.is_contiguous():
+        raise ValueError("K2 sums contiguous int32 parts")
+    rows, n = parts.shape[0] - 1, parts.shape[1] - 1
+    if rows % span_len:
+        raise ValueError(f"K2 takes whole spans: {rows} rows in spans of "
+                         f"{span_len}")
+    out = torch.empty((rows // span_len, span_len, n), dtype=out_dtype,
+                      device=parts.device)
+    _launch_gemm(None, sx, zx, rows, min(span_len, MAX_SPAN), 0, n, None, sw,
+                 zw, None, bias, None, None, None, None, None, transform,
+                 levels, skip_first, out, None, parts)
     return out
-
-
-stamp_int_gemm.launches = 0
 
 
 # ------------------------------------------------------- long-span link --

@@ -24,18 +24,19 @@ hardware:
   from it).
 
 Parameters are stored by the rule table and gathered at use.  The train
-step splits the model axis's compute (``lm.train_loss`` under
-``ShardingPolicy.model_split``): each model rank keeps its block of the
+step and the serving steps split the model axis's compute
+(``ShardingPolicy.model_split``): each model rank keeps its block of the
 linears, the vocabulary and the experts, computes the attention heads
 its block overlaps, and copy-in / reduce-out collectives make the
-function the one-process one.  Left whole along ``model``, and named in
-each record's ``model_split``: the Mamba mixers (replicated on every
-model rank) and serving (``prefill`` / ``decode_step`` gather every leaf
-whole: their STaMP quantizers take whole rows).  Activations split only
-the batch, and a spec that splits anything else is refused
-(``--seq-sharded`` writes a ``refused`` record with the step's words).
-Where the reference shards the decode cache's sequence over ``model``,
-the port keeps it whole on each rank; the record names both.
+function the one-process one; serving's row-parallel STaMP sites
+all-reduce their per-token min / max, and the decode cache's sequence is
+split as the reference's ``cache_shardings`` / ``decode_kv_spec`` split
+it (each rank its block; the partial softmax states gathered and
+merged).  Left whole along ``model``, and named in each record's
+``model_split``: the Mamba mixers (replicated on every model rank).
+Activations split only the batch, and a spec that splits anything else
+is refused (``--seq-sharded`` writes a ``refused`` record with the
+step's words).
 
 The stand-ins are fake tensors on ``cuda`` where PyTorch is built with
 CUDA (no card is needed).  A CPU-only PyTorch cannot index a fake
@@ -51,6 +52,7 @@ Usage:  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gzip
 import json
 import pathlib
@@ -72,6 +74,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import (SHAPES, ModelConfig, ShapeConfig,
                                        shape_applicable)
 from repro_torch.optim import AdamWConfig
+from repro_torch.sharding import PartitionSpec as P
 from repro_torch.sharding import ShardingPolicy, local
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / \
@@ -127,16 +130,46 @@ def _local_inputs(batch: dict, policy: Optional[ShardingPolicy],
     return out, {k: repr(s.spec) for k, s in sh.items()}
 
 
-def _specs_by_name(tree, shardings, policy) -> dict:
-    """``{leaf name: {"reference": spec, "port": the eager step's}}`` for
-    a cache tree, one entry a leaf name."""
+def _specs_by_name(tree, shardings, policy, local_tree) -> dict:
+    """``{leaf name: {"reference": spec, "port": what this rank holds}}``
+    for a cache tree (this rank's rows, the sequence whole) and this
+    rank's block of it, one entry a leaf name: the port's sequence-split
+    leaves name the reference's spec and their block's shape (scales and
+    zero points ride with their codes: the hi block's rows, then the lo
+    block's)."""
     out = {}
-    for (path, _), sh in zip(TR.flatten_with_paths(tree),
-                             TR.leaves(shardings)):
-        out.setdefault(str(path[-1]), {
-            "reference": repr(sh.spec),
-            "port": repr(S.eager_spec(sh.spec, policy))})
+    for (path, leaf), sh, mine in zip(TR.flatten_with_paths(tree),
+                                      TR.leaves(shardings),
+                                      TR.leaves(local_tree)):
+        name = str(path[-1])
+        if name in out:
+            continue
+        port = repr(S.eager_spec(sh.spec, policy))
+        if tuple(mine.shape) != tuple(leaf.shape):
+            port = (f"{sh.spec!r}: block {tuple(mine.shape)} of "
+                    f"{tuple(leaf.shape)}")
+            if name.endswith(("_scale", "_zp")):
+                port += " (the rows of this rank's hi and lo blocks)"
+        out[name] = {"reference": repr(sh.spec), "port": port}
     return out
+
+
+def _port_kv_spec(policy: ShardingPolicy, shape: ShapeConfig) -> str:
+    """The decode cache's placement in the port, as a spec of its (b, s,
+    kv, hd) view: the batch over the batch axes (replicated where the
+    global batch is smaller), the sequence over the seq group's axes
+    (context parallel)."""
+    group = policy.seq_group(shape.global_batch)
+    if group is None:
+        return "whole on each rank (one rank over the sequence axes)"
+    small = group.size != group.model_size
+    spec = P(None if small else policy.batch_axes,
+             (*policy.batch_axes, "model") if small else "model",
+             None, None)
+    return (f"{spec!r}: the sequence split over {group.size} ranks (each "
+            f"cache region over what divides it), each rank attending "
+            f"over its block, the partial softmax states gathered and "
+            f"merged in rank order")
 
 
 def _check_device(tree, device) -> None:
@@ -172,12 +205,17 @@ def model_split_record(cfg: ModelConfig, shape: ShapeConfig,
     if not split:
         return {"split": False, "why": "no policy" if policy is None
                 else "the model axis has one rank"}
-    if shape.kind != "train":
-        return {"split": False,
-                "why": "serving gathers every leaf whole along model: its "
-                       "STaMP quantizers take per-token min-max over whole "
-                       "rows"}
-    parts = ["embedding and loss (vocab-parallel)"]
+    if shape.kind == "train":
+        parts = ["embedding and loss (vocab-parallel)"]
+    else:
+        parts = ["embedding and logits (vocab-parallel; the logits "
+                 "gathered whole on every model rank)"]
+        if any(s.mixer == "attn" or s.ffn in ("mlp", "moe_dense")
+               for s in specs):
+            parts += ["STaMP at row-parallel sites (per-token min / max "
+                      "all-reduced over model before the quantize; "
+                      "column-parallel sites quantize the whole, "
+                      "replicated rows)"]
     if any(s.mixer == "attn" for s in specs):
         parts += ["attention projections (column / row parallel)",
                   "attention over the heads a rank's block overlaps"]
@@ -189,8 +227,13 @@ def model_split_record(cfg: ModelConfig, shape: ShapeConfig,
                      "every rank)")
     if cfg.encoder_layers:
         parts.append("encoder and cross-attention")
+    if shape.kind == "decode" and any(s.mixer == "attn" for s in specs):
+        parts.append("decode attention context-parallel over the cache's "
+                     "sequence (each rank its block; partial softmax "
+                     "states gathered and merged in rank order)")
     whole = ["Mamba mixers (in_proj's flat [z, x, B, C, dt] output does "
-             "not split on head boundaries)"] \
+             "not split on head boundaries; their SSM state and conv "
+             "cache whole on every model rank)"] \
         if any(s.mixer == "mamba" for s in specs) else []
     return {"split": True, "model_ranks": policy.model_split().size,
             "split_parts": parts, "whole": whole}
@@ -240,6 +283,7 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig,
         else:
             serve = S.make_serve_config(cfg, quantize_acts=quantize_acts,
                                         weight_bits=weight_bits)
+            serve = dataclasses.replace(serve, cache_capacity=shape.seq_len)
             params = S.serve_param_struct(cfg, serve.weight_bits, device)
             if policy is not None:
                 params = policy.place(params, device)
@@ -249,27 +293,31 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig,
                 def run():
                     with torch.no_grad():
                         return lm.prefill(params, batch, cfg, serve,
-                                          policy=policy)
+                                          policy=policy,
+                                          global_batch=shape.global_batch)
             else:
                 cache = S.cache_struct(cfg, shape, serve, device,
-                                       batch=batch["tokens"].shape[0])
+                                       batch=batch["tokens"].shape[0],
+                                       policy=policy)
                 if policy is not None:
+                    whole = S.cache_struct(cfg, shape, serve, device,
+                                           batch=batch["tokens"].shape[0])
                     info["cache_specs"] = _specs_by_name(
-                        cache, S.cache_shardings(cache, policy,
+                        whole, S.cache_shardings(whole, policy,
                                                  shape.global_batch),
-                        policy)
+                        policy, cache)
                     info["decode_kv_spec"] = {
                         "reference": repr(policy.decode_kv_spec(
                             shape.global_batch)),
-                        "port": "not constrained: each rank attends over "
-                                "its rows' whole cache"}
+                        "port": _port_kv_spec(policy, shape)}
                 args = (params, cache, batch)
 
                 def run():
                     with torch.no_grad():
                         return lm.decode_step(params, cache,
                                               batch["tokens"], batch["pos"],
-                                              cfg, serve, policy=policy)
+                                              cfg, serve, policy=policy,
+                                              global_batch=shape.global_batch)
         _check_device(args, device)
         counter = OS.OpCounter(device)
         arg_bytes = counter.track(args)

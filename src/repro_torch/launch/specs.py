@@ -125,12 +125,18 @@ def opt_shardings(opt_struct_tree: Pytree, params_sh: Pytree,
 
 def cache_struct(cfg: ModelConfig, shape: ShapeConfig,
                  serve: lm.ServeConfig, device="cuda",
-                 batch: Optional[int] = None) -> Pytree:
+                 batch: Optional[int] = None,
+                 policy: Optional[ShardingPolicy] = None) -> Pytree:
     """The contiguous decode cache of ``shape`` (``batch`` rows, default
-    the global batch) as stand-ins."""
+    the global batch) as stand-ins; under a ``policy`` this rank's block
+    of its sequence (:meth:`ShardingPolicy.seq_group`, the reference's
+    ``cache_shardings``)."""
     _need_fake()
+    group = None if policy is None else \
+        policy.seq_group(shape.global_batch)
     return lm.init_cache(cfg, shape.global_batch if batch is None
-                         else batch, shape.seq_len, serve, device=device)
+                         else batch, shape.seq_len, serve, device=device,
+                         group=group)
 
 
 _SEQ_KEYS = ("k_hi", "v_hi", "k_lo", "v_lo", "k", "v", "xk", "xv")

@@ -57,12 +57,14 @@ def _prepared(w: dict, b=None) -> PreparedLinear:
 
 def stamp_fused_linear(x: torch.Tensor, w: dict, b: Optional[torch.Tensor],
                        stamp_cfg, merge_heads: bool = False,
-                       site: Optional[str] = None) -> torch.Tensor:
+                       site: Optional[str] = None,
+                       split=None) -> torch.Tensor:
     """One STaMP linear over prepared int8 buffers ``{"iq", "isw",
     "izw", "iqsum"}``; ``merge_heads`` marks the raw head-split out-proj
-    input; ``site`` names the quant-telemetry site."""
+    input; ``site`` names the quant-telemetry site; a model ``split``
+    makes it row-parallel (:func:`~repro_torch.core.stamp.stamp_linear`)."""
     return stamp_linear(x, None, None, stamp_cfg, prepared=_prepared(w, b),
-                        merge_heads=merge_heads, site=site)
+                        merge_heads=merge_heads, site=site, split=split)
 
 
 def stamp_fused_dual_linear(x: torch.Tensor, w_gate: dict, w_up: dict,
@@ -136,7 +138,8 @@ def moe_route(x: torch.Tensor, gate_w: torch.Tensor, experts_per_token: int,
 def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
             experts_per_token: int, capacity_factor: float,
             group_size: int = 1024,
-            experts: Optional[tuple] = None) -> torch.Tensor:
+            experts: Optional[tuple] = None,
+            part_f32: bool = False) -> torch.Tensor:
     """Capacity-based top-k MoE, reference path.  ``w_gate / w_up``
     index to expert ``e``'s ``(d, f)`` weight by ``w[e]`` and ``w_down``
     to its ``(f, d)`` one (stacked tensors, or a view that dequantizes one
@@ -152,7 +155,9 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
     ``experts = (e0, e1)`` (expert parallel) every row is routed over all
     experts, but only experts ``[e0, e1)`` are computed, their weights
     held at stack indices ``0 … e1 − e0``: the result is their part of
-    the sum, and the dispatch buffer holds only them."""
+    the sum, and the dispatch buffer holds only them; ``part_f32`` keeps
+    that part in f32 (the combine of bf16 expert outputs in f32) for a
+    sum over the ranks rounded once."""
     bsz, seq, d = x.shape
     xg, valid, seq_p = _moe_fold(x, group_size)
     combine, dispatch, counts = moe_route(xg, gate_w, experts_per_token,
@@ -171,6 +176,8 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
         xe = xin[:, ei]
         h = silu(xe @ w_gate[ei].to(x.dtype)) * (xe @ w_up[ei].to(x.dtype))
         out[:, ei] = h @ w_down[ei].to(x.dtype)
+    if part_f32:
+        combine, out = combine.float(), out.float()
     y = torch.einsum("bsec,becd->bsd", combine, out)
     return y.reshape(bsz, seq_p, d)[:, :seq]
 
@@ -178,17 +185,27 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_gate, w_up, w_down,
 def moe_ffn_fused(x: torch.Tensor, gate_w: torch.Tensor, w_gate: dict,
                   w_up: dict, w_down: dict, experts_per_token: int,
                   capacity_factor: float,
-                  group_size: int = 1024) -> torch.Tensor:
+                  group_size: int = 1024,
+                  experts: Optional[tuple] = None,
+                  part_f32: bool = False) -> torch.Tensor:
     """Capacity MoE through the grouped kernel K5: route on the same
     (stamped) activation as the reference path, quantize each token ONCE
     (:func:`token_quantize`), gather the int8 codes into the capacity
     buckets and run the gate/up/down expert stack over the prepared
     buffers ``{"iq", "isw", "izw", "iqsum"}`` (``we_down`` also carries
-    its per-slab sums ``"iqslab"``)."""
+    its per-slab sums ``"iqslab"``).  With ``experts = (e0, e1)`` (expert
+    parallel, as :func:`moe_ffn`) every row is routed over all experts
+    and K5 gets experts ``[e0, e1)``'s slice of the dispatch buffer and
+    the stacks (held at indices ``0 … e1 − e0``): the result is their
+    part of the sum (in f32 with ``part_f32``, as :func:`moe_ffn`)."""
     bsz, seq, d = x.shape
     xg, valid, seq_p = _moe_fold(x, group_size)
     combine, dispatch, counts = moe_route(xg, gate_w, experts_per_token,
                                           capacity_factor, valid)
+    if experts is not None:
+        e0, e1 = experts
+        combine, dispatch = combine[:, :, e0:e1], dispatch[:, :, e0:e1]
+        counts = counts[:, e0:e1].contiguous()
     b, _, e, cap = combine.shape
     qd, sd, zd = token_quantize(xg)
     # slot c of expert e holds the c-th kept token in sequence order, so
@@ -205,7 +222,10 @@ def moe_ffn_fused(x: torch.Tensor, gate_w: torch.Tensor, w_gate: dict,
         w_gate["iq"], w_gate["isw"], w_gate["izw"], w_gate["iqsum"],
         w_up["iq"], w_up["isw"], w_up["izw"], w_up["iqsum"],
         w_down["iq"], w_down["isw"], w_down["izw"], w_down["iqslab"])
-    y = torch.einsum("bsec,becd->bsd", combine, ye.to(x.dtype))
+    ye = ye.to(x.dtype)
+    if part_f32:
+        combine, ye = combine.float(), ye.float()
+    y = torch.einsum("bsec,becd->bsd", combine, ye)
     return y.reshape(bsz, seq_p, d)[:, :seq]
 
 
@@ -306,6 +326,34 @@ def decode_attention_segments(q: torch.Tensor, segments: list,
     o_tot, l_tot = _merge_parts(parts)
     out = o_tot / torch.clamp_min(l_tot, 1e-30)[..., None]
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def decode_attention_state(q: torch.Tensor, segments: list,
+                           length: torch.Tensor) -> torch.Tensor:
+    """:func:`decode_attention_segments`' partial softmax state over one
+    rank's block of a sequence-split cache (its segments at their global
+    offsets, one it does not read at an offset past every length, under
+    the global mask): ``(b, g, h / g, hd + 2)`` f32 — ``m`` (``-inf``
+    where no position is valid), ``l`` and the unnormalised ``o`` — the
+    state ``kernels.ref.merge_states_ref`` merges."""
+    b, _, h, hd = q.shape
+    g = segments[0][0].shape[2]
+    rep = h // g
+    dt = segments[0][0].dtype
+    qg = (q.reshape(b, g, rep, hd) * (1.0 / math.sqrt(hd))).to(dt).float()
+    scores = []
+    for k_seg, _, offset in segments:
+        sc = torch.einsum("bgrd,bsgd->bgrs", qg, k_seg.float())
+        pos = offset + torch.arange(k_seg.shape[1], device=q.device)
+        scores.append(torch.where(pos[None, None, None, :] <
+                                  length[:, None, None, None], sc,
+                                  -math.inf))
+    sc = torch.cat(scores, dim=-1)
+    v = torch.cat([seg[1] for seg in segments], dim=1)
+    m = sc.amax(dim=-1)
+    p = torch.where(sc == -math.inf, 0.0, torch.exp(sc - m[..., None]))
+    o = torch.einsum("bgrs,bsgd->bgrd", p.to(dt).float(), v.float())
+    return torch.cat([m[..., None], p.sum(dim=-1)[..., None], o], dim=-1)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -47,23 +47,29 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.stamp import (StampConfig, fused_eligible,
                                     fused_ineligibility, prepare_linear,
                                     stamp_fake_quant)
 from repro_torch.core.quant import EPS, fake_quant, fdiv
 from repro_torch.device import fake_mode_active, resolve_device
-from repro_torch.kernels.cache_attention import cache_decode_attention
-from repro_torch.kernels.decode_matmul import stamp_decode_matmul
+from repro_torch.kernels.cache_attention import (NEVER,
+                                                 cache_decode_attention,
+                                                 merge_states)
+from repro_torch.kernels.decode_matmul import (decode_row_minmax,
+                                               stamp_decode_matmul)
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_ragged_attention)
+from repro_torch.kernels.ref import merge_states_ref
 from repro_torch.kernels.stamp_matmul import down_slab_sums, silu
 from repro_torch.models import layers as L
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.obs import quantstats as QS
 from repro_torch.serving import kvcache as KV
 from repro_torch.serving import paged_kvcache as PKV
-from repro_torch.sharding import ModelSplit, ShardingPolicy, constrain
+from repro_torch.sharding import (ModelSplit, SeqGroup, ShardingPolicy,
+                                  constrain)
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -345,7 +351,8 @@ def _weight(w, dtype) -> torch.Tensor:
 
 
 def _linear(x: torch.Tensor, w, b=None, decode_matmul: bool = False,
-            f32_sum: bool = False) -> torch.Tensor:
+            f32_sum: bool = False,
+            split: Optional[ModelSplit] = None) -> torch.Tensor:
     """Matmul over a plain tensor, a packed-int4 dict or a prepared int8
     dict (:func:`_weight`).  With ``decode_matmul``, decode-shaped input
     (one token per slot) over prepared weights runs the decode kernel on
@@ -354,14 +361,28 @@ def _linear(x: torch.Tensor, w, b=None, decode_matmul: bool = False,
     operands, rounded once to ``x``'s dtype (a bf16 matmul on the CPU sums
     in its own order, and on the card may reduce in bf16, moving a value
     by a bf16 step now and then) — the encoder's and the cross-attention's
-    plain linears, whose outputs are held bit for bit."""
+    plain linears, whose outputs are held bit for bit.  A model ``split``
+    marks ``x`` as a row-parallel block (the result is this rank's part of
+    the sum, for :func:`_reduced`; in f32 under the split's
+    ``f32_parts``): the decode kernel then quantizes it with the whole
+    rows' statistics (K3's statistics mode, all-reduced over the model
+    ranks, then K3 with them)."""
+    f32_part = split is not None and split.f32_parts
     if isinstance(w, dict) and "iq" in w and decode_matmul and \
             x.ndim >= 2 and x.shape[-2] == 1:
         lead = x.shape[:-1]
-        y = stamp_decode_matmul(x.reshape(-1, x.shape[-1]), w["iq"],
-                                w["isw"], w["izw"], w["iqsum"], b,
-                                out_dtype=x.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        stats = None
+        if split is not None:
+            part = decode_row_minmax(x2)
+            stats = torch.stack(split.minmax(part[:, 0], part[:, 1]), -1)
+        y = stamp_decode_matmul(x2, w["iq"], w["isw"], w["izw"], w["iqsum"],
+                                b, out_dtype=torch.float32 if f32_part
+                                else x.dtype, row_stats=stats)
         return y.reshape(*lead, y.shape[-1])
+    if f32_part:
+        y = x.float() @ _weight(w, x.dtype).float()
+        return y + b.float() if b is not None else y
     if f32_sum:
         y = (x.float() @ _weight(w, x.dtype).float()).to(x.dtype)
     else:
@@ -445,7 +466,8 @@ def _prep_down_expert(w, bits: int) -> dict:
     return p
 
 
-def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
+def prepare_fused_weights(params: dict, stamp: StampConfig,
+                          split: Optional[ModelSplit] = None) -> dict:
     """Hoist every fused site's weights into int8 buffers ``{"iq", "isw",
     "izw", "iqsum"}``, one layer at a time: wq/wk/wv merge into ``wqkv``
     (biases into ``bqkv``), gate/up, the out-projections and the Mamba
@@ -456,18 +478,30 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
     at those sites, and the encoder runs unquantized.
     ``params["layers"]`` may be
     an iterator: a layer handed over that way is dropped as soon as it is
-    prepared.  No-op when the config cannot run the fused kernels."""
+    prepared.  No-op when the config cannot run the fused kernels.
+
+    Under a model ``split`` (``params`` whole) each site is prepared from
+    its whole weight, so every per-column scale, zero point and code is
+    one device's, and this rank's block is kept (:func:`model_blocks`:
+    ``wqkv`` as ``[wq block | wk block | wv block]``, a row-parallel
+    site's rows with its whole columns' ``isw`` / ``izw`` and its own
+    rows' ``iqsum``); expert stacks prepare only this rank's experts."""
     if not fused_eligible(stamp):
-        return params
+        return model_blocks(params, split)
     bits = stamp.fused_weight_bits
     layers = []
     coded = ("wq", "wk", "wv", "bq", "bk", "bv") + _SINGLE + _EXPERTS
     for p in params["layers"]:
+        if split is not None:
+            p = {k: _expert_block(v, split) if k in _EXPERTS else v
+                 for k, v in p.items()}
         out = {k: v for k, v in p.items() if k not in coded}
+        widths = None
         if "wq" in p:
             raws = [_dequant_packed(p[k], torch.float32)
                     if isinstance(p[k], dict) else p[k].float()
                     for k in ("wq", "wk", "wv")]
+            widths = [r.shape[-1] for r in raws]
             out["wqkv"] = _prep(torch.cat(raws, dim=-1), bits)
             del raws
         if all(k in p for k in ("bq", "bk", "bv")):
@@ -479,9 +513,123 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
             if k in p:
                 fn = _prep_down_expert if k == "we_down" else _prep
                 out[k] = _per_expert(lambda w: fn(w, bits), p[k])
+        if split is not None:
+            out = _layer_blocks(out, split, widths, experts=False)
         layers.append(out)
-    return {**{k: v for k, v in params.items() if k != "layers"},
-            "layers": layers}
+    return model_blocks({**{k: v for k, v in params.items()
+                            if k != "layers"}, "layers": layers}, split,
+                        layers=False)
+
+
+# the model axis's split of a layer's leaves (the rule table's ``model``
+# dims): column-parallel sites keep their output columns, row-parallel
+# ones their input rows, expert stacks their experts; the rest (norms,
+# the router, the Mamba mixers: :data:`_MIXER_WHOLE`) stay whole
+_COLS = ("wq", "wk", "wv", "xwq", "xwk", "xwv", "wi_gate", "wi_up",
+         "dwi_gate", "dwi_up", "bq", "bk", "bv")
+_ROWS = ("wo", "xwo", "wo_mlp", "dwo_mlp")
+
+
+def _block(t: torch.Tensor, dim: int, i0: int, i1: int) -> torch.Tensor:
+    return t.narrow(dim, i0, i1 - i0).contiguous()
+
+
+def _cols_block(w, split: ModelSplit):
+    """A column-parallel leaf's output columns (a plain weight or bias, a
+    packed or prepared dict: every leaf along its last dim)."""
+    if isinstance(w, dict):
+        return {k: _cols_block(v, split) for k, v in w.items()}
+    c0, c1 = split.block(w.shape[-1])
+    return _block(w, -1, c0, c1)
+
+
+def _rows_block(w, split: ModelSplit):
+    """A row-parallel leaf's input rows: a plain weight's; a packed dict's
+    codes (two rows a byte) with its whole columns' ``scale`` / ``zp``; a
+    prepared dict's codes with its whole columns' ``isw`` / ``izw`` and
+    the block's own column sums ``iqsum``."""
+    if not isinstance(w, dict):
+        r0, r1 = split.block(w.shape[-2])
+        return _block(w, -2, r0, r1)
+    if "iq" in w:
+        r0, r1 = split.block(w["iq"].shape[-2])
+        iq = _block(w["iq"], -2, r0, r1)
+        return {**w, "iq": iq,
+                "iqsum": iq.sum(dim=-2, keepdim=True, dtype=torch.int32)}
+    din = 2 * w["q"].shape[-2]
+    r0, r1 = split.block(din)
+    if r0 % 2 or r1 % 2:
+        raise ValueError(f"a packed block of {r1 - r0} rows splits a byte")
+    return {**w, "q": _block(w["q"], -2, r0 // 2, r1 // 2)}
+
+
+def _expert_block(w, split: ModelSplit):
+    """An expert stack's (or its packed / prepared dict's) experts
+    ``[e0, e1)`` of this rank."""
+    if isinstance(w, dict):
+        return {k: _expert_block(v, split) for k, v in w.items()}
+    e0, e1 = split.block(w.shape[0])
+    return _block(w, 0, e0, e1)
+
+
+def _qkv_block(w, split: ModelSplit, widths) -> dict:
+    """``wqkv`` (or ``bqkv``) whole → ``[wq block | wk block | wv block]``
+    (each leaf along its last dim), so the split ``q`` / ``k`` / ``v``
+    come out of one product."""
+    if isinstance(w, dict):
+        return {k: _qkv_block(v, split, widths) for k, v in w.items()}
+    parts = torch.split(w, list(widths), dim=-1)
+    return torch.cat([_cols_block(t, split) for t in parts], dim=-1)
+
+
+def _layer_blocks(p: dict, split: ModelSplit, widths=None,
+                  experts: bool = True) -> dict:
+    """One layer's leaves, whole, as this rank's blocks (``widths``: the
+    ``q`` / ``k`` / ``v`` widths of a merged ``wqkv``; ``experts=False``:
+    its expert stacks are this rank's already)."""
+    out = {}
+    for k, v in p.items():
+        if k in _COLS:
+            v = _cols_block(v, split)
+        elif k in _ROWS:
+            v = _rows_block(v, split)
+        elif k in _EXPERTS and experts:
+            v = _expert_block(v, split)
+        elif k in ("wqkv", "bqkv"):
+            if widths is None:
+                raise ValueError("a merged wqkv needs its q / k / v widths")
+            v = _qkv_block(v, split, widths)
+        out[k] = v
+    return out
+
+
+def model_blocks(params: dict, split: Optional[ModelSplit],
+                 cfg: Optional[ModelConfig] = None,
+                 layers: bool = True) -> dict:
+    """A whole parameter tree (plain, packed or prepared) as this rank's
+    blocks under a model ``split``, the leaves ``prefill`` /
+    ``decode_step`` take as plain tensors under a policy: each layer's
+    (:func:`_layer_blocks`; a merged ``wqkv`` needs ``cfg`` for its
+    widths), the encoder's, and the embedding's vocabulary rows and the
+    head's vocabulary columns.  Packing or preparing the whole tree first
+    and then taking the blocks keeps every per-column scale, zero point
+    and code one device's.  ``None``: ``params`` itself."""
+    if split is None:
+        return params
+    widths = None if cfg is None else _qkv_widths(cfg)
+    out = dict(params)
+    if "embed" in params:
+        v0, v1 = split.block(params["embed"].shape[0])
+        out["embed"] = _block(params["embed"], 0, v0, v1)
+    if "head" in params:
+        out["head"] = _cols_block(params["head"], split)
+    if layers:
+        out["layers"] = [_layer_blocks(p, split, widths)
+                         for p in params["layers"]]
+    if "encoder" in params:
+        out["encoder"] = {**params["encoder"], "layers": [
+            _layer_blocks(p, split) for p in params["encoder"]["layers"]]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -489,21 +637,15 @@ def prepare_fused_weights(params: dict, stamp: StampConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _whole_rows(stamp: Optional[StampConfig], kv=None) -> None:
-    """Refuse STaMP or a cache under a model split: their per-token
-    min-max takes whole rows, and the split is the training step's
-    (``prefill`` / ``decode_step`` gather their leaves whole)."""
-    if stamp is not None or kv is not None:
-        raise NotImplementedError(
-            "the model split is the training step's: STaMP's and the "
-            "cache's per-token min-max take whole rows")
-
-
 def _maybe_stamp(x: torch.Tensor, stamp: Optional[StampConfig],
-                 site: Optional[str] = None):
+                 site: Optional[str] = None,
+                 split: Optional[ModelSplit] = None):
+    """STaMP's round trip of ``x`` (itself without STaMP); a model
+    ``split`` marks ``x`` as a row-parallel block, quantized with the
+    whole rows' statistics."""
     if stamp is None or not stamp.enabled:
         return x
-    return stamp_fake_quant(x, stamp, site=site)
+    return stamp_fake_quant(x, stamp, site=site, split=split)
 
 
 def _split_heads(x: torch.Tensor, nh: int, hd: int) -> torch.Tensor:
@@ -515,9 +657,20 @@ def _rope(flat, positions, cfg: ModelConfig, nh: int, hd: int):
                         cfg.rope_theta)
 
 
+def _qkv_widths(cfg: ModelConfig, split: Optional[ModelSplit] = None
+                ) -> list:
+    """The ``q`` / ``k`` / ``v`` widths of a merged ``wqkv``: the whole
+    projections', or under a model ``split`` its ``[wq | wk | wv]``
+    blocks' (:func:`_qkv_block`)."""
+    n = 1 if split is None else split.size
+    return [cfg.q_dim // n, cfg.kv_dim // n, cfg.kv_dim // n]
+
+
 def _attn_qkv(p: dict, h: torch.Tensor, cfg: ModelConfig,
-              stamp: Optional[StampConfig], dm: bool) -> tuple:
-    """QKV projections (shared by every path)."""
+              stamp: Optional[StampConfig], dm: bool,
+              split: Optional[ModelSplit] = None) -> tuple:
+    """QKV projections (shared by every path); a merged ``wqkv`` splits at
+    :func:`_qkv_widths` (under a model ``split``, this rank's blocks')."""
     if "wqkv" in p:
         bqkv = p.get("bqkv")
         if _use_fused(stamp, p["wqkv"]):
@@ -526,7 +679,7 @@ def _attn_qkv(p: dict, h: torch.Tensor, cfg: ModelConfig,
         else:
             qkv = _linear(_maybe_stamp(h, stamp, "qkv"), p["wqkv"], bqkv,
                           dm)
-        return torch.split(qkv, [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
+        return torch.split(qkv, _qkv_widths(cfg, split), dim=-1)
     h = _maybe_stamp(h, stamp, "qkv")
     return (_linear(h, p["wq"], p.get("bq"), dm),
             _linear(h, p["wk"], p.get("bk"), dm),
@@ -534,13 +687,20 @@ def _attn_qkv(p: dict, h: torch.Tensor, cfg: ModelConfig,
 
 
 def _attn_out(p: dict, attn: torch.Tensor, x: torch.Tensor,
-              stamp: Optional[StampConfig], dm: bool) -> torch.Tensor:
-    """Out-projection of the head-split attention output + residual."""
+              stamp: Optional[StampConfig], dm: bool,
+              split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """Out-projection of the attention output (head-split, or flat) +
+    residual; under a model ``split`` row-parallel over this rank's flat
+    ``q_dim`` block, STaMP's per-token statistics all-reduced over the
+    model ranks."""
+    if attn.ndim == x.ndim + 1:
+        attn = attn.reshape(*attn.shape[:-2], -1)
     if _use_fused(stamp, p["wo"]):
         return x + L.stamp_fused_linear(attn, p["wo"], None, stamp,
-                                        merge_heads=True, site="wo")
-    out = _maybe_stamp(attn.reshape(*attn.shape[:-2], -1), stamp, "wo")
-    return x + _linear(out, p["wo"], None, dm)
+                                        site="wo", split=split)
+    out = _maybe_stamp(attn, stamp, "wo", split)
+    return x + _reduced(_linear(out, p["wo"], None, dm, split=split), split,
+                        x.dtype)
 
 
 class _ExpertStack:
@@ -566,28 +726,34 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     Without fused weights or STaMP (the decode region, calibration) the
     MoE runs the reference FFN over the routed experts only.  A pure-SSM
     layer has no FFN (``none``).  Without STaMP the FFN is
-    :func:`_ffn_plain`, on this rank's blocks under a model ``split``
-    (training)."""
+    :func:`_ffn_plain`.  Under a model ``split`` the leaves are this
+    rank's blocks: gate / up column-parallel on the whole (replicated)
+    rows, the down-projection row-parallel with STaMP's per-token
+    statistics all-reduced over the model ranks, every row routed on
+    every rank and only this rank's experts computed; the MoE's and the
+    MLP's parts are each summed over the ranks."""
     if spec.ffn == "none":
         return x
     h = L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps)
-    if split is not None:
-        _whole_rows(stamp)
     if stamp is None or not stamp.enabled:
-        return x + _reduced(_ffn_plain(p, _copy_in(h, split), spec, cfg, dm,
-                                       split), split)
+        return x + _ffn_plain(p, _copy_in(h, split), spec, cfg, dm, split)
+    experts = None if split is None else split.block(cfg.num_experts)
     hq = None
     out = torch.zeros_like(x)
     if spec.ffn in ("moe", "moe_dense"):
         hq = _maybe_stamp(h, stamp, "moe")
         route = (cfg.experts_per_token, cfg.capacity_factor,
                  cfg.moe_group_size)
+        f32 = split is not None and split.f32_parts
         if all(_use_fused(stamp, p[k]) for k in _EXPERTS):
-            out = out + L.moe_ffn_fused(hq, p["gate_w"], p["we_gate"],
-                                        p["we_up"], p["we_down"], *route)
+            moe = L.moe_ffn_fused(hq, p["gate_w"], p["we_gate"], p["we_up"],
+                                  p["we_down"], *route, experts=experts,
+                                  part_f32=f32)
         else:
-            out = out + L.moe_ffn(hq, p["gate_w"], *(
-                _ExpertStack(p[k], x.dtype) for k in _EXPERTS), *route)
+            moe = L.moe_ffn(hq, p["gate_w"], *(
+                _ExpertStack(p[k], x.dtype) for k in _EXPERTS), *route,
+                experts=experts, part_f32=f32)
+        out = out + _reduced(moe, split, x.dtype)
     if spec.ffn in ("mlp", "moe_dense"):
         pre = "d" if spec.ffn == "moe_dense" else ""
         wg, wu, wo = p[f"{pre}wi_gate"], p[f"{pre}wi_up"], p[f"{pre}wo_mlp"]
@@ -598,10 +764,11 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
             g = silu(_linear(hq, wg, None, dm)) * _linear(hq, wu, None, dm)
         if _use_fused(stamp, wo):
             out = out + L.stamp_fused_linear(g, wo, None, stamp,
-                                             site="wo_mlp")
+                                             site="wo_mlp", split=split)
         else:
-            out = out + _linear(_maybe_stamp(g, stamp, "wo_mlp"), wo, None,
-                                dm)
+            out = out + _reduced(_linear(
+                _maybe_stamp(g, stamp, "wo_mlp", split), wo, None, dm,
+                split=split), split, x.dtype)
     return x + out
 
 
@@ -611,24 +778,28 @@ def _copy_in(x: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
     return x if split is None else split.copy_in(x)
 
 
-def _reduced(y: torch.Tensor, split: Optional[ModelSplit]) -> torch.Tensor:
+def _reduced(y: torch.Tensor, split: Optional[ModelSplit],
+             dtype=None) -> torch.Tensor:
     """A row-parallel product summed over the model ranks (itself
-    without a split)."""
-    return y if split is None else split.reduce_out(y)
+    without a split), then cast to ``dtype`` where given (a sum of f32
+    parts rounded once)."""
+    y = y if split is None else split.reduce_out(y)
+    return y if dtype is None else y.to(dtype)
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                positions, cfg: ModelConfig, causal: bool,
-               split: Optional[ModelSplit] = None) -> torch.Tensor:
+               split: Optional[ModelSplit] = None,
+               kv_whole: bool = False) -> torch.Tensor:
     """Attention from the flat q, k and v projections to the flat output
     (``wo``'s input); ``positions`` ``None``: no RoPE (cross-attention).
     Under a model ``split`` the projections are this rank's flat blocks,
     and so is the output ``(…, q_dim / size)``.  The blocks rarely fall
     on head boundaries, so k and v are gathered over ``model`` (and q
-    too unless its block is whole heads); only the query heads that
-    overlap the block are computed, each against its KV head (a GQA
-    group's K / V selected per query head), and the block is sliced
-    out."""
+    too unless its block is whole heads; ``kv_whole``: k and v come
+    gathered already); only the query heads that overlap the block are
+    computed, each against its KV head (a GQA group's K / V selected per
+    query head), and the block is sliced out."""
     hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     h0, h1 = 0, nh
     if split is not None:
@@ -636,7 +807,8 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         h0, h1 = q0 // hd, -(-q1 // hd)
         if q0 % hd or q1 % hd:
             q = split.gather(q, -1)[..., h0 * hd:h1 * hd]
-        k, v = split.gather(k, -1), split.gather(v, -1)
+        if not kv_whole:
+            k, v = split.gather(k, -1), split.gather(v, -1)
     q = _split_heads(q, h1 - h0, hd)
     k, v = _split_heads(k, kvh, hd), _split_heads(v, kvh, hd)
     if split is not None:
@@ -657,25 +829,32 @@ def _ffn_plain(p: dict, h: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     """The FFN without STaMP, from the normed input ``h``: the MLP's
     ``silu(h wi_gate) · h wi_up`` through ``wo_mlp``, after the MoE's
     reference FFN over the routed experts.  Under a model ``split`` ``h``
-    has passed its copy-in and the result is this rank's part of the sum
-    (the caller's reduce-out takes the MLP's and the experts' parts in
-    one): gate and up column-parallel, ``silu·mul`` on the block, the
-    down-projection row-parallel; the MoE routes every row (the router
-    replicated, its weight's gradient summed over the model ranks by a
-    copy-in: each rank's part comes through its own experts) and
-    computes only this rank's ``E / size`` experts."""
+    has passed its copy-in, and the MLP's and the experts' parts are
+    summed over the ranks (in one reduce-out; each in f32, rounded once,
+    under the split's ``f32_parts``): gate and up column-parallel,
+    ``silu·mul`` on the block, the down-projection row-parallel; the MoE
+    routes every row (the router replicated, its weight's gradient summed
+    over the model ranks by a copy-in: each rank's part comes through its
+    own experts) and computes only this rank's ``E / size`` experts."""
+    f32 = split is not None and split.f32_parts
+
+    def part(y):
+        return _reduced(y, split, h.dtype) if f32 else y
+
     out = torch.zeros_like(h)
     if spec.ffn in ("moe", "moe_dense"):
-        out = out + L.moe_ffn(h, _copy_in(p["gate_w"], split), *(
+        out = out + part(L.moe_ffn(h, _copy_in(p["gate_w"], split), *(
             _ExpertStack(p[k], h.dtype) for k in _EXPERTS),
             cfg.experts_per_token, cfg.capacity_factor, cfg.moe_group_size,
-            experts=None if split is None else split.block(cfg.num_experts))
+            experts=None if split is None else split.block(cfg.num_experts),
+            part_f32=f32))
     if spec.ffn in ("mlp", "moe_dense"):
         pre = "d" if spec.ffn == "moe_dense" else ""
         g = silu(_linear(h, p[f"{pre}wi_gate"], None, dm)) * \
             _linear(h, p[f"{pre}wi_up"], None, dm)
-        out = out + _linear(g, p[f"{pre}wo_mlp"], None, dm)
-    return out
+        out = out + part(_linear(g, p[f"{pre}wo_mlp"], None, dm,
+                                 split=split))
+    return out if f32 else _reduced(out, split)
 
 
 def attn_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -683,7 +862,8 @@ def attn_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
                        kv: Optional[KV.KVCacheConfig] = None,
                        capacity: Optional[int] = None,
                        enc_out: Optional[torch.Tensor] = None,
-                       split: Optional[ModelSplit] = None) -> tuple:
+                       split: Optional[ModelSplit] = None,
+                       group: Optional[SeqGroup] = None) -> tuple:
     """Causal self-attention over whole sequences: QKV (the fused STaMP
     linear over prepared weights, or the reference path), RoPE, attention,
     out-projection; then, given the encoder output ``enc_out``, the
@@ -691,39 +871,44 @@ def attn_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     contiguous cache, quantized from the RoPE'd K and V with room for
     ``capacity`` tokens (the bucketed engine's prefill), with the
     cross-attention's bf16 ``xk`` / ``xv`` beside them; without, ``None``
-    (the calibration forward).  Without STaMP or a cache, under a model
-    ``split`` (training) the layer's leaves are this rank's blocks:
-    column-parallel QKV, attention over the overlapping heads
-    (:func:`_attention`), row-parallel ``wo`` summed over the model
-    ranks."""
-    hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    (the calibration forward).  Under a model ``split`` the layer's
+    leaves are this rank's blocks: column-parallel QKV (STaMP over the
+    whole, replicated rows), attention over the heads its block
+    overlaps (:func:`_attention`, k and v gathered), row-parallel ``wo``
+    (STaMP's per-token statistics all-reduced) summed over the model
+    ranks.  Under a sequence ``group`` the cache is this rank's
+    :class:`~repro_torch.serving.kvcache.SeqBlock` of it, quantized from
+    the whole K / V rows."""
+    hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
-    if split is not None:
-        _whole_rows(stamp, kv)
     entry = None
     if kv is None and (stamp is None or not stamp.enabled):
-        q, k, v = _attn_qkv(p, _copy_in(h, split), cfg, None, False)
+        q, k, v = _attn_qkv(p, _copy_in(h, split), cfg, None, False, split)
         attn = _attention(q, k, v, positions, cfg, True, split)
         x = x + _reduced(_linear(attn, p["wo"]), split)
     else:
-        q, k, v = _attn_qkv(p, h, cfg, stamp, False)
-        q = _rope(q, positions, cfg, nh, hd)
-        k = _rope(k, positions, cfg, kvh, hd)
-        v = _split_heads(v, kvh, hd)
-        attn = L.flash_attention(q, k, v, causal=True)
+        q, k, v = _attn_qkv(p, h, cfg, stamp, False, split)
+        if split is not None:
+            k, v = split.gather(k, -1), split.gather(v, -1)
         if kv is not None:
-            entry = KV.quantize_full(k, v, kv, capacity=capacity)
-        x = _attn_out(p, attn, x, stamp, False)
+            cap = max(capacity or x.shape[1], x.shape[1])
+            entry = KV.quantize_full(
+                _rope(k, positions, cfg, kvh, hd), _split_heads(v, kvh, hd),
+                kv, capacity=capacity, block=KV.seq_block(kv, cap, group))
+        attn = _attention(q, k, v, positions, cfg, True, split,
+                          kv_whole=True)
+        x = _attn_out(p, attn, x, stamp, False, split)
     if enc_out is not None and "xwq" in p:
-        x = cross_attn_block(p, x, enc_out, cfg, stamp, entry, split)
+        x = cross_attn_block(p, x, enc_out, cfg, stamp, entry, split, group)
     return x, entry
 
 
 def cross_attn_block(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
                      cfg: ModelConfig, stamp: Optional[StampConfig],
                      entry: Optional[dict] = None,
-                     split: Optional[ModelSplit] = None) -> torch.Tensor:
+                     split: Optional[ModelSplit] = None,
+                     group: Optional[SeqGroup] = None) -> torch.Tensor:
     """Cross-attention + residual (the reference's enc-dec branch of
     ``attn_block``): queries from the ``lnx``-normed ``x``, keys and values
     from the encoder output, no mask and no RoPE, the projections plain
@@ -736,53 +921,106 @@ def cross_attn_block(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
     reference's bit for bit.  The reference's decode step runs no
     cross-attention (its ``decode_step`` passes no encoder output), so the
     cached ``xk`` / ``xv`` are written here and carried, never read.
-    Under a model ``split`` (training: no STaMP, no cache) the
-    projections are this rank's blocks, as in
-    :func:`attn_block_prefill`."""
+    Under a model ``split`` the projections are this rank's blocks, as
+    in :func:`attn_block_prefill` (the output's per-token quantize takes
+    the whole rows' min / max, all-reduced over the model ranks), and
+    under a sequence ``group`` the cached ``xk`` / ``xv`` are this rank's
+    block of the encoder positions."""
     hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
     hx = L.rms_norm(x, p["lnx"].to(x.dtype), cfg.norm_eps)
     qx = _linear(_copy_in(hx, split), p["xwq"], f32_sum=True)
     enc_out = _copy_in(enc_out, split)
     kx = _linear(enc_out, p["xwk"], f32_sum=True)
     vx = _linear(enc_out, p["xwv"], f32_sum=True)
+    if split is not None:
+        kx, vx = split.gather(kx, -1), split.gather(vx, -1)
     if entry is not None:
-        entry["xk"] = _split_heads(kx, kvh, hd).to(torch.bfloat16)
-        entry["xv"] = _split_heads(vx, kvh, hd).to(torch.bfloat16)
-    ox = _attention(qx, kx, vx, None, cfg, False, split)
+        x0, xn = 0, kx.shape[1]
+        if group is not None:
+            x0, xn, _ = group.region(xn)
+        entry["xk"] = _split_heads(kx, kvh, hd)[:, x0:x0 + xn].to(
+            torch.bfloat16)
+        entry["xv"] = _split_heads(vx, kvh, hd)[:, x0:x0 + xn].to(
+            torch.bfloat16)
+    ox = _attention(qx, kx, vx, None, cfg, False, split, kv_whole=True)
     if stamp is not None and stamp.enabled:
-        ox = fake_quant(ox, stamp.lo_bits, compiled=True)
-    return x + _reduced(_linear(ox, p["xwo"], f32_sum=True), split)
+        minmax = None if split is None else split.minmax(
+            ox.float().amin(dim=-1, keepdim=True),
+            ox.float().amax(dim=-1, keepdim=True))
+        ox = fake_quant(ox, stamp.lo_bits, compiled=True, minmax=minmax)
+    return x + _reduced(_linear(ox, p["xwo"], f32_sum=True, split=split),
+                        split, x.dtype)
 
 
 def attn_block_cached_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                              serve: ServeConfig, entry: dict,
-                             pos: torch.Tensor, dm: bool) -> torch.Tensor:
+                             pos: torch.Tensor, dm: bool,
+                             split: Optional[ModelSplit] = None,
+                             group: Optional[SeqGroup] = None
+                             ) -> torch.Tensor:
     """One token per slot against the contiguous cache: write the token's
     K/V at ``pos`` (scalar or (b,)), then attend over ``pos + 1`` tokens —
     through the packed-cache attention kernel K6 when
     ``fused_cache_attention`` is set, else over the dequantized hi and lo
     segments (or the dense bf16 cache).  An enc-dec entry's ``xk`` /
     ``xv`` stay as they are (no cross-attention at decode, as in the
-    reference: :func:`cross_attn_block`)."""
+    reference: :func:`cross_attn_block`).  Under a model ``split`` q, k
+    and v are computed column-parallel and gathered whole (they are one
+    token a slot) and ``wo`` is row-parallel over this rank's ``q_dim``
+    block.  Under a sequence ``group`` (context parallel) the entry is
+    this rank's block of the cache of ``serve.cache_capacity`` positions:
+    the rank that holds the new token's position writes it, each rank
+    attends every head over its block (K6's block mode, or the plain
+    segments), and the group's partial softmax states are gathered and
+    merged in rank order (K6's merge, or a plain log-sum-exp)."""
     hd, nh, kvh = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     kv = serve.kv
     positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1, 1)
     h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
-    q, k, v = _attn_qkv(p, h, cfg, None, dm)
+    q, k, v = _attn_qkv(p, h, cfg, None, dm, split)
+    if split is not None:
+        q, k, v = (split.gather(t, -1) for t in (q, k, v))
     q = _rope(q, positions, cfg, nh, hd)
     k = _rope(k, positions, cfg, kvh, hd)
-    KV.write_token(entry, k, _split_heads(v, kvh, hd), pos, kv)
     length = (pos.reshape(-1) + 1).to(torch.int32).expand(x.shape[0])
-    if kv.quantized and serve.fused_cache_attention:
-        attn = cache_decode_attention(entry, q, length)
-    elif kv.quantized:
-        (k_hi, v_hi), (k_lo, v_lo) = KV.dequantize_segments(entry, x.dtype)
-        attn = L.decode_attention_segments(
-            q, [(k_hi, v_hi, 0), (k_lo, v_lo, k_hi.shape[1])], length=length)
+    if group is None:
+        KV.write_token(entry, k, _split_heads(v, kvh, hd), pos, kv)
+        if kv.quantized and serve.fused_cache_attention:
+            attn = cache_decode_attention(entry, q, length)
+        elif kv.quantized:
+            (k_hi, v_hi), (k_lo, v_lo) = KV.dequantize_segments(entry,
+                                                                x.dtype)
+            attn = L.decode_attention_segments(
+                q, [(k_hi, v_hi, 0), (k_lo, v_lo, k_hi.shape[1])],
+                length=length)
+        else:
+            kf, vf = KV.dequantize_full(entry, kv, x.dtype)
+            attn = L.decode_attention(q, kf, vf, length=length)
     else:
-        kf, vf = KV.dequantize_full(entry, kv, x.dtype)
-        attn = L.decode_attention(q, kf, vf, length=length)
-    return _attn_out(p, attn, x, None, dm)
+        if serve.cache_capacity is None:
+            raise ValueError("a sequence-split cache needs "
+                             "serve.cache_capacity, its whole length")
+        blk = KV.seq_block(kv, serve.cache_capacity, group)
+        KV.write_token(entry, k, _split_heads(v, kvh, hd), pos, kv, blk)
+        hi0 = blk.hi0 if blk.hi_read else NEVER
+        lo0 = blk.lo0 if blk.lo_read else NEVER
+        if kv.quantized and serve.fused_cache_attention:
+            state = cache_decode_attention(entry, q, length, (hi0, lo0))
+            attn = merge_states(group.all_gather(state), q.dtype)
+        else:
+            if kv.quantized:
+                (k_hi, v_hi), (k_lo, v_lo) = KV.dequantize_segments(
+                    entry, x.dtype)
+                segs = [(k_hi, v_hi, hi0), (k_lo, v_lo, lo0)]
+            else:
+                kf, vf = KV.dequantize_full(entry, kv, x.dtype)
+                segs = [(kf, vf, hi0)]
+            state = L.decode_attention_state(q, segs, length)
+            attn = merge_states_ref(group.all_gather(state), q.dtype)
+    if split is not None:
+        q0, q1 = split.block(cfg.q_dim)
+        attn = attn.reshape(*attn.shape[:-2], -1)[..., q0:q1]
+    return _attn_out(p, attn, x, None, dm, split)
 
 
 def _decode_attention(entry: dict, q_dec, paged: dict, serve: ServeConfig,
@@ -1120,21 +1358,23 @@ def prefill_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
                   capacity: Optional[int] = None,
                   enc_out: Optional[torch.Tensor] = None,
                   seq_lengths: Optional[torch.Tensor] = None,
-                  split: Optional[ModelSplit] = None) -> tuple:
+                  split: Optional[ModelSplit] = None,
+                  group: Optional[SeqGroup] = None) -> tuple:
     """One layer of the full-sequence forward (the reference's
     ``apply_block`` in ``prefill`` / ``train`` mode): the mixer, its
     cross-attention given the encoder output, and the FFN, under ``stamp``
     when given.  Returns ``(x, cache entry)``: with ``kv`` an attention
-    layer's contiguous cache for ``capacity`` tokens, a Mamba layer's
-    recurrent state after each row's ``seq_lengths``.  Under a model
-    ``split`` the attention and the FFN run on this rank's blocks; a
-    Mamba mixer runs whole on every model rank (its leaves gathered
-    whole: :func:`_gathered`)."""
+    layer's contiguous cache for ``capacity`` tokens (this rank's block
+    of it under a sequence ``group``), a Mamba layer's recurrent state
+    after each row's ``seq_lengths``.  Under a model ``split`` the
+    attention and the FFN run on this rank's blocks; a Mamba mixer runs
+    whole on every model rank (its leaves gathered whole:
+    :func:`_gathered`; its state whole)."""
     if spec.mixer == "mamba":
         x, entry = mamba_block_prefill(p, x, cfg, stamp, seq_lengths)
     else:
         x, entry = attn_block_prefill(p, x, cfg, stamp, kv, capacity,
-                                      enc_out, split)
+                                      enc_out, split, group)
     return ffn_block(p, x, spec, cfg, stamp, False, split), entry
 
 
@@ -1172,11 +1412,13 @@ def encoder_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = (_linear(h, p[w], p.get(b), f32_sum=True) for w, b in
                (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
     attn = _attention(q, k, v, positions, cfg, False, split)
-    x = x + _reduced(_linear(attn, p["wo"], f32_sum=True), split)
+    x = x + _reduced(_linear(attn, p["wo"], f32_sum=True, split=split),
+                     split, x.dtype)
     h = _copy_in(L.rms_norm(x, p["ln2"].to(x.dtype), cfg.norm_eps), split)
     g = silu(_linear(h, p["wi_gate"], f32_sum=True)) * \
         _linear(h, p["wi_up"], f32_sum=True)
-    return x + _reduced(_linear(g, p["wo_mlp"], f32_sum=True), split)
+    return x + _reduced(_linear(g, p["wo_mlp"], f32_sum=True, split=split),
+                        split, x.dtype)
 
 
 # a Mamba mixer's projections, gathered whole along ``model`` under a
@@ -1190,11 +1432,25 @@ def _gathered(p, policy: Optional[ShardingPolicy],
     """``p`` (a tree or a leaf) with its sharded leaves gathered whole
     (ZeRO-3's all-gather at use; a no-op without a policy or on whole
     leaves).  Under a model ``split`` a layer's leaves keep their
-    ``model`` block, but a Mamba mixer's (:data:`_MIXER_WHOLE`)."""
+    ``model`` block, but a Mamba mixer's (:data:`_MIXER_WHOLE`); plain
+    tensors there are this rank's blocks already (:func:`model_blocks`).
+    Prepared int8 sites placed by the rule table are refused under a
+    split: the table's block of a merged ``wqkv`` is not ``[wq | wk |
+    wv]``'s blocks, and a row block's column sums are not the whole
+    weight's (prepare them with :func:`prepare_fused_weights`'s
+    ``split``)."""
     if policy is None:
         return p
     if split is None:
         return policy.gather(p)
+    for k, v in p.items():
+        if isinstance(v, dict) and "iq" in v and k not in _MIXER_WHOLE \
+                and any(isinstance(t, DTensor) for t in v.values()):
+            raise ValueError(
+                f"{k}: prepared weights under a model split are prepared "
+                f"whole and cut to this rank's blocks "
+                f"(prepare_fused_weights(..., split=)), not placed by the "
+                f"rule table")
     return {k: policy.gather(v, keep_model=k not in _MIXER_WHOLE)
             for k, v in p.items()}
 
@@ -1390,19 +1646,26 @@ def _ssm_entry(cfg: ModelConfig, batch: int, device) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, serve: ServeConfig,
-               device=None) -> list:
+               device=None, group: Optional[SeqGroup] = None) -> list:
     """Zero contiguous decode cache, one dict per layer: an attention
     layer's K/V (an enc-dec stack's with the cross-attention's bf16 ``xk``
     / ``xv`` of ``max(seq // frame_ratio, 1)`` positions), a Mamba layer's
-    recurrent state."""
+    recurrent state.  Under a sequence ``group`` an attention layer's is
+    this rank's block of it (:class:`~repro_torch.serving.kvcache.
+    SeqBlock`, ``xk`` / ``xv`` too); a Mamba layer's state stays
+    whole."""
     dev = resolve_device(device)
     hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
 
     def attn_entry():
         entry = KV.init_layer_cache(batch, seq, kvh, hd, serve.kv,
-                                    device=dev)
+                                    device=dev,
+                                    block=KV.seq_block(serve.kv, seq, group))
         if cfg.encoder_layers:
-            shape = (batch, max(seq // cfg.frame_ratio, 1), kvh, hd)
+            s_enc = max(seq // cfg.frame_ratio, 1)
+            if group is not None:
+                s_enc = group.region(s_enc)[1]
+            shape = (batch, s_enc, kvh, hd)
             for k in ("xk", "xv"):
                 entry[k] = torch.zeros(shape, dtype=torch.bfloat16,
                                        device=dev)
@@ -1412,10 +1675,20 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, serve: ServeConfig,
             else attn_entry() for spec in cfg.layer_specs()]
 
 
+def _serve_split(policy: Optional[ShardingPolicy]) -> Optional[ModelSplit]:
+    """The serving steps' model split: the training step's, its
+    row-parallel parts summed in f32 and rounded once
+    (``ModelSplit.f32_parts``)."""
+    split = None if policy is None else policy.model_split()
+    return None if split is None else \
+        dataclasses.replace(split, f32_parts=True)
+
+
 def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
             last_pos: Optional[torch.Tensor] = None,
             enc_out: Optional[torch.Tensor] = None, *,
-            policy: Optional[ShardingPolicy] = None) -> tuple:
+            policy: Optional[ShardingPolicy] = None,
+            global_batch: Optional[int] = None) -> tuple:
     """Whole-prompt forward with STaMP activation quantization: next-token
     logits ``(b, V)`` f32 read at ``last_pos`` (b,) per row (default: the
     last column; right-padded prompts read their true last token), and
@@ -1429,26 +1702,41 @@ def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
     each row's ``last_pos``: attention never reads a right pad (causal),
     but a recurrent state would keep absorbing them.  Under a sharding
     ``policy`` (the reference's argument) the parameters are DTensors
-    placed by its rules, ``batch`` holds this rank's rows (the batch axes'
-    split of the global batch), each layer's leaves are gathered inside
-    the layer and the residual is constrained to ``policy.acts()``, as in
-    :func:`model_hidden`; the logits and cache are this rank's rows."""
+    placed by its rules (or, under a model split, plain tensors holding
+    this rank's blocks: :func:`model_blocks`, :func:`prepare_fused_weights`
+    with its ``split``), ``batch`` holds this rank's rows (the batch axes'
+    split of the global batch; all of it where ``global_batch`` is below
+    the batch axes' size, as the reference replicates it), each layer's
+    leaves are gathered inside the layer and the residual is constrained
+    to ``policy.acts()``, as in :func:`model_hidden`; the logits are this
+    rank's rows.  A policy whose ``model`` axis has more than one rank
+    splits the compute along it (:meth:`ShardingPolicy.model_split`, as
+    the training loss does): each rank computes its blocks of the
+    linears (STaMP's row statistics all-reduced at row-parallel sites),
+    the heads its block overlaps, its experts, the encoder's and the
+    cross-attention's blocks and its vocabulary block of the logits
+    (gathered whole on every model rank); the Mamba mixers run whole.
+    The cache is this rank's block of the sequence over
+    :meth:`ShardingPolicy.seq_group` (the reference's placement)."""
     batch = as_batch(batch)
     dev = batch["tokens"].device
     seq_lengths = None if last_pos is None else \
         last_pos.to(dev).to(torch.int32) + 1
-    params = _top(params, policy)
+    split = _serve_split(policy)
+    group = None if policy is None else policy.seq_group(global_batch)
+    params = _top(params, policy, split)
 
     def stack():
         x, enc = embed_inputs(params, batch, cfg, encoder=enc_out is None,
-                              policy=policy)
+                              policy=policy, split=split)
         enc = enc_out if enc is None else enc
         x = constrain(x, policy, lambda pol: pol.acts())
         cache = []
         for spec, p in zip(cfg.layer_specs(), params["layers"]):
-            x, entry = prefill_layer(_gathered(p, policy), spec, x, cfg,
-                                     serve.stamp, serve.kv,
-                                     serve.cache_capacity, enc, seq_lengths)
+            x, entry = prefill_layer(_gathered(p, policy, split), spec, x,
+                                     cfg, serve.stamp, serve.kv,
+                                     serve.cache_capacity, enc, seq_lengths,
+                                     split, group)
             x = constrain(x, policy, lambda pol: pol.acts())
             cache.append(entry)
         return x, cache
@@ -1460,13 +1748,14 @@ def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
     else:
         rows = torch.arange(x.shape[0], device=x.device)
         x_last = x[rows, last_pos.to(x.device).long()]
-    logits = _logits(params, x_last, cfg)
+    logits = _logits(params, x_last, cfg, split)
     return (logits, cache, telem) if collect else (logits, cache)
 
 
 def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
                 cfg: ModelConfig, serve: ServeConfig, *,
-                policy: Optional[ShardingPolicy] = None) -> tuple:
+                policy: Optional[ShardingPolicy] = None,
+                global_batch: Optional[int] = None) -> tuple:
     """One token per slot against the contiguous cache.  ``tokens``: (b,);
     ``pos``: a scalar (every slot at the same length) or (b,) per-slot
     positions, where each new token's K/V is written.  Decode runs
@@ -1474,25 +1763,34 @@ def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
     weights take the decode kernel K3.  The cache updates in place (an
     enc-dec entry's ``xk`` / ``xv`` are carried: the reference's decode
     runs no cross-attention).  Returns ``(logits (b, V) f32, cache)``.
-    Under a sharding ``policy`` the parameters are DTensors placed by its
-    rules, each layer's leaves gathered inside the layer; ``tokens`` and
-    ``cache`` are this rank's rows, the cache's sequence whole.  The
-    reference also constrains the dequantized cache to
-    ``policy.decode_kv_spec`` (its sequence over ``model``); the eager
-    step splits only the batch (:meth:`ShardingPolicy.constraint`), so
-    that constraint is not asked for here."""
+    Under a sharding ``policy`` the parameters are placed as for
+    :func:`prefill`; ``tokens`` and ``cache`` are this rank's rows (all
+    of them where ``global_batch`` is below the batch axes' size), the
+    cache this rank's block of the sequence over
+    :meth:`ShardingPolicy.seq_group` — the reference's
+    ``policy.decode_kv_spec``: each rank attends over its block and the
+    partial softmax states are merged in rank order
+    (:func:`attn_block_cached_decode`; ``serve.cache_capacity`` must
+    give the whole cache's length).  A ``model`` axis of more than one
+    rank splits the compute as in :func:`prefill` (decode's row-parallel
+    linears over prepared weights take K3's row statistics all-reduced);
+    the logits are gathered whole on every model rank, so the greedy
+    token is the same on all of them."""
     dm = serve.fused_decode_matmul
-    params = _top(params, policy)
-    x = _embed(params, tokens[:, None])
+    split = _serve_split(policy)
+    group = None if policy is None else policy.seq_group(global_batch)
+    params = _top(params, policy, split)
+    x = _embed(params, tokens[:, None], split)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     for spec, p, entry in zip(cfg.layer_specs(), params["layers"], cache):
-        p = _gathered(p, policy)
+        p = _gathered(p, policy, split)
         if spec.mixer == "mamba":
             x = mamba_block_cached_decode(p, x, cfg, entry, dm)
         else:
-            x = attn_block_cached_decode(p, x, cfg, serve, entry, pos, dm)
-        x = ffn_block(p, x, spec, cfg, None, dm)
-    return _logits(params, x[:, 0], cfg), cache
+            x = attn_block_cached_decode(p, x, cfg, serve, entry, pos, dm,
+                                         split, group)
+        x = ffn_block(p, x, spec, cfg, None, dm, split)
+    return _logits(params, x[:, 0], cfg, split), cache
 
 
 def refuse_paged(cfg: ModelConfig) -> None:
@@ -1531,8 +1829,12 @@ def init_paged_cache(cfg: ModelConfig, pcfg: PKV.PagedCacheConfig,
                                 pcfg, device=dev) for spec in specs]
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    return _linear(final_hidden(params, x, cfg), _head_weight(params)).float()
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
+            split: Optional[ModelSplit] = None):
+    """f32 logits over the vocabulary; under a model ``split`` the head is
+    this rank's vocabulary block and its logits are gathered whole."""
+    y = _linear(final_hidden(params, x, cfg), _head_weight(params)).float()
+    return y if split is None else split.gather(y, -1)
 
 
 def paged_decode_step(params: dict, pools: list, tokens: torch.Tensor,

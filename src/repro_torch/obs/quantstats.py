@@ -78,12 +78,21 @@ def _merge(dst: Dict[str, Dict], site: str, stats: Dict) -> None:
             cur[k] = cur[k] + v
 
 
-def record(site: Optional[str], tx: torch.Tensor, bits, hi_bits: int) -> None:
+def record(site: Optional[str], tx: torch.Tensor, bits, hi_bits: int,
+           scale=None, zp=None, split=None) -> None:
     """Record one site's transformed activation (no-op unless a scope is
-    open)."""
+    open).  A row-parallel block of a model ``split`` passes the whole
+    rows' ``scale`` / ``zp``: its element counts (clipped, saturated,
+    elements) are summed over the model ranks, and its per-row ones and
+    scale extremes are every rank's alike — one device's stats."""
     if not _ACTIVE or site is None:
         return
-    _merge(_SITES, site, site_stats(tx, bits, hi_bits))
+    stats = site_stats(tx, bits, hi_bits, scale, zp)
+    if split is not None:
+        keys = ("clipped", "saturated", "elems")
+        summed = split.reduce_out(torch.stack([stats[k] for k in keys]))
+        stats.update(zip(keys, summed.unbind()))
+    _merge(_SITES, site, stats)
 
 
 def record_extra(site: str, stats: Dict[str, torch.Tensor]) -> None:

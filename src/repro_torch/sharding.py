@@ -29,11 +29,17 @@ Policy (the reference's rule table, entry for entry):
   ``wo_mlp`` / ``dwo`` / ``xwo``, attention over the heads its block of
   ``wo``'s input overlaps, the embedding's rows and the loss's logits
   over its vocabulary block, its experts — with copy-in and reduce-out
-  making the function the one-process one.  Left whole on every model
-  rank, each stated where it is done: the Mamba mixers (``in_proj``'s
-  flat ``[z, x, B, C, dt]`` output does not split on head boundaries),
-  and ``prefill`` / ``decode_step`` under a policy (their STaMP
-  quantizers take per-token min-max over whole rows).
+  making the function the one-process one.  Serving (``prefill`` /
+  ``decode_step`` under a policy) splits the same way: a row-parallel
+  STaMP site's per-token min / max is its block's, all-reduced over
+  ``model`` (:meth:`ModelSplit.minmax`) before the quantize, a fused
+  site's int32 products are summed before its one epilogue
+  (:meth:`ModelSplit.sum`: one device's output, bit for bit), and the
+  decode cache's sequence is split over a :class:`SeqGroup` (context
+  parallel: each rank attends over its block and the partial softmax
+  states are merged in rank order).  Left whole on every model rank,
+  stated where it is done: the Mamba mixers (``in_proj``'s flat ``[z,
+  x, B, C, dt]`` output does not split on head boundaries).
 * **Sequence parallelism** — ``seq_sharded`` keeps the reference's spec
   values (the residual's sequence over ``model``); the eager step refuses
   it.
@@ -358,13 +364,21 @@ class _GatherModel(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class ModelSplit:
-    """This rank's share of the ``model`` axis in the split training step:
-    the axis's process ``group``, this rank's index ``rank`` on it and its
-    ``size`` (more than one).  The layer functions take it (``None``: the
-    computation whole, as on one device)."""
+    """This rank's share of the ``model`` axis in the split training and
+    serving steps: the axis's process ``group``, this rank's index
+    ``rank`` on it and its ``size`` (more than one).  The layer functions
+    take it (``None``: the computation whole, as on one device).
+    ``f32_parts`` (serving): a row-parallel product's partial is kept in
+    f32 and the sum rounded once, as one device rounds its product; the
+    training step's partials are rounded to the activations' dtype
+    before the sum (f32 ones would add 10% (minicpm-2b) to 40% (Arctic)
+    to the collective bytes of the dry run's train_4k step, and move its
+    row-parallel products and their gradients to f32:
+    ``tools/f32_parts_cost.py``)."""
     group: Any
     rank: int
     size: int
+    f32_parts: bool = False
 
     def block(self, n: int) -> tuple:
         """``[start, stop)`` of this rank's block of a dim of ``n`` split
@@ -399,6 +413,61 @@ class ModelSplit:
         x = x.detach().clone()
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
         return x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum of the ranks' ``x``, in place, outside
+        autograd: exact for integers (K2's int32 parts)."""
+        dist.all_reduce(x, group=self.group)
+        return x
+
+    def minmax(self, mn: torch.Tensor, mx: torch.Tensor) -> tuple:
+        """The elementwise least of the ranks' ``mn`` and largest of their
+        ``mx`` in one all-reduce (``MAX`` over ``[-mn, mx]``: a negation
+        is exact, and gloo's ``MAX`` takes CUDA tensors), outside
+        autograd: a row-parallel block's per-row statistics made the whole
+        row's."""
+        v = torch.stack([-mn.detach(), mx.detach()])
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self.group)
+        return -v[0], v[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqGroup:
+    """The ranks a serving cache's sequence is split over, as the
+    reference's ``cache_shardings`` / ``decode_kv_spec`` split it:
+    ``model``, or every mesh axis where the global batch is smaller than
+    the batch axes (long-context decode: the batch is replicated and the
+    sequence is the only parallel dim left).  ``rank`` is this rank's
+    index over those axes (``model`` minor), ``size`` their product;
+    ``model_rank`` / ``model_size`` its place on ``model`` alone.  A
+    region of the cache (the hi codes, the lo codes, the cross-attention
+    ``xk`` / ``xv``) is split as the reference's ``fit_seq`` splits it
+    (:meth:`region`)."""
+    group: Any
+    rank: int
+    size: int
+    model_rank: int
+    model_size: int
+
+    def region(self, n: int) -> tuple:
+        """``(first position, positions, attends)`` of this rank's block of
+        a region of ``n`` positions: over the whole group where it divides
+        ``n``, else over ``model`` alone (the block replicated over the
+        batch axes), else whole.  ``attends``: this rank is the one copy
+        of its block that attention reads (a block held on several ranks
+        is read on the first of them), so the group's partial softmax
+        states count every position once."""
+        if n % self.size == 0:
+            c = n // self.size
+            return self.rank * c, c, True
+        if n % self.model_size == 0:
+            c = n // self.model_size
+            return self.model_rank * c, c, self.rank // self.model_size == 0
+        return 0, n, self.rank == 0
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The group's ``x`` stacked in rank order on a new leading dim."""
+        return _all_gather(x.detach()[None], 0, self.size, self.group)
 
 
 class _BatchSum(torch.autograd.Function):
@@ -589,6 +658,37 @@ class ShardingPolicy:
             return None
         return ModelSplit(self.mesh.get_group(i),
                           self.mesh.get_coordinate()[i], n)
+
+    def seq_group(self, global_batch: Optional[int] = None
+                  ) -> Optional[SeqGroup]:
+        """The serving cache's :class:`SeqGroup`: ``model``, or every axis
+        of the mesh when ``global_batch`` is below the batch axes' size
+        (the reference's ``decode_kv_spec`` / ``cache_shardings``);
+        ``None`` when that is one rank."""
+        names = self.mesh.mesh_dim_names
+        i = names.index("model")
+        coord = self.mesh.get_coordinate()
+        n_model = self.mesh.size(i)
+        if global_batch is None or \
+                global_batch >= axis_size(self.mesh, self.batch_axes):
+            if n_model == 1:
+                return None
+            return SeqGroup(self.mesh.get_group(i), coord[i], n_model,
+                            coord[i], n_model)
+        if self.mesh.size() == 1:
+            return None
+        # every axis: the mesh's own ranks, model minor (the mesh's last
+        # axis), as the whole process group orders them
+        idx = 0
+        for d, c in enumerate(coord):
+            idx = idx * self.mesh.size(d) + c
+        if names[-1] != "model" or idx != dist.get_rank() or \
+                self.mesh.size() != dist.get_world_size():
+            raise NotImplementedError(
+                "a cache split over every axis needs the mesh to be the "
+                "whole process group in rank order, model last")
+        return SeqGroup(dist.group.WORLD, idx, self.mesh.size(), coord[i],
+                        n_model)
 
     def _batch_index(self) -> tuple:
         coord = self.mesh.get_coordinate()

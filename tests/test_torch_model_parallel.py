@@ -68,6 +68,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm as TLM
 from repro_torch.models.config import ShapeConfig
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.serving.kvcache import KVCacheConfig
 
 # One PyTorch thread a process (see test_torch_train.py).
 torch.set_num_threads(1)
@@ -520,22 +521,35 @@ def test_expert_parallel_moe(group_run, size):
             EXACT, key
 
 
-def test_split_refusals():
+def test_split_refusals(tmp_path):
     """A dim the model axis does not divide is refused (as
-    ``NamedSharding.shard_shape`` refuses it), and so are STaMP and a
-    cache under a split: their per-token min-max takes whole rows."""
+    ``NamedSharding.shard_shape`` refuses it).  STaMP and a cache, refused
+    under a split while the split was the training step's alone, now run
+    under one: on a one-rank split (a gloo group of this process) the
+    STaMP prefill block with its cache and the STaMP FFN are the unsplit
+    ones, bit for bit (serving's split itself is held in
+    ``tests/test_torch_serve_split.py``)."""
     split = SH.ModelSplit(None, 1, 4)
     assert split.block(8) == (2, 4)
     with pytest.raises(ValueError, match="does not split 4 ways"):
         split.block(6)
     cfg = get_reduced("minicpm-2b")
     layer = TLM.init_params(cfg, 0, device="cpu")["layers"][0]
-    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="whole rows"):
-        TLM.attn_block_prefill(layer, x, cfg, StampConfig(), split=split)
-    with pytest.raises(NotImplementedError, match="whole rows"):
-        TLM.ffn_block(layer, x, cfg.layer_specs()[0], cfg, StampConfig(),
-                      False, split=split)
+    spec = cfg.layer_specs()[0]
+    x = _bf16(_rng("refusals").standard_normal((1, 8, cfg.d_model)))
+    kv = KVCacheConfig()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        got = []
+        for s in (None, SH.ModelSplit(dist.group.WORLD, 0, 1)):
+            y, entry = TLM.attn_block_prefill(layer, x, cfg, StampConfig(),
+                                              kv, 16, split=s)
+            got.append([y, TLM.ffn_block(layer, y, spec, cfg, StampConfig(),
+                                         False, split=s), *entry.values()])
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(*got))
 
 
 def test_replicated_leaves_get_one_gradient(group_run):
