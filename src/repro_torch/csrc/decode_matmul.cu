@@ -39,6 +39,14 @@
 // any order, so there are no atomics, no zeroed buffer and no second
 // launch.  The weight's column sums Σqw come in precomputed with the
 // weight (PreparedLinear.qw_sum).
+//
+// A row-parallel block of a model split quantizes with the whole rows'
+// (min, max) (`given`, all-reduced over the ranks).  Its parts mode writes
+// the block's int32 products and row sums Σqx in place of the epilogue;
+// the ranks' parts summed (an integer all-reduce, exact), the summed mode
+// (decode_summed_kernel) finishes them with the same scale, zero point
+// and epilogue code as one launch over the whole rows: one device's
+// output, bit for bit.
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
@@ -131,7 +139,24 @@ struct Args {
   int M, K, N, split_k;
   void* out;
   const float* given;   // (M, 2) rows' (min, max), or null: the rows' own
+  int* parts;           // (M + 1, N + 1) int32 parts mode, or null
 };
+
+// a row's scale and zero point from its (min, max): (mx - mn) / 255 as the
+// compiled reference evaluates it, a true division for the zero point
+__device__ __forceinline__ float2 row_scale(float mn, float mx) {
+  const float s = fmaxf((mx - mn) * (1.0f / 255.0f), 1e-8f);
+  return make_float2(s, rintf(__fdiv_rn(-mn, s)));
+}
+
+// the zero-point epilogue in the plain version's order (-fmad=false):
+// z is the zero point shifted by 128 (the codes are signed)
+__device__ __forceinline__ float finish(int acc, float z, int wsum, float zw,
+                                        float qf, float kf, float s,
+                                        float sw) {
+  return ((((float)acc - z * (float)wsum) - zw * qf) + (kf * z) * zw) * s *
+         sw;
+}
 
 // With one range the block is its own cluster: plain barriers and its own
 // shared memory.
@@ -269,10 +294,9 @@ decode_matmul_kernel(Args a) {
       mn = fminf(mn, rm[2 * tid]);
       mx = fmaxf(mx, rm[2 * tid + 1]);
     }
-    // (mx - mn) / 255 as the compiled reference evaluates it
-    const float s = fmaxf((mx - mn) * (1.0f / 255.0f), 1e-8f);
-    sz[2 * tid] = s;
-    sz[2 * tid + 1] = rintf(__fdiv_rn(-mn, s));
+    const float2 r = row_scale(mn, mx);
+    sz[2 * tid] = r.x;
+    sz[2 * tid + 1] = r.y;
   }
 
   // quantize a stage's activations into codes buffer kt % 2: warp m takes
@@ -389,13 +413,20 @@ decode_matmul_kernel(Args a) {
     const float s = sz[2 * m], z = sz[2 * m + 1] - 128.0f, qf = (float)q;
     const int col = n0 + 4 * w;
     const int vals[4] = {v.x, v.y, v.z, v.w};
+    if (a.parts) {
+      // parts mode: the products and the row's Σqx, no epilogue
+      int* pr = a.parts + (size_t)(row0 + m) * (N + 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col + j < N) pr[col + j] = vals[j];
+      if (col == 0) pr[N] = q;
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = col + j;
       if (n >= N) break;
-      const float zw = a.zw[n];
-      float y = ((((float)vals[j] - z * (float)a.wsum[n]) - zw * qf) +
-                 (kf * z) * zw) * s * a.sw[n];
+      float y = finish(vals[j], z, a.wsum[n], a.zw[n], qf, kf, s, a.sw[n]);
       if (a.bias) y = y + a.bias[n];
       store_f(out + (size_t)(row0 + m) * N + n, y);
     }
@@ -482,6 +513,25 @@ row_minmax_kernel(const TX* x, int K, float* out) {
   }
 }
 
+// K3's summed mode: the ranks' summed parts (M + 1, N + 1) — products
+// and Σqx a row, the whole weight's Σqw and K in the last row — finished
+// with the whole rows' (min, max) `given`: a thread a column of a row.
+template <typename TO>
+__global__ void __launch_bounds__(THREADS)
+decode_summed_kernel(const int* parts, const float* given, const float* sw,
+                     const float* zw, const float* bias, int M, int N,
+                     TO* out) {
+  const int m = blockIdx.y, n = blockIdx.x * THREADS + threadIdx.x;
+  if (n >= N) return;
+  const int* pr = parts + (size_t)m * (N + 1);
+  const int* last = parts + (size_t)M * (N + 1);
+  const float2 r = row_scale(given[2 * m], given[2 * m + 1]);
+  float y = finish(pr[n], r.y - 128.0f, last[n], zw[n], (float)pr[N],
+                   (float)last[N], r.x, sw[n]);
+  if (bias) y = y + bias[n];
+  store_f(out + (size_t)m * N + n, y);
+}
+
 }  // namespace
 
 // x: (M, K) bf16 (x_bf16) or f32, contiguous; out: (M, 2) f32, each row's
@@ -504,23 +554,25 @@ extern "C" int decode_row_minmax(const void* x, int x_bf16, int M, int K,
 // (N,) int32; bias: (N,) f32 or null; out: (M, N) bf16 (out_bf16) or f32;
 // all contiguous.  n_split k ranges of split_k rows (a multiple of 32)
 // cover K; strip: columns a block, 128 or 256; vec: N is a multiple of 16
-// and qw 16-byte aligned.  given: (M, 2) f32 rows' (min, max) to quantize
-// with in place of the rows' own (a row-parallel block of a model split:
-// the whole rows', all-reduced), or null.
+// and qw 16-byte aligned.  parts and given, both or neither: the parts
+// mode of a row-parallel block of a model split quantizes with given, (M,
+// 2) f32 the whole rows' (min, max) all-reduced, in place of the rows' own,
+// and writes the first M rows of parts, (M + 1, N + 1) int32 (products,
+// Σqx last); it neither reads sw / zw / wsum / bias nor writes out.
 extern "C" int stamp_decode_matmul(
     const void* x, int x_bf16, int M, int K, int N, const void* qw,
     const float* sw, const float* zw, const int* wsum, const float* bias,
     int n_split, int split_k, int strip, int vec, void* out, int out_bf16,
-    const float* given, void* stream) {
+    const float* given, int* parts, void* stream) {
   if (M < 0 || K < 1 || N < 0 || K % 4 || N % 4 || n_split < 1 ||
       n_split > MAX_SPLIT || split_k < KS || split_k % KS ||
       (long long)(n_split - 1) * split_k >= K ||
       (long long)n_split * split_k < K || (M + ROWS - 1) / ROWS > 65535 ||
-      (strip != 128 && strip != 256))
+      (strip != 128 && strip != 256) || !parts != !given)
     return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   const Args a{x, static_cast<const int8_t*>(qw), sw, zw, wsum, bias,
-               M, K, N, split_k, out, given};
+               M, K, N, split_k, out, given, parts};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (x_bf16)
@@ -531,4 +583,25 @@ extern "C" int stamp_decode_matmul(
     e = out_bf16 ? launch<float, __nv_bfloat16>(a, n_split, vec, strip, st)
                  : launch<float, float>(a, n_split, vec, strip, st);
   return (int)e;
+}
+
+// parts: (M + 1, N + 1) int32, the ranks' summed parts of the parts mode,
+// the whole weight's Σqw in [M, :N] and K in [M, N]; given: (M, 2) f32 the
+// whole rows' (min, max); sw, zw: (N,) f32; bias: (N,) f32 or null; out:
+// (M, N) bf16 (out_bf16) or f32; all contiguous.
+extern "C" int stamp_decode_matmul_summed(
+    const int* parts, const float* given, int M, int N, const float* sw,
+    const float* zw, const float* bias, void* out, int out_bf16,
+    void* stream) {
+  if (M < 0 || N < 0 || M > 65535) return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + THREADS - 1) / THREADS, M);
+  if (out_bf16)
+    decode_summed_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        parts, given, sw, zw, bias, M, N, static_cast<__nv_bfloat16*>(out));
+  else
+    decode_summed_kernel<float><<<grid, THREADS, 0, st>>>(
+        parts, given, sw, zw, bias, M, N, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }

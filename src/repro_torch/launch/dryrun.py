@@ -32,8 +32,9 @@ function the one-process one; serving's row-parallel STaMP sites
 all-reduce their per-token min / max, and the decode cache's sequence is
 split as the reference's ``cache_shardings`` / ``decode_kv_spec`` split
 it (each rank its block; the partial softmax states gathered and
-merged).  Left whole along ``model``, and named in each record's
-``model_split``: the Mamba mixers (replicated on every model rank).
+merged); a Mamba mixer computes its heads (``in_proj`` by parts, the SSD
+over its heads, ``out_proj`` row-parallel) and holds their SSM state and
+conv cache.  Each record's ``model_split`` names what splits.
 Activations split only the batch, and a spec that splits anything else
 is refused (``--seq-sharded`` writes a ``refused`` record with the
 step's words).
@@ -133,9 +134,10 @@ def _local_inputs(batch: dict, policy: Optional[ShardingPolicy],
 def _specs_by_name(tree, shardings, policy, local_tree) -> dict:
     """``{leaf name: {"reference": spec, "port": what this rank holds}}``
     for a cache tree (this rank's rows, the sequence whole) and this
-    rank's block of it, one entry a leaf name: the port's sequence-split
-    leaves name the reference's spec and their block's shape (scales and
-    zero points ride with their codes: the hi block's rows, then the lo
+    rank's block of it, one entry a leaf name: the port's split leaves
+    (the sequence's, the Mamba state's heads and conv cache's channels)
+    name the reference's spec and their block's shape (scales and zero
+    points ride with their codes: the hi block's rows, then the lo
     block's)."""
     out = {}
     for (path, leaf), sh, mine in zip(TR.flatten_with_paths(tree),
@@ -150,6 +152,10 @@ def _specs_by_name(tree, shardings, policy, local_tree) -> dict:
                     f"{tuple(leaf.shape)}")
             if name.endswith(("_scale", "_zp")):
                 port += " (the rows of this rank's hi and lo blocks)"
+            if name == "conv":
+                port += (" by parts: this rank's x channels and the whole "
+                         "B and C, [x block | B | C] (the reference's "
+                         "block is a slice of the flat conv_dim)")
         out[name] = {"reference": repr(sh.spec), "port": port}
     return out
 
@@ -198,8 +204,9 @@ def _alias_bytes(outputs, arguments) -> int:
 
 def model_split_record(cfg: ModelConfig, shape: ShapeConfig,
                        policy: Optional[ShardingPolicy]) -> dict:
-    """What the traced step splits along ``model`` and what it computes
-    whole on every model rank (the record's ``model_split``)."""
+    """What the traced step splits along ``model`` (the record's
+    ``model_split``; its ``whole``, what would be computed whole on every
+    model rank, is empty)."""
     split = policy is not None and policy.model_split() is not None
     specs = cfg.layer_specs()
     if not split:
@@ -210,7 +217,8 @@ def model_split_record(cfg: ModelConfig, shape: ShapeConfig,
     else:
         parts = ["embedding and logits (vocab-parallel; the logits "
                  "gathered whole on every model rank)"]
-        if any(s.mixer == "attn" or s.ffn in ("mlp", "moe_dense")
+        if any(s.mixer in ("attn", "mamba") or s.ffn in ("mlp",
+                                                         "moe_dense")
                for s in specs):
             parts += ["STaMP at row-parallel sites (per-token min / max "
                       "all-reduced over model before the quantize; "
@@ -231,12 +239,17 @@ def model_split_record(cfg: ModelConfig, shape: ShapeConfig,
         parts.append("decode attention context-parallel over the cache's "
                      "sequence (each rank its block; partial softmax "
                      "states gathered and merged in rank order)")
-    whole = ["Mamba mixers (in_proj's flat [z, x, B, C, dt] output does "
-             "not split on head boundaries; their SSM state and conv "
-             "cache whole on every model rank)"] \
-        if any(s.mixer == "mamba" for s in specs) else []
+    if any(s.mixer == "mamba" for s in specs):
+        parts.append("Mamba mixers over their heads (in_proj column-"
+                     "parallel by parts [z | x | B | C | dt], B and C "
+                     "whole; conv and SSD over the rank's channels and "
+                     "heads; the gated norm's per-head sums of squares "
+                     "gathered; out_proj row-parallel)")
+        if shape.kind != "train":
+            parts.append("Mamba cache: each rank's heads' SSM state and "
+                         "its channels' conv cache [x block | B | C]")
     return {"split": True, "model_ranks": policy.model_split().size,
-            "split_parts": parts, "whole": whole}
+            "split_parts": parts, "whole": []}
 
 
 def trace_step(cfg: ModelConfig, shape: ShapeConfig,

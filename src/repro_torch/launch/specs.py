@@ -130,13 +130,18 @@ def cache_struct(cfg: ModelConfig, shape: ShapeConfig,
     """The contiguous decode cache of ``shape`` (``batch`` rows, default
     the global batch) as stand-ins; under a ``policy`` this rank's block
     of its sequence (:meth:`ShardingPolicy.seq_group`, the reference's
-    ``cache_shardings``)."""
+    ``cache_shardings``) and of its Mamba layers' heads and channels
+    (:meth:`ShardingPolicy.model_split`: the state's block is the
+    reference's, the conv cache's is ``[x block | B | C]`` where the
+    reference splits the flat conv_dim)."""
     _need_fake()
-    group = None if policy is None else \
-        policy.seq_group(shape.global_batch)
+    group = split = None
+    if policy is not None:
+        group = policy.seq_group(shape.global_batch)
+        split = policy.model_split()
     return lm.init_cache(cfg, shape.global_batch if batch is None
                          else batch, shape.seq_len, serve, device=device,
-                         group=group)
+                         group=group, split=split)
 
 
 _SEQ_KEYS = ("k_hi", "v_hi", "k_lo", "v_lo", "k", "v", "xk", "xv")

@@ -32,8 +32,8 @@ rank takes the card ``LOCAL_RANK`` over NCCL, or gloo with ``--device
 cpu``.  With ``--model-parallel`` above 1 the step splits the model
 axis's compute (``lm.train_loss`` under ``ShardingPolicy.model_split``):
 column / row-parallel linears, attention over each rank's heads, a
-vocab-parallel embedding and loss, and expert-parallel MoE; the Mamba
-mixers run whole on every model rank.
+vocab-parallel embedding and loss, expert-parallel MoE, and each Mamba
+mixer over the rank's heads.
 
 Usage (CPU, reduced config; one process, then a 2 x 2 mesh):
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\

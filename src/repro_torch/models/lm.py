@@ -58,7 +58,9 @@ from repro_torch.kernels.cache_attention import (NEVER,
                                                  cache_decode_attention,
                                                  merge_states)
 from repro_torch.kernels.decode_matmul import (decode_row_minmax,
-                                               stamp_decode_matmul)
+                                               stamp_decode_matmul,
+                                               stamp_decode_matmul_parts,
+                                               stamp_decode_matmul_summed)
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_ragged_attention)
 from repro_torch.kernels.ref import merge_states_ref
@@ -350,6 +352,13 @@ def _weight(w, dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
+def _decodes(x: torch.Tensor, w, decode_matmul: bool) -> bool:
+    """Whether ``x @ w`` takes the decode kernel K3: decode-shaped input
+    (one token per slot) over prepared weights, with ``decode_matmul``."""
+    return isinstance(w, dict) and "iq" in w and decode_matmul and \
+        x.ndim >= 2 and x.shape[-2] == 1
+
+
 def _linear(x: torch.Tensor, w, b=None, decode_matmul: bool = False,
             f32_sum: bool = False,
             split: Optional[ModelSplit] = None) -> torch.Tensor:
@@ -362,23 +371,17 @@ def _linear(x: torch.Tensor, w, b=None, decode_matmul: bool = False,
     in its own order, and on the card may reduce in bf16, moving a value
     by a bf16 step now and then) — the encoder's and the cross-attention's
     plain linears, whose outputs are held bit for bit.  A model ``split``
-    marks ``x`` as a row-parallel block (the result is this rank's part of
-    the sum, for :func:`_reduced`; in f32 under the split's
-    ``f32_parts``): the decode kernel then quantizes it with the whole
-    rows' statistics (K3's statistics mode, all-reduced over the model
-    ranks, then K3 with them)."""
+    marks ``x`` as a row-parallel block: the result is this rank's part of
+    the sum, in f32 under the split's ``f32_parts`` (:func:`_row_linear`
+    sums it)."""
     f32_part = split is not None and split.f32_parts
-    if isinstance(w, dict) and "iq" in w and decode_matmul and \
-            x.ndim >= 2 and x.shape[-2] == 1:
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        stats = None
+    if _decodes(x, w, decode_matmul):
         if split is not None:
-            part = decode_row_minmax(x2)
-            stats = torch.stack(split.minmax(part[:, 0], part[:, 1]), -1)
-        y = stamp_decode_matmul(x2, w["iq"], w["isw"], w["izw"], w["iqsum"],
-                                b, out_dtype=torch.float32 if f32_part
-                                else x.dtype, row_stats=stats)
+            raise ValueError("a row-parallel decode product is summed over "
+                             "the ranks before K3's epilogue: _row_linear")
+        lead = x.shape[:-1]
+        y = stamp_decode_matmul(x.reshape(-1, x.shape[-1]), w["iq"], w["isw"],
+                                w["izw"], w["iqsum"], b, out_dtype=x.dtype)
         return y.reshape(*lead, y.shape[-1])
     if f32_part:
         y = x.float() @ _weight(w, x.dtype).float()
@@ -388,6 +391,31 @@ def _linear(x: torch.Tensor, w, b=None, decode_matmul: bool = False,
     else:
         y = x @ _weight(w, x.dtype)
     return y + b.to(x.dtype) if b is not None else y
+
+
+def _row_linear(x: torch.Tensor, w, dm: bool,
+                split: Optional[ModelSplit], dtype) -> torch.Tensor:
+    """A row-parallel product without bias (``x`` this rank's block of the
+    input features, ``w`` its rows) summed over the model ranks, in
+    ``dtype`` (the whole product without a split).  Decode-shaped input
+    over prepared weights (``dm``) takes K3 as one device does: the block
+    quantized with the whole rows' statistics (K3's statistics mode, its
+    all-reduce), its int32 products and row sums (K3's parts mode) summed
+    over the ranks (an integer all-reduce, exact) and finished once (its
+    summed mode): one device's output bit for bit.  Otherwise the ranks'
+    parts leave through a reduce-out (each in f32, rounded once, under
+    the split's ``f32_parts``)."""
+    if split is None or not _decodes(x, w, dm):
+        return _reduced(_linear(x, w, None, dm, split=split), split, dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    part = decode_row_minmax(x2)
+    stats = torch.stack(split.minmax(part[:, 0], part[:, 1]), -1)
+    parts = split.sum(stamp_decode_matmul_parts(x2, w["iq"], w["iqsum"],
+                                                stats))
+    y = stamp_decode_matmul_summed(parts, stats, w["isw"], w["izw"],
+                                   out_dtype=dtype)
+    return y.reshape(*lead, y.shape[-1])
 
 
 def _use_fused(stamp: Optional[StampConfig], w) -> bool:
@@ -483,9 +511,11 @@ def prepare_fused_weights(params: dict, stamp: StampConfig,
     Under a model ``split`` (``params`` whole) each site is prepared from
     its whole weight, so every per-column scale, zero point and code is
     one device's, and this rank's block is kept (:func:`model_blocks`:
-    ``wqkv`` as ``[wq block | wk block | wv block]``, a row-parallel
-    site's rows with its whole columns' ``isw`` / ``izw`` and its own
-    rows' ``iqsum``); expert stacks prepare only this rank's experts."""
+    ``wqkv`` as ``[wq block | wk block | wv block]``, ``in_proj`` cut by
+    parts as :func:`_mixer_blocks` cuts it, a row-parallel site's rows
+    (``out_proj``'s too) with its whole columns' ``isw`` / ``izw`` and
+    its own rows' ``iqsum``); expert stacks prepare only this rank's
+    experts."""
     if not fused_eligible(stamp):
         return model_blocks(params, split)
     bits = stamp.fused_weight_bits
@@ -523,11 +553,14 @@ def prepare_fused_weights(params: dict, stamp: StampConfig,
 
 # the model axis's split of a layer's leaves (the rule table's ``model``
 # dims): column-parallel sites keep their output columns, row-parallel
-# ones their input rows, expert stacks their experts; the rest (norms,
-# the router, the Mamba mixers: :data:`_MIXER_WHOLE`) stay whole
+# ones their input rows (``out_proj``'s d_inner rows fall on head
+# boundaries), expert stacks their experts, a Mamba mixer's leaves their
+# heads' parts (:func:`_mixer_blocks`); the rest (norms, the router) stay
+# whole
 _COLS = ("wq", "wk", "wv", "xwq", "xwk", "xwv", "wi_gate", "wi_up",
          "dwi_gate", "dwi_up", "bq", "bk", "bv")
-_ROWS = ("wo", "xwo", "wo_mlp", "dwo_mlp")
+_ROWS = ("wo", "xwo", "wo_mlp", "dwo_mlp", "out_proj")
+_MIXER = ("in_proj", "conv_w", "a_log", "dt_bias", "d_skip", "ssm_norm")
 
 
 def _block(t: torch.Tensor, dim: int, i0: int, i1: int) -> torch.Tensor:
@@ -582,11 +615,79 @@ def _qkv_block(w, split: ModelSplit, widths) -> dict:
     return torch.cat([_cols_block(t, split) for t in parts], dim=-1)
 
 
+def _mixer_dims(p: dict) -> tuple:
+    """A Mamba layer's ``(d_inner, state, heads)`` from its whole leaves."""
+    di = p["ssm_norm"].shape[-1]
+    return di, (p["conv_w"].shape[-1] - di) // 2, p["a_log"].shape[-1]
+
+
+def mixer_widths(cfg: ModelConfig, split: Optional[ModelSplit] = None
+                 ) -> list:
+    """The widths of ``in_proj``'s output ``[z | x B C | dt | pad]``: the
+    whole projection's (no pad), or under a model ``split`` this rank's
+    (:func:`_mixer_blocks`), its dt block padded with zero columns to a
+    multiple of 4 (K2 and K3 take N in multiples of 4; the reference has
+    no such limit)."""
+    n = 1 if split is None else split.size
+    if split is not None:
+        split.block(cfg.ssm_heads)              # whole heads a rank
+    di, h = cfg.d_inner // n, cfg.ssm_heads // n
+    return [di, di + 2 * cfg.ssm_state, h,
+            0 if split is None else _dt_pad(di, cfg.ssm_state, h)]
+
+
+def _dt_pad(di: int, n: int, h: int) -> int:
+    """Zero columns after a rank's ``in_proj`` block of ``di`` x channels,
+    state ``n`` and ``h`` heads: its width up to a multiple of 4."""
+    return -(2 * di + 2 * n + h) % 4
+
+
+def _parts(t: torch.Tensor, parts, pad: int = 0) -> torch.Tensor:
+    """``t``'s ``[start, stop)`` ranges of its last dim concatenated, then
+    ``pad`` zero columns."""
+    cols = [t[..., a:b] for a, b in parts]
+    if pad:
+        cols.append(t.new_zeros((*t.shape[:-1], pad)))
+    return torch.cat(cols, dim=-1)
+
+
+def _mixer_blocks(p: dict, split: ModelSplit) -> dict:
+    """A Mamba layer's mixer leaves (:data:`_MIXER`, whole) as this rank's
+    blocks of its heads ``[h0, h1)``: ``in_proj``'s columns ``[z block | x
+    block | B | C | dt block | pad]`` (every leaf of a packed or prepared
+    dict along its last dim: prepared whole, then cut, so every code,
+    scale and zero point is one device's; the pad's columns are zeros,
+    :func:`mixer_widths`), ``conv_w``'s channels ``[x block | B | C]``,
+    ``a_log`` / ``dt_bias`` / ``d_skip`` the heads', ``ssm_norm`` the
+    d_inner block's.  B and C stay whole: with one group every head reads
+    them.  Heads the axis does not divide are refused
+    (:meth:`ModelSplit.block`)."""
+    di, n, h = _mixer_dims(p)
+    h0, h1 = split.block(h)
+    hd = di // h
+    x0, x1 = h0 * hd, h1 * hd
+    cut = {"in_proj": ([(x0, x1), (di + x0, di + x1),
+                        (2 * di, 2 * di + 2 * n),
+                        (2 * di + 2 * n + h0, 2 * di + 2 * n + h1)],
+                       _dt_pad(x1 - x0, n, h1 - h0)),
+           "conv_w": ([(x0, x1), (di, di + 2 * n)], 0),
+           "a_log": ([(h0, h1)], 0), "dt_bias": ([(h0, h1)], 0),
+           "d_skip": ([(h0, h1)], 0), "ssm_norm": ([(x0, x1)], 0)}
+
+    def one(w, parts, pad):
+        if isinstance(w, dict):
+            return {k: one(v, parts, pad) for k, v in w.items()}
+        return _parts(w, parts, pad)
+    return {k: one(v, *cut[k]) if k in cut else v for k, v in p.items()}
+
+
 def _layer_blocks(p: dict, split: ModelSplit, widths=None,
                   experts: bool = True) -> dict:
     """One layer's leaves, whole, as this rank's blocks (``widths``: the
     ``q`` / ``k`` / ``v`` widths of a merged ``wqkv``; ``experts=False``:
     its expert stacks are this rank's already)."""
+    if "a_log" in p:
+        p = _mixer_blocks(p, split)
     out = {}
     for k, v in p.items():
         if k in _COLS:
@@ -610,7 +711,8 @@ def model_blocks(params: dict, split: Optional[ModelSplit],
     blocks under a model ``split``, the leaves ``prefill`` /
     ``decode_step`` take as plain tensors under a policy: each layer's
     (:func:`_layer_blocks`; a merged ``wqkv`` needs ``cfg`` for its
-    widths), the encoder's, and the embedding's vocabulary rows and the
+    widths; a Mamba mixer's heads: :func:`_mixer_blocks`), the
+    encoder's, and the embedding's vocabulary rows and the
     head's vocabulary columns.  Packing or preparing the whole tree first
     and then taking the blocks keeps every per-column scale, zero point
     and code one device's.  ``None``: ``params`` itself."""
@@ -699,8 +801,7 @@ def _attn_out(p: dict, attn: torch.Tensor, x: torch.Tensor,
         return x + L.stamp_fused_linear(attn, p["wo"], None, stamp,
                                         site="wo", split=split)
     out = _maybe_stamp(attn, stamp, "wo", split)
-    return x + _reduced(_linear(out, p["wo"], None, dm, split=split), split,
-                        x.dtype)
+    return x + _row_linear(out, p["wo"], dm, split, x.dtype)
 
 
 class _ExpertStack:
@@ -766,9 +867,8 @@ def ffn_block(p: dict, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
             out = out + L.stamp_fused_linear(g, wo, None, stamp,
                                              site="wo_mlp", split=split)
         else:
-            out = out + _reduced(_linear(
-                _maybe_stamp(g, stamp, "wo_mlp", split), wo, None, dm,
-                split=split), split, x.dtype)
+            out = out + _row_linear(_maybe_stamp(g, stamp, "wo_mlp", split),
+                                    wo, dm, split, x.dtype)
     return x + out
 
 
@@ -831,7 +931,8 @@ def _ffn_plain(p: dict, h: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     reference FFN over the routed experts.  Under a model ``split`` ``h``
     has passed its copy-in, and the MLP's and the experts' parts are
     summed over the ranks (in one reduce-out; each in f32, rounded once,
-    under the split's ``f32_parts``): gate and up column-parallel,
+    under the split's ``f32_parts``, the down-projection's decode rows
+    through :func:`_row_linear`): gate and up column-parallel,
     ``silu·mul`` on the block, the down-projection row-parallel; the MoE
     routes every row (the router replicated, its weight's gradient summed
     over the model ranks by a copy-in: each rank's part comes through its
@@ -852,8 +953,9 @@ def _ffn_plain(p: dict, h: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
         pre = "d" if spec.ffn == "moe_dense" else ""
         g = silu(_linear(h, p[f"{pre}wi_gate"], None, dm)) * \
             _linear(h, p[f"{pre}wi_up"], None, dm)
-        out = out + part(_linear(g, p[f"{pre}wo_mlp"], None, dm,
-                                 split=split))
+        wo = p[f"{pre}wo_mlp"]
+        out = out + (_row_linear(g, wo, dm, split, h.dtype) if f32 else
+                     _linear(g, wo, None, dm, split=split))
     return out if f32 else _reduced(out, split)
 
 
@@ -1136,44 +1238,73 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mamba_in(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              stamp: Optional[StampConfig], dm: bool) -> tuple:
+              stamp: Optional[StampConfig], dm: bool,
+              split: Optional[ModelSplit] = None) -> tuple:
     """Norm + in-projection + split, shared by every path: the fused STaMP
     linear (K1 → K2) over prepared weights under fused STaMP, else the
     reference linear (the decode kernel K3 for decode-shaped input when
-    ``dm``).  Returns ``(z, xbc, dt f32)``."""
-    di, n = cfg.d_inner, cfg.ssm_state
-    h = L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps)
+    ``dm``).  Returns ``(z, xbc, dt f32)``.  Under a model ``split``
+    ``in_proj`` is column-parallel over this rank's parts
+    (:func:`_mixer_blocks`): STaMP quantizes the whole, replicated rows,
+    and the padded dt columns are dropped."""
+    h = _copy_in(L.rms_norm(x, p["ln1"].to(x.dtype), cfg.norm_eps), split)
     if _use_fused(stamp, p["in_proj"]):
         proj = L.stamp_fused_linear(h, p["in_proj"], None, stamp,
                                     site="in_proj")
     else:
         proj = _linear(_maybe_stamp(h, stamp, "in_proj"), p["in_proj"],
                        None, dm)
-    z, xbc, dt_raw = torch.split(
-        proj, [di, di + 2 * n, proj.shape[-1] - 2 * di - 2 * n], dim=-1)
+    z, xbc, dt_raw, _ = torch.split(proj, mixer_widths(cfg, split), dim=-1)
     return z, xbc, _softplus(dt_raw.float() + p["dt_bias"])
+
+
+def _gated_norm(y: torch.Tensor, gamma: torch.Tensor, cfg: ModelConfig,
+                split: Optional[ModelSplit] = None) -> torch.Tensor:
+    """RMSNorm of the gated ``y`` over d_inner (f32 statistics, scaling
+    in ``y``'s dtype, as :func:`~repro_torch.models.layers.rms_norm`),
+    its f32 sum of squares taken a head at a time, then over the heads.
+    Under a model ``split`` ``y`` is this rank's heads' block: their sums
+    are gathered over the model ranks (b·s·heads floats a layer, where
+    the reference's partitioned program all-reduces b·s) and summed as
+    one device sums them, so each row's statistic is one device's bit for
+    bit."""
+    part = y.float().square().reshape(*y.shape[:-1], -1,
+                                      cfg.ssm_head_dim).sum(dim=-1)
+    if split is not None:
+        part = split.gather(part, -1)
+    var = part.sum(dim=-1, keepdim=True) / cfg.d_inner
+    return (y * torch.rsqrt(var + cfg.norm_eps).to(y.dtype)) * \
+        gamma.to(y.dtype)
 
 
 def _mamba_out(p: dict, yh: torch.Tensor, z: torch.Tensor,
                x: torch.Tensor, cfg: ModelConfig,
-               stamp: Optional[StampConfig], dm: bool) -> torch.Tensor:
+               stamp: Optional[StampConfig], dm: bool,
+               split: Optional[ModelSplit] = None) -> torch.Tensor:
     """Gate + norm + out-projection + residual (decode passes ``stamp =
-    None``: no transform, the decode kernel when ``dm``)."""
-    y = yh.reshape(*yh.shape[:-2], cfg.d_inner).to(x.dtype)
-    y = y * silu(z)
-    y = L.rms_norm(y, p["ssm_norm"].to(x.dtype), cfg.norm_eps)
+    None``: no transform, the decode kernel when ``dm``).  Under a model
+    ``split`` ``yh`` is this rank's heads, the norm's per-head sums are
+    gathered (:func:`_gated_norm`) and ``out_proj`` is row-parallel
+    over their d_inner rows, as ``wo`` is (:func:`_attn_out`: STaMP's
+    per-token statistics all-reduced; K1 → K2 parts summed before one
+    epilogue in prefill, K3's likewise in decode: :func:`_row_linear`)."""
+    y = yh.reshape(*yh.shape[:-2], -1).to(x.dtype)
+    y = _gated_norm(y * silu(z), p["ssm_norm"], cfg, split)
     if _use_fused(stamp, p["out_proj"]):
         return x + L.stamp_fused_linear(y, p["out_proj"], None, stamp,
-                                        site="out_proj")
-    return x + _linear(_maybe_stamp(y, stamp, "out_proj"), p["out_proj"],
-                       None, dm)
+                                        site="out_proj", split=split)
+    return x + _row_linear(_maybe_stamp(y, stamp, "out_proj", split),
+                           p["out_proj"], dm, split, x.dtype)
 
 
 def _split_xbc(xbc: torch.Tensor, cfg: ModelConfig) -> tuple:
-    di, n = cfg.d_inner, cfg.ssm_state
-    x_ssm, b_mat, c_mat = torch.split(xbc, [di, n, n], dim=-1)
-    return (x_ssm.reshape(*x_ssm.shape[:-1], cfg.ssm_heads,
-                          cfg.ssm_head_dim), b_mat, c_mat)
+    """``xbc`` (…, d + 2n) → x heads (…, d / head_dim, head_dim), B, C: the
+    whole d_inner, or a rank's block of it under a model split."""
+    n = cfg.ssm_state
+    x_ssm, b_mat, c_mat = torch.split(
+        xbc, [xbc.shape[-1] - 2 * n, n, n], dim=-1)
+    return (x_ssm.reshape(*x_ssm.shape[:-1], -1, cfg.ssm_head_dim), b_mat,
+            c_mat)
 
 
 def _mamba_step(p: dict, xbc: torch.Tensor, dt: torch.Tensor,
@@ -1235,27 +1366,35 @@ def _mamba_scan(p: dict, xbc: torch.Tensor, dt: torch.Tensor,
 
 def mamba_block_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
                         stamp: Optional[StampConfig],
-                        seq_lengths: Optional[torch.Tensor] = None) -> tuple:
-    """Whole sequences from a zero state (the calibration forward and the
-    bucketed prefill): returns ``(x, {"state", "conv"})``, the state after
-    each row's last valid token (``seq_lengths``)."""
-    z, xbc, dt = _mamba_in(p, x, cfg, stamp, False)
+                        seq_lengths: Optional[torch.Tensor] = None,
+                        split: Optional[ModelSplit] = None) -> tuple:
+    """Whole sequences from a zero state (the calibration forward, the
+    training forward and the bucketed prefill): returns ``(x, {"state",
+    "conv"})``, the state after each row's last valid token
+    (``seq_lengths``).  Under a model ``split`` the leaves are this rank's
+    heads' blocks (:func:`_mixer_blocks`): the conv runs over its
+    channels, the SSD over its heads with the whole B and C, and the
+    entry is its block (:func:`_ssm_entry`)."""
+    z, xbc, dt = _mamba_in(p, x, cfg, stamp, False, split)
     yh, state, conv_tail = _mamba_scan(p, xbc, dt, cfg, None, None,
                                        seq_lengths, x.dtype)
-    return (_mamba_out(p, yh, z, x, cfg, stamp, False),
+    return (_mamba_out(p, yh, z, x, cfg, stamp, False, split),
             {"state": state, "conv": conv_tail.to(torch.bfloat16)})
 
 
 def mamba_block_cached_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                              entry: dict, dm: bool) -> torch.Tensor:
+                              entry: dict, dm: bool,
+                              split: Optional[ModelSplit] = None
+                              ) -> torch.Tensor:
     """One token per row against the contiguous cache; the entry updates
-    in place."""
-    z, xbc, dt = _mamba_in(p, x, cfg, None, dm)
+    in place.  Under a model ``split`` as :func:`mamba_block_prefill`:
+    the entry is this rank's block."""
+    z, xbc, dt = _mamba_in(p, x, cfg, None, dm, split)
     yh, state, conv = _mamba_step(p, xbc, dt, entry["state"],
                                   entry["conv"], cfg, x.dtype)
     entry["state"] = state
     entry["conv"] = conv.to(entry["conv"].dtype)
-    return _mamba_out(p, yh, z, x, cfg, None, dm)
+    return _mamba_out(p, yh, z, x, cfg, None, dm, split)
 
 
 def mamba_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -1367,11 +1506,10 @@ def prefill_layer(p: dict, spec: LayerSpec, x: torch.Tensor,
     layer's contiguous cache for ``capacity`` tokens (this rank's block
     of it under a sequence ``group``), a Mamba layer's recurrent state
     after each row's ``seq_lengths``.  Under a model ``split`` the
-    attention and the FFN run on this rank's blocks; a Mamba mixer runs
-    whole on every model rank (its leaves gathered whole:
-    :func:`_gathered`; its state whole)."""
+    mixer and the FFN run on this rank's blocks (a Mamba mixer on its
+    heads, its state their block)."""
     if spec.mixer == "mamba":
-        x, entry = mamba_block_prefill(p, x, cfg, stamp, seq_lengths)
+        x, entry = mamba_block_prefill(p, x, cfg, stamp, seq_lengths, split)
     else:
         x, entry = attn_block_prefill(p, x, cfg, stamp, kv, capacity,
                                       enc_out, split, group)
@@ -1421,10 +1559,23 @@ def encoder_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                         split, x.dtype)
 
 
-# a Mamba mixer's projections, gathered whole along ``model`` under a
-# split: ``in_proj``'s flat [z, x, B, C, dt] output does not split on
-# head boundaries, so the mixer runs whole on every model rank
-_MIXER_WHOLE = ("in_proj", "out_proj")
+def _placed(v) -> bool:
+    """A leaf (or a packed / prepared dict) placed as DTensors."""
+    return any(isinstance(t, DTensor) for t in
+               (v.values() if isinstance(v, dict) else (v,)))
+
+
+def _model_whole(k: str, v, split: ModelSplit):
+    """A placed mixer leaf gathered over the batch axes, made whole along
+    ``model``: ``in_proj``'s blocks gathered (the backward reduce-scatters
+    the ranks' gradients: each rank's B and C columns get a part of
+    theirs), a replicated leaf passed through a copy-in (its gradient,
+    each rank's heads' part, summed over the model ranks once)."""
+    if k != "in_proj":
+        return split.copy_in(v)
+    if isinstance(v, dict):
+        return {n: split.gather(t, -1) for n, t in v.items()}
+    return split.gather(v, -1)
 
 
 def _gathered(p, policy: Optional[ShardingPolicy],
@@ -1432,27 +1583,31 @@ def _gathered(p, policy: Optional[ShardingPolicy],
     """``p`` (a tree or a leaf) with its sharded leaves gathered whole
     (ZeRO-3's all-gather at use; a no-op without a policy or on whole
     leaves).  Under a model ``split`` a layer's leaves keep their
-    ``model`` block, but a Mamba mixer's (:data:`_MIXER_WHOLE`); plain
-    tensors there are this rank's blocks already (:func:`model_blocks`).
-    Prepared int8 sites placed by the rule table are refused under a
-    split: the table's block of a merged ``wqkv`` is not ``[wq | wk |
-    wv]``'s blocks, and a row block's column sums are not the whole
-    weight's (prepare them with :func:`prepare_fused_weights`'s
-    ``split``)."""
+    ``model`` block; plain tensors there are this rank's blocks already
+    (:func:`model_blocks`).  A Mamba mixer placed by the rule table is
+    made whole along ``model`` (:func:`_model_whole`: ``in_proj``'s flat
+    ``[z, x, B, C, dt]`` columns do not split on head boundaries) and cut
+    to this rank's heads (:func:`_mixer_blocks`).  Prepared int8 sites
+    placed by the rule table are refused under a split: the table's block
+    of a merged ``wqkv`` is not ``[wq | wk | wv]``'s blocks, and a row
+    block's column sums are not the whole weight's (prepare them with
+    :func:`prepare_fused_weights`'s ``split``)."""
     if policy is None:
         return p
     if split is None:
         return policy.gather(p)
     for k, v in p.items():
-        if isinstance(v, dict) and "iq" in v and k not in _MIXER_WHOLE \
-                and any(isinstance(t, DTensor) for t in v.values()):
+        if isinstance(v, dict) and "iq" in v and _placed(v):
             raise ValueError(
                 f"{k}: prepared weights under a model split are prepared "
                 f"whole and cut to this rank's blocks "
                 f"(prepare_fused_weights(..., split=)), not placed by the "
                 f"rule table")
-    return {k: policy.gather(v, keep_model=k not in _MIXER_WHOLE)
-            for k, v in p.items()}
+    out = {k: policy.gather(v, keep_model=True) for k, v in p.items()}
+    if "in_proj" in p and _placed(p["in_proj"]):
+        out.update(_mixer_blocks({k: _model_whole(k, out[k], split)
+                                  for k in _MIXER}, split))
+    return out
 
 
 def _top(params: dict, policy: Optional[ShardingPolicy],
@@ -1624,8 +1779,8 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig,
     A policy whose ``model`` axis has more than one rank splits the
     compute along it (:meth:`ShardingPolicy.model_split`): each model
     rank computes its block of the linears, the heads that block
-    overlaps, its vocabulary block of the embedding and the loss, and its
-    experts; the Mamba mixers run whole on every model rank."""
+    overlaps, its vocabulary block of the embedding and the loss, its
+    experts, and its heads of each Mamba mixer."""
     split = None if policy is None else policy.model_split()
     params = _top(params, policy, split)
     x = model_hidden(params, batch, cfg, remat=True, policy=policy,
@@ -1634,11 +1789,16 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig,
                         policy=policy, split=split)
 
 
-def _ssm_entry(cfg: ModelConfig, batch: int, device) -> dict:
+def _ssm_entry(cfg: ModelConfig, batch: int, device,
+               split: Optional[ModelSplit] = None) -> dict:
     """A zero contiguous Mamba cache entry: ``state`` (b, h, p, n) f32 and
-    the conv tail (b, width − 1, conv_dim) bf16."""
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
-    return {"state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+    the conv tail (b, width − 1, conv_dim) bf16.  Under a model ``split``
+    this rank's block: its heads' state (b, h / model, p, n), the
+    reference's placement (``ShardingPolicy.ssm_state``), and its
+    channels' conv tail (b, width − 1, d_inner / model + 2n), ``[x block
+    | B | C]`` (the reference splits the flat conv_dim instead)."""
+    _, conv_dim, h, _ = mixer_widths(cfg, split)
+    return {"state": torch.zeros((batch, h, cfg.ssm_head_dim,
                                   cfg.ssm_state), dtype=torch.float32,
                                  device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim),
@@ -1646,14 +1806,15 @@ def _ssm_entry(cfg: ModelConfig, batch: int, device) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, serve: ServeConfig,
-               device=None, group: Optional[SeqGroup] = None) -> list:
+               device=None, group: Optional[SeqGroup] = None,
+               split: Optional[ModelSplit] = None) -> list:
     """Zero contiguous decode cache, one dict per layer: an attention
     layer's K/V (an enc-dec stack's with the cross-attention's bf16 ``xk``
     / ``xv`` of ``max(seq // frame_ratio, 1)`` positions), a Mamba layer's
     recurrent state.  Under a sequence ``group`` an attention layer's is
     this rank's block of it (:class:`~repro_torch.serving.kvcache.
-    SeqBlock`, ``xk`` / ``xv`` too); a Mamba layer's state stays
-    whole."""
+    SeqBlock`, ``xk`` / ``xv`` too); under a model ``split`` a Mamba
+    layer's is its heads' block (:func:`_ssm_entry`)."""
     dev = resolve_device(device)
     hd, kvh = cfg.resolved_head_dim, cfg.num_kv_heads
 
@@ -1671,7 +1832,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, serve: ServeConfig,
                                        device=dev)
         return entry
 
-    return [_ssm_entry(cfg, batch, dev) if spec.mixer == "mamba"
+    return [_ssm_entry(cfg, batch, dev, split) if spec.mixer == "mamba"
             else attn_entry() for spec in cfg.layer_specs()]
 
 
@@ -1715,9 +1876,12 @@ def prefill(params: dict, batch, cfg: ModelConfig, serve: ServeConfig,
     linears (STaMP's row statistics all-reduced at row-parallel sites),
     the heads its block overlaps, its experts, the encoder's and the
     cross-attention's blocks and its vocabulary block of the logits
-    (gathered whole on every model rank); the Mamba mixers run whole.
-    The cache is this rank's block of the sequence over
-    :meth:`ShardingPolicy.seq_group` (the reference's placement)."""
+    (gathered whole on every model rank), and its heads of each Mamba
+    mixer (:func:`mamba_block_prefill`).  An attention layer's cache is
+    this rank's block of the sequence over
+    :meth:`ShardingPolicy.seq_group` (the reference's placement), a Mamba
+    layer's its heads' state and channels' conv tail
+    (:func:`_ssm_entry`)."""
     batch = as_batch(batch)
     dev = batch["tokens"].device
     seq_lengths = None if last_pos is None else \
@@ -1771,9 +1935,12 @@ def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
     ``policy.decode_kv_spec``: each rank attends over its block and the
     partial softmax states are merged in rank order
     (:func:`attn_block_cached_decode`; ``serve.cache_capacity`` must
-    give the whole cache's length).  A ``model`` axis of more than one
-    rank splits the compute as in :func:`prefill` (decode's row-parallel
-    linears over prepared weights take K3's row statistics all-reduced);
+    give the whole cache's length); a Mamba layer's entry is this rank's
+    heads' block (:func:`init_cache` with the ``split``).  A ``model``
+    axis of more than one rank splits the compute as in :func:`prefill`
+    (decode's row-parallel linears over prepared weights take K3's row
+    statistics all-reduced and its int32 parts summed over the ranks
+    before one epilogue: :func:`_row_linear`);
     the logits are gathered whole on every model rank, so the greedy
     token is the same on all of them."""
     dm = serve.fused_decode_matmul
@@ -1785,7 +1952,7 @@ def decode_step(params: dict, cache: list, tokens: torch.Tensor, pos,
     for spec, p, entry in zip(cfg.layer_specs(), params["layers"], cache):
         p = _gathered(p, policy, split)
         if spec.mixer == "mamba":
-            x = mamba_block_cached_decode(p, x, cfg, entry, dm)
+            x = mamba_block_cached_decode(p, x, cfg, entry, dm, split)
         else:
             x = attn_block_cached_decode(p, x, cfg, serve, entry, pos, dm,
                                          split, group)

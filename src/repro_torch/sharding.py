@@ -37,9 +37,14 @@ Policy (the reference's rule table, entry for entry):
   (:meth:`ModelSplit.sum`: one device's output, bit for bit), and the
   decode cache's sequence is split over a :class:`SeqGroup` (context
   parallel: each rank attends over its block and the partial softmax
-  states are merged in rank order).  Left whole on every model rank,
-  stated where it is done: the Mamba mixers (``in_proj``'s flat ``[z,
-  x, B, C, dt]`` output does not split on head boundaries).
+  states are merged in rank order).  A Mamba mixer splits over its
+  heads: ``in_proj`` column-parallel over this rank's ``[z | x | B | C |
+  dt]`` parts (B and C whole: one group, every head reads them; the
+  rule table's block of the flat columns is gathered and cut by part),
+  the conv over its channels, the SSD over its heads, the gated norm's
+  per-head sums of squares gathered over ``model``, ``out_proj``
+  row-parallel; its SSM state and conv cache are its heads' and
+  channels' blocks.
 * **Sequence parallelism** — ``seq_sharded`` keeps the reference's spec
   values (the residual's sequence over ``model``); the eager step refuses
   it.

@@ -190,6 +190,43 @@ def test_cuda_decode_matmul_tilings(card, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 9])
+@pytest.mark.parametrize("k", [1024, 4096, 14336])
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_cuda_decode_matmul_parts_summed_are_one_launch(card, m, k, ranks):
+    """K3's parts mode on each rank's block of the rows (quantized with
+    the whole rows' (min, max)), the parts summed and finished by its
+    summed mode: the whole rows' K3 output bit for bit (bf16 and f32, with
+    a bias), and each mode its plain version's; N 200 (a partial strip)
+    and 6144."""
+    gen = torch.Generator(device=card).manual_seed(m + k + ranks)
+    x = torch.randn((m, k), generator=gen, device=card).to(torch.bfloat16)
+    for n in (200, 6144):
+        p = TS.prepare_linear(torch.randn((k, n), generator=gen, device=card)
+                              / k ** 0.5)
+        bias = torch.randn(n, generator=gen, device=card)
+        c = k // ranks
+        blocks = [x[:, r * c:(r + 1) * c].contiguous() for r in range(ranks)]
+        st = torch.stack([TDM.decode_row_minmax(b) for b in blocks])
+        stats = torch.stack([st[..., 0].amin(0), st[..., 1].amax(0)], -1)
+        parts = []
+        for r, b in enumerate(blocks):
+            wq = p.qw[r * c:(r + 1) * c].contiguous()
+            ws = wq.sum(dim=0, keepdim=True, dtype=torch.int32)
+            got = TDM.stamp_decode_matmul_parts(b, wq, ws, stats)
+            assert torch.equal(got, TDM.decode_parts_plain(b, wq, ws, stats))
+            parts.append(got)
+        summed = sum(parts)
+        for od in (torch.bfloat16, torch.float32):
+            got = TDM.stamp_decode_matmul_summed(summed, stats, p.sw, p.zw,
+                                                 bias, out_dtype=od)
+            assert torch.equal(got, TDM.stamp_decode_matmul(
+                x, p.qw, p.sw, p.zw, p.qw_sum, bias, out_dtype=od))
+            assert torch.equal(got, TDM.decode_summed_plain(
+                summed, stats, p.sw, p.zw, bias, out_dtype=od))
+
+
+@pytest.mark.cuda
 def test_cuda_decode_matmul_accumulates_in_int32(card):
     """|codes| = 128 over K = 14336: row 0 quantizes to 7112 codes of -128,
     56 of 1 and 7168 of 127, and column 0 of the weight holds -128, 1 and

@@ -504,11 +504,19 @@ def test_small_mesh_cells_trace_on_8_ranks(arch, shape):
     assert rec["memory"]["peak_bytes_per_device"] >= \
         rec["memory"]["argument_bytes_per_device"] > 0
     if shape == "decode_32k":
-        # the reference splits the SSM state's heads over model; the
-        # eager step keeps them whole
+        # the reference splits the SSM state's heads over model, and so
+        # does the eager step (4 of 16 heads a rank); the conv cache's
+        # channels split by parts, [x block | B | C], where the
+        # reference splits the flat conv_dim
         assert rec["cache_specs"]["state"] == {
             "reference": "P('data', 'model', None, None)",
-            "port": "P('data', None, None, None)"}
+            "port": "P('data', 'model', None, None): block (2, 4, 16, 16) "
+                    "of (2, 16, 16, 16)"}
+        conv = rec["cache_specs"]["conv"]
+        assert conv["reference"] == "P('data', None, 'model')"
+        assert conv["port"].startswith(
+            "P('data', None, 'model'): block (2, 3, 96) of (2, 3, 288) by "
+            "parts: this rank's x channels and the whole B and C")
     assert not dist.is_initialized()
 
 

@@ -24,8 +24,10 @@ ModelSplit`` and the split paths of ``repro_torch.models.lm`` /
 * A dim the axis does not divide, and STaMP or a cache under a split,
   are refused.
 * A leaf replicated along ``model`` (norms, the MoE router, the Mamba
-  mixer's per-head leaves, run whole) gets the same gradient on every
-  model rank: reduced Jamba's ``train_loss`` on a (1, 4) mesh.
+  mixer's per-head leaves, each rank computing its heads' part of their
+  gradient, summed over the model ranks by a copy-in) gets the same
+  gradient on every model rank: reduced Jamba's ``train_loss`` on a
+  (1, 4) mesh.
 * The dry run's dot FLOPs on a fake (1, 4) group equal
   ``FlopCounterMode``'s on a real gloo (1, 4) rank for reduced
   minicpm-2b's train step, exactly, and a quarter of the one-device

@@ -490,13 +490,13 @@ def test_k2_parts_summed_over_the_ranks_are_one_devices(transform, levels,
 @pytest.mark.parametrize("ranks", (2, 4))
 def test_k3_statistics_modes_give_the_whole_rows_codes(ranks):
     """K3's plain statistics mode on each rank's block of decode rows,
-    reduced, then K3 with them: each block's product is the one of the
-    whole rows' codes restricted to its K range — the ranks' f32 parts sum
-    to the whole product within f32 rounding, and each block's codes
-    equal the whole rows' exactly."""
+    reduced, then K3's parts mode with them: each block's codes equal the
+    whole rows' restricted to its K range, and the ranks' parts summed and
+    finished by the summed mode are the whole rows' K3 output, exactly."""
     r = _rng("k3")
     x = torch.from_numpy(r.standard_normal((4, 512)).astype(np.float32))
     w = torch.from_numpy(r.standard_normal((512, 96)).astype(np.float32))
+    bias = torch.from_numpy(r.standard_normal(96).astype(np.float32))
     from repro_torch.core.stamp import prepare_linear
     prep = prepare_linear(w)
     whole_q, whole_s, whole_z = DM.row_quantize8(x)
@@ -509,12 +509,16 @@ def test_k3_statistics_modes_give_the_whole_rows_codes(ranks):
         assert torch.equal(q, whole_q[:, i * c:(i + 1) * c])
         assert torch.equal(s, whole_s) and torch.equal(z, whole_z)
         wq = prep.qw[i * c:(i + 1) * c]
-        parts.append(DM.stamp_decode_matmul(
-            blk, wq, prep.sw, prep.zw,
-            wq.sum(dim=0, keepdim=True, dtype=torch.int32),
-            row_stats=stats))
-    whole = DM.stamp_decode_matmul(x, prep.qw, prep.sw, prep.zw, prep.qw_sum)
-    assert _rel(sum(parts), whole) <= 1e-5
+        parts.append(DM.stamp_decode_matmul_parts(
+            blk, wq, wq.sum(dim=0, keepdim=True, dtype=torch.int32), stats))
+    summed = sum(parts)
+    assert torch.equal(summed[-1, :-1], prep.qw_sum.reshape(-1))
+    assert int(summed[-1, -1]) == 512
+    for od in (torch.float32, torch.bfloat16):
+        whole = DM.stamp_decode_matmul(x, prep.qw, prep.sw, prep.zw,
+                                       prep.qw_sum, bias, out_dtype=od)
+        assert torch.equal(DM.stamp_decode_matmul_summed(
+            summed, stats, prep.sw, prep.zw, bias, out_dtype=od), whole)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ the CPU, in gloo process groups.
   - three steps of reduced minicpm-2b (dense, tied; with and without
     gradient compression), arctic-480b (MoE, its router scaled by
     ``ROUTER_SCALE`` on both sides, as ``test_torch_train.py`` does and
-    says why) and mamba2-1.3b (SSM, its per-head leaves replicated), two
-    layers each.  Each rank's stored block of every parameter and moment
+    says why) and mamba2-1.3b (SSM, its mixers split over their heads
+    where ``model`` has more than one rank), two layers each.  Each
+    rank's stored block of every parameter and moment
     is the slice the rule table names: the four ranks' blocks reassemble
     the tensor, replicas equal (a leaf replicated along ``model`` —
     norms, the router — gets the same update on every model rank), and
@@ -451,11 +452,11 @@ def test_model_axis_alone_is_the_one_process_step(group_run, name):
     :func:`_split_steps` says (measured in f32 at the first step: the
     losses equal, the grad norm 4.7e-6 at most (Arctic; 0 for the
     others), 0–0.03% of the elements past 1e-3·lr; in bf16 over the three
-    steps: loss 1.6e-4 at most for the dense scenarios, 7.3e-5 for
-    mamba2, whose mixers run whole and only its embedding and loss split;
-    grad norm 3.9e-3, 9.8e-4; 0.7–1.5% of the elements past 1e-3·lr
-    after the first step; Arctic, not held there, 1.1e-3 and 0.13 at the
-    first step)."""
+    steps: loss 1.6e-4 at most for the dense scenarios, 1.7e-4 for
+    mamba2, whose mixers split over their heads (its f32 first step: loss
+    and grad norm equal); grad norm 3.9e-3, 2.8e-3; 0.7–1.5% of the
+    elements past 1e-3·lr after the first step (mamba2 1.3%); Arctic, not
+    held there, 1.1e-3 and 0.13 at the first step)."""
     _split_steps(group_run, "1x4", name)
 
 
@@ -464,10 +465,11 @@ def test_data_and_model_split(group_run, name):
     """On the 2 x 2 mesh both axes split: held as the (1, 4) mesh is
     (measured in f32 at the first step: loss 1.5e-7 at most, grad norm
     3.7e-6 (Arctic; 8.9e-8 for the others), 0–0.03% of the elements
-    past 1e-3·lr; in bf16: loss 7.5e-5 and 1.0e-4 at most for the dense
-    scenarios and mamba2; grad norm 3.4e-3, 1.0e-3; 0.8–1.3% of the
-    elements past 1e-3·lr after the first step; Arctic, not held there,
-    8.1e-4 and 0.14 at the first step)."""
+    past 1e-3·lr; in bf16: loss 7.5e-5 and 1.9e-5 at most for the dense
+    scenarios and mamba2 (its mixers split over their heads); grad norm
+    3.4e-3, 1.9e-3; 0.8–1.3% of the elements past 1e-3·lr after the
+    first step (mamba2 1.2%); Arctic, not held there, 8.1e-4 and 0.14 at
+    the first step)."""
     _split_steps(group_run, "2x2", name)
 
 
